@@ -2,7 +2,9 @@
 from the checkout, holds each against its plain PyTorch version, then drives
 ``YOLO("yolo11s-fce.yaml", device="cuda").predict`` at full width (640 px,
 random weights from a seed) and checks that the main path went through both
-kernels.
+kernels. The stem is also timed at B=16 and B=64 and on the m form
+(yolo11m-fce) beside cuDNN's unfused bf16 layers 0-2, and every kernel's
+time stands beside its bound (the least time the card could take).
 
     python3 chip_smoke.py
 
@@ -24,7 +26,10 @@ import torch
 SEED = 0
 NMS_BATCH, NMS_K, MAX_DET = 16, 1024, 300
 E2E_BATCH, E2E_BATCHES = 16, 3  # the stem kernel is also checked at this batch, the main path's
+BIG_BATCH = 64  # the stem and the device path again where the device is busy
 IMGSZ = 640
+# one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
+BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
 
 def card_line() -> str:
@@ -61,15 +66,17 @@ def nms_candidates(rng: np.random.RandomState, b: int, k: int):
     return boxes, scores, scores > 0.3
 
 
-def check_stem(x: torch.Tensor, weights, spec, what: str) -> tuple[float, float, float]:
+def check_stem(x: torch.Tensor, weights, spec, what: str, out: torch.Tensor | None = None) -> tuple[float, float, float]:
     """The stem kernel against its f32 plain version on ``x``: max error
     within 0.02 * max|ref| and a uniform per-row error (max <= 3x median;
     a halo or padding fault spikes the edge rows), the JAX kernel test's
-    bounds (tests/test_pallas_stem.py:59-63). Returns (max|d|,
-    max|d|/max|ref|, per-row max/median)."""
+    bounds (tests/test_pallas_stem.py:59-63). ``out`` is the kernel's
+    output when the caller ran it. Returns (max|d|, max|d|/max|ref|, per-row
+    max/median)."""
     from fce_yolo_tpu_torch.ops.stem import fused_stem, stem_reference
 
-    out = fused_stem(x, weights, spec)
+    if out is None:
+        out = fused_stem(x, weights, spec)
     ref = stem_reference(x, weights.arrays, spec)
     torch.cuda.synchronize()
     out_np, ref_np = out.float().cpu().numpy(), ref.cpu().numpy()
@@ -85,24 +92,55 @@ def check_stem(x: torch.Tensor, weights, spec, what: str) -> tuple[float, float,
     return float(d.max()), rel, spread
 
 
-def phase_stem(model, spec, card: str) -> dict:
+def stem_bound(spec, batch: int) -> tuple[float, str]:
+    """Least ms for the stem's work: the useful multiply-adds of its convs
+    (L0 at H/2 x W/2, the rest at H/4 x W/4, from the spec's shapes) at the
+    bf16 tensor rate, against the uint8 image read and the bf16 output
+    written once. Returns (ms, what bounds it)."""
+    from fce_yolo_tpu_torch.ops.stem import _conv_shapes
+
+    macs = sum((spec.H // 2) * (spec.W // 2) * cout * k * k * cin if i == 0 else spec.h4 * spec.w4 * cout * k * k * cin
+               for i, (k, cin, cout) in enumerate(_conv_shapes(spec)))
+    ops_ms = 1e3 * 2 * macs * batch / BF16_FLOPS
+    bytes_ms = 1e3 * batch * (spec.H * spec.W * 3 + spec.h4 * spec.w4 * spec.c2 * 2) / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def time_stem(model, spec, batch: int, card: str, what: str) -> dict:
+    """Check the kernel on a seeded batch, then time it beside its plain
+    version and the unfused bf16 layers 0-2 (cuDNN, what the predictor runs
+    without the kernel) on the same batch."""
     from fce_yolo_tpu_torch.ops.stem import fold_stem_params, fused_stem, stem_reference, stem_weights
 
     rng = np.random.RandomState(SEED)
-    x = torch.from_numpy(rng.randint(0, 256, (E2E_BATCH, spec.H, spec.W, 3), np.uint8)).cuda()
+    x = torch.from_numpy(rng.randint(0, 256, (batch, spec.H, spec.W, 3), np.uint8)).cuda()
     weights = stem_weights(fold_stem_params(model, spec), spec)
-    dmax, rel, spread = check_stem(x, weights, spec, "phase stem")
-    # the unfused bf16 graph for layers 0..2, as the predictor runs it without the kernel
+    dmax, rel, spread = check_stem(x, weights, spec, f"phase stem {what} B={batch}")
     x_nchw = (x.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
     stem_layers = torch.nn.Sequential(*model.model[:3])
     with torch.inference_mode():
         ms = cuda_ms(lambda: fused_stem(x, weights, spec))
-        plain_ms = cuda_ms(lambda: stem_reference(x, weights.arrays, spec))
+        plain_ms = cuda_ms(lambda: stem_reference(x, weights.arrays, spec), iters=3, warmup=1)
         layers_ms = cuda_ms(lambda: stem_layers(x_nchw))
-    print(f"phase stem: {spec} B={E2E_BATCH} max|d|/max|ref|={rel:.3e} (limit 0.02) "
-          f"per-row max/median={spread:.2f} (limit 3) kernel {ms:.3f} ms, plain f32 {plain_ms:.3f} ms, "
-          f"unfused bf16 layers 0-2 {layers_ms:.3f} ms [{card}]", flush=True)
-    return {"max_abs_err": dmax, "ms": ms, "plain_ms": plain_ms, "layers_ms": layers_ms}
+        ms2 = cuda_ms(lambda: fused_stem(x, weights, spec))  # kernel, cuDNN, kernel: one spread
+    bound_ms, bound_by = stem_bound(spec, batch)
+    print(f"phase stem: {what} {spec} B={batch} max|d|/max|ref|={rel:.3e} (limit 0.02) "
+          f"per-row max/median={spread:.2f} (limit 3) kernel {ms:.3f} / {ms2:.3f} ms, plain f32 {plain_ms:.3f} ms, "
+          f"unfused bf16 layers 0-2 {layers_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
+    return {"max_abs_err": dmax, "ms": min(ms, ms2), "plain_ms": plain_ms, "library_ms": layers_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_stem(model, spec, model_m, spec_m, card: str) -> dict:
+    """The s form at the main path's batch (its numbers go into the kernel
+    record) and at B=64, then the m form at B=16."""
+    main = time_stem(model, spec, E2E_BATCH, card, "s")
+    big = time_stem(model, spec, BIG_BATCH, card, "s")
+    m = time_stem(model_m, spec_m, E2E_BATCH, card, "m")
+    print("phase stem: kernel / cuDNN layers 0-2: " + ", ".join(
+        f"{name} {r['ms'] / r['library_ms']:.2f}" for name, r in (("s B=16", main), ("s B=64", big), ("m B=16", m))),
+        flush=True)
+    return main
 
 
 def phase_nms(card: str) -> dict:
@@ -137,9 +175,17 @@ def phase_nms(card: str) -> dict:
     cu, thr = timing
     ms = cuda_ms(lambda: pick_suppress(*cu, iou_thres=thr, max_det=MAX_DET))
     plain_ms = cuda_ms(lambda: pick_suppress_reference(*cu, thr, MAX_DET), iters=3, warmup=1)
+    # bound: the inputs read and outputs written once; each pick (this run's
+    # kept boxes) computes ~16 f32 operations against each of the K candidates
+    kept = int(pick_suppress_reference(*(a.cpu() for a in cu), thr, MAX_DET)[1].sum())
+    nbytes = NMS_BATCH * NMS_K * (16 + 4 + 1) + NMS_BATCH * MAX_DET * (4 + 1)
+    ops_ms, bytes_ms = 1e3 * 16 * NMS_K * kept / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
     print(f"phase nms: B={NMS_BATCH} K={NMS_K} max_det={MAX_DET} iou=0.7 kernel {ms:.3f} ms, "
-          f"plain (torch ops on the card) {plain_ms:.3f} ms [{card}]", flush=True)
-    return {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms}
+          f"plain (torch ops on the card) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+          f"{kept} picks) [{card}]", flush=True)
+    return {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_e2e(yolo, spec, card: str) -> dict:
@@ -193,6 +239,15 @@ def phase_e2e(yolo, spec, card: str) -> dict:
         ms_kernel = cuda_ms(lambda: predictor.infer(batch), iters=5)
         ms_plain = cuda_ms(lambda: batched_nms(model(x)["preds"], conf_thres=0.25, iou_thres=0.7,
                                                multi_label=False), iters=5)
+    # the device path again at B=64, where the device is busy
+    rng = np.random.RandomState(SEED + 2)
+    big = torch.from_numpy(rng.randint(0, 256, (BIG_BATCH, IMGSZ, IMGSZ, 3), np.uint8)).cuda()
+    x_big = (big.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
+    predictor_big = DetectionPredictor(model, yolo.names, imgsz=IMGSZ, batch_size=BIG_BATCH)
+    with torch.inference_mode():
+        big_kernel = cuda_ms(lambda: predictor_big.infer(big), iters=5)
+        big_plain = cuda_ms(lambda: batched_nms(model(x_big)["preds"], conf_thres=0.25, iou_thres=0.7,
+                                                multi_label=False), iters=5)
     n_det = sum(len(r) for r in results)
     print(f"phase e2e: yolo11s-fce {IMGSZ} bf16 B={E2E_BATCH}, {len(imgs)} images, {n_det} detections, "
           f"launches {launches}; stem on the fed batch max|d|/max|ref|={stem_rel:.3e} (limit 0.02), "
@@ -200,7 +255,8 @@ def phase_e2e(yolo, spec, card: str) -> dict:
           f"preds kernel vs plain path max|d|={dmax:.3e} (limit {bound:.3e}) "
           f"corr={corr:.6f}; {len(imgs) / wall:.1f} img/s through YOLO.predict (host clock, incl. "
           f"letterbox); {ms_kernel:.2f} ms/batch stem kernel+model+NMS vs {ms_plain:.2f} ms/batch "
-          f"plain stem (CUDA events) [{card}]", flush=True)
+          f"plain stem (CUDA events); B={BIG_BATCH}: {big_kernel:.2f} ms/batch stem kernel+model+NMS vs "
+          f"{big_plain:.2f} ms/batch plain stem [{card}]", flush=True)
     return launches
 
 
@@ -223,23 +279,30 @@ def main() -> None:
         if "registers" in line or "Compiling entry" in line:
             print("  ptxas:", line.strip().removeprefix("ptxas info    : "), flush=True)
 
-    yolo = YOLO("yolo11s-fce.yaml", device="cuda")
-    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
-    yolo.to(torch.bfloat16).fuse()  # the predictor would fold on first use
-    spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
-    check(spec is not None, "yolo11s-fce must take the fused stem")
+    def model(name: str):
+        yolo = YOLO(name, device="cuda")
+        init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+        yolo.to(torch.bfloat16).fuse()  # the predictor would fold on first use
+        spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
+        check(spec is not None, f"{name} must take the fused stem")
+        return yolo, spec
 
-    stem = phase_stem(yolo.model, spec, card)
+    yolo, spec = model("yolo11s-fce.yaml")
+    yolo_m, spec_m = model("yolo11m-fce.yaml")
+
+    stem = phase_stem(yolo.model, spec, yolo_m.model, spec_m, card)
+    del yolo_m
     nms = phase_nms(card)
     launches = phase_e2e(yolo, spec, card)
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": "fused_stem", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/stem.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", "launches": launches["fused_stem"],
-         "max_abs_err": stem["max_abs_err"], "ms": stem["ms"], "plain_ms": stem["plain_ms"]},
+         **{k: stem[k] for k in keys}},
         {"name": "pick_suppress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/nms.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", "launches": launches["pick_suppress"],
-         "max_abs_err": nms["max_abs_err"], "ms": nms["ms"], "plain_ms": nms["plain_ms"]},
+         **{k: nms[k] for k in keys}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,12 +14,13 @@ from fce_yolo_tpu_torch.nn.weights import variables_to_state_dict
 class YOLO:
     """Detection model facade: ``YOLO("yolo11s-fce.yaml", device="cuda")``.
 
-    The model is built on ``device`` and initialized from seed 0 (as the JAX
-    facade's lazy init); ``reset_weights`` re-seeds, ``load_jax_variables``
-    loads weights exported from the JAX package.
+    The model is built on ``device`` (the card unless another is named; no
+    CUDA raises) and initialized from seed 0 (as the JAX facade's lazy init);
+    ``reset_weights`` re-seeds, ``load_jax_variables`` loads weights
+    exported from the JAX package.
     """
 
-    def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cpu"):
+    def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda"):
         self.model, self.spec, self.strides = build_model(model, device=device)
         self.names = {i: f"class_{i}" for i in range(self.spec.nc)}
         self.reset_weights(0)

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-All ``fce_yolo_tpu_torch/csrc/*.cu`` files compile into ONE shared library
-with a plain C interface (no PyTorch headers, so a build takes seconds):
+Each ``fce_yolo_tpu_torch/csrc/<name>.cu`` compiles into its own shared
+library with a plain C interface (no PyTorch headers, so a build takes
+seconds); the nvcc processes of all sources start together:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/kernels/<hash>/libfce_kernels.so csrc/*.cu
+         -Xcompiler -fPIC -o build/kernels/<hash>/lib<name>.so csrc/<name>.cu
 
 ``<hash>`` covers the sources and the flags, so an edited kernel rebuilds
 and an unchanged one loads at once. The build runs at first use, inside the
@@ -23,6 +24,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -46,42 +48,52 @@ def _nvcc() -> str:
     return nvcc
 
 
-def library_path() -> Path:
+def library_paths() -> dict[Path, Path]:
+    """Each source and the library it builds into."""
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16] / "libfce_kernels.so"
+    return {src: BUILD_ROOT / h.hexdigest()[:16] / f"lib{src.stem}.so" for src in sources}
 
 
-def build() -> tuple[Path, float, str]:
-    """Compile the library if it is not built yet. Returns (path, seconds
-    spent compiling, nvcc's report: registers and shared memory per kernel)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0, ""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+def build() -> tuple[list[Path], float, str]:
+    """Compile the libraries not built yet, one nvcc per source, all at
+    once. Returns (paths, seconds spent compiling, nvcc's report: registers
+    and shared memory per kernel)."""
+    paths = library_paths()
+    todo = {src: lib for src, lib in paths.items() if not lib.exists()}
+    if not todo:
+        return list(paths.values()), 0.0, ""
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    return out, time.perf_counter() - t0, res.stderr
+    jobs = []
+    for src, lib in todo.items():
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        jobs.append((src, lib, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    done = [(src, lib, tmp, proc.communicate()[1], proc.returncode) for src, lib, tmp, proc in jobs]
+    for src, _, _, err, rc in done:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed on {src.name} ({rc}):\n{err[-4000:]}")
+    for _, lib, tmp, _, _ in done:
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    return list(paths.values()), time.perf_counter() - t0, "".join(err for _, _, _, err, _ in done)
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with typed entry points."""
-    path, _, _ = build()
-    lib = ctypes.CDLL(str(path))
+def library() -> SimpleNamespace:
+    """The typed entry points of the kernel libraries (built on first call)."""
+    paths, _, _ = build()
+    libs = [ctypes.CDLL(str(path)) for path in paths]
+    entry = {}
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = next(getattr(lib, name) for lib in libs if hasattr(lib, name))
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    return lib
+        entry[name] = fn
+    return SimpleNamespace(**entry)
 
 
 def check(err: int, what: str) -> None:

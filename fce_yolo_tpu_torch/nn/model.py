@@ -100,11 +100,16 @@ def resolve_strides(spec: ModelSpec, probe: int = 256) -> tuple[int, ...]:
 def build_model(
     cfg: str | Path | dict,
     scale: str | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[DetectionModel, ModelSpec, tuple[int, ...]]:
     """Parse, probe strides, and build the decode-capable model on ``device``
     in eval mode, channels_last. Returns (model, spec, strides). Weights are
-    torch's defaults until ``init_weights`` or a weight load."""
+    torch's defaults until ``init_weights`` or a weight load. The model goes
+    to the card unless the caller names another device; without CUDA that
+    raises rather than falling back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: CUDA is not available; pass device='cpu' to build on the CPU")
     if isinstance(cfg, dict):
         spec = parse_model_yaml(dict(cfg), ch=3, scale=scale)
     else:

@@ -202,24 +202,31 @@ def folded_shapes(spec: StemSpec) -> list[tuple[int, int]]:
     return [s for k, cin, cout in _conv_shapes(spec) for s in ((k * k * cin, cout), (1, cout))]
 
 
+def packed_row(i: int, k: int, cin: int) -> int:
+    """Elements per output channel of conv ``i`` in the packed buffer: K
+    rounded up to 16, plus 8 so that a row is an odd multiple of 16 bytes
+    (the kernel's ldmatrix reads of the weights then hit distinct banks)."""
+    K = 48 if i == 0 else k * k * cin
+    return -(-K // 16) * 16 + 8
+
+
 @torch.no_grad()
 def stem_weights(folded: list[torch.Tensor], spec: StemSpec) -> StemWeights:
     """Check the ``fold_stem_params`` arrays and pack them as the kernel
-    reads them, one flat bf16 buffer: per conv the weight as
-    [cout][k*k][cin padded to 16] (the tensor-core B operand, K contiguous
-    per output channel), then the bias [cout]. L0's weight packs K as
-    (tap, rgb + a zero channel) = 36 padded to 48."""
+    reads them, one flat bf16 buffer: per conv the weight as [cout][K]
+    (the tensor-core B operand, K contiguous per output channel) with K =
+    (tap, cin) zero-padded to ``packed_row``, then the bias [cout]. L0's K
+    is (dy, dx padded to 4, rgb + a zero channel) = 48: the kernel reads two
+    rgb0 pixels per 8-element group, and dx = 3 has weight 0."""
     shapes = folded_shapes(spec)
     if [tuple(w.shape) for w in folded] != shapes or any(
             w.dtype != torch.bfloat16 or w.device != folded[0].device for w in folded):
         raise ValueError(f"stem weights are the {len(shapes)} bf16 arrays of fold_stem_params, on one device")
     parts = []
     for i, ((k, cin, cout), w, b) in enumerate(zip(_conv_shapes(spec), folded[0::2], folded[1::2])):
-        wk = w.reshape(k * k, cin, cout).permute(2, 0, 1)
-        if i == 0:
-            wk = F.pad(F.pad(wk, (0, 1)).reshape(cout, 36), (0, 12))
-        else:
-            wk = F.pad(wk, (0, -cin % 16))
+        if i == 0:  # (dy, dx, c, cout) -> (dy, dx of 4, c of 4, cout)
+            w = F.pad(w.reshape(3, 3, 3, cout), (0, 0, 0, 1, 0, 1)).reshape(48, cout)
+        wk = F.pad(w.t(), (0, packed_row(i, k, cin) - w.shape[0]))
         parts += [wk.reshape(-1), b.reshape(-1)]
     return StemWeights(list(folded), torch.cat(parts))
 
@@ -228,8 +235,9 @@ def fused_stem(x_u8: torch.Tensor, weights: StemWeights, spec: StemSpec) -> torc
     """Run the fused stem: uint8 NHWC (B, H, W, 3) -> bf16 NHWC (B, H/4, W/4, c2).
 
     CUDA tensors launch the kernel, CPU tensors run ``stem_reference``; any
-    input the kernel does not take raises, and so does a spec whose working
-    set fits no tile of one block's shared memory (the kernel picks the tile).
+    input the kernel does not take raises, and so does a spec whose line
+    buffers fit one block's shared memory at no strip width (the kernel
+    picks the strip and the weights it keeps resident).
     """
     if x_u8.dtype != torch.uint8 or x_u8.ndim != 4 or tuple(x_u8.shape[1:]) != (spec.H, spec.W, 3):
         raise ValueError(f"fused_stem takes uint8 (B, {spec.H}, {spec.W}, 3), got {x_u8.dtype} {tuple(x_u8.shape)}")
@@ -239,8 +247,8 @@ def fused_stem(x_u8: torch.Tensor, weights: StemWeights, spec: StemSpec) -> torc
         return stem_reference(x_u8, weights.arrays, spec).to(torch.bfloat16)
     if x_u8.device.type != "cuda":
         raise ValueError(f"no stem kernel for device {x_u8.device}")
-    if not x_u8.is_contiguous():
-        raise ValueError("fused_stem takes a contiguous image batch")
+    if not x_u8.is_contiguous() or x_u8.data_ptr() % 4 or weights.packed.data_ptr() % 16:
+        raise ValueError("fused_stem takes a contiguous, 4-byte aligned image batch and 16-byte aligned weights")
     if any(c % 8 for c in (spec.c0, spec.c1, spec.c2, spec.ch, spec.ch // 2)) or not 1 <= spec.n <= _MAX_INNER:
         raise ValueError(f"{spec}: the kernel takes channel counts that are multiples of 8 and 1 <= n <= {_MAX_INNER}")
     out = torch.empty(x_u8.shape[0], spec.h4, spec.w4, spec.c2, dtype=torch.bfloat16, device=x_u8.device)

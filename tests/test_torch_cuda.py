@@ -57,11 +57,35 @@ def test_stem_kernel_matches_reference(cuda, H, W, c3k, n):
     _assert_stem_matches_reference(spec, *_stem_case(spec, cuda))
 
 
+# (H, W, c3k, n, batch): widths that are no multiple of the 32-column strip,
+# images shorter than one step (2 output rows), B = 1 and B = 3
+EDGES = [
+    (64, 200, False, 1, 1), (64, 200, True, 1, 3), (4, 96, False, 1, 3), (8, 64, True, 1, 1),
+    (40, 136, False, 2, 3),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,c3k,n,batch", EDGES)
+def test_stem_kernel_edges(cuda, H, W, c3k, n, batch):
+    spec = S.StemSpec(H=H, W=W, c0=16, c1=32, c2=64, ch=16, n=n, c3k=c3k)
+    _assert_stem_matches_reference(spec, *_stem_case(spec, cuda, batch=batch))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", [
+    S.StemSpec(H=640, W=640, c0=32, c1=64, c2=128, ch=32, n=1, c3k=False),  # s: weights resident
+    S.StemSpec(H=640, W=640, c0=64, c1=128, c2=256, ch=64, n=1, c3k=True),  # m: partly read from global
+], ids=["s", "m"])
+def test_stem_kernel_full_width(cuda, spec):
+    _assert_stem_matches_reference(spec, *_stem_case(spec, cuda, batch=2))
+
+
 @pytest.mark.cuda
 def test_stem_kernel_tile_choice(cuda):
-    """The kernel picks its tile from the device's shared memory: the m form
-    at 640 px (C3k, halo 4) runs at a 4 x 4 tile and matches the plain
-    version; the l form (two C3k repeats, halo 8) fits no tile and raises
+    """The kernel picks its strip from the device's shared memory: the m form
+    at 640 px (C3k, halo 4) runs at a 16-column strip and matches the plain
+    version; the l form (two C3k repeats, halo 8) fits no strip and raises
     without a launch."""
     m = S.StemSpec(H=640, W=640, c0=64, c1=128, c2=256, ch=64, n=1, c3k=True)
     _assert_stem_matches_reference(m, *_stem_case(m, cuda, batch=1))

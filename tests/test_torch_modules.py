@@ -139,7 +139,7 @@ def fce_n():
     statistics included; the flax variables come from the port's state_dict
     through the JAX package's own importer (no flax init compile)."""
     jmodel, _, _ = jax_build_model("fce_yolo_tpu/cfg/models/yolo11-fce.yaml", scale="n")
-    model, _, _ = build_model("yolo11n-fce.yaml")
+    model, _, _ = build_model("yolo11n-fce.yaml", device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -182,7 +182,7 @@ def test_fold_conv_bn_matches_flax(fce_n):
 def test_fold_keeps_bf16():
     """Folding a bf16 model keeps every tensor bf16 (the JAX fold emits f32),
     and the folded bf16 weights equal the f32 fold rounded once to bf16."""
-    model, _, _ = build_model("yolo11n.yaml")
+    model, _, _ = build_model("yolo11n.yaml", device="cpu")
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, torch.nn.BatchNorm2d):

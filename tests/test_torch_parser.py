@@ -64,7 +64,7 @@ def test_meta_stride_probe(name):
     """Strides come from a forward on the meta device: no memory, no FLOPs."""
     spec = load_model_yaml(name)
     assert resolve_strides(spec) == (8, 16, 32)
-    model, _, strides = build_model(name)
+    model, _, strides = build_model(name, device="cpu")
     assert strides == (8, 16, 32) and model.detect.strides == (8, 16, 32)
     assert not model.training
     assert all(p.device.type == "cpu" for p in model.parameters())
@@ -73,4 +73,18 @@ def test_meta_stride_probe(name):
 def test_unported_module_raises():
     d = {**MODELS["yolo11"], "backbone": [[-1, 1, "GhostConv", [64, 3, 2]]] + MODELS["yolo11"]["backbone"][1:]}
     with pytest.raises(KeyError, match="not ported"):
-        build_model(d, scale="n")
+        build_model(d, scale="n", device="cpu")
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """``YOLO`` and ``build_model`` build on the card unless told otherwise;
+    with no CUDA and no device named they raise instead of falling back."""
+    from fce_yolo_tpu_torch import YOLO
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        YOLO("yolo11n.yaml")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model("yolo11n.yaml")
+    y = YOLO("yolo11n.yaml", device="cpu")
+    assert all(p.device.type == "cpu" for p in y.model.parameters())

@@ -42,7 +42,7 @@ def test_predict_matches_jax_facade(name):
         jax.random.PRNGKey(1))
     imgs = _images()
     ref = jy.predict(imgs, imgsz=128, batch=2)
-    port = YOLO(name).load_jax_variables(jax.tree_util.tree_map(np.asarray, jy.variables))
+    port = YOLO(name, device="cpu").load_jax_variables(jax.tree_util.tree_map(np.asarray, jy.variables))
     out = port.predict(imgs, imgsz=128, batch=2)
     assert len(out) == len(ref) == len(imgs)
     for r, o in zip(ref, out):
@@ -67,7 +67,7 @@ def test_import_and_predict_without_jax_cv2_pil():
             importlib.import_module(info.name)
         from fce_yolo_tpu_torch import YOLO
         img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
-        res = YOLO("yolo11n-fce.yaml").predict([img, img], imgsz=64, batch=2)
+        res = YOLO("yolo11n-fce.yaml", device="cpu").predict([img, img], imgsz=64, batch=2)
         assert len(res) == 2 and res[0].boxes.data.shape[1] == 6
         print("ok", len(res[0]))
     """)

@@ -100,7 +100,7 @@ def test_reference_matches_pallas_kernel(H, W, c3k, n):
 
 
 def _seeded_model(name: str, scale: str | None = None, seed: int = 0):
-    model, spec, _ = build_model(name, scale=scale)
+    model, spec, _ = build_model(name, scale=scale, device="cpu")
     init_weights(model, torch.Generator().manual_seed(seed))
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
@@ -182,9 +182,9 @@ def test_fused_stem_rejects_bad_inputs():
 @pytest.mark.parametrize("H,W,c3k,n", SHAPES)
 def test_stem_weights_packing(H, W, c3k, n):
     """The kernel's packed buffer, element by element: per conv the weight
-    as [cout][k*k][cin padded to 16] with zero padding (L0: [cout][(tap,
-    rgb + 0) = 36 padded to 48]), then the bias; also when packed under
-    ``inference_mode``, as the predictor does."""
+    as [cout][K] with K = (tap, cin) zero padded to a multiple of 16 plus 8
+    (L0: K = (dy, dx of 4, rgb + 0) = 48, padded to 56), then the bias;
+    also when packed under ``inference_mode``, as the predictor does."""
     spec, folded, _ = _case(H, W, c3k, n)
     assert S.folded_shapes(spec) == [w.shape for w in folded]
     wt = [torch.from_numpy(w).to(torch.bfloat16) for w in folded]
@@ -193,13 +193,14 @@ def test_stem_weights_packing(H, W, c3k, n):
     for i, (k, cin, cout) in enumerate(S._conv_shapes(spec)):
         w, b = folded[2 * i], folded[2 * i + 1]
         if i == 0:
-            blk = np.zeros((cout, 48), np.float32)
-            for t in range(9):
-                blk[:, 4 * t:4 * t + 3] = w[3 * t:3 * t + 3].T
+            blk = np.zeros((cout, 56), np.float32)
+            for dy in range(3):
+                for dx in range(3):
+                    blk[:, 16 * dy + 4 * dx:16 * dy + 4 * dx + 3] = w[9 * dy + 3 * dx:9 * dy + 3 * dx + 3].T
         else:
-            blk = np.zeros((cout, k * k, -(-cin // 16) * 16), np.float32)
-            for t in range(k * k):
-                blk[:, t, :cin] = w[t * cin:(t + 1) * cin].T
+            blk = np.zeros((cout, -(-k * k * cin // 16) * 16 + 8), np.float32)
+            blk[:, :k * k * cin] = w.T
+        assert blk.shape[1] * 2 % 32 == 16  # a row is an odd multiple of 16 bytes
         expected += [blk.ravel(), b.ravel()]
     np.testing.assert_array_equal(packed, np.concatenate(expected))
     with torch.inference_mode():

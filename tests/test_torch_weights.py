@@ -41,7 +41,7 @@ def _port_state(model) -> dict:
 def test_bridge_is_a_bijection(name, scale):
     jmodel, _, _ = jax_build_model(str(CFG_DIR / f"{name}.yaml"), scale=scale)
     leaves = _jax_leaves(jmodel)
-    model, _, _ = build_model(f"{name}.yaml", scale=scale)
+    model, _, _ = build_model(f"{name}.yaml", scale=scale, device="cpu")
     port = _port_state(model)
 
     # port key -> flax leaf (the JAX importer), one leaf each, all leaves hit
@@ -66,7 +66,7 @@ def test_bridge_loads_values_and_folded_variables():
     jmodel, _, _ = jax_build_model(str(CFG_DIR / "yolo11.yaml"), scale="n")
     v = jax.jit(lambda k: init_variables(jmodel, k, imgsz=64))(jax.random.PRNGKey(0))
     v = jax.tree_util.tree_map(np.asarray, v)
-    model, _, _ = build_model("yolo11n.yaml")
+    model, _, _ = build_model("yolo11n.yaml", device="cpu")
     model.load_state_dict(variables_to_state_dict(v), strict=True)
     k = v["params"]["layers_0"]["conv"]["kernel"]  # HWIO
     np.testing.assert_array_equal(model.model[0].conv.weight.detach().numpy(), k.transpose(3, 2, 0, 1))
