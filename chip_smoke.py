@@ -3,8 +3,10 @@ from the checkout, holds each against its plain PyTorch version, then drives
 ``YOLO("yolo11s-fce.yaml", device="cuda").predict`` at full width (640 px,
 random weights from a seed) and checks that the main path went through both
 kernels. The stem is also timed at B=16 and B=64 and on the m form
-(yolo11m-fce) beside cuDNN's unfused bf16 layers 0-2, and every kernel's
-time stands beside its bound (the least time the card could take).
+(yolo11m-fce) beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at
+B=1, 16 and 64 (K=1024), with few valid candidates, at the validator's
+K=4096 and with scores out of order. Every kernel's time stands beside its
+bound (the least time the card could take).
 
     python3 chip_smoke.py
 
@@ -25,6 +27,7 @@ import torch
 
 SEED = 0
 NMS_BATCH, NMS_K, MAX_DET = 16, 1024, 300
+NMS_K_VAL = 4096  # the validator's candidate pool (pre_nms_topk at conf 0.001)
 E2E_BATCH, E2E_BATCHES = 16, 3  # the stem kernel is also checked at this batch, the main path's
 BIG_BATCH = 64  # the stem and the device path again where the device is busy
 IMGSZ = 640
@@ -52,18 +55,67 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """Mean device milliseconds per call of ``fn``, from CUDA-event timed
+    replays of one CUDA graph of ``iters`` calls: the host's Python and launch
+    cost is left out, so a kernel shorter than its launch is timed as such."""
+    fn()  # build, cache and set kernel attributes before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(graph.replay, iters=5, warmup=1) / iters
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
 
 
-def nms_candidates(rng: np.random.RandomState, b: int, k: int):
-    """tests/test_pallas_nms.py's generator: random boxes, sorted scores, valid > 0.3."""
+def nms_candidates(rng: np.random.RandomState, b: int, k: int, conf: float = 0.3):
+    """tests/test_pallas_nms.py's generator: random boxes, sorted scores, valid > conf."""
     centers = rng.uniform(50, 500, (b, k, 2))
     wh = rng.uniform(10, 80, (b, k, 2))
     boxes = np.concatenate([centers - wh / 2, centers + wh / 2], -1).astype(np.float32)
     scores = np.sort(rng.rand(b, k).astype(np.float32), axis=1)[:, ::-1].copy()
-    return boxes, scores, scores > 0.3
+    return boxes, scores, scores > conf
+
+
+def nms_few_valid(rng: np.random.RandomState, b: int, k: int):
+    """Only the 32 highest scores valid: a trained model's predict at conf 0.25."""
+    boxes, scores, valid = nms_candidates(rng, b, k)
+    valid[:, 32:] = False
+    return boxes, scores, valid
+
+
+def nms_timed_cases() -> list[tuple[str, np.ndarray, np.ndarray, np.ndarray]]:
+    """The NMS kernel's timed cases at iou 0.7, max_det 300: the main path's
+    shape (B=16, K=1024) first, then B=1 (streaming) and B=64, few valid, the
+    validator's pool (K=4096, every score above 0.001 valid), and B=16 with
+    the candidates shuffled (scores out of order, as a caller other than the
+    top-K may give them)."""
+    def rng(i):
+        return np.random.RandomState(SEED + 10 + i)
+    boxes, scores, valid = nms_candidates(rng(5), NMS_BATCH, NMS_K)
+    perm = rng(6).permutation(NMS_K)
+    return [
+        ("B=16 K=1024", *nms_candidates(rng(0), NMS_BATCH, NMS_K)),
+        ("B=1 K=1024", *nms_candidates(rng(1), 1, NMS_K)),
+        ("B=64 K=1024", *nms_candidates(rng(2), 64, NMS_K)),
+        ("B=16 K=1024 few valid", *nms_few_valid(rng(3), NMS_BATCH, NMS_K)),
+        (f"B=16 K={NMS_K_VAL}", *nms_candidates(rng(4), NMS_BATCH, NMS_K_VAL, conf=0.001)),
+        ("B=16 K=1024 unsorted", boxes[:, perm].copy(), scores[:, perm].copy(), valid[:, perm].copy()),
+    ]
+
+
+def nms_bound(b: int, k: int, kept: int) -> tuple[float, str]:
+    """Least ms for greedy NMS on this data: the inputs read and the outputs
+    written once, against each pick (this run's kept boxes) computing ~16 f32
+    operations with each of the K candidates. Returns (ms, what bounds it)."""
+    nbytes = b * k * (16 + 4 + 1) + b * MAX_DET * (4 + 1)
+    ops_ms, bytes_ms = 1e3 * 16 * k * kept / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
 def check_stem(x: torch.Tensor, weights, spec, what: str, out: torch.Tensor | None = None) -> tuple[float, float, float]:
@@ -144,6 +196,9 @@ def phase_stem(model, spec, model_m, spec_m, card: str) -> dict:
 
 
 def phase_nms(card: str) -> dict:
+    """The kernel bit for bit against its plain version on every case, then
+    timed on the cases of ``nms_timed_cases``; the first (the main path's
+    shape) goes into the kernel record."""
     from fce_yolo_tpu_torch.ops.nms import pick_suppress, pick_suppress_reference
 
     rng = np.random.RandomState(SEED)
@@ -157,35 +212,41 @@ def phase_nms(card: str) -> dict:
     s[:, 1::2] = s[:, 0::2]
     cases.append(("duplicates+ties", b, s, s > 0.3, 0.45))
     cases.append(("K=1000", *nms_candidates(rng, 4, 1000), 0.45))
+    cases.append(("few valid", *nms_few_valid(rng, NMS_BATCH, NMS_K), 0.7))
+    cases.append((f"K={NMS_K_VAL}", *nms_candidates(rng, NMS_BATCH, NMS_K_VAL, conf=0.001), 0.7))
     worst = 0
-    timing = None
     for name, boxes, scores, valid, thr in cases:
         args = [torch.from_numpy(np.ascontiguousarray(a)) for a in (boxes, scores, valid)]
         ref_idx, ref_ok = pick_suppress_reference(*args, thr, MAX_DET)
-        cu = [a.cuda() for a in args]
-        idx, ok = pick_suppress(*cu, iou_thres=thr, max_det=MAX_DET)
+        idx, ok = pick_suppress(*(a.cuda() for a in args), iou_thres=thr, max_det=MAX_DET)
         idx, ok = idx.cpu(), ok.cpu()
         mism = int((idx != ref_idx).sum() + (ok != ref_ok).sum())
         worst = max(worst, mism)
         print(f"phase nms: {name} B={boxes.shape[0]} K={boxes.shape[1]} kept={int(ok.sum())} "
               f"mismatches={mism}", flush=True)
         check(mism == 0, f"NMS kernel differs from the plain version on {name!r}")
-        if name == "random iou=0.7":
-            timing = (cu, thr)
-    cu, thr = timing
-    ms = cuda_ms(lambda: pick_suppress(*cu, iou_thres=thr, max_det=MAX_DET))
-    plain_ms = cuda_ms(lambda: pick_suppress_reference(*cu, thr, MAX_DET), iters=3, warmup=1)
-    # bound: the inputs read and outputs written once; each pick (this run's
-    # kept boxes) computes ~16 f32 operations against each of the K candidates
-    kept = int(pick_suppress_reference(*(a.cpu() for a in cu), thr, MAX_DET)[1].sum())
-    nbytes = NMS_BATCH * NMS_K * (16 + 4 + 1) + NMS_BATCH * MAX_DET * (4 + 1)
-    ops_ms, bytes_ms = 1e3 * 16 * NMS_K * kept / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
-    bound_ms, bound_by = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-    print(f"phase nms: B={NMS_BATCH} K={NMS_K} max_det={MAX_DET} iou=0.7 kernel {ms:.3f} ms, "
-          f"plain (torch ops on the card) {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-          f"{kept} picks) [{card}]", flush=True)
-    return {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+
+    record = None
+    for name, boxes, scores, valid in nms_timed_cases():
+        cu = [torch.from_numpy(a).cuda() for a in (boxes, scores, valid)]
+        ref_idx, ref_ok = pick_suppress_reference(*(a.cpu() for a in cu), 0.7, MAX_DET)
+        idx, ok = pick_suppress(*cu, iou_thres=0.7, max_det=MAX_DET)
+        check(bool((idx.cpu() == ref_idx).all() and (ok.cpu() == ref_ok).all()),
+              f"NMS kernel differs from the plain version on the timed case {name!r}")
+        kept = int(ref_ok.sum())
+        ms = graph_ms(lambda: pick_suppress(*cu, iou_thres=0.7, max_det=MAX_DET))
+        eager_ms = cuda_ms(lambda: pick_suppress(*cu, iou_thres=0.7, max_det=MAX_DET))
+        bound_ms, bound_by = nms_bound(boxes.shape[0], boxes.shape[1], kept)
+        line = (f"phase nms: {name} max_det={MAX_DET} iou=0.7 {kept} picks: kernel {ms:.4f} ms on the device "
+                f"(CUDA graph), {eager_ms:.4f} ms a call from Python (CUDA events), "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
+        if record is None:  # the main path's shape: the plain version too
+            plain_ms = cuda_ms(lambda: pick_suppress_reference(*cu, 0.7, MAX_DET), iters=3, warmup=1)
+            line += f", plain (torch ops on the card) {plain_ms:.3f} ms"
+            record = {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+        print(f"{line} [{card}]", flush=True)
+    return record
 
 
 def phase_e2e(yolo, spec, card: str) -> dict:

@@ -36,8 +36,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x_u8, weights (packed bf16), out, B, H, W, c0, c1, c2, ch, n, c3k, stream
     "fce_fused_stem": [_P, _P, _P] + [_I] * 9 + [_P],
-    # boxes, scores, valid, idx, ok, B, K, max_det, iou_thres, stream
-    "fce_pick_suppress": [_P] * 5 + [_I, _I, _I, _F, _P],
+    # boxes, scores, valid, idx, ok, sboxes, order, count, mask, B, K, max_det, iou_thres, stream
+    "fce_pick_suppress": [_P] * 9 + [_I, _I, _I, _F, _P],
 }
 
 

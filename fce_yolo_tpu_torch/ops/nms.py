@@ -4,9 +4,10 @@
    ``_select_candidates``; the sort is stable so ties keep the lower index
    first, which is ``lax.top_k``'s order.
 2. Class separation by shifting boxes ``class_id * 7680`` pixels.
-3. Greedy suppression, ``pick_suppress``: the CUDA kernel ``csrc/nms.cu``
-   for CUDA tensors, its plain version ``pick_suppress_reference`` for CPU
-   tensors. Same keep-set and emit order as torchvision's greedy NMS.
+3. Greedy suppression, ``pick_suppress``: the CUDA kernels of
+   ``csrc/nms.cu`` (sort, IoU bitmask, one-warp scan) for CUDA tensors, their
+   plain version ``pick_suppress_reference`` for CPU tensors. Same keep-set
+   and emit order as torchvision's greedy NMS.
 
 Outputs are fixed (B, max_det, ...) tensors with invalid rows zeroed.
 """
@@ -19,7 +20,13 @@ from fce_yolo_tpu_torch.kernels import build as kbuild
 from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
 
 MAX_WH = 7680.0  # class offset (reference utils/nms.py:143-149)
-_SMEM_LIMIT = 227 * 1024  # bytes of shared memory one H100 block may use
+K_MAX = 10240  # the scan's removed-bitset: 32 lanes x 10 words x 32 bits (csrc/nms.cu kMaxK)
+
+
+def mask_words(k: int) -> int:
+    """Words of one row of the kernel's IoU bitmask: ceil(K / 32) rounded up
+    to whole 16-byte groups (csrc/nms.cu ``mask_words``)."""
+    return 4 * -(-k // 128)
 
 
 def pick_suppress_reference(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
@@ -78,16 +85,22 @@ def pick_suppress(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
         raise ValueError(f"no NMS kernel for device {boxes.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous() and valid.is_contiguous()):
         raise ValueError("pick_suppress takes contiguous tensors")
-    if k < 1 or max_det < 1 or 6 * k * 4 > _SMEM_LIMIT:
-        raise ValueError(f"K={k}, max_det={max_det} outside the kernel's range (1 <= K <= 9685)")
-    idx = torch.empty(b, max_det, dtype=torch.int32, device=boxes.device)
-    ok = torch.empty(b, max_det, dtype=torch.bool, device=boxes.device)
+    if not (1 <= k <= K_MAX and 1 <= b <= 65535 and max_det >= 1):
+        raise ValueError(f"B={b}, K={k}, max_det={max_det} outside the kernel's range "
+                         f"(1 <= K <= {K_MAX}, 1 <= B <= 65535)")
+    dev = boxes.device
+    idx = torch.empty(b, max_det, dtype=torch.int32, device=dev)
+    ok = torch.empty(b, max_det, dtype=torch.bool, device=dev)
+    # scratch: boxes in score order, their original indices, live counts, the IoU bitmask
+    sboxes = torch.empty(b, k, 4, dtype=torch.float32, device=dev)
+    order = torch.empty(b, k, dtype=torch.int32, device=dev)
+    count = torch.empty(b, dtype=torch.int32, device=dev)
+    mask = torch.empty(b, k, mask_words(k), dtype=torch.int32, device=dev)
     lib = kbuild.library()
-    with torch.cuda.device(boxes.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fce_pick_suppress(boxes.data_ptr(), scores.data_ptr(), valid.data_ptr(),
-                                    idx.data_ptr(), ok.data_ptr(), b, k, max_det,
-                                    float(iou_thres), stream)
+        ptrs = (t.data_ptr() for t in (boxes, scores, valid, idx, ok, sboxes, order, count, mask))
+        err = lib.fce_pick_suppress(*ptrs, b, k, max_det, float(iou_thres), stream)
     kbuild.check(err, "fce_pick_suppress")
     pick_suppress.launches += 1  # a launch the kernel took
     return idx, ok

@@ -1,12 +1,7 @@
-// Runs csrc/stem.cu's kernel on the CPU (see cuda_runtime.h). The test
-// writes stem_emu.cu: stem.cu with the bodies of its inline-PTX helpers
-// replaced by calls into this file and the launch replaced by emu_launch.
-//
-//   emu B H W c0 c1 c2 ch n c3k sms x.bin w.bin out.bin
-//
-// x.bin: uint8 (B, H, W, 3); w.bin: the packed bf16 weights; out.bin: bf16
-// (B, H/4, W/4, c2). The kernel's plan goes to stderr. Exit 3: the entry
-// point refused the spec.
+// The shared part of the CUDA stand-in (see cuda_runtime.h): thread and
+// block indices, shared memory, barriers, warp collectives, ldmatrix and
+// mma.sync lane by lane, the grid runner and file helpers. Each kernel's
+// driver (stem_main.cpp, nms_main.cpp) links against it.
 #include <cstdio>
 #include <cstdlib>
 #include <memory>
@@ -15,11 +10,9 @@
 
 #include "cuda_runtime.h"
 #include "cuda_bf16.h"
-#define EMU_ASM(...)
-#include "stem_emu.cu"
 
 thread_local dim3 threadIdx;
-dim3 blockIdx, gridDim;
+dim3 blockIdx, blockDim, gridDim;
 alignas(16) static unsigned char smem_store[262144];
 unsigned char* g_smem = smem_store;
 int g_sms = 4;
@@ -29,6 +22,28 @@ static constexpr int kMaxThreads = 1024;
 
 void __syncthreads() { g_block->arrive_and_wait(); }
 static void warp_sync() { g_warp[threadIdx.x / 32]->arrive_and_wait(); }
+void __syncwarp(unsigned) { warp_sync(); }
+
+unsigned __ballot_sync(unsigned, int pred) {
+  static int vote[kMaxThreads];
+  const int t = threadIdx.x, w0 = t & ~31;
+  vote[t] = pred != 0;
+  warp_sync();
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l) r |= static_cast<unsigned>(vote[w0 + l]) << l;
+  warp_sync();
+  return r;
+}
+
+uint64_t emu_shfl(uint64_t v, int src_lane) {
+  static uint64_t vals[kMaxThreads];
+  const int t = threadIdx.x;
+  vals[t] = v;
+  warp_sync();
+  const uint64_t r = vals[(t & ~31) + src_lane];
+  warp_sync();
+  return r;
+}
 
 // ldmatrix .x1/.x2/.x4: lane l receives, of matrix i, row l / 4 and its
 // elements 2 (l % 4), 2 (l % 4) + 1; lane 8 i + j gives matrix i's row j
@@ -75,23 +90,7 @@ void emu_mma(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
   warp_sync();
 }
 
-void emu_launch(int grid, int bytes, const StemArgs& a) {
-  std::fprintf(stderr, "plan R=%d S=%d Wc=%d Hb=%d items=%d grid=%d smem=%d\n", a.R, a.S, a.Wc, a.Hb, a.items,
-               grid, bytes);
-  gridDim.x = grid;
-  g_block = std::make_unique<std::barrier<>>(kThreads);
-  g_warp.clear();
-  for (int w = 0; w < kWarps; ++w) g_warp.push_back(std::make_unique<std::barrier<>>(32));
-  for (int b = 0; b < grid; ++b) {
-    blockIdx.x = b;
-    std::memset(smem_store, 0xff, sizeof smem_store);  // NaN in every buffer a block has not written
-    std::vector<std::thread> threads;
-    for (int t = 0; t < kThreads; ++t) threads.emplace_back([&a, t] { threadIdx.x = t; stem_kernel(a); });
-    for (auto& th : threads) th.join();
-  }
-}
-
-static std::vector<char> slurp(const char* path) {
+std::vector<char> emu_read_file(const char* path) {
   std::vector<char> v;
   FILE* f = std::fopen(path, "rb");
   if (!f) std::abort();
@@ -102,17 +101,33 @@ static std::vector<char> slurp(const char* path) {
   return v;
 }
 
-int main(int argc, char** argv) {
-  if (argc != 14) return 2;
-  const int B = std::atoi(argv[1]), H = std::atoi(argv[2]), W = std::atoi(argv[3]), c2 = std::atoi(argv[6]);
-  g_sms = std::atoi(argv[10]);
-  const std::vector<char> x = slurp(argv[11]), w = slurp(argv[12]);
-  std::vector<char> out(static_cast<size_t>(B) * (H / 4) * (W / 4) * c2 * 2, 0);
-  const int err = fce_fused_stem(x.data(), w.data(), out.data(), B, H, W, std::atoi(argv[4]), std::atoi(argv[5]),
-                                 c2, std::atoi(argv[7]), std::atoi(argv[8]), std::atoi(argv[9]), nullptr);
-  if (err) return 3;
-  FILE* f = std::fopen(argv[13], "wb");
-  std::fwrite(out.data(), 1, out.size(), f);
+void emu_write_file(const char* path, const void* data, size_t bytes) {
+  FILE* f = std::fopen(path, "wb");
+  if (!f) std::abort();
+  std::fwrite(data, 1, bytes, f);
   std::fclose(f);
-  return 0;
+}
+
+void emu_grid(dim3 grid, dim3 block, const std::function<void()>& body) {
+  const int threads = static_cast<int>(block.x);
+  if (threads < 1 || threads > kMaxThreads || threads % 32) {
+    std::fprintf(stderr, "emu_grid: %d threads per block (1-D, whole warps, at most %d)\n", threads, kMaxThreads);
+    std::abort();
+  }
+  gridDim = grid;
+  blockDim = block;
+  g_block = std::make_unique<std::barrier<>>(threads);
+  g_warp.clear();
+  for (int w = 0; w < threads / 32; ++w) g_warp.push_back(std::make_unique<std::barrier<>>(32));
+  for (unsigned z = 0; z < grid.z; ++z) {
+    for (unsigned y = 0; y < grid.y; ++y) {
+      for (unsigned x = 0; x < grid.x; ++x) {
+        blockIdx = dim3(x, y, z);
+        std::memset(smem_store, 0xff, sizeof smem_store);  // NaN in every buffer a block has not written
+        std::vector<std::thread> pool;
+        for (int t = 0; t < threads; ++t) pool.emplace_back([&body, t] { threadIdx = dim3(t, 0, 0); body(); });
+        for (auto& th : pool) th.join();
+      }
+    }
+  }
 }

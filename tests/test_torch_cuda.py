@@ -16,6 +16,7 @@ import torch
 from fce_yolo_tpu_torch import YOLO
 from fce_yolo_tpu_torch.ops import stem as S
 from fce_yolo_tpu_torch.ops.nms import pick_suppress, pick_suppress_reference
+from test_torch_nms_emulated import at_threshold
 
 SHAPES = [  # the JAX kernel test's five shapes (test_pallas_stem.py:41-47)
     (64, 64, False, 1), (64, 64, True, 1), (128, 128, False, 1), (128, 192, False, 2), (128, 128, True, 2),
@@ -116,18 +117,65 @@ def _no_valid(rng, b, k):
     return np.zeros((b, k, 4), np.float32), np.zeros((b, k), np.float32), np.zeros((b, k), bool)
 
 
+def _few_valid(rng, b, k):
+    """Only the 32 highest scores valid (a trained model at conf 0.25)."""
+    boxes, scores, valid = _candidates(rng, b, k)
+    valid[:, 32:] = False
+    return boxes, scores, valid
+
+
+def _signed_zeros(rng, b, k):
+    """Scores of -0.0 and +0.0 (equal to argmax, apart in their bits) on boxes that overlap heavily."""
+    boxes, _, _ = _candidates(rng, b, k)
+    boxes *= np.float32(0.3)
+    scores = rng.choice(np.array([-0.0, 0.0, 0.25, -0.5], np.float32), (b, k), p=[0.4, 0.4, 0.1, 0.1])
+    return boxes, scores, rng.rand(b, k) > 0.1
+
+
+def _assert_nms_matches_reference(cuda, boxes, scores, valid, iou, max_det=300):
+    args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
+    ref = pick_suppress_reference(*args, iou, max_det)
+    before = pick_suppress.launches
+    out = pick_suppress(*(a.to(cuda) for a in args), iou_thres=iou, max_det=max_det)
+    assert pick_suppress.launches == before + 1
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.cpu().numpy(), r.numpy())
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("make", [_candidates, _ties, _no_valid])
-@pytest.mark.parametrize("k", [1024, 1000, 37])
-def test_nms_kernel_matches_reference(cuda, make, k):
-    args = [torch.from_numpy(a) for a in make(np.random.RandomState(k), 4, k)]
+@pytest.mark.parametrize("make", [_candidates, _ties, _no_valid, _few_valid, _signed_zeros])
+@pytest.mark.parametrize("k", [1024, 1000, 37, 4096])
+@pytest.mark.parametrize("b", [1, 4, 64])
+def test_nms_kernel_matches_reference(cuda, make, k, b):
+    boxes, scores, valid = make(np.random.RandomState(k + b), b, k)
     for iou in (0.45, 0.7):
-        ref = pick_suppress_reference(*args, iou, 300)
-        before = pick_suppress.launches
-        out = pick_suppress(*(a.to(cuda) for a in args), iou_thres=iou, max_det=300)
-        assert pick_suppress.launches == before + 1
-        for r, o in zip(ref, out):
-            np.testing.assert_array_equal(o.cpu().numpy(), r.numpy())
+        _assert_nms_matches_reference(cuda, boxes, scores, valid, iou)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("below", [False, True])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nms_kernel_iou_at_the_threshold(cuda, seed, below):
+    """A threshold equal to a pair's rounded IoU, or one float below it: the
+    kernel's exact division decides, as compiled for the card."""
+    boxes, scores, valid, thr = at_threshold(seed, below)
+    _assert_nms_matches_reference(cuda, boxes, scores, valid, thr, max_det=64)
+
+
+@pytest.mark.cuda
+def test_nms_kernel_top_of_range(cuda):
+    """K = 9685 (the range of the one-block-per-image kernel this design
+    replaced) and K = 10240 (the top of the range: the scan's bitset of 10
+    words a lane), every candidate valid so the walk reaches the last words;
+    beyond it the wrapper raises before any launch."""
+    for k in (9685, 10240):
+        boxes, scores, _ = _candidates(np.random.RandomState(k), 2, k)
+        _assert_nms_matches_reference(cuda, boxes, scores, np.ones((2, k), bool), 0.7, max_det=k)
+    boxes, scores, valid = (torch.from_numpy(a).to(cuda) for a in _candidates(np.random.RandomState(0), 1, 10241))
+    before = pick_suppress.launches
+    with pytest.raises(ValueError, match="outside the kernel's range"):
+        pick_suppress(boxes, scores, valid)
+    assert pick_suppress.launches == before
 
 
 @pytest.mark.cuda

@@ -9,7 +9,6 @@ per-row error.
 """
 
 import re
-import shutil
 import subprocess
 from pathlib import Path
 
@@ -17,10 +16,8 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_emu.emulate import CSRC, build, emulated
 from fce_yolo_tpu_torch.ops import stem as S
-
-EMU = Path(__file__).resolve().parent / "cuda_emu"
-STEM_CU = Path(S.__file__).resolve().parent.parent / "csrc" / "stem.cu"
 
 # (H, W, c0, c1, c2, ch, n, c3k, batch): the small forms of the card tests,
 # widths that are no multiple of a strip, an image shorter than one step,
@@ -39,44 +36,22 @@ CASES = [
 
 
 def _emulated_source() -> str:
-    src = STEM_CU.read_text()
-
-    def body(name: str, new: str) -> None:
-        nonlocal src
-        m = re.search(r"__device__ __forceinline__ \w+ " + name + r"\([^)]*\)[^{]*\{", src)
-        assert m, f"stem.cu has no helper {name}"
-        depth, i = 1, m.end()
-        while depth:
-            depth += {"{": 1, "}": -1}.get(src[i], 0)
-            i += 1
-        src = src[:m.end()] + new + "\n}" + src[i:]
-
-    body("ldsm_x4", "uint32_t r[4]; emu_ldmatrix(addr, 4, r); r0 = r[0]; r1 = r[1]; r2 = r[2]; r3 = r[3];")
-    body("ldsm_x2", "uint32_t r[2]; emu_ldmatrix(addr, 2, r); r0 = r[0]; r1 = r[1];")
-    body("mma_bf16", "emu_mma(c, a, b0, b1);")
-    body("cp_async4", "std::memcpy(g_smem + dst, src, 4);")
-    body("cp_async16", "std::memcpy(g_smem + dst, src, 16);")
-    body("silu", "return v / (1.0f + std::exp(-v));")
-    src = src.replace("asm volatile(", "EMU_ASM(")
-    src = src.replace("extern __shared__ __align__(16) unsigned char smem[];", "unsigned char* smem = g_smem;")
+    src = emulated((CSRC / "stem.cu").read_text(), {
+        "ldsm_x4": "uint32_t r[4]; emu_ldmatrix(addr, 4, r); r0 = r[0]; r1 = r[1]; r2 = r[2]; r3 = r[3];",
+        "ldsm_x2": "uint32_t r[2]; emu_ldmatrix(addr, 2, r); r0 = r[0]; r1 = r[1];",
+        "mma_bf16": "emu_mma(c, a, b0, b1);",
+        "cp_async4": "std::memcpy(g_smem + dst, src, 4);",
+        "cp_async16": "std::memcpy(g_smem + dst, src, 16);",
+        "silu": "return v / (1.0f + std::exp(-v));",
+    })
     src = re.sub(r"stem_kernel<<<.*?>>>\(a\);", "emu_launch(grid, bytes, a);", src)
-    src = src.replace('extern "C" int fce_fused_stem', 'void emu_launch(int, int, const StemArgs&);\nextern "C" int fce_fused_stem')
-    assert "asm(" not in src and "<<<" not in src
-    return src
+    entry = 'extern "C" int fce_fused_stem'
+    return src.replace(entry, "void emu_launch(int, int, const StemArgs&);\n" + entry)
 
 
 @pytest.fixture(scope="module")
 def emulator(tmp_path_factory):
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("needs g++ to compile the kernel source for the CPU")
-    d = tmp_path_factory.mktemp("stem_emu")
-    (d / "stem_emu.cu").write_text(_emulated_source())
-    exe = d / "emu"
-    res = subprocess.run([gxx, "-std=c++20", "-O2", "-pthread", "-w", f"-I{EMU}", f"-I{d}", "-o", str(exe),
-                          str(EMU / "emu.cpp")], capture_output=True, text=True, timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    return exe
+    return build(tmp_path_factory.mktemp("stem_emu"), "stem_main.cpp", "stem", _emulated_source())
 
 
 def _run(exe: Path, spec: S.StemSpec, batch: int, seed: int = 0):
