@@ -1,12 +1,20 @@
 """Smoke run of the PyTorch + CUDA port on one GPU: builds the CUDA kernels
 from the checkout, holds each against its plain PyTorch version, then drives
-``YOLO("yolo11s-fce.yaml", device="cuda").predict`` at full width (640 px,
-random weights from a seed) and checks that the main path went through both
-kernels. The stem is also timed at B=16 and B=64 and on the m form
-(yolo11m-fce) beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at
-B=1, 16 and 64 (K=1024), with few valid candidates, at the validator's
-K=4096 and with scores out of order. Every kernel's time stands beside its
-bound (the least time the card could take).
+the port's entry points at full width (yolo11s-fce, 640 px, random weights
+from a seed) and checks that each path went through its kernels:
+
+- ``YOLO.predict`` (bf16, B=16): the stem kernel and the NMS kernel;
+- ``YOLO.val`` (f32, B=16) on 64 PNG images written here: the NMS kernel at
+  the validator's K=4096 over 80 classes, once per batch, bit-equal to the
+  plain version on every batch and giving the same P, R and mAP;
+- ``detection_loss`` (train mode, f32, B=16) with CIoU and with WIoU v3 over
+  three steps: finite parts and gradients, equal to the loss on the CPU.
+
+The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
+beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
+(K=1024), with few valid candidates, at K=4096 and with scores out of
+order. Every kernel's time stands beside its bound (the least time the card
+could take).
 
     python3 chip_smoke.py
 
@@ -18,9 +26,13 @@ the card line is the per-kernel JSON record.
 from __future__ import annotations
 
 import json
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -31,6 +43,9 @@ NMS_K_VAL = 4096  # the validator's candidate pool (pre_nms_topk at conf 0.001)
 E2E_BATCH, E2E_BATCHES = 16, 3  # the stem kernel is also checked at this batch, the main path's
 BIG_BATCH = 64  # the stem and the device path again where the device is busy
 IMGSZ = 640
+VAL_IMAGES, VAL_BATCH, VAL_NC = 64, 16, 80  # 4 val batches; 80 class names, labels in classes 0-2
+LOSS_STEPS = 3  # phase loss: one step on each of the first val batches
+LOSS_TOL = 1e-3  # card vs CPU loss parts, relative: float32 in both, sums in another order
 # one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
@@ -321,6 +336,229 @@ def phase_e2e(yolo, spec, card: str) -> dict:
     return launches
 
 
+def png_bytes(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) written with zlib; row r takes
+    filter r % 5 (None, Sub, Up, Average, Paeth), so the reader meets all five."""
+    h, w, _ = rgb.shape
+    x = rgb.reshape(h, w * 3).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 3:] = x[:-1, :-3]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])  # (5, H, W*3)
+    kind = np.arange(h) % 5
+    rows = (x - preds[kind, np.arange(h)]) & 255
+    raw = np.concatenate([kind[:, None], rows], 1).astype(np.uint8).tobytes()
+
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_val_dataset(root: Path) -> str:
+    """tests/conftest.py's tiny dataset at full size: VAL_IMAGES PNG images of
+    480-800 px a side, grey with 1-3 solid rectangles of classes 0-2 at the
+    labelled positions; the data YAML names VAL_NC classes."""
+    rng = np.random.RandomState(SEED + 3)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for i in range(VAL_IMAGES):
+        h, w = rng.randint(480, 801, 2)
+        img = np.full((h, w, 3), 60, np.uint8)
+        lines = []
+        for _ in range(rng.randint(1, 4)):
+            k = rng.randint(0, 3)
+            bw, bh = rng.uniform(0.2, 0.4), rng.uniform(0.2, 0.4)
+            cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            x1, y1, x2, y2 = int((cx - bw / 2) * w), int((cy - bh / 2) * h), int((cx + bw / 2) * w), int((cy + bh / 2) * h)
+            img[y1: y2 + 1, x1: x2 + 1] = [(80, 80, 255), (80, 255, 80), (255, 80, 80)][k]  # RGB
+            lines.append(f"{k} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
+        (root / "images" / "val" / f"{i:03d}.png").write_bytes(png_bytes(img))
+        (root / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
+    names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnames:\n{names}")
+    return str(root / "data.yaml")
+
+
+def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
+    """``YOLO.val`` with the counts at 0, then each batch again with the NMS
+    kernel and with its plain version on the same candidates: idx/ok equal,
+    and P, R, mAP (above zero: the random head's boxes are widened and the
+    labels' classes raised) equal through the same ``_update_metrics``. Returns (the
+    val path's launches, the NMS kernel's val-path record, and the model
+    with the first LOSS_STEPS batches for phase loss)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.imread import imread
+    from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+    from fce_yolo_tpu_torch.nn.model import init_weights
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+    from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
+    from fce_yolo_tpu_torch.ops.stem import fused_stem
+    from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
+
+    yolo = YOLO("yolo11s-fce.yaml", device="cuda")  # float32, the plain graph (as the JAX validator)
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    with torch.no_grad():  # so that some detections match the labels (mAP above zero):
+        for branch in yolo.model.detect.cv2:  # DFL bin 8 of every side up by 6: boxes ~16 strides wide
+            branch[-1].bias[8::16] += 6.0
+        for branch in yolo.model.detect.cv3:  # the labels' classes 0-2 up by 1: scores ~0.73, the rest ~0.5
+            branch[-1].bias[:3] += 1.0
+    with torch.inference_mode():  # cuDNN's first-call set-up, outside the timed run
+        yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
+    torch.cuda.synchronize()
+
+    fused_stem.launches = nms_ops.pick_suppress.launches = 0
+    t0 = time.perf_counter()
+    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"fused_stem": fused_stem.launches, "pick_suppress": nms_ops.pick_suppress.launches}
+    n_batches = -(-VAL_IMAGES // VAL_BATCH)
+    check(launches["pick_suppress"] == n_batches, f"val path: {launches} NMS launches for {n_batches} batches")
+    check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path scored the wrong number of images")
+
+    val = DetectionValidator(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=VAL_BATCH)
+    loader = val.get_dataloader(data)
+    real = nms_ops.pick_suppress
+    calls: list[tuple] = []  # per batch: the candidates and the plain version's (idx, ok)
+
+    def plain(boxes, scores, valid, iou_thres, max_det):
+        """The plain version where ``batched_nms`` calls the kernel; keeps
+        the candidates so that the kernel runs on them once the swap is undone
+        (inside it, the kernel's wrapper would count on this function)."""
+        out = nms_ops.pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+        calls.append(((boxes.clone(), scores.clone(), valid.clone()), out))
+        return out
+
+    sets = {k: (DetMetrics(names=yolo.names), ConfusionMatrix(names=yolo.names)) for k in ("kernel", "plain")}
+    metrics_s, kept_batches, n_images = 0.0, [], 0
+    yolo.model.eval()
+    for batch in loader:
+        img = torch.from_numpy(batch["img"]).cuda()
+        preds = val.forward(img)
+        outs = {"kernel": {k: v.cpu().numpy() for k, v in val.nms(preds).items()}}
+        try:
+            nms_ops.pick_suppress = plain
+            outs["plain"] = {k: v.cpu().numpy() for k, v in val.nms(preds).items()}
+        finally:
+            nms_ops.pick_suppress = real
+        args, (ip, op) = calls[-1]
+        ik, ok = real(*args, iou_thres=val.iou, max_det=val.max_det)
+        check(args[0].shape[1] == NMS_K_VAL, f"val NMS ran at K={args[0].shape[1]}, not {NMS_K_VAL}")
+        mism = int((ik != ip).sum() + (ok != op).sum())
+        check(mism == 0, f"val batch {len(calls)}: NMS kernel differs from the plain version ({mism})")
+        check(all((outs["kernel"][k] == outs["plain"][k]).all() for k in outs["kernel"]),
+              f"val batch {len(calls)}: batched_nms outputs differ between the kernel and the plain version")
+        for name, (m, cm) in sets.items():
+            t0 = time.perf_counter()
+            val._update_metrics(outs[name], batch, m, cm, None, n_images)
+            metrics_s += (time.perf_counter() - t0) / 2
+        n_images += batch["n_valid"]
+        if len(kept_batches) < LOSS_STEPS:
+            kept_batches.append((batch, img, preds))
+    for m, _ in sets.values():
+        m.process(nc=val.nc)
+    mk, mp = sets["kernel"][0].mean_results(), sets["plain"][0].mean_results()
+    check(mk == mp, f"P, R, mAP50, mAP50-95 from the kernel {mk} != from the plain version {mp}")
+    check(mk[2] > 0, f"val path: mAP50 is 0, so the comparison above shows nothing: {mk}")
+    check(bool((sets["kernel"][1].matrix == sets["plain"][1].matrix).all()), "confusion matrices differ")
+
+    batch, img, preds = kept_batches[0]
+    args, (_, ok0) = calls[0]
+    kept = int(ok0.sum())
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: val.nms(val.forward(img)), iters=5)
+        boxes, scores = xywh2xyxy(preds[..., :4].float()), preds[..., 4: 4 + val.nc].float()
+        select_ms = cuda_ms(lambda: nms_ops._select_candidates(boxes, scores, val.pre_nms_topk, True), iters=5)
+        kernel_ms = graph_ms(lambda: real(*args, iou_thres=val.iou, max_det=val.max_det))
+        plain_ms = cuda_ms(lambda: nms_ops.pick_suppress_reference(*args, val.iou, val.max_det), iters=2, warmup=1)
+    ds = loader.dataset
+    t0 = time.perf_counter()
+    for i in range(VAL_BATCH):
+        ds[i]
+    host_ms = (time.perf_counter() - t0) * 1e3  # decode + letterbox of one batch, one thread
+    t0 = time.perf_counter()
+    for f in ds.im_files[:VAL_BATCH]:
+        imread(f)
+    png_ms = (time.perf_counter() - t0) * 1e3 / VAL_BATCH
+    bound_ms, bound_by = nms_bound(args[0].shape[0], args[0].shape[1], kept)
+    speed = res["metrics"].speed
+    print(f"phase val: yolo11s-fce {IMGSZ} f32 B={VAL_BATCH}, {VAL_IMAGES} PNG images in {n_batches} batches, "
+          f"launches {launches}; NMS kernel idx/ok equal to the plain version on every batch (K=4096, "
+          f"nc={val.nc}); P/R/mAP50/mAP50-95 {tuple(round(v, 6) for v in mk)} equal from both; "
+          f"YOLO.val {VAL_IMAGES / wall:.1f} img/s (host clock, incl. dataset scan and PNG decode); "
+          f"device {device_ms:.2f} ms/batch forward + NMS (CUDA events), of it candidate selection "
+          f"{select_ms:.3f} ms and the NMS kernel {kernel_ms:.4f} ms ({kept} picks; CUDA graph; bound "
+          f"{bound_ms:.4f} ms, {bound_by}; plain {plain_ms:.2f} ms); host {host_ms:.1f} ms/batch decode + "
+          f"letterbox on one thread ({png_ms:.1f} ms per PNG decode, 480-800 px, all five filters), "
+          f"{metrics_s * 1e3 / n_batches:.1f} ms/batch metrics; YOLO.val's own split per image: "
+          f"loader wait {speed['preprocess']:.2f} ms, inference {speed['inference']:.2f} ms, "
+          f"metrics {speed['postprocess']:.2f} ms [{card}]", flush=True)
+    record = {"val_ms": kernel_ms, "val_plain_ms": plain_ms, "val_bound_ms": bound_ms, "val_bound_by": bound_by}
+    return launches, record, {"yolo": yolo, "batches": [(b, im) for b, im, _ in kept_batches]}
+
+
+def phase_loss(val_out: dict, card: str) -> None:
+    """yolo11s-fce in train mode (f32, 640 px, B=16), three steps on the val
+    dataset's first three batches with CIoU and with WIoU v3, the WIoU state
+    carried from step to step. Each step: finite parts, fg_count > 0, a
+    finite gradient for every parameter, and the parts (with float32
+    assigner storage) and the WIoU running mean equal to the CPU's on the
+    same feats within LOSS_TOL relative."""
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg, LossState, detection_loss
+
+    yolo = val_out["yolo"]
+    model = yolo.model.train()
+    steps = [((img.permute(0, 3, 1, 2).float() / 255.0),
+              {k: torch.from_numpy(batch[k]).cuda() for k in ("cls", "bboxes", "mask")})
+             for batch, img in val_out["batches"]]
+    params = [p for p in model.parameters() if p.requires_grad]
+    worst = 0.0
+    for iou_type in ("CIoU", "WIoU"):
+        cfg = DetectionLossCfg(nc=yolo.spec.nc, strides=tuple(yolo.strides), iou_type=iou_type)
+        cfg32 = cfg._replace(tal_dtype="float32")
+        state, card32, cpu32 = LossState.init("cuda"), LossState.init("cuda"), LossState.init("cpu")
+        for step, (x, targets) in enumerate(steps):
+            targets_cpu = {k: v.cpu() for k, v in targets.items()}
+            model.zero_grad(set_to_none=True)
+            feats = model(x)["feats"]
+            total, parts, state = detection_loss(feats, targets, cfg, state)
+            total.backward()
+            vals = {k: float(v.detach()) for k, v in parts.items()}
+            check(all(np.isfinite(v) for v in vals.values()) and vals["fg_count"] > 0, f"{iou_type} loss parts {vals}")
+            bad = [i for i, p in enumerate(params) if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+            check(not bad, f"{iou_type}: {len(bad)} parameters without a finite gradient")
+            with torch.no_grad():
+                _, on_card, card32 = detection_loss([f.detach() for f in feats], targets, cfg32, card32)
+                _, on_cpu, cpu32 = detection_loss([f.detach().cpu() for f in feats], targets_cpu, cfg32, cpu32)
+            rel = {k: abs(float(on_card[k]) - float(on_cpu[k])) / max(abs(float(on_cpu[k])), 1e-12) for k in on_cpu}
+            rel["wiou_mean"] = abs(float(card32.wiou_loss_mean) - float(cpu32.wiou_loss_mean)) / abs(
+                float(cpu32.wiou_loss_mean))
+            worst = max(worst, *rel.values())
+            check(max(rel.values()) <= LOSS_TOL, f"{iou_type} step {step}: card vs CPU loss parts differ {rel}")
+            print(f"phase loss: {iou_type} step {step}: box {vals['box']:.5f} cls {vals['cls']:.5f} "
+                  f"dfl {vals['dfl']:.5f} fg {vals['fg_count']:.0f}; card vs CPU (float32 assigner) max rel "
+                  f"{max(rel.values()):.2e} (limit {LOSS_TOL}), WIoU mean card {float(card32.wiou_loss_mean):.6f} "
+                  f"cpu {float(cpu32.wiou_loss_mean):.6f}", flush=True)
+        x, targets = steps[0]
+
+        def step_fn():
+            model.zero_grad(set_to_none=True)
+            detection_loss(model(x)["feats"], targets, cfg, state)[0].backward()
+
+        ms = cuda_ms(step_fn, iters=3, warmup=1)
+        print(f"phase loss: {iou_type} yolo11s-fce {IMGSZ} f32 B={VAL_BATCH}: {ms:.1f} ms forward + loss + "
+              f"backward (CUDA events; TF32 off) [{card}]", flush=True)
+    model.eval()
+    print(f"phase loss: every check passed; worst card vs CPU relative difference {worst:.2e}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script only runs on a GPU")
@@ -354,16 +592,23 @@ def main() -> None:
     stem = phase_stem(yolo.model, spec, yolo_m.model, spec_m, card)
     del yolo_m
     nms = phase_nms(card)
-    launches = phase_e2e(yolo, spec, card)
+    predict = phase_e2e(yolo, spec, card)
+    del yolo
+    with tempfile.TemporaryDirectory() as tmp:
+        val, nms_val, val_out = phase_val(write_val_dataset(Path(tmp)), card)
+        phase_loss(val_out, card)
+    del val_out
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    paths = {"predict": predict, "val": val}
     kernels = [
         {"name": "fused_stem", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/stem.cu",
-         "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", "launches": launches["fused_stem"],
-         **{k: stem[k] for k in keys}},
+         "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", "launches": sum(p["fused_stem"] for p in paths.values()),
+         "launches_by_path": {k: p["fused_stem"] for k, p in paths.items()}, **{k: stem[k] for k in keys}},
         {"name": "pick_suppress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/nms.cu",
-         "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", "launches": launches["pick_suppress"],
-         **{k: nms[k] for k in keys}},
+         "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", "launches": sum(p["pick_suppress"] for p in paths.values()),
+         "launches_by_path": {k: p["pick_suppress"] for k, p in paths.items()}, **{k: nms[k] for k in keys},
+         **nms_val},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,11 +1,13 @@
-"""PyTorch + CUDA port of fce_yolo_tpu (inference slice).
+"""PyTorch + CUDA port of fce_yolo_tpu: detect predict and val, and the
+detection loss.
 
 The JAX package ``fce_yolo_tpu`` is the reference; this package mirrors its
 module names (``nn/parser.py``, ``nn/modules.py``, ``ops/nms.py``, ...) so
 each part has an obvious counterpart. It imports ``torch`` and never JAX,
-flax, cv2 or PIL. The two Pallas kernels of the reference are hand-written
-CUDA kernels here (``csrc/``), built with nvcc at first use and bound with
-ctypes (``kernels/build.py``); on CPU tensors their plain PyTorch versions run.
+flax, cv2, PIL or pyyaml. The two Pallas kernels of the reference are
+hand-written CUDA kernels here (``csrc/``), built with nvcc at first use and
+bound with ctypes (``kernels/build.py``); on CPU tensors their plain PyTorch
+versions run.
 """
 
 __all__ = ["YOLO"]

@@ -1,4 +1,4 @@
-"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-284``), detect predict only."""
+"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-284, 400-423``): detect predict and val."""
 
 from __future__ import annotations
 
@@ -59,3 +59,19 @@ class YOLO:
         predictor = DetectionPredictor(self.model, self.names, imgsz=imgsz, conf=conf, iou=iou,
                                        max_det=max_det, batch_size=batch)
         return list(predictor.stream(source))
+
+    def val(self, data, imgsz: int = 640, batch: int = 16, conf: float = 0.001, iou: float = 0.7,
+            max_det: int = 300, workers: int = 8, verbose: bool = True, save_json=None) -> dict:
+        """mAP on the ``val`` split of ``data`` (a data YAML path or dict; PNG
+        or ``.npy`` images), on the model's device. The dataset's class
+        names replace ``class_*`` placeholders. Returns the validator's
+        results dict."""
+        from fce_yolo_tpu_torch.data.dataset import check_det_dataset
+        from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+
+        d = check_det_dataset(data)
+        if not self.names or all(v.startswith("class_") for v in self.names.values()):
+            self.names = d["names"]
+        validator = DetectionValidator(self.model, self.names, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det,
+                                       batch_size=batch, workers=workers)
+        return validator(data=d, verbose=verbose, save_json=save_json)

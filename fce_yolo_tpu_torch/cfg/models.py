@@ -2,9 +2,9 @@
 
 Equal to ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml`` and
 ``yolo11-fce.yaml`` (YAML's unquoted ``None`` is the string "None", resolved
-by the parser like the reference's literal_eval pass). Keeping them as dicts
-means the port needs no pyyaml; ``load_model_dict`` imports ``yaml`` only for
-a user-given file path.
+by the parser like the reference's literal_eval pass). A user-given model
+YAML file is read by the port's own reader (``utils/yaml_read.py``): the
+port needs no pyyaml.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 import copy
 import re
 from pathlib import Path
+
+from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
 
 _SCALES = {
     "n": [0.5, 0.25, 1024],
@@ -102,14 +104,11 @@ def load_model_dict(name: str | Path) -> tuple[dict, str | None]:
 
     ``yolo11s-fce.yaml`` -> the packaged ``yolo11-fce`` dict with scale 's'
     (the reference's ``yaml_model_load``/``guess_model_scale`` rule). An
-    existing file path is read with pyyaml, imported only here.
+    existing file path is read as it is.
     """
     path = Path(name)
     if path.is_file():
-        import yaml
-
-        with open(path) as fh:
-            return yaml.safe_load(fh), guess_scale(path.stem)
+        return read_yaml(path.read_text()), guess_scale(path.stem)
     stem = path.stem if path.suffix in (".yaml", ".yml") else path.name
     if stem in MODELS:
         return copy.deepcopy(MODELS[stem]), None

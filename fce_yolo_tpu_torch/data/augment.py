@@ -1,4 +1,5 @@
-"""Inference letterbox (reference ``fce_yolo_tpu/data/augment.py:61-93``) with no cv2.
+"""Letterbox and the val transform (reference ``fce_yolo_tpu/data/augment.py:61-102,
+598-616``) with no cv2.
 
 The resize is ``F.interpolate(mode="bilinear", align_corners=False,
 antialias=False)`` in float32, rounded to uint8. cv2's INTER_LINEAR works in
@@ -37,3 +38,27 @@ def letterbox(img: np.ndarray, new_shape: int | tuple[int, int] = 640,
     out = np.full((new_h + top + bottom, new_w + left + right, img.shape[2]), 114, np.uint8)
     out[top: top + new_h, left: left + new_w] = img
     return out, r, (left, top)
+
+
+def _apply_letterbox_boxes(bboxes: np.ndarray, r: float, pad: tuple[int, int]) -> np.ndarray:
+    """Pixel xyxy boxes through the letterbox: ``box * r + pad``."""
+    if bboxes.size == 0:
+        return bboxes
+    out = bboxes * r
+    out[:, [0, 2]] += pad[0]
+    out[:, [1, 3]] += pad[1]
+    return out
+
+
+def val_transform(sample: dict, imgsz: int) -> dict:
+    """Val path: letterbox only (``scaleup=False``); records ratio, pad and
+    the original shape for box scale-back."""
+    img, r, pad = letterbox(sample["img"], imgsz, scaleup=False)
+    return {
+        "img": img,
+        "cls": sample["cls"],
+        "bboxes": _apply_letterbox_boxes(sample["bboxes"].copy(), r, pad),
+        "ratio": r,
+        "pad": pad,
+        "orig_shape": sample["img"].shape[:2],
+    }

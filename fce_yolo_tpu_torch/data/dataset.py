@@ -1,0 +1,198 @@
+"""YOLO-format detection dataset, val mode (reference ``fce_yolo_tpu/data/dataset.py:32-529``).
+
+- ``check_det_dataset`` takes a data YAML path or a dict. The YAML is read
+  by ``utils/yaml_read.py``, so no pyyaml is needed; only ``path``,
+  ``train``, ``val``, ``test``, ``nc`` and ``names`` are kept. There is no
+  packaged dataset-name registry here.
+- ``YOLODataset`` parses the labels at construction, every time: the JAX
+  package's ``.labels_*.npz`` cache is neither written nor read. Images are
+  read by ``data/imread.py`` (PNG or ``.npy``), letterboxed without cv2
+  (``data/augment.py``) and leave as RGB.
+- ``collate`` pads labels to a fixed count per image, as the JAX batches do.
+
+Labels live in the sibling ``labels/`` tree, one ``.txt`` per image, one
+``cls cx cy w h`` row (normalized xywh) per object.
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import numpy as np
+
+from fce_yolo_tpu_torch.data.augment import val_transform
+from fce_yolo_tpu_torch.data.imread import imread
+from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
+
+IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
+DATA_KEYS = ("path", "train", "val", "test", "nc", "names")
+
+__all__ = ["IMG_FORMATS", "read_data_yaml", "check_det_dataset", "img2label_path", "YOLODataset", "collate"]
+
+
+def read_data_yaml(text: str) -> dict:
+    """The top-level ``path``, ``train``, ``val``, ``test``, ``nc`` and
+    ``names`` of a data YAML; other keys (``download: |`` scripts included)
+    are skipped unread."""
+    return read_yaml(text, keys=DATA_KEYS)
+
+
+# ------------------------------------------------------------------- dataset
+def check_det_dataset(dataset: str | Path | dict) -> dict:
+    """Load and normalise a data YAML path or dict (reference
+    ``dataset.py:62-109``): returns it with ``names`` as {int: str}, ``nc``,
+    and absolute ``path`` and split paths. A relative ``path`` resolves next
+    to the YAML (the working directory for a dict), else under
+    ``$FY_DATASETS_DIR`` when that is set. Missing split paths raise."""
+    if isinstance(dataset, (str, Path)):
+        path = Path(dataset)
+        if not path.is_file():
+            raise FileNotFoundError(f"data YAML {dataset} not found (the port takes a path or a dict; "
+                                    "it has no registry of dataset names)")
+        d = read_data_yaml(path.read_text())
+        yaml_dir = path.resolve().parent
+    else:
+        d, yaml_dir = dict(dataset), Path.cwd()
+
+    names = d.get("names")
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    elif names is None and "nc" in d:
+        names = {i: f"class_{i}" for i in range(d["nc"])}
+    d["names"] = {int(k): str(v) for k, v in names.items()}
+    d["nc"] = len(d["names"])
+
+    root = Path(d.get("path") or ".").expanduser()
+    if not root.is_absolute():
+        local = (yaml_dir / root).resolve()
+        base = os.environ.get("FY_DATASETS_DIR")
+        if local.exists() or not base:
+            root = local
+        else:
+            base = Path(base).expanduser()
+            root = (base if base.is_absolute() else Path.cwd() / base) / root
+    d["path"] = str(root)
+    for split in ("train", "val", "test"):
+        if d.get(split):
+            v = d[split]
+            vv = [v] if isinstance(v, str) else list(v)
+            resolved = [str(p if os.path.isabs(p) else root / p) for p in vv]
+            d[split] = resolved[0] if isinstance(v, str) else resolved
+            for p in resolved:
+                if not os.path.exists(p):
+                    raise FileNotFoundError(f"dataset {split} path not found: {p}")
+    return d
+
+
+def img2label_path(img_path: str) -> str:
+    """images/.../x.png -> labels/.../x.txt (reference ``dataset.py:112``)."""
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    return sb.join(img_path.rsplit(sa, 1)).rsplit(".", 1)[0] + ".txt"
+
+
+def _scan_images(src: str | list) -> list[str]:
+    """Image files of a directory tree (by extension, sorted), a ``.txt``
+    list of paths, a single file, or a list of those."""
+    files: list[str] = []
+    for p in [src] if isinstance(src, str) else src:
+        p = Path(p)
+        if p.is_dir():
+            files += [str(f) for f in sorted(p.rglob("*")) if f.suffix[1:].lower() in IMG_FORMATS]
+        elif p.is_file() and p.suffix == ".txt":
+            base = p.parent
+            for line in p.read_text().splitlines():
+                line = line.strip()
+                if line:
+                    files.append(str((base / line).resolve()) if not os.path.isabs(line) else line)
+        elif p.is_file():
+            files.append(str(p))
+        else:
+            raise FileNotFoundError(f"image source not found: {p}")
+    return files
+
+
+def _read_labels(label_path: str) -> dict:
+    """One label file -> {"cls" (n,), "xywhn" (n, 4)} float32; none if absent."""
+    rows = []
+    if os.path.exists(label_path):
+        rows = [l.split() for l in Path(label_path).read_text().splitlines() if l.strip()]
+    if any(len(r) != 5 for r in rows):
+        raise ValueError(f"{label_path}: a detect label row is 'cls cx cy w h'; segment, pose and "
+                         "OBB labels are not read by the port yet")
+    arr = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
+    return {"cls": arr[:, 0], "xywhn": arr[:, 1:5]}
+
+
+class YOLODataset:
+    """Detection dataset over a YOLO image/label tree, val mode: each item
+    is the letterboxed RGB image with its labels in letterbox pixels.
+
+    Args:
+        img_path: a split from the data YAML (dir, ``.txt`` list, or a list).
+        imgsz: square letterbox size.
+        mode: "val" only; the train augment is not ported yet.
+        nc: class count (else 1 + the largest label).
+    """
+
+    def __init__(self, img_path: str | list, imgsz: int = 640, mode: str = "val", nc: int | None = None):
+        if mode != "val":
+            raise NotImplementedError(f"mode {mode!r}: the port's dataset has the val mode only")
+        self.imgsz = imgsz
+        self.mode = mode
+        self.im_files = _scan_images(img_path)
+        if not self.im_files:
+            raise FileNotFoundError(f"no images found in {img_path}")
+        self.labels = [_read_labels(img2label_path(f)) for f in self.im_files]
+        self.nc = nc if nc is not None else int(max((l["cls"].max() for l in self.labels if l["cls"].size), default=0) + 1)
+
+    def __len__(self) -> int:
+        return len(self.im_files)
+
+    def load_raw(self, i: int) -> dict:
+        """Image i as read (BGR uint8) with its labels as pixel xyxy."""
+        img = imread(self.im_files[i])
+        h, w = img.shape[:2]
+        lab = self.labels[i]
+        xywh = lab["xywhn"] * np.array([w, h, w, h], np.float32)
+        boxes = np.empty_like(xywh)
+        if len(xywh):
+            boxes[:, 0] = xywh[:, 0] - xywh[:, 2] / 2
+            boxes[:, 1] = xywh[:, 1] - xywh[:, 3] / 2
+            boxes[:, 2] = xywh[:, 0] + xywh[:, 2] / 2
+            boxes[:, 3] = xywh[:, 1] + xywh[:, 3] / 2
+        return {"img": img, "cls": lab["cls"].copy(), "bboxes": boxes}
+
+    def __getitem__(self, i: int) -> dict:
+        out = val_transform(self.load_raw(i), self.imgsz)
+        out["img"] = np.ascontiguousarray(out["img"][..., ::-1])  # BGR -> RGB at the exit
+        return out
+
+
+def collate(samples: list[dict], max_labels: int = 128) -> dict:
+    """Stack samples into one fixed-shape batch: img (B, S, S, 3) uint8 NHWC,
+    cls (B, M), bboxes (B, M, 4) xywh normalized by the image size, mask
+    (B, M) bool, and the val extras ratio (B,), pad (B, 2), orig_shape (B, 2)."""
+    b = len(samples)
+    img = np.stack([x["img"] for x in samples], 0)
+    cls = np.zeros((b, max_labels), np.float32)
+    bboxes = np.zeros((b, max_labels, 4), np.float32)
+    mask = np.zeros((b, max_labels), bool)
+    for i, x in enumerate(samples):
+        n = min(len(x["cls"]), max_labels)
+        if n:
+            cls[i, :n] = x["cls"][:n]
+            xyxy = x["bboxes"][:n]
+            h, w = x["img"].shape[:2]
+            cx = (xyxy[:, 0] + xyxy[:, 2]) / 2 / w
+            cy = (xyxy[:, 1] + xyxy[:, 3]) / 2 / h
+            bw = (xyxy[:, 2] - xyxy[:, 0]) / w
+            bh = (xyxy[:, 3] - xyxy[:, 1]) / h
+            bboxes[i, :n] = np.stack([cx, cy, bw, bh], 1)
+            mask[i, :n] = True
+    out = {"img": img, "cls": cls, "bboxes": bboxes, "mask": mask}
+    if "ratio" in samples[0]:
+        out["ratio"] = np.array([x["ratio"] for x in samples], np.float32)
+        out["pad"] = np.array([x["pad"] for x in samples], np.float32)
+        out["orig_shape"] = np.array([x["orig_shape"] for x in samples], np.int32)
+    return out

@@ -1,0 +1,177 @@
+"""Detection validator (reference ``fce_yolo_tpu/engine/validator.py:26-337``):
+the model and NMS on the model's device, the matching and AP on the host.
+
+Per fixed-shape batch: ``x = img_u8 / 255`` in the model's dtype, the model
+in eval mode on the plain graph (no stem kernel, as in the JAX validator),
+then ``batched_nms`` multi-label at ``conf=0.001``, ``iou=0.7``,
+``max_det=300`` over a pool of ``pre_nms_topk=4096`` candidates, whose
+greedy pass is the NMS kernel on a card. With fewer dataset classes than the
+model has, the other class channels ride along as ``extra``. Predictions are
+matched to the labels in letterbox pixels; only the first ``n_valid`` images
+of a batch count.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+from fce_yolo_tpu_torch.data.loader import DataLoader
+from fce_yolo_tpu_torch.nn.model import DetectionModel
+from fce_yolo_tpu_torch.ops.nms import batched_nms
+from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
+
+__all__ = ["DetectionValidator"]
+
+
+class DetectionValidator:
+    """Runs a val epoch and returns the results dict (P, R, mAP50, mAP50-95,
+    fitness, the confusion matrix and the ``DetMetrics``).
+
+    Args:
+        model: the port's ``DetectionModel``, on the device it runs on.
+        names: class id -> name; its length is the class count scored.
+        imgsz: square letterbox size.
+        conf, iou, max_det, pre_nms_topk: NMS settings (the val defaults).
+        batch_size, workers: loader batch and reader threads.
+    """
+
+    def __init__(self, model: DetectionModel, names: dict[int, str], imgsz: int = 640, conf: float = 0.001,
+                 iou: float = 0.7, max_det: int = 300, batch_size: int = 16, workers: int = 8,
+                 pre_nms_topk: int = 4096):
+        self.model = model
+        self.names = names
+        self.nc = len(names)
+        self.imgsz = imgsz
+        self.conf = conf
+        self.iou = iou
+        self.max_det = max_det
+        self.batch_size = batch_size
+        self.workers = workers
+        self.pre_nms_topk = pre_nms_topk
+
+    def get_dataloader(self, data: str | Path | dict) -> DataLoader:
+        """Fixed-shape batches of the ``val`` split of ``data``."""
+        d = check_det_dataset(data)
+        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"])
+        return DataLoader(ds, batch_size=self.batch_size, workers=self.workers)
+
+    @torch.inference_mode()
+    def forward(self, img_u8: torch.Tensor) -> torch.Tensor:
+        """uint8 RGB NHWC batch on the model's device -> decoded preds (B, N, 4 + nc)."""
+        dtype = next(self.model.parameters()).dtype
+        x = (img_u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
+        return self.model(x)["preds"]
+
+    @torch.inference_mode()
+    def nms(self, preds: torch.Tensor) -> dict[str, torch.Tensor]:
+        """Multi-label NMS over the dataset's classes (fixed (B, max_det) outputs)."""
+        return batched_nms(preds, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                           nc=self.nc, pre_nms_topk=self.pre_nms_topk)
+
+    def __call__(self, data: str | Path | dict, verbose: bool = True,
+                 save_json: str | Path | None = None) -> dict[str, Any]:
+        """Validate on the ``val`` split of ``data`` (a data YAML path or dict).
+
+        ``save_json``: write COCO-format detections (original image pixels) there.
+        """
+        loader = self.get_dataloader(data)
+        device = next(self.model.parameters()).device
+        metrics = DetMetrics(names=self.names)
+        cm = ConfusionMatrix(names=self.names)
+        json_dets: list[dict] = []
+        t_pre = t_infer = t_post = 0.0
+        n_images = 0
+        was_training = self.model.training
+        self.model.eval()
+        batches = iter(loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                t_pre += time.perf_counter() - t0
+                if batch is None:
+                    break
+                t0 = time.perf_counter()
+                img = torch.from_numpy(batch["img"]).to(device)
+                out = {k: v.cpu().numpy() for k, v in self.nms(self.forward(img)).items()}
+                t_infer += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                self._update_metrics(out, batch, metrics, cm, json_dets if save_json else None, n_images)
+                t_post += time.perf_counter() - t0
+                n_images += batch["n_valid"]
+        finally:
+            batches.close()  # stops the loader's reader threads if a batch raised
+            self.model.train(was_training)
+
+        metrics.process(nc=self.nc)
+        ms = 1000.0 / max(n_images, 1)
+        metrics.speed = {"preprocess": t_pre * ms, "inference": t_infer * ms, "loss": 0.0, "postprocess": t_post * ms}
+        results = metrics.results_dict
+        if verbose:
+            print(f"{'Class':>12} {'Images':>8} {'Instances':>10} {'P':>8} {'R':>8} {'mAP50':>8} {'mAP50-95':>9}")
+            mp, mr, map50, map5095 = metrics.mean_results()
+            print(f"{'all':>12} {n_images:>8} {int(metrics.nt_per_class.sum()):>10} "
+                  f"{mp:>8.3g} {mr:>8.3g} {map50:>8.3g} {map5095:>9.3g}")
+            if self.nc > 1 and metrics.ap_class_index.size:
+                for i, c in enumerate(metrics.ap_class_index):
+                    p, r, a50, a = metrics.class_result(i)
+                    print(f"{self.names.get(int(c), c):>12} {int(metrics.nt_per_image[c]):>8} "
+                          f"{int(metrics.nt_per_class[c]):>10} {p:>8.3g} {r:>8.3g} {a50:>8.3g} {a:>9.3g}")
+        if save_json:
+            Path(save_json).parent.mkdir(parents=True, exist_ok=True)
+            Path(save_json).write_text(json.dumps(json_dets))
+        results["confusion_matrix"] = cm
+        results["metrics"] = metrics
+        return results
+
+    def _update_metrics(self, out: dict, batch: dict, metrics: DetMetrics, cm: ConfusionMatrix,
+                        json_dets: list | None = None, image_id_base: int = 0) -> None:
+        """Match one batch's predictions to its labels in letterbox pixels
+        (the NMS outputs as they are, the labels lifted to the batch's image
+        size); scale back to original pixels only for the JSON rows."""
+        bh_img, bw_img = batch["img"].shape[1:3]
+        s = np.array([bw_img, bh_img, bw_img, bh_img], np.float32)
+        for i in range(batch["n_valid"]):
+            valid = np.asarray(out["valid"][i])
+            pboxes = np.asarray(out["boxes"][i])[valid]  # letterbox-pixel xyxy
+            pconf = np.asarray(out["scores"][i])[valid]
+            pcls = np.asarray(out["classes"][i])[valid].astype(float)
+
+            m = batch["mask"][i]
+            gxywh = batch["bboxes"][i][m] * s  # letterbox-pixel xywh
+            gcls = batch["cls"][i][m].astype(float)
+            gboxes = np.empty_like(gxywh)
+            if len(gxywh):
+                gboxes[:, 0] = gxywh[:, 0] - gxywh[:, 2] / 2
+                gboxes[:, 1] = gxywh[:, 1] - gxywh[:, 3] / 2
+                gboxes[:, 2] = gxywh[:, 0] + gxywh[:, 2] / 2
+                gboxes[:, 3] = gxywh[:, 1] + gxywh[:, 3] / 2
+
+            if len(pcls) and len(gcls):
+                tp = match_predictions(pcls, gcls, box_iou_np(gboxes, pboxes))
+            else:
+                tp = np.zeros((len(pcls), 10), bool)
+            metrics.update_stats(dict(tp=tp, conf=pconf, pred_cls=pcls, target_cls=gcls, target_img=np.unique(gcls)))
+            cm.process_batch(dict(bboxes=pboxes, conf=pconf, cls=pcls), dict(bboxes=gboxes, cls=gcls))
+            if json_dets is not None:  # COCO rows in original image pixels
+                r = float(batch["ratio"][i])
+                pw, ph = batch["pad"][i]
+                oh, ow = batch["orig_shape"][i]
+                jboxes = (pboxes - np.array([pw, ph, pw, ph])) / r
+                jboxes[:, [0, 2]] = jboxes[:, [0, 2]].clip(0, ow)
+                jboxes[:, [1, 3]] = jboxes[:, [1, 3]].clip(0, oh)
+                for bb, cf, cl in zip(jboxes, pconf, pcls):
+                    json_dets.append({
+                        "image_id": image_id_base + i,
+                        "category_id": int(cl),
+                        "bbox": [round(float(bb[0]), 3), round(float(bb[1]), 3),
+                                 round(float(bb[2] - bb[0]), 3), round(float(bb[3] - bb[1]), 3)],
+                        "score": round(float(cf), 5),
+                    })

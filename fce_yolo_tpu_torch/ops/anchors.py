@@ -1,4 +1,4 @@
-"""Anchor grids, distance -> box transform and DFL expectation decode
+"""Anchor grids, distance <-> box transforms and DFL expectation decode
 (reference ``fce_yolo_tpu/ops/anchors.py:17-96``). Trailing-axis layouts,
 anchor-major like the reference."""
 
@@ -44,3 +44,9 @@ def dfl_expectation(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     x = pred_dist.reshape(*pred_dist.shape[:-1], 4, reg_max).softmax(dim=-1)
     proj = torch.arange(reg_max, dtype=x.dtype, device=x.device)
     return torch.einsum("...kr,r->...k", x, proj)
+
+
+def bbox2dist(anchor_points: torch.Tensor, bbox: torch.Tensor, reg_max: int) -> torch.Tensor:
+    """xyxy boxes -> (l, t, r, b) distances from the anchors, clamped to [0, reg_max - 0.01]."""
+    x1y1, x2y2 = bbox[..., :2], bbox[..., 2:4]
+    return torch.cat([anchor_points - x1y1, x2y2 - anchor_points], dim=-1).clamp(0, reg_max - 0.01)

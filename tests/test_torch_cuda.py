@@ -1,21 +1,33 @@
-"""The port's CUDA kernels vs their plain versions on a card. Every test
-here needs a CUDA device and skips without one. The file imports no JAX (the
-GPU machine has none), so it runs there on its own:
+"""The port's CUDA kernels vs their plain versions on a card, and the
+validator and the loss on the card. Every test here needs a CUDA device and
+skips without one. The file imports no JAX (the GPU machine has none), so it
+runs there on its own:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -p no:cacheprovider -q
 
 Tolerances: the stem kernel within 0.02 * max|ref| of the f32 plain
 version with a uniform per-row error (bf16 between stages, the JAX kernel
-test's bound); the NMS kernel's idx/ok exactly equal to the plain version's.
+test's bound); the NMS kernel's idx/ok exactly equal to the plain version's,
+and so the validator's metrics too; the loss on the card within 1e-4
+relative of the CPU's (float32, sums in another order, the assigner's
+overlaps stored in float32) and its gradient within 1e-4 of the largest.
 """
+
+import struct
+import zlib
 
 import numpy as np
 import pytest
 import torch
 
 from fce_yolo_tpu_torch import YOLO
+from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+from fce_yolo_tpu_torch.nn.model import init_weights
+from fce_yolo_tpu_torch.ops import nms as nms_ops
 from fce_yolo_tpu_torch.ops import stem as S
 from fce_yolo_tpu_torch.ops.nms import pick_suppress, pick_suppress_reference
+from fce_yolo_tpu_torch.train.loss import DetectionLossCfg, LossState, detection_loss
+from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
 from test_torch_nms_emulated import at_threshold
 
 SHAPES = [  # the JAX kernel test's five shapes (test_pallas_stem.py:41-47)
@@ -187,3 +199,112 @@ def test_predict_on_card_takes_both_kernels(cuda):
     res = y.predict(imgs, imgsz=160, batch=4)
     assert S.fused_stem.launches == stem0 + 2 and pick_suppress.launches == nms0 + 2
     assert len(res) == 6 and all(np.isfinite(r.boxes.data).all() for r in res)
+
+
+def _write_png(path, rgb):
+    """An 8-bit RGB PNG, no row filter, written with zlib."""
+    h, w, _ = rgb.shape
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], 1).tobytes()
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _val_dataset(root, n=6, nc=80):
+    """n PNG images of 120-200 px with rectangles of classes 0-2; nc class names."""
+    rng = np.random.RandomState(0)
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for i in range(n):
+        h, w = rng.randint(120, 201, 2)
+        img = np.full((h, w, 3), 60, np.uint8)
+        lines = []
+        for _ in range(rng.randint(1, 4)):
+            k = rng.randint(0, 3)
+            bw, bh = rng.uniform(0.2, 0.4), rng.uniform(0.2, 0.4)
+            cx, cy = rng.uniform(bw / 2, 1 - bw / 2), rng.uniform(bh / 2, 1 - bh / 2)
+            img[int((cy - bh / 2) * h): int((cy + bh / 2) * h), int((cx - bw / 2) * w): int((cx + bw / 2) * w)] = 200
+            lines.append(f"{k} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
+        _write_png(root / "images" / "val" / f"{i}.png", img)
+        (root / "labels" / "val" / f"{i}.txt").write_text("\n".join(lines) + "\n")
+    names = "".join(f"  - c{i}\n" for i in range(nc))
+    (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnames:\n{names}")
+    return str(root / "data.yaml")
+
+
+@pytest.mark.cuda
+def test_val_with_the_nms_kernel_matches_the_plain_version(cuda, tmp_path, monkeypatch):
+    """YOLO.val on the card launches the NMS kernel once per batch at K=4096
+    (525 anchors x 80 classes at 160 px); on the same candidates the kernel
+    and the plain version give the same idx/ok and the same metrics."""
+    data = _val_dataset(tmp_path)
+    y = YOLO("yolo11n-fce.yaml", device=cuda)
+    init_weights(y.model, torch.Generator().manual_seed(0), bias_prior=False)
+    before = pick_suppress.launches
+    res = y.val(data=data, imgsz=160, batch=4, verbose=False)
+    assert pick_suppress.launches == before + 2 and len(res["metrics"].stats["conf"]) == 6
+
+    val = DetectionValidator(y.model, y.names, imgsz=160, batch_size=4)
+    sets = {k: (DetMetrics(names=y.names), ConfusionMatrix(names=y.names)) for k in ("kernel", "plain")}
+    seen = {}
+
+    def plain(boxes, scores, valid, iou_thres, max_det):
+        seen["k"] = boxes.shape[1]
+        return pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+
+    n = 0
+    y.model.eval()
+    for batch in val.get_dataloader(data):
+        preds = val.forward(torch.from_numpy(batch["img"]).to(cuda))
+        outs = {}
+        for name, fn in (("kernel", pick_suppress), ("plain", plain)):
+            monkeypatch.setattr(nms_ops, "pick_suppress", fn)
+            outs[name] = {k: v.cpu().numpy() for k, v in val.nms(preds).items()}
+        assert seen["k"] == 4096
+        for k in outs["kernel"]:
+            np.testing.assert_array_equal(outs["kernel"][k], outs["plain"][k], err_msg=k)
+        for name, (m, cm) in sets.items():
+            val._update_metrics(outs[name], batch, m, cm, None, n)
+        n += batch["n_valid"]
+    for m, _ in sets.values():
+        m.process(nc=val.nc)
+    assert sets["kernel"][0].mean_results() == sets["plain"][0].mean_results()
+    np.testing.assert_array_equal(sets["kernel"][1].matrix, sets["plain"][1].matrix)
+
+
+def _loss_case(seed, b=2, imgsz=256, nc=80, m=8):
+    rng = np.random.RandomState(seed)
+    feats = [rng.normal(0, 1.5, (b, 64 + nc, imgsz // s, imgsz // s)).astype(np.float32) for s in (8, 16, 32)]
+    bboxes = np.concatenate([rng.uniform(0.2, 0.8, (b, m, 2)), rng.uniform(0.1, 0.4, (b, m, 2))], -1).astype(np.float32)
+    mask = np.ones((b, m), bool)
+    mask[0, m // 2:] = False
+    bboxes[~mask] = 0
+    return feats, {"cls": rng.randint(0, 3, (b, m)).astype(np.float32), "bboxes": bboxes, "mask": mask}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("iou_type", ["CIoU", "WIoU"])
+def test_loss_on_the_card_matches_the_cpu(cuda, iou_type):
+    cfg = DetectionLossCfg(nc=80, iou_type=iou_type, tal_dtype="float32")
+    devices = {"cpu": torch.device("cpu"), "card": cuda}
+    states = {k: LossState.init(d) for k, d in devices.items()}
+    for step in range(3 if iou_type == "WIoU" else 1):
+        feats, batch = _loss_case(step)
+        out = {}
+        for name, dev in devices.items():
+            fs = [torch.from_numpy(f).to(dev).requires_grad_() for f in feats]
+            targets = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+            total, parts, states[name] = detection_loss(fs, targets, cfg, states[name])
+            total.backward()
+            out[name] = ({k: float(v.detach()) for k, v in parts.items()}, [f.grad.cpu().numpy() for f in fs])
+        (p_cpu, g_cpu), (p_card, g_card) = out["cpu"], out["card"]
+        assert p_card["fg_count"] == p_cpu["fg_count"] > 0
+        for k in ("box", "cls", "dfl"):
+            assert abs(p_card[k] - p_cpu[k]) <= 1e-4 * abs(p_cpu[k]), (k, p_card[k], p_cpu[k])
+        for gc, gg in zip(g_card, g_cpu):
+            np.testing.assert_allclose(gc, gg, rtol=0, atol=1e-4 * np.abs(gg).max())
+        np.testing.assert_allclose(float(states["card"].wiou_loss_mean), float(states["cpu"].wiou_loss_mean),
+                                   rtol=1e-5)

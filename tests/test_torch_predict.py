@@ -53,25 +53,48 @@ def test_predict_matches_jax_facade(name):
         np.testing.assert_allclose(o.boxes.conf, r.boxes.conf, rtol=0, atol=1e-5)
 
 
-def test_import_and_predict_without_jax_cv2_pil():
-    """Every port module imports, and a CPU predict runs, with jax, flax,
-    cv2, PIL, yaml and the JAX package blocked."""
+def test_import_and_predict_without_jax_cv2_pil(tmp_path):
+    """Every port module imports, a model YAML file is read, and a CPU
+    predict and a CPU val (on a PNG dataset written with zlib) run, with jax,
+    flax, cv2, PIL, yaml and the JAX package blocked."""
     code = textwrap.dedent("""
         import sys
         for m in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
             sys.modules[m] = None
-        import importlib, pkgutil
+        import importlib, pkgutil, struct, zlib
+        from pathlib import Path
         import numpy as np
         import fce_yolo_tpu_torch
         for info in pkgutil.walk_packages(fce_yolo_tpu_torch.__path__, "fce_yolo_tpu_torch."):
             importlib.import_module(info.name)
         from fce_yolo_tpu_torch import YOLO
+        from fce_yolo_tpu_torch.cfg.models import MODELS, load_model_dict
+        assert load_model_dict("fce_yolo_tpu/cfg/models/yolo11-fce.yaml") == (MODELS["yolo11-fce"], None)
         img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
         res = YOLO("yolo11n-fce.yaml", device="cpu").predict([img, img], imgsz=64, batch=2)
         assert len(res) == 2 and res[0].boxes.data.shape[1] == 6
+
+        root = Path(sys.argv[1])
+        def chunk(kind, body):
+            return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+        for i, (h, w) in enumerate([(40, 56), (64, 48), (52, 52)]):
+            rgb = np.full((h, w, 3), 60, np.uint8)
+            rgb[h // 4: 3 * h // 4, w // 4: 3 * w // 4] = (255, 80, 80)
+            raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, -1)], 1).tobytes()
+            (root / "images" / "val").mkdir(parents=True, exist_ok=True)
+            (root / "labels" / "val").mkdir(parents=True, exist_ok=True)
+            (root / "images" / "val" / f"{i}.png").write_bytes(
+                b"\\x89PNG\\r\\n\\x1a\\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+            (root / "labels" / "val" / f"{i}.txt").write_text("1 0.5 0.5 0.5 0.5\\n")
+        (root / "data.yaml").write_text(f"path: {root}\\nval: images/val\\nnames:\\n  0: a\\n  1: b\\n")
+        out = YOLO("yolo11n-fce.yaml", device="cpu").val(data=str(root / "data.yaml"), imgsz=64, batch=2,
+                                                         verbose=False)
+        assert 0 <= out["metrics/mAP50-95(B)"] <= 1 and len(out["metrics"].stats["conf"]) == 3
         print("ok", len(res[0]))
     """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
     assert out.stdout.startswith("ok")
 
