@@ -8,7 +8,12 @@ from a seed) and checks that each path went through its kernels:
   the validator's K=4096 over 80 classes, once per batch, bit-equal to the
   plain version on every batch and giving the same P, R and mAP;
 - ``detection_loss`` (train mode, f32, B=16) with CIoU and with WIoU v3 over
-  three steps: finite parts and gradients, equal to the loss on the CPU.
+  three steps: finite parts and gradients, equal to the loss on the CPU;
+- ``YOLO.train`` (bf16, AdamW, B=16, 2 epochs on those 64 images as both
+  splits): finite losses, checkpoints, the NMS kernel once per val batch of
+  each epoch and bit-equal to the plain version on the last epoch's, the
+  reloaded ``best`` giving the run's mAP; the train step timed in bf16 and
+  f32; one f32 SGD step on the card against the CPU and a float64 step.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -46,6 +51,8 @@ IMGSZ = 640
 VAL_IMAGES, VAL_BATCH, VAL_NC = 64, 16, 80  # 4 val batches; 80 class names, labels in classes 0-2
 LOSS_STEPS = 3  # phase loss: one step on each of the first val batches
 LOSS_TOL = 1e-3  # card vs CPU loss parts, relative: float32 in both, sums in another order
+TRAIN_EPOCHS = 2  # phase train: YOLO.train on the 64 val images as both splits
+TRAIN_TOL = 1e-3  # phase train (a), card vs CPU: loss parts, relative; updates, of the largest update
 # one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
@@ -386,6 +393,54 @@ def write_val_dataset(root: Path) -> str:
     return str(root / "data.yaml")
 
 
+def matching_model(yolo):
+    """Seed-0 weights without the class prior, then so that some detections
+    match the labels (mAP above zero): DFL bin 8 of every side up by 6 (boxes
+    ~16 strides wide) and the labels' classes 0-2 up by 1 (scores ~0.73, the
+    rest ~0.5)."""
+    from fce_yolo_tpu_torch.nn.model import init_weights
+
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    with torch.no_grad():
+        for branch in yolo.model.detect.cv2:
+            branch[-1].bias[8::16] += 6.0
+        for branch in yolo.model.detect.cv3:
+            branch[-1].bias[:3] += 1.0
+    return yolo
+
+
+def nms_kernel_vs_plain(val, preds: torch.Tensor, calls: list) -> dict:
+    """``val.nms(preds)`` with the NMS kernel, then again with its plain
+    version swapped into ``ops.nms``; the kernel then runs on the candidates
+    the plain pass saw, once the swap is undone (inside it, the kernel's
+    wrapper would count on the swapped-in function). Checks idx/ok and the
+    ``batched_nms`` outputs equal; appends (candidates, plain (idx, ok)) to
+    ``calls``; returns both passes' outputs as numpy."""
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+
+    real = nms_ops.pick_suppress
+
+    def plain(boxes, scores, valid, iou_thres, max_det):
+        out = nms_ops.pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+        calls.append(((boxes.clone(), scores.clone(), valid.clone()), out))
+        return out
+
+    outs = {"kernel": {k: v.cpu().numpy() for k, v in val.nms(preds).items()}}
+    try:
+        nms_ops.pick_suppress = plain
+        outs["plain"] = {k: v.cpu().numpy() for k, v in val.nms(preds).items()}
+    finally:
+        nms_ops.pick_suppress = real
+    args, (ip, op) = calls[-1]
+    ik, ok = real(*args, iou_thres=val.iou, max_det=val.max_det)
+    check(args[0].shape[1] == NMS_K_VAL, f"val NMS ran at K={args[0].shape[1]}, not {NMS_K_VAL}")
+    mism = int((ik != ip).sum() + (ok != op).sum())
+    check(mism == 0, f"val batch {len(calls)}: NMS kernel differs from the plain version ({mism})")
+    check(all((outs["kernel"][k] == outs["plain"][k]).all() for k in outs["kernel"]),
+          f"val batch {len(calls)}: batched_nms outputs differ between the kernel and the plain version")
+    return outs
+
+
 def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
     """``YOLO.val`` with the counts at 0, then each batch again with the NMS
     kernel and with its plain version on the same candidates: idx/ok equal,
@@ -396,19 +451,12 @@ def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.data.imread import imread
     from fce_yolo_tpu_torch.engine.validator import DetectionValidator
-    from fce_yolo_tpu_torch.nn.model import init_weights
     from fce_yolo_tpu_torch.ops import nms as nms_ops
     from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
     from fce_yolo_tpu_torch.ops.stem import fused_stem
     from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
 
-    yolo = YOLO("yolo11s-fce.yaml", device="cuda")  # float32, the plain graph (as the JAX validator)
-    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
-    with torch.no_grad():  # so that some detections match the labels (mAP above zero):
-        for branch in yolo.model.detect.cv2:  # DFL bin 8 of every side up by 6: boxes ~16 strides wide
-            branch[-1].bias[8::16] += 6.0
-        for branch in yolo.model.detect.cv3:  # the labels' classes 0-2 up by 1: scores ~0.73, the rest ~0.5
-            branch[-1].bias[:3] += 1.0
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))  # float32, the plain graph (as the JAX validator)
     with torch.inference_mode():  # cuDNN's first-call set-up, outside the timed run
         yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
     torch.cuda.synchronize()
@@ -427,34 +475,13 @@ def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
     loader = val.get_dataloader(data)
     real = nms_ops.pick_suppress
     calls: list[tuple] = []  # per batch: the candidates and the plain version's (idx, ok)
-
-    def plain(boxes, scores, valid, iou_thres, max_det):
-        """The plain version where ``batched_nms`` calls the kernel; keeps
-        the candidates so that the kernel runs on them once the swap is undone
-        (inside it, the kernel's wrapper would count on this function)."""
-        out = nms_ops.pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
-        calls.append(((boxes.clone(), scores.clone(), valid.clone()), out))
-        return out
-
     sets = {k: (DetMetrics(names=yolo.names), ConfusionMatrix(names=yolo.names)) for k in ("kernel", "plain")}
     metrics_s, kept_batches, n_images = 0.0, [], 0
     yolo.model.eval()
     for batch in loader:
         img = torch.from_numpy(batch["img"]).cuda()
         preds = val.forward(img)
-        outs = {"kernel": {k: v.cpu().numpy() for k, v in val.nms(preds).items()}}
-        try:
-            nms_ops.pick_suppress = plain
-            outs["plain"] = {k: v.cpu().numpy() for k, v in val.nms(preds).items()}
-        finally:
-            nms_ops.pick_suppress = real
-        args, (ip, op) = calls[-1]
-        ik, ok = real(*args, iou_thres=val.iou, max_det=val.max_det)
-        check(args[0].shape[1] == NMS_K_VAL, f"val NMS ran at K={args[0].shape[1]}, not {NMS_K_VAL}")
-        mism = int((ik != ip).sum() + (ok != op).sum())
-        check(mism == 0, f"val batch {len(calls)}: NMS kernel differs from the plain version ({mism})")
-        check(all((outs["kernel"][k] == outs["plain"][k]).all() for k in outs["kernel"]),
-              f"val batch {len(calls)}: batched_nms outputs differ between the kernel and the plain version")
+        outs = nms_kernel_vs_plain(val, preds, calls)
         for name, (m, cm) in sets.items():
             t0 = time.perf_counter()
             val._update_metrics(outs[name], batch, m, cm, None, n_images)
@@ -559,6 +586,232 @@ def phase_loss(val_out: dict, card: str) -> None:
     print(f"phase loss: every check passed; worst card vs CPU relative difference {worst:.2e}", flush=True)
 
 
+def train_data(root: Path) -> dict:
+    """The val images as the train split too (phase train's data), 80 names."""
+    return {"path": str(root), "train": "images/val", "val": "images/val", "names": [f"class{i}" for i in range(VAL_NC)]}
+
+
+def step_delta_check(data: dict, card: str) -> float:
+    """Phase train (a): one SGD step (no warmup and nbs = the batch, so the
+    step fires and every parameter moves; training BN; float32, TF32 off;
+    the assigner's overlaps stored in float32, as in phase loss) of the
+    port's train step on the card and on the CPU, from the same weights and
+    the same mosaic batch.
+
+    Checks, card against CPU: the loss parts within TRAIN_TOL relative; the
+    parameter updates within TRAIN_TOL of the CPU's largest update; the BN
+    running variances within 1e-4 relative and the running means within
+    1e-4 of the channel's running standard deviation. The same step in
+    float64 on the card is printed beside them, as a witness of which side
+    strays if the check fails. Returns the update difference."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from fce_yolo_tpu_torch.data.loader import DataLoader
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg, LossState, detection_loss
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    d = check_det_dataset(data)
+    batch = next(iter(DataLoader(YOLODataset(d["train"], imgsz=IMGSZ, mode="train", nc=VAL_NC),
+                                 batch_size=VAL_BATCH, workers=8)))
+    cfg = OptimCfg(optimizer="SGD", batch_size=VAL_BATCH, nbs=VAL_BATCH, epochs=TRAIN_EPOCHS,
+                   steps_per_epoch=VAL_IMAGES // VAL_BATCH, nc=VAL_NC, warmup_epochs=0.0)
+    keys = ("img", "cls", "bboxes", "mask")
+    sd0 = YOLO("yolo11s-fce.yaml", device="cpu").model.state_dict()
+    after, parts = {}, {}
+    for side, device in (("card", "cuda"), ("CPU", "cpu")):  # the port's train step in float32
+        yolo = YOLO("yolo11s-fce.yaml", device=device)
+        yolo.model.load_state_dict(sd0)
+        opt = Optimizer(cfg, yolo.model)
+        state = create_train_state(yolo.model, opt)
+        step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=VAL_NC, strides=tuple(yolo.strides),
+                                                                 tal_dtype="float32"))
+        state, m = step(state, {k: torch.from_numpy(batch[k]).to(device) for k in keys})
+        check(m["finite"] and opt.count == 1, f"phase train (a): the {side} step did not update ({m['finite']})")
+        parts[side] = {k: float(m[k]) for k in ("box", "cls", "dfl", "fg_count")}
+        after[side] = {k: v.detach().cpu().double() for k, v in yolo.model.state_dict().items()}
+        del yolo, opt, state, step
+    yolo = YOLO("yolo11s-fce.yaml", device="cuda")  # the same step in float64: forward, loss, backward, SGD
+    yolo.model.load_state_dict(sd0)
+    model = yolo.model.double().train()
+    t = {k: torch.from_numpy(batch[k]).cuda() for k in keys}
+    t["bboxes"] = t["bboxes"].double()
+    feats = model(t["img"].permute(0, 3, 1, 2).double() / 255.0)["feats"]
+    total, p64, _ = detection_loss(feats, t, DetectionLossCfg(nc=VAL_NC, strides=tuple(yolo.strides),
+                                                             tal_dtype="float32"), LossState.init("cuda"))
+    total.backward()
+    params = [q for _, q in model.named_parameters()]
+    Optimizer(cfg, model).step(params, [q.grad for q in params])
+    after["float64"] = {k: v.detach().cpu().double() for k, v in model.state_dict().items()}
+    parts["float64"] = {k: float(v) for k, v in p64.items()}
+    del yolo, model, feats, total, params
+    torch.cuda.empty_cache()
+
+    weights = [k for k in sd0 if "running" not in k and "num_batches" not in k]
+
+    def distance(a: dict, ref: dict) -> tuple[float, float, float]:
+        """Loss parts (relative), updates (of ref's largest update), BN statistics."""
+        rel = max(abs(parts[a][k] - parts[ref][k]) / max(abs(parts[ref][k]), 1e-12) for k in parts[ref])
+        x, r = after[a], after[ref]
+        dp_max = max(float((r[k] - sd0[k].double()).abs().max()) for k in weights)
+        du = max(float((x[k] - r[k]).abs().max()) for k in weights) / dp_max
+        bn = 0.0
+        for k in r:
+            if k.endswith("running_mean"):
+                bn = max(bn, float((x[k] - r[k]).abs().max() / r[k.replace("mean", "var")].sqrt().min()))
+            elif k.endswith("running_var"):
+                bn = max(bn, float(((x[k] - r[k]).abs() / r[k]).max()))
+        return rel, du, bn
+
+    rel_parts, du, bn = distance("card", "CPU")
+    wit = {side: distance(side, "float64") for side in ("card", "CPU")}
+    print(f"phase train (a): yolo11s-fce {IMGSZ} B={VAL_BATCH}, one SGD step, training BN, float32 (TF32 off), on "
+          f"one mosaic batch, card vs CPU: loss parts max rel {rel_parts:.2e} (limit {TRAIN_TOL}), updates "
+          f"{du:.2e} of the CPU's largest (limit {TRAIN_TOL}), BN statistics {bn:.2e} (limit 1e-4); parts: card "
+          f"{parts['card']}, CPU {parts['CPU']}, float64 {parts['float64']}; witness, each against the float64 step "
+          f"on the card (parts, updates, BN): card {wit['card'][0]:.2e} {wit['card'][1]:.2e} {wit['card'][2]:.2e}, "
+          f"CPU {wit['CPU'][0]:.2e} {wit['CPU'][1]:.2e} {wit['CPU'][2]:.2e} [{card}]", flush=True)
+    check(rel_parts <= TRAIN_TOL, f"phase train (a): loss parts card vs CPU {parts}")
+    check(du <= TRAIN_TOL, f"phase train (a): the updates card vs CPU differ by {du:.3e} of the largest")
+    check(bn <= 1e-4, f"phase train (a): the BN running statistics card vs CPU differ by {bn:.3e}")
+    return du
+
+
+def train_step_times(bdev: dict, nc: int) -> dict:
+    """The train step (forward + loss + backward + clip + AdamW + EMA, with
+    its one host sync) of yolo11s-fce on a batch already on the card: CUDA
+    events over 5 steps after 2, in bf16 autocast and in float32 (TF32 off),
+    with the peak memory of each; then AdamW + EMA alone on the float32
+    model (10 calls after 2)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    batch = int(bdev["img"].shape[0])
+    out = {}
+    for bf16 in (True, False):
+        yolo = YOLO("yolo11s-fce.yaml", device="cuda")
+        opt = Optimizer(OptimCfg(optimizer="AdamW", batch_size=batch, nbs=batch, nc=nc), yolo.model)
+        state = create_train_state(yolo.model, opt)
+        step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=nc, strides=tuple(yolo.strides)), bf16=bf16)
+        step(state, bdev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tag = "bf16" if bf16 else "f32"
+        out[f"step_ms_{tag}"] = cuda_ms(lambda: step(state, bdev), iters=5, warmup=2)
+        out[f"peak_gib_{tag}"] = torch.cuda.max_memory_allocated() / 2**30
+        if not bf16:
+            params = state.params
+            grads = [torch.full_like(p, 1e-3) for p in params]
+            out["optimizer_ema_ms"] = cuda_ms(lambda: (opt.step(params, grads), state.ema.update(params)))
+        del yolo, opt, state, step
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_train_step(data: dict, card: str) -> dict:
+    """Phase train (c): ``train_step_times`` on a mosaic batch, and one
+    mosaic item's host time on one thread."""
+    from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from fce_yolo_tpu_torch.data.loader import DataLoader
+
+    d = check_det_dataset(data)
+    ds = YOLODataset(d["train"], imgsz=IMGSZ, mode="train", nc=VAL_NC)
+    batch = next(iter(DataLoader(ds, batch_size=VAL_BATCH, workers=8)))
+    out = train_step_times({k: torch.from_numpy(batch[k]).cuda() for k in ("img", "cls", "bboxes", "mask")}, VAL_NC)
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    for i in range(4):
+        ds.get(i, rng)
+    out["item_ms"] = (time.perf_counter() - t0) * 1e3 / 4
+    print(f"phase train (c): train step yolo11s-fce {IMGSZ} B={VAL_BATCH} AdamW on a batch on the card (forward + "
+          f"loss + backward + clip + optimizer + EMA, CUDA events): bf16 {out['step_ms_bf16']:.1f} ms "
+          f"(peak {out['peak_gib_bf16']:.2f} GiB), f32 TF32 off {out['step_ms_f32']:.1f} ms (peak "
+          f"{out['peak_gib_f32']:.2f} GiB); AdamW + EMA alone {out['optimizer_ema_ms']:.2f} ms; host: one mosaic "
+          f"item (4 PNG decodes, resizes, warp, HSV, flip) {out['item_ms']:.1f} ms on one thread [{card}]", flush=True)
+    return out
+
+
+def phase_train(root: Path, card: str) -> dict:
+    """(b) ``YOLO.train`` for TRAIN_EPOCHS epochs
+    with the defaults (bf16, AdamW from "auto") on 64 PNG images as both
+    splits, starting from phase val's matching weights: finite losses, one
+    results.csv row an epoch, last and best written, the NMS kernel launched
+    once per val batch of every epoch and equal to the plain version on the
+    last epoch's batches, and ``best`` reloaded in a fresh YOLO giving the
+    run's best mAP50-95 within 1e-6; (c) times; (a) one step card vs CPU.
+    Returns the train path's launches."""
+    import csv as _csv
+
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+    from fce_yolo_tpu_torch.ops.stem import fused_stem
+
+    data = train_data(root)
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
+    captured: list[torch.Tensor] = []
+    real_nms = DetectionValidator.nms
+
+    def capturing_nms(self, preds):  # keeps each val batch's preds for the check after the run
+        captured.append(preds.detach().clone())
+        return real_nms(self, preds)
+
+    n_val = -(-VAL_IMAGES // VAL_BATCH)
+    DetectionValidator.nms = capturing_nms
+    try:
+        fused_stem.launches = nms_ops.pick_suppress.launches = 0
+        t0 = time.perf_counter()
+        res = yolo.train(data, epochs=TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ, project=str(root / "runs"),
+                         verbose=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fused_stem": fused_stem.launches, "pick_suppress": nms_ops.pick_suppress.launches}
+    finally:
+        DetectionValidator.nms = real_nms
+    check(launches == {"fused_stem": 0, "pick_suppress": n_val * TRAIN_EPOCHS},
+          f"train path: launches {launches}, expected no stem and {n_val} NMS an epoch")
+    rows = res["results"]
+    check(res["epochs_run"] == len(rows) == TRAIN_EPOCHS, f"train path ran {res['epochs_run']} epochs")
+    check(all(np.isfinite(r[k]) for r in rows for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")),
+          f"train path: a logged loss is not finite {rows}")
+    save_dir = Path(res["save_dir"])
+    with open(save_dir / "results.csv") as f:
+        check(len(list(_csv.DictReader(f))) == TRAIN_EPOCHS, "results.csv does not hold one row an epoch")
+    for w in ("last", "best"):
+        check((save_dir / "weights" / w / "meta.json").exists(), f"weights/{w} missing")
+
+    val = DetectionValidator(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=VAL_BATCH)  # nms settings of the run
+    calls: list = []
+    check(len(captured) == n_val * TRAIN_EPOCHS, f"{len(captured)} val batches seen")
+    for preds in captured[-n_val:]:  # the last epoch's val
+        nms_kernel_vs_plain(val, preds, calls)
+    del captured
+
+    best = max(rows, key=lambda r: r["fitness"])
+    check(best["metrics/mAP50(B)"] > 0, f"train path: mAP50 is 0, so the reload comparison shows nothing: {best}")
+    again = YOLO(str(save_dir / "weights" / "best"), device="cuda").val(data, imgsz=IMGSZ, batch=VAL_BATCH,
+                                                                           verbose=False)
+    d_map = abs(again["metrics/mAP50-95(B)"] - best["metrics/mAP50-95(B)"])
+    check(d_map <= 1e-6, f"best reloaded: mAP50-95 {again['metrics/mAP50-95(B)']} vs the run's {best}")
+    for e, (r, sp) in enumerate(zip(rows, res["speed"])):
+        print(f"phase train (b): epoch {e + 1}/{TRAIN_EPOCHS}: loss box/cls/dfl {r['train/box_loss']:.4f}/"
+              f"{r['train/cls_loss']:.4f}/{r['train/dfl_loss']:.4f}, mAP50 {r['metrics/mAP50(B)']:.6f} mAP50-95 "
+              f"{r['metrics/mAP50-95(B)']:.6f}; {sp['img_per_s']:.2f} img/s; per step: loader wait "
+              f"{sp['loader_wait_ms']:.1f} ms, step {sp['step_ms']:.1f} ms of which the host sync "
+              f"{sp['sync_ms']:.1f} ms; val {sp['val_s']:.2f} s [{card}]", flush=True)
+    times = time_train_step(data, card)
+    step_delta_check(data, card)
+    print(f"phase train: YOLO.train yolo11s-fce {IMGSZ} bf16 B={VAL_BATCH} AdamW, {TRAIN_EPOCHS} epochs of "
+          f"{VAL_IMAGES // VAL_BATCH} steps on {VAL_IMAGES} PNG images, launches {launches}; NMS kernel idx/ok equal to "
+          f"the plain version on the last epoch's {n_val} val batches; best reloaded: mAP50-95 "
+          f"{again['metrics/mAP50-95(B)']:.6f} vs {best['metrics/mAP50-95(B)']:.6f} (|d| {d_map:.1e}, limit 1e-6); "
+          f"{wall:.1f} s in all; step {times['step_ms_bf16']:.1f} ms bf16 / {times['step_ms_f32']:.1f} ms f32 "
+          f"[{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script only runs on a GPU")
@@ -597,10 +850,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         val, nms_val, val_out = phase_val(write_val_dataset(Path(tmp)), card)
         phase_loss(val_out, card)
-    del val_out
+        del val_out
+        train = phase_train(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"predict": predict, "val": val}
+    paths = {"predict": predict, "val": val, "train": train}
     kernels = [
         {"name": "fused_stem", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/stem.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", "launches": sum(p["fused_stem"] for p in paths.values()),

@@ -1,29 +1,75 @@
-"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-284, 400-423``): detect predict and val."""
+"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-284, 400-423, 495-881``):
+detect predict, val and train, and checkpoints."""
 
 from __future__ import annotations
 
+import copy
+import csv
+import subprocess
+import time
 from pathlib import Path
 from typing import Any, Mapping
 
 import torch
 
+from fce_yolo_tpu_torch.cfg.models import load_model_dict
 from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn, init_weights
 from fce_yolo_tpu_torch.nn.weights import variables_to_state_dict
+from fce_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
+
+OPTIM_KEYS = ("momentum", "weight_decay", "warmup_epochs", "warmup_momentum", "warmup_bias_lr", "nbs")
+
+
+def _git_describe() -> dict:
+    """The checkout's commit and whether it has local changes, for checkpoint provenance."""
+    root = Path(__file__).resolve().parent.parent
+    try:
+        sha = subprocess.run(["git", "-C", str(root), "rev-parse", "--short", "HEAD"],
+                             capture_output=True, text=True, timeout=5).stdout.strip()
+        dirty = bool(subprocess.run(["git", "-C", str(root), "status", "--porcelain"],
+                                    capture_output=True, text=True, timeout=5).stdout.strip())
+    except (OSError, subprocess.SubprocessError):
+        return {"commit": None, "dirty": None}
+    return {"commit": sha or None, "dirty": dirty if sha else None}
 
 
 class YOLO:
     """Detection model facade: ``YOLO("yolo11s-fce.yaml", device="cuda")``.
 
-    The model is built on ``device`` (the card unless another is named; no
-    CUDA raises) and initialized from seed 0 (as the JAX facade's lazy init);
-    ``reset_weights`` re-seeds, ``load_jax_variables`` loads weights
-    exported from the JAX package.
+    ``model`` is a model name or YAML (built and initialized from seed 0, as
+    the JAX facade's lazy init), or a checkpoint directory written by
+    ``save``/``train`` (built from its ``meta.json``, weights loaded). The
+    model lives on ``device``: the card unless another is named; no CUDA
+    raises. ``reset_weights`` re-seeds, ``load`` reads a checkpoint's
+    weights, ``load_jax_variables`` loads weights exported from the JAX
+    package.
     """
 
     def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda"):
-        self.model, self.spec, self.strides = build_model(model, device=device)
+        self.device = torch.device(device)
+        self.ckpt_meta: dict[str, Any] = {}
+        if is_checkpoint(model):
+            tree, meta = load_checkpoint(model)
+            self._build(meta["cfg_yaml"], meta.get("scale"), meta.get("nc"))
+            self.model.load_state_dict(tree["model"])
+            self.names = {int(k): v for k, v in meta.get("names", {}).items()}
+            self.ckpt_meta = meta
+        else:
+            self._build(str(model))
+            self.reset_weights(0)
+
+    def _build(self, cfg: str, scale: str | None = None, nc: int | None = None) -> None:
+        d, guessed = load_model_dict(cfg)
+        if nc is not None:
+            d["nc"] = nc
+        self.cfg_yaml, self.scale = cfg, scale or guessed
+        self.model, self.spec, self.strides = build_model(d, scale=self.scale, device=self.device)
+        self.scale = self.spec.scale
         self.names = {i: f"class_{i}" for i in range(self.spec.nc)}
-        self.reset_weights(0)
+
+    @property
+    def nc(self) -> int:
+        return self.spec.nc
 
     def reset_weights(self, seed: int = 0) -> "YOLO":
         """Re-initialize all parameters from ``seed`` (reference Model.reset_weights)."""
@@ -40,6 +86,24 @@ class YOLO:
         self.model.load_state_dict(sd, strict=True)
         return self
 
+    def load(self, weights: str | Path) -> "YOLO":
+        """Load a checkpoint directory's weights into this architecture
+        (reference Model.load); its class names too."""
+        if not is_checkpoint(weights):
+            raise ValueError(f"cannot load weights from {weights!r}: not a checkpoint directory (meta.json)")
+        tree, meta = load_checkpoint(weights)
+        self.model.load_state_dict(tree["model"])
+        if meta.get("names"):
+            self.names = {int(k): v for k, v in meta["names"].items()}
+        return self
+
+    def _meta(self, extra: dict | None = None) -> dict:
+        return {"cfg_yaml": self.cfg_yaml, "scale": self.scale, "nc": self.nc, "names": self.names, **(extra or {})}
+
+    def save(self, path: str | Path, extra_meta: dict | None = None) -> str:
+        """Write the model's weights and ``meta.json`` to the directory ``path``."""
+        return save_checkpoint(path, {"model": _cpu(self.model.state_dict())}, self._meta(extra_meta))
+
     def fuse(self) -> "YOLO":
         """Fold Conv+BN into conv weights in place (reference Model.fuse); idempotent."""
         fold_conv_bn(self.model)
@@ -48,6 +112,7 @@ class YOLO:
     def to(self, dtype_or_device) -> "YOLO":
         """Move the model to a dtype (e.g. ``torch.bfloat16``) or a device."""
         self.model.to(dtype_or_device)
+        self.device = next(self.model.parameters()).device
         return self
 
     def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640,
@@ -75,3 +140,211 @@ class YOLO:
         validator = DetectionValidator(self.model, self.names, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det,
                                        batch_size=batch, workers=workers)
         return validator(data=d, verbose=verbose, save_json=save_json)
+
+    def train(self, data, epochs: int = 100, batch: int = 16, imgsz: int = 640, optimizer: str = "auto",
+              lr0: float | None = None, lrf: float = 0.01, cos_lr: bool = False, iou_type: str = "CIoU",
+              close_mosaic: int = 10, patience: int = 100, workers: int = 8, max_labels: int = 128,
+              project: str = "runs/detect", name: str = "train", val: bool = True, save_period: int = -1,
+              seed: int = 0, verbose: bool = True, freeze: int | list | None = None, resume: bool = False,
+              exist_ok: bool = False, time_limit_hours: float | None = None, bf16: bool | None = None,
+              **hyp_overrides) -> dict:
+        """Train for detect on ``data`` (a data YAML path or dict) on the
+        model's device (reference ``api.py:495-881``).
+
+        After every epoch: a val on the EMA model (if ``val``), a row of
+        ``results.csv``, ``weights/last`` (EMA weights and the full train
+        state, for ``resume``) and, when the fitness improves, ``weights/best``
+        (EMA weights). The best weights are loaded at the end. ``bf16=None``
+        means bfloat16 autocast on a card, float32 on the CPU.
+        ``hyp_overrides``: ``AugmentCfg`` fields, the optimizer's (momentum,
+        weight_decay, warmup_*, nbs), ``state_bf16`` and ``bf16_ema``.
+
+        Returns {"save_dir", "best_fitness", "epochs_run", "results" (the csv
+        rows), "speed" (per epoch: img/s and the per-step split in ms)}.
+        """
+        from fce_yolo_tpu_torch.data.augment import AugmentCfg
+        from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+        from fce_yolo_tpu_torch.data.loader import DataLoader
+        from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+        from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
+        from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer, accumulate_steps, boundary_schedule
+        from fce_yolo_tpu_torch.train.trainer import EarlyStopping, create_train_state, make_train_step
+        from fce_yolo_tpu_torch.utils.files import get_latest_run, increment_path
+
+        d = check_det_dataset(data)
+        if d["nc"] != self.nc:  # a data YAML with another class count rebuilds the model
+            self._build(self.cfg_yaml, self.scale, d["nc"])
+            self.reset_weights(0)
+        self.names = d["names"]
+        hyp = AugmentCfg(**{k: v for k, v in hyp_overrides.items() if k in AugmentCfg.__dataclass_fields__})
+        train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed)
+        loader = DataLoader(train_ds, batch_size=batch, workers=workers, max_labels=max_labels, seed=seed)
+        steps_per_epoch = len(loader)
+        save_dir = increment_path(Path(project) / name, exist_ok=resume or exist_ok, mkdir=True)
+
+        optim_cfg = OptimCfg(optimizer=optimizer, lr0=lr0 if lr0 is not None else 0.01, lrf=lrf, cos_lr=cos_lr,
+                             batch_size=batch, epochs=epochs, steps_per_epoch=max(steps_per_epoch, 1), nc=d["nc"],
+                             state_bf16=bool(hyp_overrides.get("state_bf16")),
+                             **{k: v for k, v in hyp_overrides.items() if k in OPTIM_KEYS})
+        if lr0 is not None and optimizer == "auto":
+            optim_cfg = optim_cfg._replace(optimizer="AdamW" if epochs * steps_per_epoch <= 10000 else "SGD")
+        loss_cfg = DetectionLossCfg(nc=d["nc"], strides=tuple(self.strides), iou_type=iou_type)
+        accumulate = accumulate_steps(optim_cfg)
+        bounds = ni_map = None
+        if accumulate > 1:
+            bounds, ni_map = boundary_schedule(optim_cfg)
+        model = self.model
+        opt = Optimizer(optim_cfg, model, freeze=freeze, ni_map=ni_map)
+        state = create_train_state(model, opt, accumulate=accumulate,
+                                   ema_dtype=torch.bfloat16 if hyp_overrides.get("bf16_ema") else None)
+        if bf16 is None:  # the autocast analog is on for the accelerator
+            bf16 = self.device.type == "cuda"
+        step_fn = make_train_step(model, opt, loss_cfg, bf16=bf16, accumulate=accumulate, boundaries=bounds)
+
+        start_epoch = 0
+        if resume and not is_checkpoint(save_dir / "weights" / "last"):
+            latest = get_latest_run(str(project))  # the newest run under project
+            if latest:
+                save_dir = Path(latest).parent.parent
+                if verbose:
+                    print(f"resume: picked up latest run {save_dir}")
+        if resume and is_checkpoint(save_dir / "weights" / "last"):
+            tree, meta0 = load_checkpoint(save_dir / "weights" / "last", map_location=self.device)
+            state.load_state_dict(tree["train_state"])
+            start_epoch = int(meta0.get("epoch", -1)) + 1
+            if verbose:
+                print(f"resuming from epoch {start_epoch} ({save_dir / 'weights' / 'last'})")
+
+        ema_model = copy.deepcopy(model).eval()  # the EMA weights with the live buffers, for val and saving
+        ema_params = [p for _, p in ema_model.named_parameters()]
+
+        def sync_ema_model() -> None:
+            with torch.no_grad():
+                torch._foreach_copy_(ema_params, state.ema.params)
+                for (_, b_ema), (_, b) in zip(ema_model.named_buffers(), model.named_buffers()):
+                    b_ema.copy_(b)
+
+        validator = (DetectionValidator(ema_model, self.names, imgsz=imgsz, batch_size=batch, workers=workers)
+                     if val else None)
+        val_loader = validator.get_dataloader(d) if validator else None
+        if verbose:
+            n_params = sum(p.numel() for p in model.parameters())
+            print(f"train: {self.cfg_yaml} scale={self.scale} params={n_params:,} nc={d['nc']} imgsz={imgsz} "
+                  f"batch={batch} epochs={epochs} steps/epoch={steps_per_epoch} optimizer={opt.cfg.optimizer} "
+                  f"device={self.device} bf16={bf16}")
+
+        stopper = EarlyStopping(patience)
+        best_fitness = -1.0
+        csv_rows: list[dict] = []
+        speed: list[dict] = []
+        t_start = time.time()
+        meta: dict = {}
+        for epoch in range(start_epoch, epochs):
+            loader.set_epoch(epoch, close_mosaic_at=close_mosaic, total_epochs=epochs)
+            t0 = time.perf_counter()
+            sums: dict[str, float] = {}
+            n_logged = nb = 0
+            t_wait = t_step = t_sync = 0.0
+            batches = iter(loader)
+            try:
+                while True:
+                    tw = time.perf_counter()
+                    b = next(batches, None)
+                    t_wait += time.perf_counter() - tw
+                    if b is None:
+                        break
+                    ts = time.perf_counter()
+                    bdev = {k: torch.from_numpy(b[k]).to(self.device) for k in ("img", "cls", "bboxes", "mask")}
+                    state, m = step_fn(state, bdev)
+                    t_step += time.perf_counter() - ts
+                    t_sync += m["sync_s"]
+                    nb += 1
+                    if nb == 1 or nb % 10 == 0 or nb == steps_per_epoch:
+                        keys = ("loss", "box", "cls", "dfl")
+                        for k, v in zip(keys, torch.stack([m[k].float() for k in keys]).tolist()):
+                            sums[k] = sums.get(k, 0.0) + v
+                        n_logged += 1
+            finally:
+                batches.close()
+            train_s = time.perf_counter() - t0
+            n_logged = max(n_logged, 1)
+            row = {"epoch": epoch, "time": round(time.time() - t_start, 2),
+                   "train/box_loss": sums.get("box", 0.0) / n_logged,
+                   "train/cls_loss": sums.get("cls", 0.0) / n_logged,
+                   "train/dfl_loss": sums.get("dfl", 0.0) / n_logged}
+
+            sync_ema_model()
+            fitness = None
+            tv = time.perf_counter()
+            if validator is not None:
+                res = validator(dataloader=val_loader, verbose=False)
+                fitness = res["fitness"]
+                row.update({k: v for k, v in res.items() if k.startswith("metrics/")})
+                row["fitness"] = fitness
+            val_s = time.perf_counter() - tv
+            csv_rows.append(row)
+            _write_csv(save_dir / "results.csv", csv_rows)
+            per = 1e3 / max(nb, 1)
+            speed.append({"epoch": epoch, "img_per_s": nb * batch / max(train_s, 1e-9), "loader_wait_ms": t_wait * per,
+                          "step_ms": t_step * per, "sync_ms": t_sync * per, "val_s": val_s})
+
+            # last: EMA weights + the whole train state (resume); best: EMA weights only
+            meta = {"epoch": epoch, "fitness": fitness, "git": _git_describe(),
+                    "train_args": {"data": str(data) if not isinstance(data, dict) else "<dict>", "epochs": epochs,
+                                   "batch": batch, "imgsz": imgsz, "iou_type": iou_type}}
+            ema_sd = _cpu(ema_model.state_dict())
+            save_checkpoint(save_dir / "weights" / "last",
+                            {"model": ema_sd, "train_state": _cpu(state.state_dict())}, self._meta(meta))
+            if fitness is not None and fitness > best_fitness:
+                best_fitness = fitness
+                save_checkpoint(save_dir / "weights" / "best", {"model": ema_sd}, self._meta(meta))
+            if save_period > 0 and (epoch + 1) % save_period == 0:
+                save_checkpoint(save_dir / "weights" / f"epoch{epoch}", {"model": ema_sd}, self._meta(meta))
+            if verbose:
+                fit_s = f" fitness={fitness:.4f}" if fitness is not None else ""
+                s = speed[-1]
+                print(f"epoch {epoch + 1}/{epochs} loss(box/cls/dfl)={row['train/box_loss']:.3f}/"
+                      f"{row['train/cls_loss']:.3f}/{row['train/dfl_loss']:.3f}{fit_s} ({train_s:.1f}s train, "
+                      f"{s['img_per_s']:.1f} img/s; per step: loader wait {s['loader_wait_ms']:.1f} ms, step "
+                      f"{s['step_ms']:.1f} ms of which the sync {s['sync_ms']:.1f} ms; val {val_s:.1f}s)")
+            if time_limit_hours is not None and (time.time() - t_start) > time_limit_hours * 3600:
+                if verbose:
+                    print(f"time limit {time_limit_hours}h reached at epoch {epoch + 1}")
+                break
+            if stopper(epoch, fitness):
+                if verbose:
+                    print(f"early stop at epoch {epoch + 1} (patience {patience})")
+                break
+
+        # the facade keeps the best weights if fitness was tracked, else the last EMA weights
+        best_dir = save_dir / "weights" / "best"
+        if best_fitness >= 0 and is_checkpoint(best_dir):
+            self.load(best_dir)
+        elif csv_rows:
+            self.model.load_state_dict(ema_model.state_dict())
+        self.model.eval()
+        return {"save_dir": str(save_dir), "best_fitness": best_fitness, "epochs_run": len(csv_rows),
+                "results": csv_rows, "speed": speed}
+
+
+def _cpu(tree):
+    """A copy of a nested dict/list of tensors on the CPU."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, Mapping):
+        return {k: _cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_cpu(v) for v in tree]
+    return tree
+
+
+def _write_csv(path: Path, rows: list[dict]) -> None:
+    keys: list[str] = []
+    for r in rows:
+        for k in r:
+            if k not in keys:
+                keys.append(k)
+    with open(path, "w", newline="") as f:
+        w = csv.DictWriter(f, fieldnames=keys)
+        w.writeheader()
+        w.writerows(rows)

@@ -1,4 +1,4 @@
-"""YOLO-format detection dataset, val mode (reference ``fce_yolo_tpu/data/dataset.py:32-529``).
+"""YOLO-format detection dataset (reference ``fce_yolo_tpu/data/dataset.py:32-529``).
 
 - ``check_det_dataset`` takes a data YAML path or a dict. The YAML is read
   by ``utils/yaml_read.py``, so no pyyaml is needed; only ``path``,
@@ -6,8 +6,11 @@
   packaged dataset-name registry here.
 - ``YOLODataset`` parses the labels at construction, every time: the JAX
   package's ``.labels_*.npz`` cache is neither written nor read. Images are
-  read by ``data/imread.py`` (PNG or ``.npy``), letterboxed without cv2
-  (``data/augment.py``) and leave as RGB.
+  read by ``data/imread.py`` (PNG or ``.npy``), augmented (train) or
+  letterboxed (val) in BGR without cv2 (``data/augment.py``) and leave as
+  RGB.
+- Train mode draws its augment from the dataset's generator, or from one a
+  caller passes per item (the loader gives each item its own).
 - ``collate`` pads labels to a fixed count per image, as the JAX batches do.
 
 Labels live in the sibling ``labels/`` tree, one ``.txt`` per image, one
@@ -21,7 +24,7 @@ from pathlib import Path
 
 import numpy as np
 
-from fce_yolo_tpu_torch.data.augment import val_transform
+from fce_yolo_tpu_torch.data.augment import AugmentCfg, train_augment, val_transform
 from fce_yolo_tpu_torch.data.imread import imread
 from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
 
@@ -125,29 +128,44 @@ def _read_labels(label_path: str) -> dict:
 
 
 class YOLODataset:
-    """Detection dataset over a YOLO image/label tree, val mode: each item
-    is the letterboxed RGB image with its labels in letterbox pixels.
+    """Detection dataset over a YOLO image/label tree.
 
     Args:
         img_path: a split from the data YAML (dir, ``.txt`` list, or a list).
-        imgsz: square letterbox size.
-        mode: "val" only; the train augment is not ported yet.
+        imgsz: output size (the mosaic's or the letterbox's square).
+        mode: "train" (mosaic, perspective, HSV, flips) or "val" (letterbox only).
+        hyp: the train augment's hyperparameters.
         nc: class count (else 1 + the largest label).
+        seed: seeds the generator until the first ``set_epoch``.
     """
 
-    def __init__(self, img_path: str | list, imgsz: int = 640, mode: str = "val", nc: int | None = None):
-        if mode != "val":
-            raise NotImplementedError(f"mode {mode!r}: the port's dataset has the val mode only")
+    def __init__(self, img_path: str | list, imgsz: int = 640, mode: str = "val", hyp: AugmentCfg | None = None,
+                 nc: int | None = None, seed: int = 0):
+        if mode not in ("train", "val"):
+            raise ValueError(f"mode {mode!r}: 'train' or 'val'")
         self.imgsz = imgsz
         self.mode = mode
+        self.hyp = hyp or AugmentCfg()
         self.im_files = _scan_images(img_path)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
         self.labels = [_read_labels(img2label_path(f)) for f in self.im_files]
         self.nc = nc if nc is not None else int(max((l["cls"].max() for l in self.labels if l["cls"].size), default=0) + 1)
+        self.mosaic_enabled = mode == "train"
+        self.epoch_seed = seed
+        self._rng = np.random.default_rng(seed)
 
     def __len__(self) -> int:
         return len(self.im_files)
+
+    def set_epoch(self, epoch: int, close_mosaic_at: int | None = None, total_epochs: int | None = None) -> None:
+        """Reseed from the epoch, as the reference does (``hash((epoch, len))``:
+        the user's seed plays no part), and close the mosaic for the last
+        ``close_mosaic_at`` epochs."""
+        self.epoch_seed = hash((epoch, len(self))) & 0x7FFFFFFF
+        self._rng = np.random.default_rng(self.epoch_seed)
+        if close_mosaic_at and total_epochs and epoch >= total_epochs - close_mosaic_at:
+            self.mosaic_enabled = False
 
     def load_raw(self, i: int) -> dict:
         """Image i as read (BGR uint8) with its labels as pixel xyxy."""
@@ -163,16 +181,25 @@ class YOLODataset:
             boxes[:, 3] = xywh[:, 1] + xywh[:, 3] / 2
         return {"img": img, "cls": lab["cls"].copy(), "bboxes": boxes}
 
-    def __getitem__(self, i: int) -> dict:
-        out = val_transform(self.load_raw(i), self.imgsz)
+    def get(self, i: int, rng: np.random.Generator | None = None) -> dict:
+        """Item i; a train item draws from ``rng`` (else the dataset's generator)."""
+        if self.mode == "train":
+            out = train_augment(self.load_raw, i, len(self), self.imgsz, self.hyp,
+                                self._rng if rng is None else rng, self.mosaic_enabled)
+        else:
+            out = val_transform(self.load_raw(i), self.imgsz)
         out["img"] = np.ascontiguousarray(out["img"][..., ::-1])  # BGR -> RGB at the exit
         return out
+
+    def __getitem__(self, i: int) -> dict:
+        return self.get(i)
 
 
 def collate(samples: list[dict], max_labels: int = 128) -> dict:
     """Stack samples into one fixed-shape batch: img (B, S, S, 3) uint8 NHWC,
     cls (B, M), bboxes (B, M, 4) xywh normalized by the image size, mask
-    (B, M) bool, and the val extras ratio (B,), pad (B, 2), orig_shape (B, 2)."""
+    (B, M) bool, and the val extras ratio (B,), pad (B, 2), orig_shape (B, 2).
+    Labels past ``max_labels`` in an image are dropped."""
     b = len(samples)
     img = np.stack([x["img"] for x in samples], 0)
     cls = np.zeros((b, max_labels), np.float32)

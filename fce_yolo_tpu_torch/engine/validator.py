@@ -35,7 +35,8 @@ class DetectionValidator:
     fitness, the confusion matrix and the ``DetMetrics``).
 
     Args:
-        model: the port's ``DetectionModel``, on the device it runs on.
+        model: the port's ``DetectionModel``, on the device it runs on (the
+            trainer passes its EMA model).
         names: class id -> name; its length is the class count scored.
         imgsz: square letterbox size.
         conf, iou, max_det, pre_nms_topk: NMS settings (the val defaults).
@@ -75,13 +76,15 @@ class DetectionValidator:
         return batched_nms(preds, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
                            nc=self.nc, pre_nms_topk=self.pre_nms_topk)
 
-    def __call__(self, data: str | Path | dict, verbose: bool = True,
-                 save_json: str | Path | None = None) -> dict[str, Any]:
-        """Validate on the ``val`` split of ``data`` (a data YAML path or dict).
+    def __call__(self, data: str | Path | dict | None = None, verbose: bool = True,
+                 save_json: str | Path | None = None, dataloader: DataLoader | None = None) -> dict[str, Any]:
+        """Validate on the ``val`` split of ``data`` (a data YAML path or dict),
+        or on ``dataloader`` (built once by ``get_dataloader`` and reused, as
+        the trainer does after every epoch).
 
         ``save_json``: write COCO-format detections (original image pixels) there.
         """
-        loader = self.get_dataloader(data)
+        loader = dataloader if dataloader is not None else self.get_dataloader(data)
         device = next(self.model.parameters()).device
         metrics = DetMetrics(names=self.names)
         cm = ConfusionMatrix(names=self.names)

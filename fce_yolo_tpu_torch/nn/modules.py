@@ -4,7 +4,7 @@ NCHW ``nn.Module``s; attribute names follow Ultralytics (``cv1``, ``m.0``,
 ``cv2.0.2``) so ``state_dict`` keys are ``model.{i}.<path>`` and the JAX
 weight bridge (``nn/weights.py``) is a name rewrite. Convolutions pad
 symmetrically (``autopad``), as torch and the reference do. BatchNorm uses
-eps 1e-3 and momentum 0.03 (flax's 0.97).
+eps 1e-3 and momentum 0.03 (flax's 0.97), and flax's running variance.
 """
 
 from __future__ import annotations
@@ -38,6 +38,34 @@ def apply_act(x: torch.Tensor, act: Any) -> torch.Tensor:
     return x
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose training-mode running variance takes the
+    biased batch variance, as flax's ``BatchNorm`` does (torch's takes the
+    unbiased one, n / (n - 1) larger).
+
+    In training mode ``F.batch_norm`` computes the batch statistics once, into
+    scratch buffers (momentum 1), and normalises with them; the running
+    statistics are then ``0.97 * running + 0.03 * batch`` with the variance
+    scaled back by (n - 1) / n. On the CPU the input is made contiguous
+    first: torch's CPU kernel sums a channels-last input in float32 (a
+    contiguous one in float64), which on flat-colour images moves a float32
+    train step's updates by per cents of the largest."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if x.device.type == "cpu":
+            x = x.contiguous()
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.mul_(1 - self.momentum).add_(mean, alpha=self.momentum)
+            self.running_var.mul_(1 - self.momentum).add_(var, alpha=self.momentum * (n - 1) / n)
+        return y
+
+
 class ConvBNAct(nn.Module):
     """Conv2d(bias=False) + BatchNorm2d + SiLU: the reference's ``Conv`` (conv.py:39-91).
 
@@ -49,7 +77,7 @@ class ConvBNAct(nn.Module):
                  g: int = 1, d: int = 1, act: Any = True):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d, groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.bn = BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = act
 
     @property

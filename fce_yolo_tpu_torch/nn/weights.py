@@ -9,7 +9,9 @@
   params/layers_14/w                       ->  model.14.w
 
 Takes plain numpy trees, so it needs no JAX (``jax.device_get`` or
-``np.asarray`` the variables first).
+``np.asarray`` the variables first). ``key_to_flax`` is the inverse, for a
+key of a given model (the optimizer's parameter groups and ``freeze`` read
+the flax paths).
 """
 
 from __future__ import annotations
@@ -19,13 +21,16 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-_LEAF = {
-    ("params", "kernel"): "weight",
-    ("params", "scale"): "weight",
-    ("batch_stats", "mean"): "running_mean",
-    ("batch_stats", "var"): "running_var",
+_LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
+    ("params", "kernel"): (nn.Conv2d, "weight"),
+    ("params", "scale"): (nn.BatchNorm2d, "weight"),
+    ("batch_stats", "mean"): (nn.BatchNorm2d, "running_mean"),
+    ("batch_stats", "var"): (nn.BatchNorm2d, "running_var"),
 }
+_FLAX_LEAF = {v: k for k, v in _LEAF.items()}
+_BARE_CONV = "conv2d"  # the flax scope of a bare Conv2d (not a ConvBNAct's ``conv``)
 
 
 def _module_token(name: str) -> str:
@@ -48,9 +53,31 @@ def _walk(node: Mapping[str, Any], path: tuple[str, ...] = ()):
 def flax_path_to_key(collection: str, path: tuple[str, ...]) -> str:
     """One flax leaf path -> the port's state_dict key."""
     *mods, leaf = path
-    parts = [_module_token(p) for p in mods if p != "conv2d"]  # bare Conv2d scope
-    parts.append(_LEAF.get((collection, leaf), leaf))
+    parts = [_module_token(p) for p in mods if p != _BARE_CONV]
+    parts.append(_LEAF.get((collection, leaf), (None, leaf))[1])
     return ".".join(parts)
+
+
+def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
+    """One state_dict key of ``model`` -> (collection, flax leaf path), the
+    inverse of ``flax_path_to_key``: ``model.23.cv2.0.2.weight`` ->
+    ("params", ("layers_23", "cv2_0_2", "conv2d", "kernel"))."""
+    mod_name, _, leaf = key.rpartition(".")
+    owner = model.get_submodule(mod_name)
+    tokens = mod_name.split(".")
+    mods: list[str] = []
+    for t in tokens:  # the inverse of _module_token: digits join the name before them
+        if t.isdigit() and mods:
+            mods[-1] = f"{mods[-1]}_{t}"
+        else:
+            mods.append(t)
+    if mods and tokens[0] == "model":
+        mods[0] = "layers" + mods[0][len("model"):]
+    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d) if isinstance(owner, k)), None)
+    if kind is nn.Conv2d and tokens[-1] != "conv":
+        mods.append(_BARE_CONV)
+    collection, flax_leaf = _FLAX_LEAF.get((kind, leaf), ("params", leaf))
+    return collection, tuple(mods) + (flax_leaf,)
 
 
 def variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:

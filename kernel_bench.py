@@ -1,9 +1,10 @@
 """Time one checkout's CUDA kernel on one GPU: the fused stem beside cuDNN's
 unfused bf16 layers 0-2 at 640 px, or the NMS kernels on chip_smoke.py's
-timed cases.
+timed cases; or that checkout's train step.
 
     python3 kernel_bench.py --kernel stem [--root CHECKOUT] [--model yolo11s-fce.yaml] [--batches 16 64]
     python3 kernel_bench.py --kernel nms [--root CHECKOUT]
+    python3 kernel_bench.py --kernel train-step [--root CHECKOUT] [--batches 16]
 
 ``--root`` imports ``fce_yolo_tpu_torch`` from another checkout, for
 example an earlier commit unpacked with ``git archive`` into ``build/``.
@@ -15,8 +16,10 @@ max|ref| and a uniform per-row error; NMS bit for bit). The stem and cuDNN
 are then timed in turns, twice, with CUDA events around 10 calls; NMS twice
 from a CUDA graph of 20 calls (device time, without the host's launch cost),
 once from Python, and split by kernel with torch.profiler (device time of
-each kernel per call). Prints one JSON object per batch or case, then the
-card's name and power limit.
+each kernel per call). The train step is chip_smoke.py's phase train (c)
+(``train_step_times``: yolo11s-fce at 640 px, bf16 and float32 steps, peak
+memory, AdamW + EMA alone) on random images with 1-3 boxes each. Prints one
+JSON object per batch or case, then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 # chip_smoke imports the port only inside its functions, so they use the checkout chosen below
 from chip_smoke import (IMGSZ, MAX_DET, SEED, card_line, check_stem, cuda_ms, graph_ms, nms_bound, nms_timed_cases,
-                        stem_bound)
+                        stem_bound, train_step_times)
 
 
 def bench_stem(args) -> None:
@@ -112,13 +115,31 @@ def bench_nms(args) -> None:
                           "bound_by": bound_by, "build_s": build_s}), flush=True)
 
 
+def bench_train_step(args) -> None:
+    for batch in args.batches:
+        rng = np.random.RandomState(SEED)
+        cls, boxes = np.zeros((batch, 8), np.float32), np.zeros((batch, 8, 4), np.float32)
+        mask = np.zeros((batch, 8), bool)
+        for i in range(batch):
+            k = rng.randint(1, 4)
+            cls[i, :k] = rng.randint(0, 80, k)
+            boxes[i, :k] = np.concatenate([rng.uniform(0.3, 0.7, (k, 2)), rng.uniform(0.1, 0.4, (k, 2))], 1)
+            mask[i, :k] = True
+        img = rng.randint(0, 256, (batch, IMGSZ, IMGSZ, 3), np.uint8)
+        bdev = {k: torch.from_numpy(v).cuda() for k, v in (("img", img), ("cls", cls), ("bboxes", boxes),
+                                                          ("mask", mask))}
+        print(json.dumps({"root": str(args.root), "bench": "train_step", "model": "yolo11s-fce.yaml", "batch": batch,
+                          **train_step_times(bdev, nc=80)}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("stem", "nms"), required=True)
+    ap.add_argument("--kernel", choices=("stem", "nms", "train-step"), required=True)
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                     help="checkout whose fce_yolo_tpu_torch is timed (default: this one)")
     ap.add_argument("--model", default="yolo11s-fce.yaml", help="stem: the model whose stem is timed")
-    ap.add_argument("--batches", type=int, nargs="+", default=[16, 64], help="stem: the batch sizes")
+    ap.add_argument("--batches", type=int, nargs="+", default=None,
+                    help="stem (default 16 64) or train-step (default 16): the batch sizes")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_bench: CUDA is not available; this script only runs on a GPU")
@@ -131,7 +152,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
-    (bench_stem if args.kernel == "stem" else bench_nms)(args)
+    if args.batches is None:
+        args.batches = [16] if args.kernel == "train-step" else [16, 64]
+    {"stem": bench_stem, "nms": bench_nms, "train-step": bench_train_step}[args.kernel](args)
     print(card)
 
 

@@ -10,7 +10,11 @@ version with a uniform per-row error (bf16 between stages, the JAX kernel
 test's bound); the NMS kernel's idx/ok exactly equal to the plain version's,
 and so the validator's metrics too; the loss on the card within 1e-4
 relative of the CPU's (float32, sums in another order, the assigner's
-overlaps stored in float32) and its gradient within 1e-4 of the largest.
+overlaps stored in float32) and its gradient within 1e-4 of the largest; a
+float32 train step (TF32 off) on the card within 1e-4 of the CPU's on the
+loss parts and the BN statistics, and within 1e-3 of each leaf's largest
+update on the parameters; training BatchNorm's running statistics on the
+card within 1e-5 of flax's rule applied in float64.
 """
 
 import struct
@@ -308,3 +312,126 @@ def test_loss_on_the_card_matches_the_cpu(cuda, iou_type):
             np.testing.assert_allclose(gc, gg, rtol=0, atol=1e-4 * np.abs(gg).max())
         np.testing.assert_allclose(float(states["card"].wiou_loss_mean), float(states["cpu"].wiou_loss_mean),
                                    rtol=1e-5)
+
+
+def _train_case(device, bf16=False, nbs=4, tal_dtype="bfloat16"):
+    """yolo11n-fce at 128 px, B=4: SGD without warmup (every parameter moves), one step fires."""
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    yolo = YOLO("yolo11n-fce.yaml", device=device)
+    opt = Optimizer(OptimCfg(optimizer="SGD", batch_size=4, nbs=nbs, warmup_epochs=0.0, epochs=2,
+                             steps_per_epoch=4, nc=80), yolo.model)
+    state = create_train_state(yolo.model, opt)
+    step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=80, strides=tuple(yolo.strides), tal_dtype=tal_dtype),
+                           bf16=bf16)
+    return yolo, state, step
+
+
+def _train_batch(device, seed=0):
+    rng = np.random.RandomState(seed)
+    cls, boxes, mask = np.zeros((4, 8), np.float32), np.zeros((4, 8, 4), np.float32), np.zeros((4, 8), bool)
+    for i in range(4):
+        k = rng.randint(1, 4)
+        cls[i, :k] = rng.randint(0, 80, k)
+        boxes[i, :k] = np.concatenate([rng.uniform(0.3, 0.7, (k, 2)), rng.uniform(0.1, 0.4, (k, 2))], 1)
+        mask[i, :k] = True
+    img = rng.randint(0, 256, (4, 128, 128, 3), np.uint8)
+    return {k: torch.from_numpy(v).to(device) for k, v in (("img", img), ("cls", cls), ("bboxes", boxes),
+                                                              ("mask", mask))}
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 3, 3), (16, 64, 80, 80)])
+def test_batchnorm_on_the_card_keeps_flax_running_statistics(cuda, shape, dtype):
+    """Training mode on the card, channels-last, as the bf16 train step
+    feeds it: the running statistics are 0.97 * running + 0.03 * the biased
+    batch statistics of the same input values (float64) within 1e-5 (the
+    mean against the running standard deviation; the unbiased variance
+    would be 1/17 of the batch term off at 2 x 3 x 3), the output within
+    1e-5 (float32) or 1e-2 (bfloat16) of its largest value."""
+    from fce_yolo_tpu_torch.nn.modules import BN_EPS, BN_MOMENTUM, BatchNorm2d
+
+    x = (0.5 + 2.0 * torch.randn(shape, generator=torch.Generator().manual_seed(0))).to(dtype)
+    m = BatchNorm2d(shape[1], eps=BN_EPS, momentum=BN_MOMENTUM).to(cuda).train()
+    with torch.no_grad():
+        m.running_mean.fill_(0.1)
+        m.running_var.fill_(2.0)
+    y = m(x.to(cuda).contiguous(memory_format=torch.channels_last))
+    xd = x.double()
+    var, mean = torch.var_mean(xd, dim=(0, 2, 3), correction=0)
+    want_mean, want_var = 0.97 * 0.1 + 0.03 * mean, 0.97 * 2.0 + 0.03 * var
+    assert float((m.running_mean.cpu().double() - want_mean).abs().max() / want_var.sqrt().min()) <= 1e-5
+    assert float(((m.running_var.cpu().double() - want_var).abs() / want_var).max()) <= 1e-5
+    ref = (xd - mean[:, None, None]) / (var[:, None, None] + BN_EPS).sqrt()
+    assert y.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert float((y.cpu().double() - ref).abs().max()) <= tol * float(ref.abs().max())
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_the_card_moves_the_parameters(cuda):
+    yolo, state, step = _train_case(cuda, bf16=True)
+    before = [p.detach().clone() for p in state.params]
+    state, m = step(state, _train_batch(cuda))
+    assert m["finite"] and np.isfinite(float(m["loss"])) and state.optimizer.count == 1
+    assert all(p.dtype == torch.float32 for p in state.params)  # float32 master weights
+    moved = sum(not torch.equal(a, b) for a, b in zip(before, state.params))
+    assert moved > 0.9 * len(before)
+    assert all(bool(torch.isfinite(p).all()) for p in state.params)
+
+
+@pytest.mark.cuda
+def test_f32_train_step_on_the_card_matches_the_cpu(cuda):
+    """One SGD step, training BN, TF32 off: loss parts within 1e-4 relative,
+    each parameter's update within 1e-3 of its leaf's largest CPU update
+    (plus one float32 ulp of the leaf's largest value, as both sides round
+    p + update, and 1e-9), BN running statistics within 1e-4 (the mean
+    against the running standard deviation)."""
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for name, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+            yolo, state, step = _train_case(dev, tal_dtype="float32")
+            before = {k: v.detach().cpu().clone() for k, v in yolo.model.state_dict().items()}
+            state, m = step(state, _train_batch(dev))
+            out[name] = ({k: float(m[k]) for k in ("box", "cls", "dfl")},
+                         {k: v.detach().cpu() for k, v in yolo.model.state_dict().items()})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    (p_cpu, s_cpu), (p_card, s_card) = out["cpu"], out["card"]
+    for k in p_cpu:
+        assert abs(p_card[k] - p_cpu[k]) <= 1e-4 * abs(p_cpu[k]), k
+    for k, c in s_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        a = s_card[k]
+        if k.endswith("running_mean"):
+            assert float((a - c).abs().max() / s_cpu[k.replace("mean", "var")].sqrt().min()) <= 1e-4, k
+        elif k.endswith("running_var"):
+            assert float(((a - c).abs() / c).max()) <= 1e-4, k
+        else:  # both sides store p + update rounded to float32: one ulp of the largest |p| on top
+            dp = float((c - before[k]).abs().max())
+            ulp = float(torch.finfo(torch.float32).eps * before[k].abs().max())
+            assert float((a - c).abs().max()) <= 1e-3 * dp + ulp + 1e-9, k
+
+
+@pytest.mark.cuda
+def test_rolled_back_step_leaves_the_card_state_untouched(cuda):
+    yolo, state, step = _train_case(cuda)
+    state, _ = step(state, _train_batch(cuda, seed=1))
+    snap = ({k: v.clone() for k, v in yolo.model.state_dict().items()},
+            [t.clone() for ts in state.optimizer.state.values() for t in ts], [t.clone() for t in state.ema.params],
+            state.loss_state.wiou_loss_mean.clone(), state.optimizer.count)
+    bad = _train_batch(cuda, seed=2)
+    bad["img"] = bad["img"].float() / 255
+    bad["img"][0, 5, 5, 0] = float("nan")
+    state, m = step(state, bad)
+    assert not m["finite"] and state.step == 2 and state.optimizer.count == snap[4]
+    for k, v in yolo.model.state_dict().items():
+        assert torch.equal(v, snap[0][k]), k
+    assert all(torch.equal(a, b) for a, b in zip(snap[1], [t for ts in state.optimizer.state.values() for t in ts]))
+    assert all(torch.equal(a, b) for a, b in zip(snap[2], state.ema.params))
+    assert torch.equal(snap[3], state.loss_state.wiou_loss_mean)

@@ -4,10 +4,9 @@ val dataset and ``collate``, and the numpy metrics.
 
 Tolerances: images bit-equal to ``cv2.imread``; the YAML reader equal to
 ``yaml.safe_load`` on the keys it reads; datasets equal to the JAX
-package's exactly where nothing is resized (imgsz 160 over 96-160 px
-images) and within one level on pixels, with exact geometry, where the
-port's float bilinear resize stands in for cv2's fixed-point one (imgsz 64);
-metrics within 1e-12 (the same numpy code on the same inputs).
+package's, pixels and geometry, with and without a resize (imgsz 160 and
+64 over 96-160 px images: the port's resize computes cv2's fixed-point
+one); metrics within 1e-12 (the same numpy code on the same inputs).
 """
 
 import shutil
@@ -189,7 +188,7 @@ def test_val_dataset_and_collate_match_jax(png_dataset, imgsz):
         np.testing.assert_array_equal(s["cls"], r["cls"])
         np.testing.assert_array_equal(s["bboxes"], r["bboxes"])
         diff = np.abs(s["img"].astype(int) - r["img"].astype(int))
-        assert s["img"].shape == r["img"].shape and diff.max() <= (0 if r["ratio"] == 1 else 1)
+        assert s["img"].shape == r["img"].shape and diff.max() == 0
     out, ref = collate(samples), jax_collate(samples)
     assert out.keys() == {"img", "cls", "bboxes", "mask", "ratio", "pad", "orig_shape"}
     for k in out:
@@ -206,8 +205,8 @@ def test_val_loader_pads_the_tail_batch(png_dataset):
     for k in ref:
         np.testing.assert_array_equal(batches[0][k], ref[k])
     np.testing.assert_array_equal(batches[1]["img"][2], ds[3]["img"])  # padded with the last image
-    with pytest.raises(NotImplementedError):
-        YOLODataset(d["val"], mode="train")
+    with pytest.raises(ValueError, match="'train' or 'val'"):  # train mode exists since the training slice
+        YOLODataset(d["val"], mode="test")
 
 
 # ------------------------------------------------------------------ metrics

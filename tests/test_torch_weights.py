@@ -1,6 +1,7 @@
 """The JAX -> port weight bridge (nn/weights.py) is a bijection: every port
 state_dict tensor comes from exactly one flax leaf and back through the
-JAX importer's ``torch_key_to_flax``, with matching shapes."""
+JAX importer's ``torch_key_to_flax``, with matching shapes; the bridge's
+own inverse ``key_to_flax`` gives the importer's paths."""
 
 from pathlib import Path
 
@@ -14,7 +15,7 @@ from fce_yolo_tpu.nn.model import build_model as jax_build_model
 from fce_yolo_tpu.nn.model import fold_conv_bn as jax_fold_conv_bn
 from fce_yolo_tpu.nn.model import init_variables
 from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn
-from fce_yolo_tpu_torch.nn.weights import flax_path_to_key, variables_to_state_dict
+from fce_yolo_tpu_torch.nn.weights import flax_path_to_key, key_to_flax, variables_to_state_dict
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "fce_yolo_tpu" / "cfg" / "models"
 CONFIGS = [("yolo11", "n"), ("yolo11-fce", "s"), ("yolo11-fce", "n")]
@@ -55,9 +56,10 @@ def test_bridge_is_a_bijection(name, scale):
         want = (shape[3], shape[2], shape[0], shape[1]) if kind == "conv_kernel" else shape
         assert tuple(t.shape) == want, (key, tuple(t.shape), shape)
     assert set(hit) == set(leaves)
-    # flax leaf -> port key (the bridge) inverts the importer exactly
+    # flax leaf -> port key (the bridge) inverts the importer exactly, and key_to_flax is the importer
     for (coll, path), key in hit.items():
         assert flax_path_to_key(coll, path) == key
+        assert key_to_flax(model, key) == (coll, path)
 
 
 def test_bridge_loads_values_and_folded_variables():
