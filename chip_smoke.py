@@ -13,7 +13,16 @@ from a seed) and checks that each path went through its kernels:
   splits): finite losses, checkpoints, the NMS kernel once per val batch of
   each epoch and bit-equal to the plain version on the last epoch's, the
   reloaded ``best`` giving the run's mAP; the train step timed in bf16 and
-  f32; one f32 SGD step on the card against the CPU and a float64 step.
+  f32; one f32 SGD step on the card against the CPU and a float64 step;
+- the experiment layer: first the fold repair (``predict`` leaves the
+  facade's model unfolded, so it saves, reloads and trains with its
+  BatchNorm; ``fuse`` saves and reloads folded), then ``run_ablation`` of
+  the four variants (baseline, bifpn, fce, fce_wiou) at s, 640 px, B=16,
+  stage 1 and stage 2 of one epoch each with the recipe's lr0 and cos_lr,
+  on those 64 images as both splits: stage 2 starting bit-equal from stage
+  1's best, ``validate_run`` clean, the NMS kernel once per val batch of
+  every stage and bit-equal to the plain version on each, ``inspect``,
+  ``YOLO.info`` and the report's tables.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -53,6 +62,7 @@ LOSS_STEPS = 3  # phase loss: one step on each of the first val batches
 LOSS_TOL = 1e-3  # card vs CPU loss parts, relative: float32 in both, sums in another order
 TRAIN_EPOCHS = 2  # phase train: YOLO.train on the 64 val images as both splits
 TRAIN_TOL = 1e-3  # phase train (a), card vs CPU: loss parts, relative; updates, of the largest update
+ABLATION_SCALE = "s"  # phase experiments: every variant at full width and depth
 # one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
@@ -812,6 +822,177 @@ def phase_train(root: Path, card: str) -> dict:
     return launches
 
 
+def phase_repair(root: Path, card: str) -> None:
+    """The facade's model is never folded by ``predict`` (yolo11s-fce, f32,
+    640 px): after a predict its state_dict keeps every BatchNorm key, it
+    saves and ``YOLO(ckpt)`` loads it and predicts the same; a later
+    ``YOLO.train`` (one epoch, no val) trains the graph with BatchNorm (the
+    running statistics move, the checkpoint holds them); ``fuse`` then
+    ``save`` then a load gives a folded model with the same predictions."""
+    from fce_yolo_tpu_torch import YOLO
+
+    rng = np.random.RandomState(SEED + 4)
+    imgs = [rng.randint(0, 256, (IMGSZ, IMGSZ * 3 // 4, 3), np.uint8) for _ in range(4)]
+
+    def same(a: list, b: list, what: str) -> float:
+        check(len(a) == len(b) and all(len(x) == len(y) for x, y in zip(a, b)), f"{what}: detection counts differ")
+        d = max((float(np.abs(x.boxes.data - y.boxes.data).max()) for x, y in zip(a, b) if len(x)), default=0.0)
+        check(d <= 1e-3, f"{what}: predictions differ by {d}")
+        return d
+
+    yolo = YOLO("yolo11s-fce.yaml", device="cuda")
+    keys = set(yolo.model.state_dict())
+    t0 = time.perf_counter()
+    ref = yolo.predict(imgs, imgsz=IMGSZ, batch=4)
+    predict_s = time.perf_counter() - t0
+    check(set(yolo.model.state_dict()) == keys and not yolo.folded, "predict folded the facade's model")
+    again = YOLO(yolo.save(root / "repair" / "after_predict"), device="cuda")
+    check(set(again.model.state_dict()) == keys and not again.folded, "the checkpoint after predict lost BatchNorm")
+    d_reload = same(again.predict(imgs, imgsz=IMGSZ, batch=4), ref, "predict -> save -> load")
+    t0 = time.perf_counter()
+    yolo.predict(imgs, imgsz=IMGSZ, batch=4)  # the folded copy is reused: no fold this time
+    predict2_s = time.perf_counter() - t0
+
+    var0 = yolo.model.model[0].bn.running_var.clone()
+    res = yolo.train(train_data(root), epochs=1, batch=VAL_BATCH, imgsz=IMGSZ, val=False, project=str(root / "repair"),
+                     name="train", verbose=False)
+    check(isinstance(yolo.model.model[0].bn, torch.nn.BatchNorm2d) and not torch.equal(
+        yolo.model.model[0].bn.running_var, var0), "predict -> train did not train the BatchNorm graph")
+    last = YOLO(str(Path(res["save_dir"]) / "weights" / "last"), device="cuda")
+    check(not last.folded and set(last.model.state_dict()) == keys, "the trained checkpoint lost BatchNorm")
+
+    ref = yolo.fuse().predict(imgs, imgsz=IMGSZ, batch=4)
+    folded = YOLO(yolo.save(root / "repair" / "fused"), device="cuda")
+    check(folded.folded and not any(".bn." in k for k in folded.model.state_dict()), "fuse -> save -> load unfolded")
+    d_fused = same(folded.predict(imgs, imgsz=IMGSZ, batch=4), ref, "fuse -> save -> load")
+    print(f"phase experiments: fold repair: predict leaves the {len(keys)} state_dict keys (BatchNorm included); "
+          f"save -> YOLO(ckpt) predicts the same (max|d| {d_reload:.1e}); predict -> train trains BatchNorm; fuse -> "
+          f"save -> load folded predicts the same (max|d| {d_fused:.1e}); predict of 4 images {predict_s:.2f} s with "
+          f"the fold, {predict2_s:.2f} s reusing it (host clock) [{card}]", flush=True)
+
+
+def phase_experiments(root: Path, card: str) -> dict:
+    """``run_ablation`` of the four variants at ABLATION_SCALE, IMGSZ,
+    VAL_BATCH, stage 1 and stage 2 of one epoch each (the registry's recipe
+    otherwise: lr0, cos_lr, close_mosaic), on the 64 val images as both
+    splits through a data YAML, with the counts at 0. Checks: each stage 2
+    starts bit-equal to its stage 1's ``weights/best``; ``validate_run``
+    reports no problem and fce_wiou's best says WIoU; ``ablation_s.json``
+    holds four rows; the NMS kernel launched once per val batch of every
+    stage (the stem never) and bit-equal to the plain version on each
+    stage's val; ``inspect`` finds finite fusion weights in every
+    BiFPN_Concat of fce and bifpn; ``YOLO.info`` of the three
+    architectures; the report's tables written, each figure drawn or listed
+    as skipped. Returns the path's launches."""
+    from dataclasses import replace
+
+    from fce_yolo_tpu_torch import YOLO, api
+    from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+    from fce_yolo_tpu_torch.experiments import (ABLATION_ORDER, TrainConfig, inspect_checkpoint, run_ablation,
+                                                validate_run)
+    from fce_yolo_tpu_torch.experiments import config as xconfig
+    from fce_yolo_tpu_torch.experiments.figures import produce_report
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+    from fce_yolo_tpu_torch.ops.stem import fused_stem
+    from fce_yolo_tpu_torch.utils.checkpoint import load_checkpoint
+
+    phase_repair(root, card)
+    names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    data = root / "ablation.yaml"
+    data.write_text(f"path: {root}\ntrain: images/val\nval: images/val\nnames:\n{names}")
+    project = root / "ablation"
+    cfg = TrainConfig(data=str(data), batch=VAL_BATCH, imgsz=IMGSZ, workers=8, project=str(project))
+    scale, n_val, stages = ABLATION_SCALE, -(-VAL_IMAGES // VAL_BATCH), 2 * len(ABLATION_ORDER)
+
+    starts: dict[str, dict] = {}  # stage-2 run -> the model's state_dict as YOLO.train begins
+    captured: dict[str, list] = {}  # run -> its val batches' preds
+    stage_runs: dict[str, tuple] = {}  # run -> (seconds, YOLO.train's speed rows)
+    current: list[str] = []
+    real_train, real_nms = api.YOLO.train, DetectionValidator.nms
+
+    def recording_train(self, *args, **kw):
+        current.append(kw["name"])
+        if kw["name"].endswith("_stage2"):
+            starts[kw["name"]] = {k: t.detach().cpu().clone() for k, t in self.model.state_dict().items()}
+        t0 = time.perf_counter()
+        out = real_train(self, *args, **kw)
+        torch.cuda.synchronize()
+        stage_runs[kw["name"]] = (time.perf_counter() - t0, out["speed"])
+        return out
+
+    def capturing_nms(self, preds):
+        captured.setdefault(current[-1], []).append(preds.detach().clone())
+        return real_nms(self, preds)
+
+    registry = dict(xconfig.MODEL_CONFIGS)
+    try:
+        for name in ABLATION_ORDER:  # one epoch a stage; the recipe's lr0, cos_lr and close_mosaic
+            mc = registry[name]
+            xconfig.MODEL_CONFIGS[name] = replace(mc, stage1=replace(mc.stage1, epochs=1),
+                                                  stage2=replace(mc.stage2, epochs=1))
+        api.YOLO.train, DetectionValidator.nms = recording_train, capturing_nms
+        fused_stem.launches = nms_ops.pick_suppress.launches = 0
+        t0 = time.perf_counter()
+        report = run_ablation(cfg, scale=scale, clean=True, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"fused_stem": fused_stem.launches, "pick_suppress": nms_ops.pick_suppress.launches}
+    finally:
+        api.YOLO.train, DetectionValidator.nms = real_train, real_nms
+        xconfig.MODEL_CONFIGS.update(registry)
+
+    check(launches == {"fused_stem": 0, "pick_suppress": n_val * stages},
+          f"experiments path: launches {launches}, expected no stem and {n_val} NMS a stage over {stages} stages")
+    check(report["problems"] == [], f"validate_run: {report['problems']}")
+    check(len(report["table"]) == 4 and len(json.loads((project / f"ablation_{scale}.json").read_text())["table"]) == 4,
+          "ablation table rows")
+    for name in ABLATION_ORDER:
+        mc = xconfig.MODEL_CONFIGS[name]
+        best, _ = load_checkpoint(project / mc.get_result_path(scale, stage=1) / "weights" / "best")
+        start = starts[mc.get_result_path(scale)]
+        check(start.keys() == best["model"].keys() and all(torch.equal(start[k], t) for k, t in best["model"].items()),
+              f"{name}: stage 2 did not start bit-equal from stage 1's best")
+        check(validate_run(project / mc.get_result_path(scale), 1, mc.iou_type) == [], f"{name}: validate_run")
+    meta = json.loads((project / xconfig.MODEL_CONFIGS["fce_wiou"].get_result_path(scale) / "weights" / "best"
+                       / "meta.json").read_text())
+    check(meta["train_args"]["iou_type"] == "WIoU", f"fce_wiou trained with {meta['train_args']['iou_type']}")
+
+    val = DetectionValidator(None, {i: f"class{i}" for i in range(VAL_NC)}, imgsz=IMGSZ, batch_size=VAL_BATCH)
+    check(sorted(captured) == sorted(stage_runs) and all(len(v) == n_val for v in captured.values()),
+          f"val batches seen per stage: { {k: len(v) for k, v in captured.items()} }")
+    for run, preds in captured.items():  # one epoch a stage: its only val is its last
+        calls: list = []
+        for p in preds:
+            nms_kernel_vs_plain(val, p, calls)
+    del captured
+
+    fusion = {}
+    for name in ("fce", "bifpn"):
+        rep = inspect_checkpoint(str(project / xconfig.MODEL_CONFIGS[name].get_result_path(scale) / "weights" / "best"))
+        check(len(rep["bifpn"]) == 4 and all(np.isfinite(i["raw"]).all() for i in rep["bifpn"].values()),
+              f"{name}: BiFPN fusion weights {rep['bifpn']}")
+        fusion[name] = {k: i["normalized"] for k, i in rep["bifpn"].items()}
+    for name in ("baseline", "bifpn", "fce"):
+        best = project / xconfig.MODEL_CONFIGS[name].get_result_path(scale) / "weights" / "best"
+        print(f"phase experiments: YOLO.info(flops=True) of {name}: {YOLO(str(best), device='cuda').info(flops=True)}",
+              flush=True)
+    out = produce_report(report["runs"], project / "report", scale=scale, imgsz=IMGSZ)
+    check(all(Path(p).exists() for p in out["written"]) and sum(p.endswith(".md") for p in out["written"]) == 2,
+          f"report: {out}")
+    check(len(out["written"]) + len(out["skipped"]) == 2 + 4, f"report figures neither drawn nor listed: {out}")
+
+    for run, (sec, speed) in stage_runs.items():
+        print(f"phase experiments: {run}: {sec:.1f} s (YOLO.train, host clock, checkpoints included); " + "; ".join(
+            f"epoch {sp['epoch'] + 1}: {sp['img_per_s']:.2f} img/s, val {sp['val_s']:.2f} s" for sp in speed)
+              + f" [{card}]", flush=True)
+    print(f"phase experiments: run_ablation yolo11{scale} x {len(ABLATION_ORDER)} variants {IMGSZ} bf16 B={VAL_BATCH}, "
+          f"{stages} stages of 1 epoch ({VAL_IMAGES // VAL_BATCH} steps), launches {launches}; stage 2 bit-equal to "
+          f"stage 1's best for every variant; validate_run clean; NMS kernel idx/ok equal to the plain version on "
+          f"all {n_val * stages} val batches; fusion weights {fusion}; report {len(out['written'])} written, "
+          f"{len(out['skipped'])} figures skipped; {wall:.1f} s in all [{card}]", flush=True)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script only runs on a GPU")
@@ -852,9 +1033,10 @@ def main() -> None:
         phase_loss(val_out, card)
         del val_out
         train = phase_train(Path(tmp), card)
+        experiments = phase_experiments(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"predict": predict, "val": val, "train": train}
+    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments}
     kernels = [
         {"name": "fused_stem", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/stem.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", "launches": sum(p["fused_stem"] for p in paths.values()),

@@ -1,5 +1,5 @@
 """``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-284, 400-423, 495-881``):
-detect predict, val and train, and checkpoints."""
+detect predict, val and train, checkpoints and the model summary."""
 
 from __future__ import annotations
 
@@ -13,7 +13,8 @@ from typing import Any, Mapping
 import torch
 
 from fce_yolo_tpu_torch.cfg.models import load_model_dict
-from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn, init_weights
+from fce_yolo_tpu_torch.nn.model import (build_model, estimate_flops, fold_conv_bn, init_weights, is_folded,
+                                         param_count, weights_version)
 from fce_yolo_tpu_torch.nn.weights import variables_to_state_dict
 from fce_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
 
@@ -38,19 +39,24 @@ class YOLO:
 
     ``model`` is a model name or YAML (built and initialized from seed 0, as
     the JAX facade's lazy init), or a checkpoint directory written by
-    ``save``/``train`` (built from its ``meta.json``, weights loaded). The
-    model lives on ``device``: the card unless another is named; no CUDA
-    raises. ``reset_weights`` re-seeds, ``load`` reads a checkpoint's
-    weights, ``load_jax_variables`` loads weights exported from the JAX
-    package.
+    ``save``/``train`` (built from its ``meta.json``, folded if it was saved
+    folded, weights loaded). The model lives on ``device``: the card unless
+    another is named; no CUDA raises. ``reset_weights`` re-seeds, ``load``
+    reads a checkpoint's weights, ``load_jax_variables`` loads weights
+    exported from the JAX package. ``predict`` runs a folded copy of the
+    model, made once per version of the weights; ``model`` keeps its
+    BatchNorm unless ``fuse`` folds it.
     """
 
     def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda"):
         self.device = torch.device(device)
         self.ckpt_meta: dict[str, Any] = {}
+        self._folded_copy: tuple[tuple | None, torch.nn.Module] | None = None  # (weights_version, folded copy)
         if is_checkpoint(model):
             tree, meta = load_checkpoint(model)
             self._build(meta["cfg_yaml"], meta.get("scale"), meta.get("nc"))
+            if meta.get("folded"):
+                fold_conv_bn(self.model)
             self.model.load_state_dict(tree["model"])
             self.names = {int(k): v for k, v in meta.get("names", {}).items()}
             self.ckpt_meta = meta
@@ -71,6 +77,11 @@ class YOLO:
     def nc(self) -> int:
         return self.spec.nc
 
+    @property
+    def folded(self) -> bool:
+        """Whether the facade's model is folded (``fuse``, or a folded checkpoint): it predicts but cannot train."""
+        return is_folded(self.model)
+
     def reset_weights(self, seed: int = 0) -> "YOLO":
         """Re-initialize all parameters from ``seed`` (reference Model.reset_weights)."""
         init_weights(self.model, torch.Generator().manual_seed(seed))
@@ -88,26 +99,54 @@ class YOLO:
 
     def load(self, weights: str | Path) -> "YOLO":
         """Load a checkpoint directory's weights into this architecture
-        (reference Model.load); its class names too."""
+        (reference Model.load); its class names too. The model is folded, or
+        built anew unfolded, as the checkpoint was saved."""
         if not is_checkpoint(weights):
             raise ValueError(f"cannot load weights from {weights!r}: not a checkpoint directory (meta.json)")
         tree, meta = load_checkpoint(weights)
+        if bool(meta.get("folded")) != self.folded:
+            if self.folded:
+                self._build(self.cfg_yaml, self.scale, self.nc)
+            else:
+                fold_conv_bn(self.model)
         self.model.load_state_dict(tree["model"])
         if meta.get("names"):
             self.names = {int(k): v for k, v in meta["names"].items()}
         return self
 
     def _meta(self, extra: dict | None = None) -> dict:
-        return {"cfg_yaml": self.cfg_yaml, "scale": self.scale, "nc": self.nc, "names": self.names, **(extra or {})}
+        return {"cfg_yaml": self.cfg_yaml, "scale": self.scale, "nc": self.nc, "names": self.names,
+                "folded": self.folded, **(extra or {})}
 
     def save(self, path: str | Path, extra_meta: dict | None = None) -> str:
         """Write the model's weights and ``meta.json`` to the directory ``path``."""
         return save_checkpoint(path, {"model": _cpu(self.model.state_dict())}, self._meta(extra_meta))
 
     def fuse(self) -> "YOLO":
-        """Fold Conv+BN into conv weights in place (reference Model.fuse); idempotent."""
+        """Fold Conv+BN into conv weights in place (reference Model.fuse);
+        idempotent. ``save`` records the fold and a load builds the model
+        folded; a folded facade cannot ``train``."""
         fold_conv_bn(self.model)
         return self
+
+    def info(self, flops: bool = False, imgsz: int = 640) -> dict:
+        """Model summary (reference ``YOLO.info``, api.py:224): {"params",
+        "nc", "strides", "yaml"} and, with ``flops``, "gflops" of one image at
+        ``imgsz`` (``nn/model.py::estimate_flops``)."""
+        out = {"params": param_count(self.model), "nc": self.nc, "strides": self.strides, "yaml": self.cfg_yaml}
+        if flops:
+            out["gflops"] = estimate_flops(self.model, imgsz=imgsz) / 1e9
+        return out
+
+    def _inference_model(self) -> torch.nn.Module:
+        """A copy of the model with Conv+BN folded, for ``predict``; folded
+        again only when ``weights_version`` shows the weights changed (the
+        reference's ``_maybe_fold``, engine/predictor.py:247-268)."""
+        key = weights_version(self.model)
+        if key is None or self._folded_copy is None or self._folded_copy[0] != key:
+            self._folded_copy = None  # free the old copy first
+            self._folded_copy = (key, fold_conv_bn(copy.deepcopy(self.model)).eval())
+        return self._folded_copy[1]
 
     def to(self, dtype_or_device) -> "YOLO":
         """Move the model to a dtype (e.g. ``torch.bfloat16``) or a device."""
@@ -118,10 +157,10 @@ class YOLO:
     def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640,
                 max_det: int = 300, batch: int = 1) -> list:
         """Detect on numpy BGR images (one array or a list); a list of
-        ``Results``. Folds Conv+BN in place."""
+        ``Results``. Runs a folded copy of the model (``_inference_model``)."""
         from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
-        predictor = DetectionPredictor(self.model, self.names, imgsz=imgsz, conf=conf, iou=iou,
+        predictor = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
                                        max_det=max_det, batch_size=batch)
         return list(predictor.stream(source))
 
@@ -171,6 +210,10 @@ class YOLO:
         from fce_yolo_tpu_torch.train.trainer import EarlyStopping, create_train_state, make_train_step
         from fce_yolo_tpu_torch.utils.files import get_latest_run, increment_path
 
+        if self.folded:
+            raise RuntimeError("YOLO.train: the model is folded (YOLO.fuse() or a checkpoint saved folded): its "
+                               "BatchNorms are gone, so it cannot train; build the model anew or load an unfolded "
+                               "checkpoint")
         d = check_det_dataset(data)
         if d["nc"] != self.nc:  # a data YAML with another class count rebuilds the model
             self._build(self.cfg_yaml, self.scale, d["nc"])

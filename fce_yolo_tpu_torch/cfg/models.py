@@ -1,7 +1,7 @@
 """Packaged model configs as Python dicts.
 
-Equal to ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml`` and
-``yolo11-fce.yaml`` (YAML's unquoted ``None`` is the string "None", resolved
+Equal to ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml``,
+``yolo11-fce.yaml`` and ``yolo11-bifpn.yaml`` (YAML's unquoted ``None`` is the string "None", resolved
 by the parser like the reference's literal_eval pass). A user-given model
 YAML file is read by the port's own reader (``utils/yaml_read.py``): the
 port needs no pyyaml.
@@ -88,6 +88,38 @@ MODELS: dict[str, dict] = {
             [[-1, 12], 1, "BiFPN_Concat", []],  # 23
             [-1, 2, "C3k2", [1024, True]],  # 24 P5/32
             [[18, 21, 24], 1, "Detect", ["nc"]],  # 25
+        ],
+    },
+    "yolo11-bifpn": {  # the ablation's M2: yolo11 with its four neck Concats as BiFPN_Concat
+        "nc": 80,
+        "scales": _SCALES,
+        "backbone": [
+            [-1, 1, "Conv", [64, 3, 2]],  # 0 P1/2
+            [-1, 1, "Conv", [128, 3, 2]],  # 1 P2/4
+            [-1, 2, "C3k2", [256, False, 0.25]],  # 2
+            [-1, 1, "Conv", [256, 3, 2]],  # 3 P3/8
+            [-1, 2, "C3k2", [512, False, 0.25]],  # 4
+            [-1, 1, "Conv", [512, 3, 2]],  # 5 P4/16
+            [-1, 2, "C3k2", [512, True]],  # 6
+            [-1, 1, "Conv", [1024, 3, 2]],  # 7 P5/32
+            [-1, 2, "C3k2", [1024, True]],  # 8
+            [-1, 1, "SPPF", [1024, 5]],  # 9
+            [-1, 2, "C2PSA", [1024]],  # 10
+        ],
+        "head": [
+            [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],  # 11
+            [[-1, 6], 1, "BiFPN_Concat", []],  # 12
+            [-1, 2, "C3k2", [512, False]],  # 13
+            [-1, 1, "nn.Upsample", ["None", 2, "nearest"]],  # 14
+            [[-1, 4], 1, "BiFPN_Concat", []],  # 15
+            [-1, 2, "C3k2", [256, False]],  # 16 P3/8
+            [-1, 1, "Conv", [256, 3, 2]],  # 17
+            [[-1, 6, 13], 1, "BiFPN_Concat", []],  # 18
+            [-1, 2, "C3k2", [512, False]],  # 19 P4/16
+            [-1, 1, "Conv", [512, 3, 2]],  # 20
+            [[-1, 10], 1, "BiFPN_Concat", []],  # 21
+            [-1, 2, "C3k2", [1024, True]],  # 22 P5/32
+            [[16, 19, 22], 1, "Detect", ["nc"]],  # 23
         ],
     },
 }

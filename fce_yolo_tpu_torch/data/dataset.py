@@ -1,9 +1,12 @@
 """YOLO-format detection dataset (reference ``fce_yolo_tpu/data/dataset.py:32-529``).
 
-- ``check_det_dataset`` takes a data YAML path or a dict. The YAML is read
-  by ``utils/yaml_read.py``, so no pyyaml is needed; only ``path``,
-  ``train``, ``val``, ``test``, ``nc`` and ``names`` are kept. There is no
-  packaged dataset-name registry here.
+- ``check_det_dataset`` takes a data YAML path, a dataset name of the
+  port's registry (``cfg/datasets/``: byte-equal copies of the JAX
+  package's detect dataset YAMLs) or a dict. The YAML is read by
+  ``utils/yaml_read.py``, so no pyyaml is needed; only ``path``, ``train``,
+  ``val``, ``test``, ``nc`` and ``names`` are kept, and ``download`` is
+  read only to name the data's source when it is missing. Nothing is ever
+  downloaded.
 - ``YOLODataset`` parses the labels at construction, every time: the JAX
   package's ``.labels_*.npz`` cache is neither written nor read. Images are
   read by ``data/imread.py`` (PNG or ``.npy``), augmented (train) or
@@ -30,8 +33,11 @@ from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
 DATA_KEYS = ("path", "train", "val", "test", "nc", "names")
+REGISTRY = Path(__file__).resolve().parent.parent / "cfg" / "datasets"
+DATASETS_DIR = "datasets"  # the JAX package's default datasets_dir (utils/settings.py)
 
-__all__ = ["IMG_FORMATS", "read_data_yaml", "check_det_dataset", "img2label_path", "YOLODataset", "collate"]
+__all__ = ["IMG_FORMATS", "read_data_yaml", "resolve_dataset_yaml", "check_det_dataset", "img2label_path",
+           "YOLODataset", "collate"]
 
 
 def read_data_yaml(text: str) -> dict:
@@ -41,22 +47,45 @@ def read_data_yaml(text: str) -> dict:
     return read_yaml(text, keys=DATA_KEYS)
 
 
+def _download_source(text: str):
+    """A data YAML's ``download`` value, or None; a block scalar (``|`` or
+    ``>``), which the reader does not read, is named as such."""
+    try:
+        return read_yaml(text, keys=("download",)).get("download")
+    except ValueError:
+        return "the download script in the YAML"
+
+
+def resolve_dataset_yaml(dataset: str | Path) -> Path:
+    """A data YAML's file (reference ``_resolve_dataset_yaml``,
+    dataset.py:38-59): an existing path wins, then ``name`` or ``name.yaml``
+    in the port's registry; else FileNotFoundError listing the registry."""
+    p = Path(dataset)
+    if p.exists():
+        return p
+    name = p.name if p.suffix in (".yaml", ".yml") else p.name + ".yaml"
+    for cand in (REGISTRY / name, REGISTRY / name.replace(".yml", ".yaml")):
+        if cand.exists():
+            return cand
+    known = ", ".join(h.stem for h in sorted(REGISTRY.glob("*.yaml")))
+    raise FileNotFoundError(f"dataset '{dataset}' not found as a file and not in the packaged registry ({known})")
+
+
 # ------------------------------------------------------------------- dataset
 def check_det_dataset(dataset: str | Path | dict) -> dict:
-    """Load and normalise a data YAML path or dict (reference
+    """Load and normalise a data YAML path, registry name or dict (reference
     ``dataset.py:62-109``): returns it with ``names`` as {int: str}, ``nc``,
     and absolute ``path`` and split paths. A relative ``path`` resolves next
-    to the YAML (the working directory for a dict), else under
-    ``$FY_DATASETS_DIR`` when that is set. Missing split paths raise."""
+    to the YAML (the working directory for a dict) if it exists there, else
+    under ``$FY_DATASETS_DIR`` (default ``datasets`` in the working
+    directory). A missing split path raises with the path to fill and the
+    YAML's ``download`` source; nothing is downloaded."""
     if isinstance(dataset, (str, Path)):
-        path = Path(dataset)
-        if not path.is_file():
-            raise FileNotFoundError(f"data YAML {dataset} not found (the port takes a path or a dict; "
-                                    "it has no registry of dataset names)")
-        d = read_data_yaml(path.read_text())
-        yaml_dir = path.resolve().parent
+        path = resolve_dataset_yaml(dataset)
+        text = path.read_text()
+        d, yaml_dir = read_data_yaml(text), path.resolve().parent
     else:
-        d, yaml_dir = dict(dataset), Path.cwd()
+        d, yaml_dir, text = dict(dataset), Path.cwd(), None
 
     names = d.get("names")
     if isinstance(names, list):
@@ -69,11 +98,10 @@ def check_det_dataset(dataset: str | Path | dict) -> dict:
     root = Path(d.get("path") or ".").expanduser()
     if not root.is_absolute():
         local = (yaml_dir / root).resolve()
-        base = os.environ.get("FY_DATASETS_DIR")
-        if local.exists() or not base:
+        if local.exists():
             root = local
         else:
-            base = Path(base).expanduser()
+            base = Path(os.environ.get("FY_DATASETS_DIR", DATASETS_DIR)).expanduser()
             root = (base if base.is_absolute() else Path.cwd() / base) / root
     d["path"] = str(root)
     for split in ("train", "val", "test"):
@@ -84,7 +112,9 @@ def check_det_dataset(dataset: str | Path | dict) -> dict:
             d[split] = resolved[0] if isinstance(v, str) else resolved
             for p in resolved:
                 if not os.path.exists(p):
-                    raise FileNotFoundError(f"dataset {split} path not found: {p}")
+                    src = d.get("download") if text is None else _download_source(text)
+                    hint = f" (no auto-download here; original source: {src})" if src else ""
+                    raise FileNotFoundError(f"dataset {split} path not found: {p}{hint}")
     return d
 
 

@@ -1,9 +1,11 @@
 """Streaming detection predictor (reference ``fce_yolo_tpu/engine/predictor.py:97-363``).
 
 Numpy sources are letterboxed to fixed-size uint8 batches on the host (BGR
--> RGB, padded to the predictor's batch size), run through the folded model
-on its device, NMS'd there, and come back as ``Results`` in original-image
-pixels.
+-> RGB, padded to the predictor's batch size), run through the model with
+Conv+BN folded on its device, NMS'd there, and come back as ``Results`` in
+original-image pixels. The caller's model is never folded in place: an
+unfolded one is folded in a copy (the reference folds a copy too,
+predictor.py:247-268).
 
 Stem gate (the port's form of the JAX gate at predictor.py:163-188): layers
 0..2 run in the fused stem kernel when the model matches
@@ -13,6 +15,7 @@ are bf16. Otherwise the plain graph runs from layer 0.
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Iterator
 
@@ -21,7 +24,7 @@ import torch
 
 from fce_yolo_tpu_torch.data.augment import letterbox
 from fce_yolo_tpu_torch.engine.results import Results
-from fce_yolo_tpu_torch.nn.model import DetectionModel, fold_conv_bn
+from fce_yolo_tpu_torch.nn.model import DetectionModel, fold_conv_bn, is_folded
 from fce_yolo_tpu_torch.ops.nms import batched_nms
 from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
 
@@ -44,8 +47,9 @@ def load_source(source) -> Iterator[tuple[np.ndarray, str]]:
 
 
 class DetectionPredictor:
-    """Fixed-shape batched detect predictor. Folds Conv+BN of ``model`` in
-    place on first use (the reference's Model.fuse)."""
+    """Fixed-shape batched detect predictor. On first use it runs ``model``
+    as it is when folded (``YOLO`` hands it its memoized folded copy), else a
+    folded copy of it; ``model`` itself is left as it was."""
 
     def __init__(self, model: DetectionModel, names: dict[int, str], imgsz: int = 640,
                  conf: float = 0.25, iou: float = 0.7, max_det: int = 300, batch_size: int = 1):
@@ -60,7 +64,8 @@ class DetectionPredictor:
         self._ready = False
 
     def _setup(self) -> None:
-        fold_conv_bn(self.model)
+        if not is_folded(self.model):
+            self.model = fold_conv_bn(copy.deepcopy(self.model))
         self.model.eval()
         w = self.model.model[0].conv.weight
         spec = stem_spec_from_model(self.model.spec, (self.imgsz, self.imgsz))

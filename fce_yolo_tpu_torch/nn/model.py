@@ -164,3 +164,42 @@ def fold_conv_bn(model: nn.Module) -> nn.Module:
             conv.bias = nn.Parameter((bn.bias.float() - bn.running_mean.float() * g_std).to(dtype))
             m.bn = nn.Identity()
     return model
+
+
+def is_folded(model: nn.Module) -> bool:
+    """Whether ``fold_conv_bn`` has folded ``model`` (its BatchNorms are gone)."""
+    return any(m.folded for m in model.modules() if isinstance(m, M.ConvBNAct))
+
+
+def weights_version(model: nn.Module) -> tuple | None:
+    """A key that changes whenever a parameter or buffer of ``model`` is
+    replaced (a load, a move, a fold) or written in place (a training step):
+    each tensor's storage and version counter. None when one is an inference
+    tensor, which keeps no version counter."""
+    tensors = [*model.parameters(), *model.buffers()]
+    if any(t.is_inference() for t in tensors):
+        return None
+    return tuple((t.data_ptr(), t._version) for t in tensors)
+
+
+def param_count(model: nn.Module) -> int:
+    """Parameter count (reference ``param_count``, nn/model.py:391): every
+    parameter tensor, the BatchNorm running statistics not included."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def estimate_flops(model: DetectionModel, imgsz: int = 640, batch: int = 1) -> float:
+    """FLOPs of one eval forward at ``imgsz`` (reference ``estimate_flops``,
+    nn/model.py:397), counted by ``torch.utils.flop_counter.FlopCounterMode``
+    on a copy of the graph on the ``meta`` device: shapes only, no memory,
+    no arithmetic. A multiply-add counts 2; convolutions, matmuls and
+    attention are counted, elementwise work is not."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.device("meta"):
+        probe = DetectionModel(model.spec, model.strides).eval()
+        x = torch.empty(batch, 3, imgsz, imgsz)
+    counter = FlopCounterMode(display=False)
+    with counter, torch.no_grad():
+        probe(x)
+    return float(counter.get_total_flops())

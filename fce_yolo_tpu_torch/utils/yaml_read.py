@@ -52,12 +52,18 @@ def _plain(text: str):
 
 def _scan(text: str):
     """Yield (char, inside_quotes) of ``text``, skipping ``#`` comments
-    (at the start or after a blank) outside quotes. A quote opens a scalar
+    (at the start or after a blank) outside quotes and a double-quoted
+    scalar's escaped line breaks. A quote opens a scalar
     only where one can start: first, or after a blank or ``[{,``."""
     quote, i = None, 0
     while i < len(text):
         ch = text[i]
         if quote:
+            if quote == '"' and ch == "\\" and text[i + 1: i + 2] == "\n":
+                i += 2  # an escaped line break: it and the next line's indent vanish
+                while i < len(text) and text[i] in " \t":
+                    i += 1
+                continue
             if quote == '"' and ch == "\\":  # an escape: keep both characters
                 yield ch, True
                 yield text[i + 1: i + 2], True

@@ -435,3 +435,29 @@ def test_rolled_back_step_leaves_the_card_state_untouched(cuda):
     assert all(torch.equal(a, b) for a, b in zip(snap[1], [t for ts in state.optimizer.state.values() for t in ts]))
     assert all(torch.equal(a, b) for a, b in zip(snap[2], state.ema.params))
     assert torch.equal(snap[3], state.loss_state.wiou_loss_mean)
+
+
+@pytest.mark.cuda
+def test_experiment_trainer_on_the_card_takes_the_nms_kernel(cuda, tmp_path, monkeypatch):
+    """``ExperimentTrainer`` (fce_wiou, n, 64 px, B=4) with stage 1 and stage
+    2 of one epoch each, on the card by default: each stage's val launches
+    the NMS kernel once per batch, stage 2 starts from stage 1's best, and
+    the best checkpoint echoes WIoU."""
+    from dataclasses import replace
+
+    from fce_yolo_tpu_torch.experiments import MODEL_CONFIGS, StageConfig, TrainConfig, validate_run
+    from fce_yolo_tpu_torch.experiments.trainer import ExperimentTrainer
+
+    data = _val_dataset(tmp_path / "data", n=8, nc=3)
+    text = (tmp_path / "data" / "data.yaml").read_text()
+    (tmp_path / "data" / "data.yaml").write_text(text.replace("val: images/val", "train: images/val\nval: images/val"))
+    stage = StageConfig(epochs=1, patience=50, lr0=0.001, cos_lr=True, close_mosaic=0)
+    mc = replace(MODEL_CONFIGS["fce_wiou"], stage1=stage, stage2=stage)
+    cfg = TrainConfig(data=data, batch=4, imgsz=64, workers=2, project=str(tmp_path / "runs"), verbose=False,
+                      extra_args={"mosaic": 0.0, "warmup_epochs": 0.0})
+    before = pick_suppress.launches
+    out = ExperimentTrainer(mc, scale="n", train_cfg=cfg).train()
+    assert pick_suppress.launches == before + 2 * 2  # 8 val images at B=4, one val a stage
+    assert out["stage1"]["save_dir"].endswith("fce_wiou_n_stage1") and out["save_dir"].endswith("fce_wiou_n_stage2")
+    assert validate_run(out["save_dir"], 1, "WIoU") == []
+    assert all(np.isfinite(out["stage2"]["results"][0][k]) for k in ("train/box_loss", "train/cls_loss"))

@@ -161,7 +161,8 @@ def test_model_yaml_reader_matches_pyyaml(path):
     "# header\npath: /a\ntrain: [t1, t2]\nval: v\nnames: [a, 'b, c', \"d\", jack-o'-lantern]\nnc: 4\n",
     "path: /a\nval: v\nnames: {0: x,\n  1: two\n    words, 2: 'q'}\nchannels: 3\nkpt_shape: [17, 3]\n",
     "path: /a\nval: v\nnc: 2\nnames: [1.5, .5, -.5, 1e3, 2.0e+3, .inf, -.Inf, 0., 1_0.5, a.b, ~, null, 'yes', yes]\n",
-], ids=["block-map", "block-list", "inline-list", "flow-map", "scalars"])
+    'path: /a\nval: v\nnames:\n  0: "traffic\\\n    \\ light"\n  1: "a \\\\\n    b\\\n  c"\n',
+], ids=["block-map", "block-list", "inline-list", "flow-map", "scalars", "escaped-break"])
 def test_data_yaml_reader_forms(text):
     ref = yaml.safe_load(text)
     assert read_data_yaml(text) == {k: ref[k] for k in DATA_KEYS if k in ref}
@@ -171,8 +172,8 @@ def test_check_det_dataset_matches_jax(png_dataset):
     ref = jax_check_det_dataset(png_dataset)
     assert check_det_dataset(png_dataset) == ref
     assert check_det_dataset(dict(yaml.safe_load(Path(png_dataset).read_text()))) == ref
-    with pytest.raises(FileNotFoundError, match="no registry"):
-        check_det_dataset("coco8.yaml")
+    with pytest.raises(FileNotFoundError, match="not in the packaged registry"):
+        check_det_dataset("no-such-dataset.yaml")
 
 
 # ------------------------------------------------------ dataset and collate

@@ -133,13 +133,12 @@ def test_anchor_ops_match_jax():
                panchors.dist2bbox(torch.from_numpy(d), torch.from_numpy(a), xywh))
 
 
-@pytest.fixture(scope="module")
-def fce_n():
-    """yolo11n-fce in both frameworks on the same seeded weights, random BN
+def _bridged_model(name: str):
+    """``name`` at n in both frameworks on the same seeded weights, random BN
     statistics included; the flax variables come from the port's state_dict
     through the JAX package's own importer (no flax init compile)."""
-    jmodel, _, _ = jax_build_model("fce_yolo_tpu/cfg/models/yolo11-fce.yaml", scale="n")
-    model, _, _ = build_model("yolo11n-fce.yaml", device="cpu")
+    jmodel, _, _ = jax_build_model(f"fce_yolo_tpu/cfg/models/{name}.yaml", scale="n")
+    model, _, _ = build_model(f"{name}.yaml", scale="n", device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -147,14 +146,20 @@ def fce_n():
             if isinstance(m, torch.nn.BatchNorm2d):
                 m.running_var.uniform_(0.5, 1.5, generator=gen)
                 m.running_mean.normal_(0.0, 0.1, generator=gen)
+            elif isinstance(m, pfce.BiFPN_Concat):  # unequal fusion weights, so a swapped input shows
+                m.w.uniform_(0.5, 1.5, generator=gen)
     sd = {k: t.numpy() for k, t in model.state_dict().items()}
     v = state_dict_to_variables(sd)
     return jmodel, v, model
 
 
-def test_full_model_forward_matches_flax(fce_n):
+@pytest.fixture(scope="module")
+def fce_n():
+    return _bridged_model("yolo11-fce")
+
+
+def _assert_forward_matches(jmodel, v, model):
     """Eval preds and train-mode-shaped per-level maps of the whole graph."""
-    jmodel, v, model = fce_n
     x = np.random.RandomState(2).rand(2, 64, 96, 3).astype(np.float32)
     ref = jmodel.apply(v, jnp.asarray(x), train=False)
     with torch.no_grad():
@@ -162,6 +167,15 @@ def test_full_model_forward_matches_flax(fce_n):
     _close(ref["preds"], out["preds"])
     for rf, of in zip(ref["feats"], out["feats"]):
         _close(rf, _nchw_to_nhwc(of))
+
+
+def test_full_model_forward_matches_flax(fce_n):
+    _assert_forward_matches(*fce_n)
+
+
+def test_full_model_forward_matches_flax_bifpn():
+    """yolo11n-bifpn, the ablation's M2: the four BiFPN_Concat necks of the stock graph."""
+    _assert_forward_matches(*_bridged_model("yolo11-bifpn"))
 
 
 def test_fold_conv_bn_matches_flax(fce_n):

@@ -1,6 +1,7 @@
 """Port parser and packaged configs vs the JAX package: the config dicts
 equal the YAML files, and the parsed ModelSpec equals the JAX ModelSpec for
-yolo11 and yolo11-fce at every scale (exact: it is integer channel math)."""
+yolo11, yolo11-fce and yolo11-bifpn at every scale (exact: it is integer
+channel math)."""
 
 import dataclasses
 from pathlib import Path
@@ -19,14 +20,14 @@ CFG_DIR = Path(__file__).resolve().parent.parent / "fce_yolo_tpu" / "cfg" / "mod
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("name", ["yolo11", "yolo11-fce"])
+@pytest.mark.parametrize("name", ["yolo11", "yolo11-fce", "yolo11-bifpn"])
 def test_config_dicts_equal_yaml(name):
     with open(CFG_DIR / f"{name}.yaml") as fh:
         assert MODELS[name] == yaml.safe_load(fh)
 
 
 @pytest.mark.parametrize("scale", ["n", "s", "m", "l", "x"])
-@pytest.mark.parametrize("name", ["yolo11", "yolo11-fce"])
+@pytest.mark.parametrize("name", ["yolo11", "yolo11-fce", "yolo11-bifpn"])
 def test_model_spec_matches_jax(name, scale):
     ref = jax_load_model_yaml(CFG_DIR / f"{name}.yaml", scale=scale)
     spec = load_model_yaml(f"{name}.yaml", scale=scale)

@@ -1,5 +1,6 @@
 """The port's YOLO.predict vs the JAX facade on the same bridged f32
-weights and images, the JAX-free import path, and the letterbox.
+weights and images, the JAX-free import path, the letterbox, and the
+folded copy predict runs (the facade's own model keeps its BatchNorm).
 
 Tolerance: counts and classes exact; boxes within 1e-3 px and scores within
 1e-5 (f32 forward in both, summation order only). Images are non-square and
@@ -7,6 +8,7 @@ no larger than imgsz, so the letterbox (scaleup=False) pads without
 resizing and both sides see identical pixels.
 """
 
+import json
 import subprocess
 import sys
 import textwrap
@@ -20,7 +22,7 @@ import torch
 from fce_yolo_tpu.api import YOLO as JaxYOLO
 from fce_yolo_tpu.data.augment import letterbox as jax_letterbox
 from fce_yolo_tpu.nn.model import init_variables
-from fce_yolo_tpu_torch import YOLO
+from fce_yolo_tpu_torch import YOLO, api
 from fce_yolo_tpu_torch.data.augment import letterbox
 from fce_yolo_tpu_torch.engine.results import Results
 
@@ -124,3 +126,65 @@ def test_results_api():
     assert r.verbose() == "1 cat, 2 dogs, "
     assert r.summary()[0]["name"] == "dog" and len(r[1:]) == 2
     assert '"confidence": 0.9' in r.to_json()
+
+
+def _boxes(results) -> list[np.ndarray]:
+    return [r.boxes.data for r in results]
+
+
+def test_predict_leaves_the_model_unfolded_and_saveable(tmp_path):
+    """``predict`` runs a folded copy: the facade's model keeps every BN, its
+    checkpoint loads into a fresh ``YOLO`` and predicts the same."""
+    y = YOLO("yolo11n-fce.yaml", device="cpu")
+    keys = set(y.model.state_dict())
+    imgs = _images()
+    before = y.predict(imgs, imgsz=128, batch=2)
+    assert set(y.model.state_dict()) == keys and any(".bn." in k for k in keys) and not y.folded
+    again = YOLO(y.save(tmp_path / "ckpt"), device="cpu")
+    assert not again.folded and set(again.model.state_dict()) == keys
+    for a, b in zip(_boxes(again.predict(imgs, imgsz=128, batch=2)), _boxes(before)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_repeated_predict_folds_once(monkeypatch):
+    """Two predicts on unchanged weights fold once; new weights, an in-place
+    edit or a dtype move fold again."""
+    calls = []
+    real = api.fold_conv_bn
+    monkeypatch.setattr(api, "fold_conv_bn", lambda m: calls.append(1) or real(m))
+    y = YOLO("yolo11n.yaml", device="cpu")
+    img = _images()[0]
+    y.predict(img, imgsz=64)
+    y.predict(img, imgsz=64)
+    assert len(calls) == 1
+    y.reset_weights(1)
+    y.predict(img, imgsz=64)
+    with torch.no_grad():
+        y.model.model[-1].cv3[0][2].bias.add_(1.0)
+    y.predict(img, imgsz=64)
+    y.to(torch.float64)
+    y.predict(img, imgsz=64)
+    assert len(calls) == 4
+    assert not y.folded
+    with torch.inference_mode():  # inference tensors keep no version counter: every predict folds
+        z = YOLO("yolo11n.yaml", device="cpu")
+    z.predict(img, imgsz=64)
+    z.predict(img, imgsz=64)
+    assert len(calls) == 6
+
+
+def test_fused_facade_saves_and_loads_folded(tmp_path):
+    """``fuse`` folds in place; ``save`` records it, a load builds the model
+    folded and predicts the same; ``load`` follows the checkpoint's form
+    either way."""
+    y = YOLO("yolo11n-fce.yaml", device="cpu")
+    imgs = _images()
+    ref = y.predict(imgs, imgsz=128, batch=2)
+    unfolded = y.save(tmp_path / "unfolded")
+    path = y.fuse().save(tmp_path / "folded")
+    assert y.folded and json.loads((Path(path) / "meta.json").read_text())["folded"] is True
+    again = YOLO(path, device="cpu")
+    assert again.folded and not any(".bn." in k for k in again.model.state_dict())
+    for a, b in zip(_boxes(again.predict(imgs, imgsz=128, batch=2)), _boxes(ref)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+    assert not again.load(unfolded).folded and YOLO("yolo11n-fce.yaml", device="cpu").load(path).folded

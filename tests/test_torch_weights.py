@@ -18,7 +18,7 @@ from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn
 from fce_yolo_tpu_torch.nn.weights import flax_path_to_key, key_to_flax, variables_to_state_dict
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "fce_yolo_tpu" / "cfg" / "models"
-CONFIGS = [("yolo11", "n"), ("yolo11-fce", "s"), ("yolo11-fce", "n")]
+CONFIGS = [("yolo11", "n"), ("yolo11-fce", "s"), ("yolo11-fce", "n"), ("yolo11-bifpn", "n")]
 
 torch.set_num_threads(1)
 
