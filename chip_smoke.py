@@ -22,7 +22,16 @@ from a seed) and checks that each path went through its kernels:
   on those 64 images as both splits: stage 2 starting bit-equal from stage
   1's best, ``validate_run`` clean, the NMS kernel once per val batch of
   every stage and bit-equal to the plain version on each, ``inspect``,
-  ``YOLO.info`` and the report's tables.
+  ``YOLO.info`` and the report's tables;
+- JPEG reading (phase jpeg): ``decode_jpeg`` on the card (host entropy
+  decode, the IDCT and colour kernels of csrc/jpeg.cu) byte-equal to the
+  plain path on baseline files this script writes (every sampling, gray,
+  four qualities, restart intervals, EXIF orientations, 1x1 to 1080x1920),
+  timed stage by stage; ``YOLO.val`` on a JPEG copy of the 64 images (both
+  JPEG kernels once an image, NMS bit-equal on every batch) and
+  ``YOLO.predict`` on their directory (stem, NMS and both JPEG kernels; the
+  detections equal to a predict on the plain decoder's arrays), and
+  ``YOLO.train`` on them.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -103,6 +112,29 @@ def graph_ms(fn, iters: int = 20) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port, by the kernel's name in the record."""
+    from fce_yolo_tpu_torch.data import jpeg
+    from fce_yolo_tpu_torch.ops import nms, stem
+
+    return {"fused_stem": stem.fused_stem, "pick_suppress": nms.pick_suppress, "jpeg_idct": jpeg.jpeg_idct,
+            "jpeg_color": jpeg.jpeg_color}
+
+
+def reset_launches() -> None:
+    for w in kernel_wrappers().values():
+        w.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: w.launches for name, w in kernel_wrappers().items()}
+
+
+def no_jpeg(**launches) -> dict:
+    """The launches a path that reads no JPEG should show."""
+    return {**launches, "jpeg_idct": 0, "jpeg_color": 0}
 
 
 def nms_candidates(rng: np.random.RandomState, b: int, k: int, conf: float = 0.3):
@@ -284,8 +316,8 @@ def phase_nms(card: str) -> dict:
 def phase_e2e(yolo, spec, card: str) -> dict:
     from fce_yolo_tpu_torch.data.augment import letterbox
     from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
-    from fce_yolo_tpu_torch.ops.nms import batched_nms, pick_suppress
-    from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, fused_stem, stem_weights
+    from fce_yolo_tpu_torch.ops.nms import batched_nms
+    from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_weights
 
     rng = np.random.RandomState(SEED + 1)
     imgs = [rng.randint(0, 256, (IMGSZ, IMGSZ, 3), np.uint8) for _ in range(E2E_BATCHES * E2E_BATCH)]
@@ -293,12 +325,12 @@ def phase_e2e(yolo, spec, card: str) -> dict:
     yolo.predict(imgs[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
-    fused_stem.launches = pick_suppress.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     results = yolo.predict(imgs, imgsz=IMGSZ, batch=E2E_BATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_stem": fused_stem.launches, "pick_suppress": pick_suppress.launches}
+    launches = read_launches()
 
     check(len(results) == len(imgs), f"{len(results)} results for {len(imgs)} images")
     for r, img in zip(results, imgs):
@@ -307,7 +339,7 @@ def phase_e2e(yolo, spec, card: str) -> dict:
         h, w = img.shape[:2]
         xyxy = r.boxes.xyxy
         check(bool(((xyxy >= 0) & (xyxy <= np.array([w, h, w, h]))).all()), "boxes outside the image")
-    check(launches["fused_stem"] > 0 and launches["pick_suppress"] > 0,
+    check(launches["fused_stem"] > 0 and launches["pick_suppress"] > 0 and launches["jpeg_idct"] == 0,
           f"main path skipped a kernel: {launches}")
 
     # the first batch as the predictor built it (letterbox, BGR -> RGB), on the same folded bf16 model
@@ -378,13 +410,228 @@ def png_bytes(rgb: np.ndarray) -> bytes:
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
 
 
-def write_val_dataset(root: Path) -> str:
-    """tests/conftest.py's tiny dataset at full size: VAL_IMAGES PNG images of
-    480-800 px a side, grey with 1-3 solid rectangles of classes 0-2 at the
-    labelled positions; the data YAML names VAL_NC classes."""
+# Annex K tables, natural order
+JPEG_LUMA_Q = np.array([
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13, 16, 24, 40, 57, 69, 56,
+    14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99], np.int64)
+JPEG_CHROMA_Q = np.array([
+    17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99, 99, 99,
+    47, 66, 99, 99, 99, 99, 99, 99] + [99] * 32, np.int64)
+# (bits, values) of the four Annex K Huffman tables: DC luma, DC chroma, AC luma, AC chroma
+JPEG_HUFFMAN = {
+    "dc0": ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], list(range(12))),
+    "dc1": ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], list(range(12))),
+    "ac0": ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a"
+        "3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a929394"
+        "95969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8"
+        "e9eaf1f2f3f4f5f6f7f8f9fa")),
+    "ac1": ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a2627"
+        "28292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a82838485868788898a"
+        "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6"
+        "e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
+JPEG_SAMPLING = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2), "411": (4, 1)}  # luma (h, v)
+JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5, 12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14,
+    21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31, 39, 46, 53, 60,
+    61, 54, 47, 55, 62, 63])
+
+
+def _huffman_codes(bits, values) -> tuple[np.ndarray, np.ndarray]:
+    """Symbol -> (code, length) arrays of 256 from a table's (bits, values)."""
+    code_of, len_of = np.zeros(256, np.int64), np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length, count in enumerate(bits, 1):
+        for _ in range(count):
+            code_of[values[k]], len_of[values[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _jpeg_blocks(plane: np.ndarray, bh: int, bw: int, q: np.ndarray) -> np.ndarray:
+    """A plane (edge-padded to bh x bw blocks) -> quantised DCT coefficients (bh, bw, 64), natural order."""
+    h, w = plane.shape
+    p = np.pad(plane.astype(np.float64) - 128.0, ((0, 8 * bh - h), (0, 8 * bw - w)), mode="edge")
+    n = np.arange(8)
+    c = np.sqrt(np.where(n == 0, 1.0, 2.0) / 8)[:, None] * np.cos((2 * n[None] + 1) * n[:, None] * np.pi / 16)
+    blocks = p.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3)
+    coef = np.einsum("ui,abij,vj->abuv", c, blocks, c).reshape(bh, bw, 64)
+    return np.clip(np.round(coef / q), -1023, 1023).astype(np.int64)
+
+
+def _jpeg_scan(comps: list[tuple[np.ndarray, int]], restart: int) -> bytes:
+    """One scan's entropy-coded bytes: ``comps`` holds each component's
+    quantised coefficients in scan order (n_mcu, blocks an MCU, 64) and its
+    table id; a restart marker every ``restart`` MCUs."""
+    n_mcu = comps[0][0].shape[0]
+    coef = np.concatenate([c for c, _ in comps], axis=1)  # (n_mcu, blocks an MCU, 64)
+    slot_table = np.concatenate([np.full(c.shape[1], t) for c, t in comps])
+    slot_comp = np.concatenate([np.full(c.shape[1], i) for i, (c, _) in enumerate(comps)])
+    per = coef.shape[1]
+    zz = coef[:, :, JPEG_ZIGZAG].reshape(n_mcu * per, 64)
+    nblk = zz.shape[0]
+    blk_mcu = np.repeat(np.arange(n_mcu), per)
+    blk_table = np.tile(slot_table, n_mcu)
+    blk_comp = np.tile(slot_comp, n_mcu)
+    interval = blk_mcu // restart if restart else np.zeros(nblk, np.int64)
+    # DC differences per component, the prediction reset at each restart interval
+    dc = zz[:, 0].copy()
+    diff = np.empty_like(dc)
+    for ci in range(len(comps)):
+        sel = np.flatnonzero(blk_comp == ci)
+        d = dc[sel]
+        prev = np.concatenate([[0], d[:-1]])
+        first = np.concatenate([[True], interval[sel][1:] != interval[sel][:-1]])
+        diff[sel] = d - np.where(first, 0, prev)
+    codes = {k: _huffman_codes(*v) for k, v in JPEG_HUFFMAN.items()}
+
+    def size_bits(v):
+        s = np.zeros_like(v)
+        a = np.abs(v)
+        nz = a > 0
+        s[nz] = np.floor(np.log2(a[nz])).astype(np.int64) + 1
+        return s, np.where(v < 0, v + (1 << s) - 1, v)
+
+    toks_blk, toks_slot, toks_val, toks_len = [], [], [], []
+
+    def emit(blk, slot, val, length):
+        toks_blk.append(blk)
+        toks_slot.append(slot)
+        toks_val.append(val)
+        toks_len.append(length)
+
+    s, extra = size_bits(diff)
+    for t in (0, 1):
+        sel = blk_table == t
+        code, ln = codes[f"dc{t}"]
+        emit(np.flatnonzero(sel), np.zeros(sel.sum(), np.int64), code[s[sel]], ln[s[sel]])
+    emit(np.arange(nblk), np.ones(nblk, np.int64), extra, s)
+    bi, k = np.nonzero(zz[:, 1:])
+    k = k + 1
+    prev_k = np.concatenate([[0], k[:-1]])
+    prev_k[np.concatenate([[True], bi[1:] != bi[:-1]])] = 0
+    run = k - prev_k - 1
+    v = zz[bi, k]
+    s, extra = size_bits(v)
+    sym = (run % 16) * 16 + s
+    n_zrl = run // 16
+    zb = np.repeat(bi, n_zrl)
+    zk = np.repeat(k, n_zrl)
+    last = np.full(nblk, 0)
+    last[bi] = k  # the last non-zero position of each block (k ascending within a block)
+    eob = np.flatnonzero(last != 63)
+    for t in (0, 1):
+        code, ln = codes[f"ac{t}"]
+        sel = blk_table[zb] == t
+        emit(zb[sel], 4 * zk[sel], np.full(sel.sum(), code[0xF0]), np.full(sel.sum(), ln[0xF0]))
+        sel = blk_table[bi] == t
+        emit(bi[sel], 4 * k[sel] + 2, code[sym[sel]], ln[sym[sel]])
+        sel = blk_table[eob] == t
+        emit(eob[sel], np.full(sel.sum(), 1000), np.full(sel.sum(), code[0]), np.full(sel.sum(), ln[0]))
+    emit(bi, 4 * k + 3, extra, s)
+    blk, slot, val, length = (np.concatenate(a).astype(np.int64) for a in (toks_blk, toks_slot, toks_val, toks_len))
+    order = np.lexsort((slot, blk))
+    blk, val, length = blk[order], val[order], length[order]
+    # pad each restart interval to a byte with 1 bits
+    tok_interval = interval[blk]
+    n_int = int(interval[-1]) + 1
+    bits_per = np.bincount(tok_interval, weights=length, minlength=n_int).astype(np.int64)
+    pad = (-bits_per) % 8
+    ends = np.searchsorted(tok_interval, np.arange(n_int), side="right")
+    val = np.insert(val, ends, (1 << pad) - 1)
+    length = np.insert(length, ends, pad)
+    tok = np.repeat(np.arange(len(length)), length)
+    start = np.cumsum(length) - length
+    pos = np.arange(int(length.sum())) - start[tok]
+    bits = (val[tok] >> (length[tok] - 1 - pos)) & 1
+    data = np.packbits(bits.astype(np.uint8))
+    byte_ends = np.cumsum((bits_per + pad) // 8)
+    ff = np.flatnonzero(data == 0xFF)
+    data = np.insert(data, ff + 1, 0)  # byte stuffing
+    byte_ends = byte_ends + np.searchsorted(ff, byte_ends, side="left")
+    if restart and n_int > 1:
+        at = np.repeat(byte_ends[:-1], 2)
+        marks = np.stack([np.full(n_int - 1, 0xFF), 0xD0 + np.arange(n_int - 1) % 8], 1).ravel()
+        data = np.insert(data, at, marks)
+    return data.astype(np.uint8).tobytes()
+
+
+def jpeg_bytes(img: np.ndarray, quality: int = 95, sampling: str = "420", restart: int = 0,
+               orientation: int | None = None, interleave: bool = True) -> bytes:
+    """A baseline JPEG of ``img`` (RGB (H, W, 3) uint8, or gray (H, W)):
+    libjpeg's quality scaling of the Annex K tables, the Annex K Huffman
+    tables, ``sampling`` (444, 422, 420, 440 or 411: the luma's factors,
+    the chroma box-averaged; a gray image's one component takes the luma's
+    factors), a restart marker every ``restart`` MCUs, and an APP1 Exif
+    block with ``orientation`` if one is given. ``interleave``: one scan of
+    all components, else one scan each. A scan of one component (a gray
+    image's, or each of ``interleave=False``) is non-interleaved: one block
+    an MCU over the component's own block grid, ceil(width / 8) x
+    ceil(height / 8). Vectorised: no Python loop over blocks."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    tables = [np.clip((t * scale + 50) // 100, 1, 255) for t in (JPEG_LUMA_Q, JPEG_CHROMA_Q)]
+    h, w = img.shape[:2]
+    if img.ndim == 2:
+        planes, factors = [img.astype(np.float64)], [JPEG_SAMPLING[sampling]]
+    else:
+        r, g, b = (img[..., i].astype(np.float64) for i in range(3))
+        y = 0.299 * r + 0.587 * g + 0.114 * b
+        planes = [y, 128 - 0.168736 * r - 0.331264 * g + 0.5 * b, 128 + 0.5 * r - 0.418688 * g - 0.081312 * b]
+        factors = [JPEG_SAMPLING[sampling], (1, 1), (1, 1)]
+    hmax, vmax = factors[0]
+    mcux, mcuy = -(-w // (8 * hmax)), -(-h // (8 * vmax))
+    alone = len(planes) == 1 or not interleave
+    comps = []  # (coefficients in scan order (n_mcu, blocks an MCU, 64), table id)
+    for i, (p, (fh, fv)) in enumerate(zip(planes, factors)):
+        sh, sv = hmax // fh, vmax // fv
+        ph, pw = -(-h // sv) * sv, -(-w // sh) * sh
+        p = np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
+        p = p.reshape(ph // sv, sv, pw // sh, sh).mean(axis=(1, 3))  # the component's real samples
+        p = np.clip(np.round(p), 0, 255)
+        if alone:
+            bh, bw = -(-p.shape[0] // 8), -(-p.shape[1] // 8)
+            coef = _jpeg_blocks(p, bh, bw, tables[min(i, 1)]).reshape(bh * bw, 1, 64)
+        else:
+            coef = _jpeg_blocks(p, mcuy * fv, mcux * fh, tables[min(i, 1)])
+            coef = coef.reshape(mcuy, fv, mcux, fh, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, fv * fh, 64)
+        comps.append((coef, min(i, 1)))
+
+    def segment(marker: int, body: bytes) -> bytes:
+        return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
+
+    out = b"\xff\xd8"
+    if orientation is not None:
+        tiff = b"MM\x00\x2a" + struct.pack(">IH", 8, 1) + struct.pack(">HHIHH", 0x0112, 3, 1, orientation, 0) + b"\0" * 4
+        out += segment(0xE1, b"Exif\x00\x00" + tiff)
+    n_tables = 1 if len(comps) == 1 else 2
+    out += segment(0xDB, b"".join(bytes([t]) + tables[t][JPEG_ZIGZAG].astype(np.uint8).tobytes()
+                                  for t in range(n_tables)))
+    sof = struct.pack(">BHHB", 8, h, w, len(comps))
+    for i, (fh, fv) in enumerate(factors):
+        sof += bytes([i + 1, fh * 16 + fv, min(i, 1)])
+    out += segment(0xC0, sof)
+    for t in range(n_tables):
+        for kind, cls in (("dc", 0), ("ac", 1)):
+            bits_, values = JPEG_HUFFMAN[f"{kind}{t}"]
+            out += segment(0xC4, bytes([cls * 16 + t]) + bytes(bits_) + bytes(values))
+    if restart:
+        out += segment(0xDD, struct.pack(">H", restart))
+    for scan in ([[i] for i in range(len(comps))] if alone else [list(range(len(comps)))]):
+        sos = bytes([len(scan)]) + b"".join(bytes([i + 1, min(i, 1) * 17]) for i in scan) + b"\x00\x3f\x00"
+        out += segment(0xDA, sos) + _jpeg_scan([comps[i] for i in scan], restart)
+    return out + b"\xff\xd9"
+
+
+def val_images():
+    """tests/conftest.py's tiny dataset at full size: VAL_IMAGES RGB images of
+    480-800 px a side, grey with 1-3 solid rectangles of classes 0-2, each
+    with its label lines."""
     rng = np.random.RandomState(SEED + 3)
-    (root / "images" / "val").mkdir(parents=True)
-    (root / "labels" / "val").mkdir(parents=True)
     for i in range(VAL_IMAGES):
         h, w = rng.randint(480, 801, 2)
         img = np.full((h, w, 3), 60, np.uint8)
@@ -396,7 +643,18 @@ def write_val_dataset(root: Path) -> str:
             x1, y1, x2, y2 = int((cx - bw / 2) * w), int((cy - bh / 2) * h), int((cx + bw / 2) * w), int((cy + bh / 2) * h)
             img[y1: y2 + 1, x1: x2 + 1] = [(80, 80, 255), (80, 255, 80), (255, 80, 80)][k]  # RGB
             lines.append(f"{k} {cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}")
-        (root / "images" / "val" / f"{i:03d}.png").write_bytes(png_bytes(img))
+        yield i, img, lines
+
+
+def write_val_dataset(root: Path, kind: str = "png") -> str:
+    """``val_images`` under ``root`` as PNG (``png_bytes``) or as baseline
+    JPEG (``jpeg_bytes``, q95 4:2:0), with their labels; the data YAML names
+    VAL_NC classes."""
+    (root / "images" / "val").mkdir(parents=True)
+    (root / "labels" / "val").mkdir(parents=True)
+    for i, img, lines in val_images():
+        data = png_bytes(img) if kind == "png" else jpeg_bytes(img, 95, "420")
+        (root / "images" / "val" / f"{i:03d}.{kind}").write_bytes(data)
         (root / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
     names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
     (root / "data.yaml").write_text(f"path: {root}\nval: images/val\nnames:\n{names}")
@@ -451,39 +709,17 @@ def nms_kernel_vs_plain(val, preds: torch.Tensor, calls: list) -> dict:
     return outs
 
 
-def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
-    """``YOLO.val`` with the counts at 0, then each batch again with the NMS
-    kernel and with its plain version on the same candidates: idx/ok equal,
-    and P, R, mAP (above zero: the random head's boxes are widened and the
-    labels' classes raised) equal through the same ``_update_metrics``. Returns (the
-    val path's launches, the NMS kernel's val-path record, and the model
-    with the first LOSS_STEPS batches for phase loss)."""
-    from fce_yolo_tpu_torch import YOLO
-    from fce_yolo_tpu_torch.data.imread import imread
+def val_batches_vs_plain(yolo, data: str):
+    """Every val batch of ``data`` again, outside ``YOLO.val``: forward, then
+    ``nms_kernel_vs_plain`` (idx/ok equal), and P, R, mAP and the confusion
+    matrix equal from the kernel's and the plain version's detections, mAP50
+    above zero. Returns (validator, loader, per-batch NMS calls, the first
+    LOSS_STEPS (batch, img, preds), metrics seconds, P/R/mAP)."""
     from fce_yolo_tpu_torch.engine.validator import DetectionValidator
-    from fce_yolo_tpu_torch.ops import nms as nms_ops
-    from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
-    from fce_yolo_tpu_torch.ops.stem import fused_stem
     from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics
-
-    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))  # float32, the plain graph (as the JAX validator)
-    with torch.inference_mode():  # cuDNN's first-call set-up, outside the timed run
-        yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
-    torch.cuda.synchronize()
-
-    fused_stem.launches = nms_ops.pick_suppress.launches = 0
-    t0 = time.perf_counter()
-    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"fused_stem": fused_stem.launches, "pick_suppress": nms_ops.pick_suppress.launches}
-    n_batches = -(-VAL_IMAGES // VAL_BATCH)
-    check(launches["pick_suppress"] == n_batches, f"val path: {launches} NMS launches for {n_batches} batches")
-    check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path scored the wrong number of images")
 
     val = DetectionValidator(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=VAL_BATCH)
     loader = val.get_dataloader(data)
-    real = nms_ops.pick_suppress
     calls: list[tuple] = []  # per batch: the candidates and the plain version's (idx, ok)
     sets = {k: (DetMetrics(names=yolo.names), ConfusionMatrix(names=yolo.names)) for k in ("kernel", "plain")}
     metrics_s, kept_batches, n_images = 0.0, [], 0
@@ -505,6 +741,39 @@ def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
     check(mk == mp, f"P, R, mAP50, mAP50-95 from the kernel {mk} != from the plain version {mp}")
     check(mk[2] > 0, f"val path: mAP50 is 0, so the comparison above shows nothing: {mk}")
     check(bool((sets["kernel"][1].matrix == sets["plain"][1].matrix).all()), "confusion matrices differ")
+    return val, loader, calls, kept_batches, metrics_s, mk
+
+
+def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
+    """``YOLO.val`` with the counts at 0, then each batch again with the NMS
+    kernel and with its plain version on the same candidates: idx/ok equal,
+    and P, R, mAP (above zero: the random head's boxes are widened and the
+    labels' classes raised) equal through the same ``_update_metrics``. Returns (the
+    val path's launches, the NMS kernel's val-path record, and the model
+    with the first LOSS_STEPS batches for phase loss)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.imread import imread
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+    from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
+
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))  # float32, the plain graph (as the JAX validator)
+    with torch.inference_mode():  # cuDNN's first-call set-up, outside the timed run
+        yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_batches = -(-VAL_IMAGES // VAL_BATCH)
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_batches),
+          f"val path: {launches}, expected no stem, no JPEG and one NMS for each of {n_batches} batches")
+    check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path scored the wrong number of images")
+
+    val, loader, calls, kept_batches, metrics_s, mk = val_batches_vs_plain(yolo, data)
+    real = nms_ops.pick_suppress
 
     batch, img, preds = kept_batches[0]
     args, (_, ok0) = calls[0]
@@ -538,7 +807,257 @@ def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
           f"loader wait {speed['preprocess']:.2f} ms, inference {speed['inference']:.2f} ms, "
           f"metrics {speed['postprocess']:.2f} ms [{card}]", flush=True)
     record = {"val_ms": kernel_ms, "val_plain_ms": plain_ms, "val_bound_ms": bound_ms, "val_bound_by": bound_by}
-    return launches, record, {"yolo": yolo, "batches": [(b, im) for b, im, _ in kept_batches]}
+    png = {"img_s": VAL_IMAGES / wall, "loader_wait_ms": speed["preprocess"], "decode_ms": png_ms}
+    return launches, record, {"yolo": yolo, "batches": [(b, im) for b, im, _ in kept_batches], "png": png}
+
+
+def jpeg_test_image(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """RGB: ramps, a flat rectangle and noise, so the coefficients take every
+    size and long zero runs."""
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1), (x + y) * 9 % 256], 2)
+    img = img + rng.randint(-30, 31, img.shape)
+    img[h // 4: h // 2, w // 4: w // 2] = (200, 40, 90)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def jpeg_cases() -> list[tuple[str, bytes]]:
+    """Phase jpeg (b)'s files: each sampling (444, 422, 420, 440, 411 and
+    gray) at quality 50, 75, 95 and 100, cycling through 1x1, 7x9 and 17x33,
+    restart intervals 0, 1 and 7 and EXIF orientations 1-8; then six at
+    480x640 and 481x641; then non-interleaved scans of components sampled
+    above 1x1: gray with 2x2 and 4x1 factors, and 4:2:0 and 4:1:1 with a
+    scan per component ("sep"), up to 481x641."""
+    rng = np.random.RandomState(SEED + 20)
+    small, cases, i = [(1, 1), (7, 9), (17, 33)], [], 0
+    for sampling in ("444", "422", "420", "440", "411", "gray"):
+        for quality in (50, 75, 95, 100):
+            (h, w), restart, orientation = small[i % 3], (0, 1, 7)[i // 3 % 3], 1 + i % 8
+            cases.append((sampling, quality, restart, orientation, h, w))
+            i += 1
+    cases += [("420", 95, 0, None, 480, 640), ("422", 75, 7, 6, 481, 641), ("411", 50, 1, None, 481, 641),
+              ("440", 100, 0, 3, 480, 640), ("444", 95, 1, None, 481, 641), ("gray", 75, 7, 8, 481, 641)]
+    cases += [("gray420", 90, 0, None, 64, 64), ("gray411", 75, 7, 6, 17, 33), ("sep420", 90, 7, None, 17, 33),
+              ("sep411", 95, 0, 5, 64, 64), ("sep420", 95, 1, None, 481, 641)]
+    out = []
+    for sampling, quality, restart, orientation, h, w in cases:
+        img = jpeg_test_image(rng, h, w)
+        factors = sampling[-3:] if sampling[-3:].isdigit() else "444"
+        buf = jpeg_bytes(img[..., 0] if sampling.startswith("gray") else img, quality, factors, restart, orientation,
+                         interleave=not sampling.startswith("sep"))
+        out.append((f"{sampling} q{quality} {h}x{w} restart {restart} orientation {orientation}", buf))
+    return out
+
+
+def jpeg_bounds(info: np.ndarray) -> dict:
+    """Least ms of each JPEG kernel on this image: bytes (int16 coefficients
+    in and uint8 planes out; planes in and BGR out) at the HBM rate, against
+    integer operations (~1200 a block for dequantisation and the two IDCT
+    passes, ~45 a pixel for upsampling and colour) at the CUDA cores' f32
+    rate (the table has no int32 rate). Returns {kernel: (ms, what bounds it)}."""
+    total, pixels = int(info[7]), int(info[0]) * int(info[1])
+    out = {}
+    for name, nbytes, ops in (("jpeg_idct", 3 * total, 1200 * total // 64), ("jpeg_color", total + 3 * pixels, 45 * pixels)):
+        ops_ms, bytes_ms = 1e3 * ops / F32_FLOPS, 1e3 * nbytes / HBM_BYTES_PER_S
+        out[name] = (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    return out
+
+
+def time_jpeg(buf: bytes, what: str, n: int, card: str) -> dict:
+    """One image's decode on the card, split (host entropy decode, H2D, each
+    kernel, D2H: CUDA events inside fce_jpeg_decode, mean of n); each kernel
+    alone (CUDA graph) beside its plain version (numpy on the host, via the
+    wrapper's CPU branch) and its bound; img/s with 1 and 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fce_yolo_tpu_torch.data import jpeg as J
+
+    split = np.zeros(5, np.float64)
+    t = np.zeros(5, np.float32)
+    J.decode_jpeg(buf, what, "cuda")  # warm: buffers and stream of this thread
+    t0 = time.perf_counter()
+    for _ in range(n):
+        J.decode_jpeg(buf, what, "cuda", times=t)
+        split += t
+    call_ms = (time.perf_counter() - t0) * 1e3 / n
+    split /= n
+    info, planes, qt = J.jpeg_coefficients(buf, what)
+    flat = torch.from_numpy(np.concatenate([p.ravel() for p in planes])).cuda()
+    dev_planes = J.jpeg_idct(flat, qt, info)
+    out = {"call_ms": call_ms, "split": split.tolist(), "bounds": jpeg_bounds(info)}
+    out["jpeg_idct_ms"] = graph_ms(lambda: J.jpeg_idct(flat, qt, info))
+    out["jpeg_color_ms"] = graph_ms(lambda: J.jpeg_color(dev_planes, info))
+    cpu_coef, cpu_planes = flat.cpu(), dev_planes.cpu()
+    for name, fn in (("jpeg_idct", lambda: J.jpeg_idct(cpu_coef, qt, info)),
+                     ("jpeg_color", lambda: J.jpeg_color(cpu_planes, info))):
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        out[f"{name}_plain_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+    copies = 4 * n
+    for threads in (1, 8):
+        with ThreadPoolExecutor(threads) as pool:
+            list(pool.map(lambda b: J.decode_jpeg(b, what, "cuda"), [buf] * threads))  # each thread's buffers
+            t0 = time.perf_counter()
+            list(pool.map(lambda b: J.decode_jpeg(b, what, "cuda"), [buf] * copies))
+            out[f"img_s_{threads}"] = copies / (time.perf_counter() - t0)
+    b = out["bounds"]
+    print(f"phase jpeg (c): {what} ({len(buf)} bytes): decode_jpeg {call_ms:.3f} ms a call (host clock); split "
+          f"(CUDA events, mean of {n}): host entropy decode {split[0]:.3f} ms, H2D {split[1]:.3f}, jpeg_idct "
+          f"{split[2]:.4f}, jpeg_color {split[3]:.4f}, D2H {split[4]:.3f}; kernels alone (CUDA graph): jpeg_idct "
+          f"{out['jpeg_idct_ms']:.4f} ms (bound {b['jpeg_idct'][0]:.4f}, {b['jpeg_idct'][1]}; plain "
+          f"{out['jpeg_idct_plain_ms']:.1f} ms), jpeg_color {out['jpeg_color_ms']:.4f} ms (bound "
+          f"{b['jpeg_color'][0]:.4f}, {b['jpeg_color'][1]}; plain {out['jpeg_color_plain_ms']:.1f} ms); "
+          f"{out['img_s_1']:.1f} img/s on 1 thread, {out['img_s_8']:.1f} on 8 [{card}]", flush=True)
+    return out
+
+
+def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
+    """JPEG reading on the card (the kernels of csrc/jpeg.cu):
+    (b) ``decode_jpeg`` on the card equal to the plain path byte for byte on
+    every file of ``jpeg_cases``; at 1080x1920 the two kernels against the
+    plain stages on the C decoder's coefficients;
+    (c) ``time_jpeg`` at 480x640 and 1080x1920, 4:2:0 q95;
+    (d) ``YOLO.val`` (phase val's model and checks) on a q95 4:2:0 JPEG copy
+    of phase val's images, the counts at 0: both JPEG kernels once an image,
+    NMS once a batch and bit-equal to the plain version on each;
+    (e) ``YOLO.predict`` (bf16, B=16) on the directory of those JPEGs, the
+    counts at 0: stem and NMS once a batch, both JPEG kernels once an image;
+    the paths, the images and the detections equal to a predict on the
+    arrays the plain decoder gives for the same files;
+    (f) ``YOLO.train`` (phase train's settings) on those JPEGs as both
+    splits, the counts at 0: NMS once a val batch, both JPEG kernels at
+    least once a train item and a val image; finite losses.
+    Returns (launches by path, the JPEG kernels' records)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data import jpeg as J
+    from fce_yolo_tpu_torch.data.dataset import YOLODataset
+    from fce_yolo_tpu_torch.nn.model import init_weights
+
+    t_phase = time.perf_counter()
+    worst, n_cases = 0, 0
+    for name, buf in jpeg_cases():
+        out, ref = J.decode_jpeg(buf, name, "cuda"), J.decode_jpeg_reference(buf, name)
+        check(out.shape == ref.shape, f"phase jpeg (b) {name}: shape {out.shape} vs the plain path's {ref.shape}")
+        d = int(np.abs(out.astype(np.int16) - ref).max(initial=0))
+        check(d == 0, f"phase jpeg (b) {name}: the kernel path differs from the plain path by up to {d}")
+        worst, n_cases = max(worst, d), n_cases + 1
+    big = jpeg_bytes(jpeg_test_image(np.random.RandomState(SEED + 21), 1080, 1920), 95, "420", 0)
+    info, planes, qt = J.jpeg_coefficients(big, "1080x1920")
+    hdr = J.header_from_info(info)
+    ref_planes = [J.jpeg_idct_reference(p, qt[c]) for c, p in enumerate(planes)]
+    dev_planes = J.jpeg_idct(torch.from_numpy(np.concatenate([p.ravel() for p in planes])).cuda(), qt, info)
+    check(bool((dev_planes.cpu().numpy() == np.concatenate([p.ravel() for p in ref_planes])).all()),
+          "phase jpeg (b) 1080x1920: jpeg_idct differs from jpeg_idct_reference")
+    ref_bgr = J.jpeg_color_reference(ref_planes, hdr)
+    check(bool((J.jpeg_color(dev_planes, info).cpu().numpy() == ref_bgr).all()),
+          "phase jpeg (b) 1080x1920: jpeg_color differs from jpeg_color_reference")
+    check(bool((J.decode_jpeg(big, "1080x1920", "cuda") == ref_bgr).all()),
+          "phase jpeg (b) 1080x1920: decode_jpeg differs from the plain stages")
+    print(f"phase jpeg (b): the kernel path equals the plain path byte for byte on {n_cases} files (every sampling "
+          f"and gray, q50/75/95/100, restart 0/1/7, orientations 1-8, 1x1 to 481x641, gray at 2x2/4x1 and a scan per "
+          f"component); at 1080x1920 4:2:0 q95 "
+          f"jpeg_idct and jpeg_color equal the plain stages on the C decoder's coefficients [{card}]", flush=True)
+
+    vga = jpeg_bytes(jpeg_test_image(np.random.RandomState(SEED + 22), 480, 640), 95, "420", 0)
+    timed = {"480x640": time_jpeg(vga, "480x640 4:2:0 q95", 20, card),
+             "1080x1920": time_jpeg(big, "1080x1920 4:2:0 q95", 10, card)}
+
+    data = write_val_dataset(root / "jpeg", "jpg")
+    n_batches = -(-VAL_IMAGES // VAL_BATCH)
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))  # phase val's model, float32
+    with torch.inference_mode():
+        yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    val_launches = read_launches()
+    check(val_launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_idct": VAL_IMAGES,
+                           "jpeg_color": VAL_IMAGES}, f"val path on JPEG: launches {val_launches}")
+    check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path on JPEG scored the wrong number of images")
+    _, _, _, _, _, mk = val_batches_vs_plain(yolo, data)
+    speed = res["metrics"].speed
+    print(f"phase jpeg (d): YOLO.val yolo11s-fce {IMGSZ} f32 B={VAL_BATCH} on {VAL_IMAGES} JPEG images (q95 4:2:0, "
+          f"480-800 px), launches {val_launches}; NMS kernel idx/ok equal to the plain version on every batch; "
+          f"P/R/mAP50/mAP50-95 {tuple(round(v, 6) for v in mk)} equal from both; {VAL_IMAGES / wall:.1f} img/s "
+          f"(PNG, phase val: {png['img_s']:.1f}); loader wait {speed['preprocess']:.2f} ms an image (PNG: "
+          f"{png['loader_wait_ms']:.2f}); inference {speed['inference']:.2f} ms, metrics {speed['postprocess']:.2f} "
+          f"ms an image [{card}]", flush=True)
+    del yolo
+
+    yolo = YOLO("yolo11s-fce.yaml", device="cuda")
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    yolo.to(torch.bfloat16).fuse()
+    folder = root / "jpeg" / "images" / "val"
+    files = sorted(str(f) for f in folder.iterdir())
+    yolo.predict(files[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = yolo.predict(str(folder), imgsz=IMGSZ, batch=E2E_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    predict_launches = read_launches()
+    n_pred = -(-VAL_IMAGES // E2E_BATCH)
+    check(predict_launches == {"fused_stem": n_pred, "pick_suppress": n_pred, "jpeg_idct": VAL_IMAGES,
+                               "jpeg_color": VAL_IMAGES}, f"predict on JPEG files: launches {predict_launches}")
+    check([r.path for r in results] == files, "predict on a directory: paths or order differ from the sorted files")
+    arrays = [J.decode_jpeg_reference(Path(f).read_bytes(), f) for f in files]
+    again = yolo.predict(arrays, imgsz=IMGSZ, batch=E2E_BATCH)
+    dmax = 0.0
+    for r, a, img in zip(results, again, arrays):
+        check(bool((r.orig_img == img).all()), f"{r.path}: the kernel decode differs from the plain decode")
+        check(len(r) == len(a) and bool((r.boxes.cls == a.boxes.cls).all()), f"{r.path}: detections differ")
+        if len(r):
+            dmax = max(dmax, float(np.abs(r.boxes.data - a.boxes.data).max()))
+    check(dmax <= 1e-3, f"predict on JPEG files vs on the plain decoder's arrays: detections differ by {dmax}")
+    n_det = sum(len(r) for r in results)
+    print(f"phase jpeg (e): YOLO.predict yolo11s-fce {IMGSZ} bf16 B={E2E_BATCH} on the directory of {VAL_IMAGES} "
+          f"JPEGs, launches {predict_launches}; paths in sorted order; images and {n_det} detections equal to a "
+          f"predict on the plain decoder's arrays (max|d| {dmax:.1e}, limit 1e-3); {VAL_IMAGES / wall:.1f} img/s "
+          f"through YOLO.predict (host clock, decode and letterbox included); phase jpeg {time.perf_counter() - t_phase:.1f} s "
+          f"[{card}]", flush=True)
+
+    del yolo
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.train(train_data(root / "jpeg"), epochs=TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ,
+                     project=str(root / "runs_jpeg"), verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = read_launches()
+    decodes = train_launches["jpeg_idct"]
+    check(train_launches["fused_stem"] == 0 and train_launches["pick_suppress"] == n_batches * TRAIN_EPOCHS
+          and train_launches["jpeg_color"] == decodes >= 2 * VAL_IMAGES * TRAIN_EPOCHS,
+          f"train on JPEG: launches {train_launches}, expected NMS once a val batch and a decode an image or more")
+    check(all(np.isfinite(r["train/box_loss"]) for r in res["results"]), "train on JPEG: a loss is not finite")
+    ds = YOLODataset(str(root / "jpeg" / "images" / "val"), imgsz=IMGSZ, mode="train", nc=VAL_NC, device="cuda")
+    rng = np.random.default_rng(SEED)
+    t0 = time.perf_counter()
+    for i in range(4):
+        ds.get(i, rng)
+    item_ms = (time.perf_counter() - t0) * 1e3 / 4
+    print(f"phase jpeg (f): YOLO.train yolo11s-fce {IMGSZ} bf16 B={VAL_BATCH} AdamW, {TRAIN_EPOCHS} epochs on the "
+          f"{VAL_IMAGES} JPEGs as both splits, launches {train_launches}; " + "; ".join(
+              f"epoch {sp['epoch'] + 1}: {sp['img_per_s']:.2f} img/s, loader wait {sp['loader_wait_ms']:.1f} ms a step, "
+              f"step {sp['step_ms']:.1f} ms, val {sp['val_s']:.2f} s" for sp in res["speed"])
+          + f"; {wall:.1f} s in all; one mosaic item (4 JPEG decodes on the card, resizes, warp, HSV, flip) "
+          f"{item_ms:.1f} ms on one thread [{card}]", flush=True)
+    del yolo
+
+    main = timed["480x640"]
+    records = {}
+    for name in ("jpeg_idct", "jpeg_color"):
+        bound_ms, bound_by = main["bounds"][name]
+        records[name] = {"max_abs_err": float(worst), "ms": main[f"{name}_ms"], "plain_ms": main[f"{name}_plain_ms"],
+                         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                         "ms_1080x1920": timed["1080x1920"][f"{name}_ms"],
+                         "bound_ms_1080x1920": timed["1080x1920"]["bounds"][name][0]}
+    return {"val_jpeg": val_launches, "predict_jpeg": predict_launches, "train_jpeg": train_launches}, records
 
 
 def phase_loss(val_out: dict, card: str) -> None:
@@ -756,8 +1275,6 @@ def phase_train(root: Path, card: str) -> dict:
 
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.engine.validator import DetectionValidator
-    from fce_yolo_tpu_torch.ops import nms as nms_ops
-    from fce_yolo_tpu_torch.ops.stem import fused_stem
 
     data = train_data(root)
     yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
@@ -771,16 +1288,16 @@ def phase_train(root: Path, card: str) -> dict:
     n_val = -(-VAL_IMAGES // VAL_BATCH)
     DetectionValidator.nms = capturing_nms
     try:
-        fused_stem.launches = nms_ops.pick_suppress.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         res = yolo.train(data, epochs=TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ, project=str(root / "runs"),
                          verbose=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fused_stem": fused_stem.launches, "pick_suppress": nms_ops.pick_suppress.launches}
+        launches = read_launches()
     finally:
         DetectionValidator.nms = real_nms
-    check(launches == {"fused_stem": 0, "pick_suppress": n_val * TRAIN_EPOCHS},
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * TRAIN_EPOCHS),
           f"train path: launches {launches}, expected no stem and {n_val} NMS an epoch")
     rows = res["results"]
     check(res["epochs_run"] == len(rows) == TRAIN_EPOCHS, f"train path ran {res['epochs_run']} epochs")
@@ -892,8 +1409,6 @@ def phase_experiments(root: Path, card: str) -> dict:
                                                 validate_run)
     from fce_yolo_tpu_torch.experiments import config as xconfig
     from fce_yolo_tpu_torch.experiments.figures import produce_report
-    from fce_yolo_tpu_torch.ops import nms as nms_ops
-    from fce_yolo_tpu_torch.ops.stem import fused_stem
     from fce_yolo_tpu_torch.utils.checkpoint import load_checkpoint
 
     phase_repair(root, card)
@@ -931,17 +1446,17 @@ def phase_experiments(root: Path, card: str) -> dict:
             xconfig.MODEL_CONFIGS[name] = replace(mc, stage1=replace(mc.stage1, epochs=1),
                                                   stage2=replace(mc.stage2, epochs=1))
         api.YOLO.train, DetectionValidator.nms = recording_train, capturing_nms
-        fused_stem.launches = nms_ops.pick_suppress.launches = 0
+        reset_launches()
         t0 = time.perf_counter()
         report = run_ablation(cfg, scale=scale, clean=True, device="cuda")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {"fused_stem": fused_stem.launches, "pick_suppress": nms_ops.pick_suppress.launches}
+        launches = read_launches()
     finally:
         api.YOLO.train, DetectionValidator.nms = real_train, real_nms
         xconfig.MODEL_CONFIGS.update(registry)
 
-    check(launches == {"fused_stem": 0, "pick_suppress": n_val * stages},
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * stages),
           f"experiments path: launches {launches}, expected no stem and {n_val} NMS a stage over {stages} stages")
     check(report["problems"] == [], f"validate_run: {report['problems']}")
     check(len(report["table"]) == 4 and len(json.loads((project / f"ablation_{scale}.json").read_text())["table"]) == 4,
@@ -1031,21 +1546,28 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         val, nms_val, val_out = phase_val(write_val_dataset(Path(tmp)), card)
         phase_loss(val_out, card)
+        png = val_out["png"]
         del val_out
+        jpeg_paths, jpeg = phase_jpeg(Path(tmp), png, card)
         train = phase_train(Path(tmp), card)
         experiments = phase_experiments(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments}
+    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths}
+
+    def launches(name: str) -> dict:
+        return {"launches": sum(p[name] for p in paths.values()),
+                "launches_by_path": {k: p[name] for k, p in paths.items()}}
+
     kernels = [
         {"name": "fused_stem", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/stem.cu",
-         "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", "launches": sum(p["fused_stem"] for p in paths.values()),
-         "launches_by_path": {k: p["fused_stem"] for k, p in paths.items()}, **{k: stem[k] for k in keys}},
+         "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", **launches("fused_stem"), **{k: stem[k] for k in keys}},
         {"name": "pick_suppress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/nms.cu",
-         "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", "launches": sum(p["pick_suppress"] for p in paths.values()),
-         "launches_by_path": {k: p["pick_suppress"] for k, p in paths.items()}, **{k: nms[k] for k in keys},
+         "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", **launches("pick_suppress"), **{k: nms[k] for k in keys},
          **nms_val},
-    ]
+    ] + [{"name": name, "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
+          "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches(name), **jpeg[name]}
+         for name in ("jpeg_idct", "jpeg_color")]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -156,8 +156,10 @@ class YOLO:
 
     def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640,
                 max_det: int = 300, batch: int = 1) -> list:
-        """Detect on numpy BGR images (one array or a list); a list of
-        ``Results``. Runs a folded copy of the model (``_inference_model``)."""
+        """Detect on ``source``: an image file, a directory, a numpy BGR
+        image, a PIL image, or a list of these (``engine/predictor.py::
+        load_source``); a list of ``Results``. Files decode on the model's
+        device. Runs a folded copy of the model (``_inference_model``)."""
         from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
         predictor = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
@@ -166,8 +168,9 @@ class YOLO:
 
     def val(self, data, imgsz: int = 640, batch: int = 16, conf: float = 0.001, iou: float = 0.7,
             max_det: int = 300, workers: int = 8, verbose: bool = True, save_json=None) -> dict:
-        """mAP on the ``val`` split of ``data`` (a data YAML path or dict; PNG
-        or ``.npy`` images), on the model's device. The dataset's class
+        """mAP on the ``val`` split of ``data`` (a data YAML path or dict;
+        baseline JPEG, PNG or ``.npy`` images), on the model's device (JPEGs
+        decode there too). The dataset's class
         names replace ``class_*`` placeholders. Returns the validator's
         results dict."""
         from fce_yolo_tpu_torch.data.dataset import check_det_dataset
@@ -220,7 +223,8 @@ class YOLO:
             self.reset_weights(0)
         self.names = d["names"]
         hyp = AugmentCfg(**{k: v for k, v in hyp_overrides.items() if k in AugmentCfg.__dataclass_fields__})
-        train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed)
+        train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed,
+                               device=self.device)
         loader = DataLoader(train_ds, batch_size=batch, workers=workers, max_labels=max_labels, seed=seed)
         steps_per_epoch = len(loader)
         save_dir = increment_path(Path(project) / name, exist_ok=resume or exist_ok, mkdir=True)

@@ -1,0 +1,738 @@
+// Baseline JPEG decode for Hopper (sm_90a): host entropy decode, then two kernels.
+//
+// Replaces what the JAX package reads every image with: cv2.imdecode(buf,
+// IMREAD_COLOR) in fce_yolo_tpu/utils/patches.py:18 (libjpeg-turbo). Not a
+// Pallas kernel: the card takes the pixel stages of a host library. The
+// output is bit-equal to cv2's on the baseline files it reads (see
+// fce_yolo_tpu_torch/data/jpeg.py, whose plain version this mirrors).
+//
+// 1. Host entropy decode (C++ in this file, reentrant: no globals, so loader
+//    threads may call it at once): markers, Huffman tables as 16-bit lookup
+//    tables, DC prediction reset at each restart interval, interleaved and
+//    non-interleaved scans, libjpeg's zero fill when a marker cuts the data
+//    short. Out: int16 coefficient planes, one a component, natural order,
+//    MCU-padded block grids laid end to end.
+// 2. jpeg_idct_kernel: dequantise + libjpeg's ISLOW IDCT (jidctint:
+//    CONST_BITS 13, PASS1_BITS 2; columns descaled by 11, rows by 18, with
+//    rounding; out clamp(v + 128, 0, 255), the saturation of the SIMD build
+//    cv2 runs). 32 blocks a CUDA block, 8 threads a block: one thread a
+//    column, then (after the block sits in shared memory) a row. Writes
+//    uint8 component planes.
+// 3. jpeg_color_kernel: one thread a pixel; libjpeg-turbo's fancy
+//    upsampling (h2v1, h1v2, h2v2, with the edge sample standing in past an
+//    edge; replication for every other ratio and for h2 components two
+//    samples wide or less), YCbCr -> BGR with jdcolor's SCALEBITS 16
+//    constants, RGB (Adobe transform 0) reordered, gray copied. Writes BGR
+//    uint8 (H, W, 3).
+//
+// fce_jpeg_decode does a whole image with no return to Python: entropy
+// decode into the caller's pinned buffer, one H2D copy, both kernels, one
+// D2H copy, cudaStreamSynchronize on the caller's stream. ctypes releases
+// the interpreter lock for the whole call.
+//
+// What bounds it on the H100: the host. The entropy decode is serial, some
+// ms for a 480 x 640 image; each kernel moves 3 bytes a sample (int16 in,
+// uint8 out; the colour kernel ~1.5-3 bytes in, 3 out a pixel), a few us
+// of HBM time, so at one image a call the kernels are launch-bound.
+// Batching images into one launch is later work. Times: PERF.md.
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include <chrono>
+#include <climits>
+#include <vector>
+
+namespace {
+
+constexpr int kInfoLen = 48;
+constexpr int kBlocksPerCta = 32;  // IDCT: JPEG blocks a CUDA block, 8 threads each
+enum {
+  kErrFormat = -1, kErrProgressive = -2, kErrArith = -3, kErrPrecision = -4, kErrLossless = -5,
+  kErrComponents = -6, kErrHierarchical = -7, kErrTruncated = -8, kErrFractional = -9, kErrTable = -10,
+  kErrDnl = -11, kErrTooLarge = -12,
+  kGrow = -13,  // fce_jpeg_decode / fce_jpeg_coefficients: the caller's buffers are too small (info holds the sizes)
+};
+// cv2's CV_IO_MAX_IMAGE_PIXELS: imdecode refuses a larger frame
+constexpr long long kMaxPixels = 1LL << 30;
+enum { kGray = 0, kYcc = 1, kRgb = 2 };
+// upsampling of a component: plain copy or replication, or one of libjpeg-turbo's fancy filters
+enum { kReplicate = 0, kH2V1 = 1, kH1V2 = 2, kH2V2 = 3 };
+
+// zig-zag position -> natural index; positions past 63 land on 63, as libjpeg's table does
+const uint8_t kNatural[80] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,  12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13,
+    6,  7,  14, 21, 28, 35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51, 58, 59, 52, 45, 38, 31,
+    39, 46, 53, 60, 61, 54, 47, 55, 62, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+struct Huff {
+  bool defined = false;
+  uint8_t counts[16];
+  uint8_t symbols[256];
+};
+
+struct Comp {
+  int id, h, v, tq, bw, bh, width, height;
+  long long off;  // first coefficient of the plane
+};
+
+struct Scan {
+  int ns;
+  int comp[4];
+  Huff dc[4], ac[4];  // the tables as defined when the scan starts
+  const uint8_t* data;
+  long long len;
+  int restart;
+};
+
+struct Parsed {
+  int width = 0, height = 0, ncomp = 0, color = kYcc, orientation = 1, hmax = 1, vmax = 1;
+  long long total = 0;
+  Comp comp[3];
+  uint16_t qt[4][64];
+  bool qt_defined[4] = {false, false, false, false};
+  std::vector<Scan> scans;
+};
+
+// Geometry and tables of an image as the kernels take them (a kernel parameter, by value)
+struct Geom {
+  int ncomp, color, width, height;
+  int blk_off[4];  // first block of each component; blk_off[ncomp] = all blocks
+  int bw[3], ch[3], cw[3], mode[3], fh[3], fv[3];
+  uint16_t q[3][64];
+};
+
+inline int be16(const uint8_t* p) { return (p[0] << 8) | p[1]; }
+
+int exif_orientation(const uint8_t* body, long long len) {
+  if (len < 14) return 1;
+  const uint8_t* t = body + 6;
+  const long long n = len - 6;
+  const bool le = t[0] == 'I' && t[1] == 'I';
+  if (!le && !(t[0] == 'M' && t[1] == 'M')) return 1;
+  auto u16 = [&](long long o) { return le ? t[o] | (t[o + 1] << 8) : (t[o] << 8) | t[o + 1]; };
+  auto u32 = [&](long long o) {
+    return le ? (uint32_t)t[o] | ((uint32_t)t[o + 1] << 8) | ((uint32_t)t[o + 2] << 16) | ((uint32_t)t[o + 3] << 24)
+              : ((uint32_t)t[o] << 24) | ((uint32_t)t[o + 1] << 16) | ((uint32_t)t[o + 2] << 8) | (uint32_t)t[o + 3];
+  };
+  const long long off = u32(4);
+  if (off + 2 > n) return 1;
+  const int count = u16(off);
+  for (int i = 0; i < count; ++i) {
+    const long long e = off + 2 + 12LL * i;
+    if (e + 12 > n) break;
+    if (u16(e) == 0x0112) {
+      const int v = u16(e + 8);
+      return v >= 1 && v <= 8 ? v : 1;
+    }
+  }
+  return 1;
+}
+
+// Markers -> Parsed; 0 or a negative code (the Python wrapper's _ERRORS).
+int parse(const uint8_t* buf, long long n, Parsed& P) {
+  if (n < 3 || buf[0] != 0xFF || buf[1] != 0xD8 || buf[2] != 0xFF) return kErrFormat;
+  long long pos = 2;
+  Huff huff[2][4];
+  int restart = 0;
+  bool frame = false, jfif = false, adobe = false, have_orientation = false;
+  int transform = 1;
+  for (;;) {
+    while (pos + 1 < n && buf[pos] == 0xFF && buf[pos + 1] == 0xFF) ++pos;
+    if (pos + 2 > n || buf[pos] != 0xFF) return kErrTruncated;
+    const int marker = buf[pos + 1];
+    pos += 2;
+    if (marker == 0xD9) break;
+    if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;
+    switch (marker) {
+      case 0xC2: return kErrProgressive;
+      case 0xC3: return kErrLossless;
+      case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF: return kErrHierarchical;
+      case 0xC9: case 0xCA: case 0xCB: case 0xCC: case 0xCD: case 0xCE: case 0xCF: return kErrArith;
+      case 0xDC: return kErrDnl;
+      default: break;
+    }
+    if (pos + 2 > n) return kErrTruncated;
+    const int length = be16(buf + pos);
+    if (length < 2 || pos + length > n) return kErrTruncated;
+    const uint8_t* body = buf + pos + 2;
+    const int blen = length - 2;
+    pos += length;
+    if (marker == 0xDB) {  // DQT
+      for (int p = 0; p < blen;) {
+        const int pq = body[p] >> 4, tq = body[p] & 15, size = pq ? 128 : 64;
+        if (tq > 3 || p + 1 + size > blen) return kErrFormat;
+        for (int k = 0; k < 64; ++k)
+          P.qt[tq][kNatural[k]] = pq ? (uint16_t)be16(body + p + 1 + 2 * k) : body[p + 1 + k];
+        P.qt_defined[tq] = true;
+        p += 1 + size;
+      }
+    } else if (marker == 0xC4) {  // DHT
+      for (int p = 0; p < blen;) {
+        if (p + 17 > blen) return kErrFormat;
+        const int tc = body[p] >> 4, th = body[p] & 15;
+        int sum = 0;
+        for (int i = 0; i < 16; ++i) sum += body[p + 1 + i];
+        if (tc > 1 || th > 3 || sum > 256 || p + 17 + sum > blen) return kErrFormat;
+        Huff& h = huff[tc][th];
+        h.defined = true;
+        memcpy(h.counts, body + p + 1, 16);
+        memcpy(h.symbols, body + p + 17, sum);
+        p += 17 + sum;
+      }
+    } else if (marker == 0xDD) {  // DRI
+      if (blen < 2) return kErrFormat;
+      restart = be16(body);
+    } else if (marker == 0xC0 || marker == 0xC1) {  // SOF0 / SOF1
+      if (frame || blen < 6) return kErrFormat;
+      frame = true;
+      if (body[0] != 8) return kErrPrecision;
+      P.height = be16(body + 1);
+      P.width = be16(body + 3);
+      P.ncomp = body[5];
+      if (P.ncomp != 1 && P.ncomp != 3) return kErrComponents;
+      if (P.height == 0) return kErrDnl;
+      if (P.width == 0 || blen < 6 + 3 * P.ncomp) return kErrFormat;
+      for (int i = 0; i < P.ncomp; ++i) {
+        Comp& c = P.comp[i];
+        c.id = body[6 + 3 * i];
+        c.h = body[7 + 3 * i] >> 4;
+        c.v = body[7 + 3 * i] & 15;
+        c.tq = body[8 + 3 * i];
+        if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return kErrFormat;
+      }
+    } else if (marker == 0xDA) {  // SOS
+      if (!frame || blen < 1) return kErrFormat;
+      Scan s;
+      s.ns = body[0];
+      if (s.ns < 1 || s.ns > P.ncomp || blen < 1 + 2 * s.ns) return kErrFormat;
+      for (int i = 0; i < s.ns; ++i) {
+        int j = -1;
+        for (int c = 0; c < P.ncomp; ++c)
+          if (P.comp[c].id == body[1 + 2 * i]) j = c;
+        if (j < 0) return kErrFormat;
+        s.comp[i] = j;
+        const int td = body[2 + 2 * i] >> 4, ta = body[2 + 2 * i] & 15;
+        if (td > 3 || ta > 3) return kErrTable;
+        s.dc[i] = huff[0][td];
+        s.ac[i] = huff[1][ta];
+        if (!s.dc[i].defined || !s.ac[i].defined) return kErrTable;
+      }
+      int mcu_blocks = 0;
+      for (int i = 0; i < s.ns; ++i) mcu_blocks += P.comp[s.comp[i]].h * P.comp[s.comp[i]].v;
+      if (s.ns > 1 && mcu_blocks > 10) return kErrFormat;  // the standard's limit for an interleaved MCU
+      // the entropy data runs to the first marker that is not RSTn (FF 00 is a stuffed FF, FF FF a fill byte)
+      long long end = pos;
+      while (end < n && !(buf[end] == 0xFF && end + 1 < n && buf[end + 1] != 0x00 && buf[end + 1] != 0xFF &&
+                          (buf[end + 1] < 0xD0 || buf[end + 1] > 0xD7)))
+        ++end;
+      if (end + 1 >= n) return kErrTruncated;
+      s.data = buf + pos;
+      s.len = end - pos;
+      s.restart = restart;
+      P.scans.push_back(s);
+      pos = end;
+    } else if (marker == 0xE0) {  // APP0
+      if (blen >= 14 && memcmp(body, "JFIF\0", 5) == 0) jfif = true;
+    } else if (marker == 0xE1) {  // APP1
+      if (!have_orientation && blen >= 6 && memcmp(body, "Exif\0\0", 6) == 0) {
+        P.orientation = exif_orientation(body, blen);
+        have_orientation = true;
+      }
+    } else if (marker == 0xEE) {  // APP14
+      if (blen >= 12 && memcmp(body, "Adobe", 5) == 0) {
+        adobe = true;
+        transform = body[11];
+      }
+    } else if (!(marker == 0xC8 || (marker >= 0xE2 && marker <= 0xEF) || (marker >= 0xF0 && marker <= 0xFE))) {
+      return kErrFormat;
+    }
+  }
+  if (!frame || P.scans.empty()) return kErrFormat;
+  for (int i = 0; i < P.ncomp; ++i) {
+    P.hmax = P.comp[i].h > P.hmax ? P.comp[i].h : P.hmax;
+    P.vmax = P.comp[i].v > P.vmax ? P.comp[i].v : P.vmax;
+  }
+  const int mcux = (P.width + 8 * P.hmax - 1) / (8 * P.hmax), mcuy = (P.height + 8 * P.vmax - 1) / (8 * P.vmax);
+  P.total = 0;
+  for (int i = 0; i < P.ncomp; ++i) {
+    Comp& c = P.comp[i];
+    if (P.hmax % c.h || P.vmax % c.v) return kErrFractional;
+    if (!P.qt_defined[c.tq]) return kErrTable;
+    c.bw = mcux * c.h;
+    c.bh = mcuy * c.v;
+    c.width = (int)(((long long)P.width * c.h + P.hmax - 1) / P.hmax);
+    c.height = (int)(((long long)P.height * c.v + P.vmax - 1) / P.vmax);
+    c.off = P.total;
+    P.total += 64LL * c.bw * c.bh;
+  }
+  // the record, the planes' offsets and the kernels' indices are 32-bit
+  if ((long long)P.width * P.height > kMaxPixels || P.total > INT_MAX || 3LL * P.width * P.height > INT_MAX)
+    return kErrTooLarge;
+  if (P.ncomp == 1) {
+    P.color = kGray;
+  } else if (jfif) {
+    P.color = kYcc;
+  } else if (adobe) {
+    P.color = transform == 0 ? kRgb : kYcc;
+  } else {
+    P.color = P.comp[0].id == 82 && P.comp[1].id == 71 && P.comp[2].id == 66 ? kRgb : kYcc;
+  }
+  return 0;
+}
+
+void fill_info(const Parsed& P, int* info) {
+  memset(info, 0, kInfoLen * sizeof(int));
+  info[0] = P.width;
+  info[1] = P.height;
+  info[2] = P.ncomp;
+  info[3] = P.color;
+  info[4] = P.orientation;
+  info[5] = P.hmax;
+  info[6] = P.vmax;
+  info[7] = (int)P.total;
+  for (int c = 0; c < P.ncomp; ++c) {
+    const Comp& k = P.comp[c];
+    int* r = info + 16 + 8 * c;
+    r[0] = k.h;
+    r[1] = k.v;
+    r[2] = k.bw;
+    r[3] = k.bh;
+    r[4] = k.width;
+    r[5] = k.height;
+    r[6] = (int)k.off;
+    r[7] = k.tq;
+  }
+}
+
+// Each component's quantisation table, natural order, into q (3 x 64)
+void component_tables(const Parsed& P, int* q) {
+  for (int c = 0; c < P.ncomp; ++c)
+    for (int k = 0; k < 64; ++k) q[c * 64 + k] = P.qt[P.comp[c].tq][k];
+}
+
+// 16 bits ahead -> (code length << 8) | symbol; a prefix no code starts is 17 bits and symbol 0
+// (libjpeg's "bad Huffman code")
+void build_lookup(const Huff& h, std::vector<uint16_t>& lut) {
+  lut.assign(65536, 17 << 8);
+  int code = 0, k = 0;
+  for (int len = 1; len <= 16; ++len) {
+    for (int i = 0; i < h.counts[len - 1]; ++i) {
+      const int lo = code << (16 - len), span = 1 << (16 - len);
+      if (lo + span <= 65536)
+        for (int j = 0; j < span; ++j) lut[lo + j] = (uint16_t)((len << 8) | h.symbols[k]);
+      ++code;
+      ++k;
+    }
+    code <<= 1;
+  }
+}
+
+// Bits of one restart interval, FF 00 unstuffed; past the first marker, zero bits (counted in fake)
+struct BitReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  uint64_t acc = 0;
+  int bits = 0;
+  bool marker = false;
+  long long fake = 0;
+
+  void fill() {
+    while (bits <= 56) {
+      uint8_t b = 0;
+      if (!marker && p < end) {
+        b = *p;
+        if (b == 0xFF) {
+          if (p + 1 < end && p[1] == 0x00) {
+            p += 2;
+          } else {
+            marker = true;
+            b = 0;
+          }
+        } else {
+          ++p;
+        }
+      } else {
+        marker = true;
+      }
+      if (marker) fake += 8;
+      acc |= (uint64_t)b << (56 - bits);
+      bits += 8;
+    }
+  }
+  uint32_t peek16() {
+    if (bits < 32) fill();
+    return (uint32_t)(acc >> 48);
+  }
+  void skip(int n) {
+    acc <<= n;
+    bits -= n;
+  }
+  int get(int n) {  // 1 <= n <= 16
+    const int v = (int)(peek16() >> (16 - n));
+    skip(n);
+    return v;
+  }
+  bool overrun() const { return fake > bits; }  // zero bits past the data were consumed
+};
+
+inline int extend(int v, int t) { return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v; }
+
+// Huffman data of every scan -> coef (P.total int16, zeroed here); returns whether a marker cut the data short
+bool decode_coefficients(const Parsed& P, int16_t* coef) {
+  memset(coef, 0, (size_t)P.total * sizeof(int16_t));
+  bool cut = false;
+  std::vector<uint16_t> dc_lut[4], ac_lut[4];
+  for (const Scan& s : P.scans) {
+    int gw, gh, nblk = 0;
+    int bj[10], bby[10], bbx[10];  // the blocks of one MCU: component slot, row, column
+    const bool alone = s.ns == 1;  // non-interleaved: MCU (my, mx) is the component's block (my, mx)
+    if (alone) {
+      const Comp& c = P.comp[s.comp[0]];
+      gw = (c.width + 7) / 8;
+      gh = (c.height + 7) / 8;
+      bj[0] = bby[0] = bbx[0] = 0;
+      nblk = 1;
+    } else {
+      gw = (P.width + 8 * P.hmax - 1) / (8 * P.hmax);
+      gh = (P.height + 8 * P.vmax - 1) / (8 * P.vmax);
+      for (int j = 0; j < s.ns; ++j) {
+        const Comp& c = P.comp[s.comp[j]];
+        for (int by = 0; by < c.v; ++by)
+          for (int bx = 0; bx < c.h; ++bx) {
+            bj[nblk] = j;
+            bby[nblk] = by;
+            bbx[nblk++] = bx;
+          }
+      }
+    }
+    for (int j = 0; j < s.ns; ++j) {
+      build_lookup(s.dc[j], dc_lut[j]);
+      build_lookup(s.ac[j], ac_lut[j]);
+    }
+    const long long total = (long long)gw * gh;
+    const long long per = s.restart ? s.restart : total;
+    const uint8_t* p = s.data;
+    const uint8_t* end = s.data + s.len;
+    bool at_data = true;  // the reader stands at this interval's data (else a marker ended the scan)
+    for (long long m0 = 0; m0 < total; m0 += per) {
+      if (m0) {  // to the next RSTn; a scan that ended early has none
+        at_data = false;
+        while (p + 1 < end) {
+          if (p[0] == 0xFF && p[1] >= 0xD0 && p[1] <= 0xD7) {
+            p += 2;
+            at_data = true;
+            break;
+          }
+          p += p[0] == 0xFF && p[1] == 0x00 ? 2 : 1;
+        }
+        if (!at_data) {
+          cut = true;
+          break;
+        }
+      }
+      BitReader br{p, end};
+      int pred[4] = {0, 0, 0, 0};
+      const long long m1 = m0 + per < total ? m0 + per : total;
+      for (long long m = m0; m < m1; ++m) {
+        const int my = (int)(m / gw), mx = (int)(m % gw);
+        for (int b = 0; b < nblk; ++b) {
+          const int j = bj[b];
+          const Comp& c = P.comp[s.comp[j]];
+          const long long blk = alone ? (long long)my * c.bw + mx : (long long)(my * c.v + bby[b]) * c.bw + mx * c.h + bbx[b];
+          int16_t* out = coef + c.off + 64 * blk;
+          uint16_t e = dc_lut[j][br.peek16()];
+          br.skip(e >> 8);
+          int t = e & 255;
+          if (t) t = t > 16 ? 0 : extend(br.get(t), t);
+          pred[j] += t;
+          out[0] = (int16_t)pred[j];
+          const uint16_t* lut = ac_lut[j].data();
+          for (int k = 1; k < 64; ++k) {
+            e = lut[br.peek16()];
+            br.skip(e >> 8);
+            const int r = (e >> 4) & 15, z = e & 15;
+            if (z) {
+              k += r;
+              out[kNatural[k]] = (int16_t)extend(br.get(z), z);
+            } else if (r != 15) {
+              break;
+            } else {
+              k += 15;
+            }
+          }
+        }
+        if (br.overrun()) {  // this MCU took zero bits past the data: the rest of the interval stays zero
+          cut = true;
+          break;
+        }
+      }
+      // the reader stops at the marker (or short of it): the next interval searches from here
+      p = br.p;
+    }
+  }
+  return cut;
+}
+
+// The kernels' parameter from a record of fill_info and each component's table (3 x 64, or null)
+Geom geom_from(const int* info, const int* qt) {
+  Geom g;
+  memset(&g, 0, sizeof g);
+  g.width = info[0];
+  g.height = info[1];
+  g.ncomp = info[2];
+  g.color = info[3];
+  int blk = 0;
+  for (int c = 0; c < g.ncomp; ++c) {
+    const int* r = info + 16 + 8 * c;
+    g.blk_off[c] = blk;
+    blk += r[2] * r[3];
+    g.bw[c] = r[2];
+    g.cw[c] = r[4];
+    g.ch[c] = r[5];
+    g.fh[c] = info[5] / r[0];
+    g.fv[c] = info[6] / r[1];
+    g.mode[c] = kReplicate;
+    if (g.fh[c] == 2 && g.fv[c] == 1 && r[4] > 2) g.mode[c] = kH2V1;
+    if (g.fh[c] == 1 && g.fv[c] == 2) g.mode[c] = kH1V2;
+    if (g.fh[c] == 2 && g.fv[c] == 2 && r[4] > 2) g.mode[c] = kH2V2;
+    if (qt)
+      for (int k = 0; k < 64; ++k) g.q[c][k] = (uint16_t)qt[c * 64 + k];
+  }
+  g.blk_off[g.ncomp] = blk;
+  return g;
+}
+
+// ISLOW constants (jidctint.c): FIX(x) = round(x * 2^13)
+constexpr int F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270, F0899 = 7373, F1175 = 9633;
+constexpr int F1501 = 12299, F1847 = 15137, F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
+
+// One ISLOW pass over x[0..7] (inputs at stride 1), each output descaled by shift with rounding
+__device__ __forceinline__ void idct8(const int* x, int* o, int shift) {
+  int z1 = (x[2] + x[6]) * F0541;
+  const int tmp2 = z1 - x[6] * F1847;
+  const int tmp3 = z1 + x[2] * F0765;
+  const int tmp0 = (x[0] + x[4]) * 8192;
+  const int tmp1 = (x[0] - x[4]) * 8192;
+  const int t10 = tmp0 + tmp3, t13 = tmp0 - tmp3, t11 = tmp1 + tmp2, t12 = tmp1 - tmp2;
+  int o0 = x[7], o1 = x[5], o2 = x[3], o3 = x[1];
+  z1 = o0 + o3;
+  int z2 = o1 + o2, z3 = o0 + o2, z4 = o1 + o3;
+  const int z5 = (z3 + z4) * F1175;
+  o0 *= F0298;
+  o1 *= F2053;
+  o2 *= F3072;
+  o3 *= F1501;
+  z1 *= -F0899;
+  z2 *= -F2562;
+  z3 = z3 * -F1961 + z5;
+  z4 = z4 * -F0390 + z5;
+  o0 += z1 + z3;
+  o1 += z2 + z4;
+  o2 += z2 + z3;
+  o3 += z1 + z4;
+  const int half = 1 << (shift - 1);
+  o[0] = (t10 + o3 + half) >> shift;
+  o[7] = (t10 - o3 + half) >> shift;
+  o[1] = (t11 + o2 + half) >> shift;
+  o[6] = (t11 - o2 + half) >> shift;
+  o[2] = (t12 + o1 + half) >> shift;
+  o[5] = (t12 - o1 + half) >> shift;
+  o[3] = (t13 + o0 + half) >> shift;
+  o[4] = (t13 - o0 + half) >> shift;
+}
+
+// coef: every component's int16 blocks end to end (g.blk_off); planes: the same layout as uint8 pixels,
+// each component a (8 bh, 8 bw) row-major plane
+__global__ void __launch_bounds__(kBlocksPerCta * 8) jpeg_idct_kernel(const int16_t* __restrict__ coef,
+                                                                      uint8_t* __restrict__ planes, const Geom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int16_t* s_in = reinterpret_cast<int16_t*>(smem);                              // [32][64]
+  int* s_ws = reinterpret_cast<int*>(smem + kBlocksPerCta * 64 * sizeof(int16_t));  // [32][64]
+  const int t = threadIdx.x, lb = t >> 3, lane = t & 7;
+  const int nblocks = g.blk_off[g.ncomp];
+  const int first = blockIdx.x * kBlocksPerCta;
+  // coalesced load: each thread 8 consecutive coefficients (16 bytes)
+  {
+    const long long idx = (long long)first * 64 + t * 8;
+    if (first + (t >> 3) < nblocks) {
+      *reinterpret_cast<uint4*>(s_in + t * 8) = *reinterpret_cast<const uint4*>(coef + idx);
+    }
+  }
+  __syncthreads();
+  const int gb = first + lb;
+  const bool live = gb < nblocks;
+  const int c = gb >= g.blk_off[2] && g.ncomp > 2 ? 2 : (gb >= g.blk_off[1] && g.ncomp > 1 ? 1 : 0);
+  int x[8], o[8];
+  if (live) {  // pass 1: this thread's column
+    for (int r = 0; r < 8; ++r) x[r] = (int)s_in[lb * 64 + r * 8 + lane] * (int)g.q[c][r * 8 + lane];
+    idct8(x, o, 11);
+    for (int r = 0; r < 8; ++r) s_ws[lb * 64 + r * 8 + lane] = o[r];
+  }
+  __syncthreads();
+  if (live) {  // pass 2: this thread's row
+    for (int k = 0; k < 8; ++k) x[k] = s_ws[lb * 64 + lane * 8 + k];
+    idct8(x, o, 18);
+    const int li = gb - g.blk_off[c], by = li / g.bw[c], bx = li % g.bw[c];
+    uint8_t px[8];
+    for (int k = 0; k < 8; ++k) {
+      const int v = o[k] + 128;
+      px[k] = (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+    uint8_t* dst = planes + (long long)g.blk_off[c] * 64 + (long long)(8 * by + lane) * (8 * g.bw[c]) + 8 * bx;
+    uint2 w;
+    memcpy(&w, px, 8);
+    *reinterpret_cast<uint2*>(dst) = w;
+  }
+}
+
+// The upsampled value of component c at output pixel (x, y)
+__device__ __forceinline__ int sample(const uint8_t* __restrict__ planes, const Geom& g, int c, int x, int y) {
+  const uint8_t* p = planes + (long long)g.blk_off[c] * 64;
+  const int stride = 8 * g.bw[c], cw = g.cw[c], ch = g.ch[c];
+  switch (g.mode[c]) {
+    case kH2V1: {
+      const int cx = x >> 1, odd = x & 1;
+      const int nb = odd ? min(cx + 1, cw - 1) : max(cx - 1, 0);
+      return (3 * p[y * stride + cx] + p[y * stride + nb] + 1 + odd) >> 2;
+    }
+    case kH1V2: {
+      const int cy = y >> 1, odd = y & 1;
+      const int far = odd ? min(cy + 1, ch - 1) : max(cy - 1, 0);
+      return (3 * p[cy * stride + x] + p[far * stride + x] + 1 + odd) >> 2;
+    }
+    case kH2V2: {
+      const int cx = x >> 1, cy = y >> 1, ox = x & 1, oy = y & 1;
+      const int far = oy ? min(cy + 1, ch - 1) : max(cy - 1, 0);
+      const int nb = ox ? min(cx + 1, cw - 1) : max(cx - 1, 0);
+      const int s0 = 3 * p[cy * stride + cx] + p[far * stride + cx];
+      const int s1 = 3 * p[cy * stride + nb] + p[far * stride + nb];
+      return (3 * s0 + s1 + 8 - ox) >> 4;
+    }
+    default:
+      return p[(y / g.fv[c]) * stride + x / g.fh[c]];
+  }
+}
+
+__device__ __forceinline__ uint8_t clamp255(int v) { return (uint8_t)(v < 0 ? 0 : (v > 255 ? 255 : v)); }
+
+// one thread a pixel: a CUDA block covers 32 columns x 8 rows
+__global__ void __launch_bounds__(256) jpeg_color_kernel(const uint8_t* __restrict__ planes,
+                                                         uint8_t* __restrict__ out, const Geom g) {
+  const int x = blockIdx.x * 32 + (threadIdx.x & 31), y = blockIdx.y * 8 + (threadIdx.x >> 5);
+  if (x >= g.width || y >= g.height) return;
+  uint8_t* o = out + ((long long)y * g.width + x) * 3;
+  const int s0 = sample(planes, g, 0, x, y);
+  if (g.color == kGray) {
+    o[0] = o[1] = o[2] = (uint8_t)s0;
+    return;
+  }
+  const int s1 = sample(planes, g, 1, x, y), s2 = sample(planes, g, 2, x, y);
+  if (g.color == kRgb) {
+    o[0] = (uint8_t)s2;
+    o[1] = (uint8_t)s1;
+    o[2] = (uint8_t)s0;
+    return;
+  }
+  // jdcolor.c, SCALEBITS 16: FIX(1.40200) 91881, FIX(1.77200) 116130, FIX(0.71414) 46802, FIX(0.34414) 22554
+  const int cb = s1 - 128, cr = s2 - 128;
+  o[0] = clamp255(s0 + ((116130 * cb + 32768) >> 16));
+  o[1] = clamp255(s0 + ((-22554 * cb + 32768 - 46802 * cr) >> 16));
+  o[2] = clamp255(s0 + ((91881 * cr + 32768) >> 16));
+}
+
+cudaError_t launch_idct(const int16_t* coef, uint8_t* planes, const Geom& g, cudaStream_t st) {
+  const dim3 grid((g.blk_off[g.ncomp] + kBlocksPerCta - 1) / kBlocksPerCta), block(kBlocksPerCta * 8);
+  const int smem_bytes = kBlocksPerCta * 64 * (int)(sizeof(int16_t) + sizeof(int));
+  jpeg_idct_kernel<<<grid, block, smem_bytes, st>>>(coef, planes, g);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_color(const uint8_t* planes, uint8_t* out, const Geom& g, cudaStream_t st) {
+  const dim3 grid((g.width + 31) / 32, (g.height + 7) / 8), block(256);
+  const int smem_bytes = 0;
+  jpeg_color_kernel<<<grid, block, smem_bytes, st>>>(planes, out, g);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// info (int32[48]) gets W, H, components, colour, orientation, hmax, vmax, total coefficients, then per
+// component c at 16 + 8c: h, v, bw, bh, width, height, coefficient offset, table; info[8] is set to 1 when
+// a marker cut the data short. Each entry point returns 0, a negative code (data/jpeg.py _ERRORS) or a
+// CUDA error; kGrow when the caller's buffers are too small for the record it filled in.
+
+// The host entropy decode alone: coef (cap int16) gets info[7] coefficients, qt (3 x 64 int32) each
+// component's table, natural order.
+extern "C" int fce_jpeg_coefficients(const void* buf, long long len, void* coef, long long cap, void* qt, int* info) {
+  Parsed P;
+  const int err = parse(static_cast<const uint8_t*>(buf), len, P);
+  if (err) return err;
+  fill_info(P, info);
+  if (P.total > cap) return kGrow;
+  info[8] = decode_coefficients(P, static_cast<int16_t*>(coef)) ? 1 : 0;
+  component_tables(P, static_cast<int*>(qt));
+  return 0;
+}
+
+// jpeg_idct_kernel alone, on the caller's stream: coef (device, info[7] int16) -> planes (device, info[7]
+// uint8); qt: host 3 x 64 int32 (as fce_jpeg_coefficients gives them).
+extern "C" int fce_jpeg_idct(const void* coef, const void* qt, void* planes, const int* info, void* stream) {
+  if (info[2] != 1 && info[2] != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = geom_from(info, static_cast<const int*>(qt));
+  return static_cast<int>(launch_idct(static_cast<const int16_t*>(coef), static_cast<uint8_t*>(planes), g,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// jpeg_color_kernel alone, on the caller's stream: planes (device) -> out (device, H x W x 3 uint8)
+extern "C" int fce_jpeg_color(const void* planes, void* out, const int* info, void* stream) {
+  if (info[2] != 1 && info[2] != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const Geom g = geom_from(info, nullptr);
+  return static_cast<int>(launch_color(static_cast<const uint8_t*>(planes), static_cast<uint8_t*>(out), g,
+                                       static_cast<cudaStream_t>(stream)));
+}
+
+// A whole image: parse, entropy decode into h_coef (pinned), copy to d_coef, both kernels, copy d_out to h_out
+// (pinned), synchronise the stream. h_coef and d_coef hold coef_cap int16, d_plane coef_cap bytes, d_out and
+// h_out out_cap bytes; when info[7] > coef_cap or W H 3 > out_cap it returns kGrow before touching any of
+// them. times (float[5] or null): ms of the host entropy decode, H2D, IDCT, colour, D2H.
+extern "C" int fce_jpeg_decode(const void* buf, long long len, int* info, void* h_coef, void* d_coef, void* d_plane,
+                               long long coef_cap, void* d_out, void* h_out, long long out_cap, float* times,
+                               void* stream) {
+  Parsed P;
+  int err = parse(static_cast<const uint8_t*>(buf), len, P);
+  if (err) return err;
+  fill_info(P, info);
+  if (P.total > coef_cap || 3LL * P.width * P.height > out_cap) return kGrow;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto t0 = std::chrono::steady_clock::now();
+  info[8] = decode_coefficients(P, static_cast<int16_t*>(h_coef)) ? 1 : 0;
+  const auto t1 = std::chrono::steady_clock::now();
+  int qt[3 * 64];
+  component_tables(P, qt);
+  const Geom g = geom_from(info, qt);
+  cudaEvent_t ev[5];
+  if (times) {
+    times[0] = std::chrono::duration<float, std::milli>(t1 - t0).count();
+    for (int i = 0; i < 5; ++i) {
+      if (cudaEventCreate(&ev[i]) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+    }
+    cudaEventRecord(ev[0], st);
+  }
+  const size_t coef_bytes = (size_t)P.total * sizeof(int16_t), out_bytes = (size_t)P.width * P.height * 3;
+  cudaError_t e = cudaMemcpyAsync(d_coef, h_coef, coef_bytes, cudaMemcpyHostToDevice, st);
+  if (times) cudaEventRecord(ev[1], st);
+  if (e == cudaSuccess) e = launch_idct(static_cast<const int16_t*>(d_coef), static_cast<uint8_t*>(d_plane), g, st);
+  if (times) cudaEventRecord(ev[2], st);
+  if (e == cudaSuccess) e = launch_color(static_cast<const uint8_t*>(d_plane), static_cast<uint8_t*>(d_out), g, st);
+  if (times) cudaEventRecord(ev[3], st);
+  if (e == cudaSuccess) e = cudaMemcpyAsync(h_out, d_out, out_bytes, cudaMemcpyDeviceToHost, st);
+  if (times) cudaEventRecord(ev[4], st);
+  const cudaError_t sync = cudaStreamSynchronize(st);
+  if (e == cudaSuccess) e = sync;
+  if (times) {
+    for (int i = 0; i < 4; ++i) cudaEventElapsedTime(&times[1 + i], ev[i], ev[i + 1]);
+    for (int i = 0; i < 5; ++i) cudaEventDestroy(ev[i]);
+  }
+  return static_cast<int>(e);
+}

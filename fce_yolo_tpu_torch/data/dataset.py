@@ -9,7 +9,8 @@
   downloaded.
 - ``YOLODataset`` parses the labels at construction, every time: the JAX
   package's ``.labels_*.npz`` cache is neither written nor read. Images are
-  read by ``data/imread.py`` (PNG or ``.npy``), augmented (train) or
+  read by ``data/imread.py`` (baseline JPEG on the dataset's ``device``,
+  PNG or ``.npy`` on the host), augmented (train) or
   letterboxed (val) in BGR without cv2 (``data/augment.py``) and leave as
   RGB.
 - Train mode draws its augment from the dataset's generator, or from one a
@@ -167,14 +168,17 @@ class YOLODataset:
         hyp: the train augment's hyperparameters.
         nc: class count (else 1 + the largest label).
         seed: seeds the generator until the first ``set_epoch``.
+        device: where JPEG images decode (``imread``): the card unless
+            another is named.
     """
 
     def __init__(self, img_path: str | list, imgsz: int = 640, mode: str = "val", hyp: AugmentCfg | None = None,
-                 nc: int | None = None, seed: int = 0):
+                 nc: int | None = None, seed: int = 0, device="cuda"):
         if mode not in ("train", "val"):
             raise ValueError(f"mode {mode!r}: 'train' or 'val'")
         self.imgsz = imgsz
         self.mode = mode
+        self.device = device
         self.hyp = hyp or AugmentCfg()
         self.im_files = _scan_images(img_path)
         if not self.im_files:
@@ -199,7 +203,7 @@ class YOLODataset:
 
     def load_raw(self, i: int) -> dict:
         """Image i as read (BGR uint8) with its labels as pixel xyxy."""
-        img = imread(self.im_files[i])
+        img = imread(self.im_files[i], self.device)
         h, w = img.shape[:2]
         lab = self.labels[i]
         xywh = lab["xywhn"] * np.array([w, h, w, h], np.float32)

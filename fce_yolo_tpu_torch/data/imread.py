@@ -3,14 +3,19 @@
 
 Returns BGR uint8 (H, W, 3) as ``cv2.imread`` does, bit for bit, for:
 
+- baseline JPEG (bytes starting ``FF D8 FF``), decoded by ``data/jpeg.py``
+  on ``device``: the card's kernels for ``"cuda"`` (the default), the plain
+  version for ``"cpu"``; progressive, arithmetic, 12-bit, lossless,
+  hierarchical and CMYK JPEG raise;
 - PNG, 8 bits a sample, not interlaced: gray, gray+alpha, RGB, RGBA and
   palette. Alpha is dropped (not blended) and gray is copied into all three
   channels, as libpng does for OpenCV's colour read. Decoded with the stdlib
   ``zlib`` and numpy.
 - ``.npy`` arrays already in that layout (the JAX package's disk cache).
 
-Anything else raises, naming what is read: JPEG and the other formats,
-interlaced and 16-bit PNG. A file that cannot be read raises too; no blank
+Anything else raises, naming what is read: the other formats, interlaced
+and 16-bit PNG. PNG and ``.npy`` are read on the host whatever ``device``
+says. A file that cannot be read raises too; no blank
 image stands in for it.
 
 PNG row filters: None, Sub and Up rows are undone row-vectorised (Sub as a
@@ -36,9 +41,12 @@ from pathlib import Path
 
 import numpy as np
 
+from fce_yolo_tpu_torch.data.jpeg import JPEG_SIGNATURE, decode_jpeg
+
 __all__ = ["imread", "decode_png", "READ_FORMATS"]
 
-READ_FORMATS = ("PNG (8-bit gray, gray+alpha, RGB, RGBA or palette; not interlaced)", ".npy (H, W, 3) uint8 BGR")
+READ_FORMATS = ("baseline JPEG (8-bit, 1 or 3 components)",
+                "PNG (8-bit gray, gray+alpha, RGB, RGBA or palette; not interlaced)", ".npy (H, W, 3) uint8 BGR")
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _NPY_MAGIC = b"\x93NUMPY"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
@@ -49,17 +57,20 @@ def _unsupported(name: str, what: str) -> ValueError:
     return ValueError(f"{name}: {what}; this reader takes only {' and '.join(READ_FORMATS)}")
 
 
-def imread(filename: str | Path) -> np.ndarray:
-    """Read an image file as BGR uint8 (H, W, 3); raise if it cannot be read."""
+def imread(filename: str | Path, device="cuda") -> np.ndarray:
+    """Read an image file as BGR uint8 (H, W, 3); raise if it cannot be
+    read. A JPEG decodes on ``device`` (``data/jpeg.py::decode_jpeg``)."""
     name = str(filename)
     buf = Path(filename).read_bytes()
+    if buf.startswith(JPEG_SIGNATURE):
+        return decode_jpeg(buf, name, device)
     if buf.startswith(_NPY_MAGIC):
         img = np.load(io.BytesIO(buf), allow_pickle=False)
         if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] != 3:
             raise _unsupported(name, f"a {img.dtype} array of shape {img.shape}")
         return img
     if not buf.startswith(_PNG_SIGNATURE):
-        raise _unsupported(name, "not a PNG or .npy file")
+        raise _unsupported(name, "not a JPEG, PNG or .npy file")
     return decode_png(buf, name)
 
 

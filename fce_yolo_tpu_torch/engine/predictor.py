@@ -1,7 +1,8 @@
 """Streaming detection predictor (reference ``fce_yolo_tpu/engine/predictor.py:97-363``).
 
-Numpy sources are letterboxed to fixed-size uint8 batches on the host (BGR
--> RGB, padded to the predictor's batch size), run through the model with
+Sources (files, directories, numpy or PIL images; ``load_source``) are
+letterboxed to fixed-size uint8 batches on the host (BGR -> RGB, padded to
+the predictor's batch size), run through the model with
 Conv+BN folded on its device, NMS'd there, and come back as ``Results`` in
 original-image pixels. The caller's model is never folded in place: an
 unfolded one is folded in a copy (the reference folds a copy too,
@@ -17,12 +18,15 @@ from __future__ import annotations
 
 import copy
 import time
+from pathlib import Path
 from typing import Iterator
 
 import numpy as np
 import torch
 
 from fce_yolo_tpu_torch.data.augment import letterbox
+from fce_yolo_tpu_torch.data.dataset import IMG_FORMATS
+from fce_yolo_tpu_torch.data.imread import imread
 from fce_yolo_tpu_torch.engine.results import Results
 from fce_yolo_tpu_torch.nn.model import DetectionModel, fold_conv_bn, is_folded
 from fce_yolo_tpu_torch.ops.nms import batched_nms
@@ -31,19 +35,53 @@ from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params,
 __all__ = ["DetectionPredictor", "load_source"]
 
 
-def load_source(source) -> Iterator[tuple[np.ndarray, str]]:
-    """Yield (BGR uint8 image, id) from an ndarray or a list/tuple of them."""
+VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "webm", "wmv"}
+STREAM_PREFIXES = ("rtsp://", "rtmp://", "http://", "https://", "tcp://")
+
+
+def load_source(source, device="cuda") -> Iterator[tuple[np.ndarray, str]]:
+    """Yield (BGR uint8 image, path or id) from an image file, a directory
+    (its image files by extension, ``rglob``, sorted), a numpy BGR image, a
+    PIL image (recognised by its class's module, PIL is not imported), or a
+    list/tuple of these (the reference ``load_source``,
+    ``fce_yolo_tpu/engine/predictor.py:28-100``). Files are read by
+    ``imread`` (a JPEG decodes on ``device``). A file that cannot be read
+    raises: nothing is skipped (the reference skips what cv2 cannot read).
+    Streams, screenshots and video raise NotImplementedError."""
     if isinstance(source, (list, tuple)):
         for i, s in enumerate(source):
-            for img, _ in load_source(s):
-                yield img, f"array{i}"
+            for img, path in load_source(s, device):
+                yield img, f"array{i}" if path == "array" else path
         return
     if isinstance(source, np.ndarray):
         if source.ndim != 3 or source.shape[2] != 3 or source.dtype != np.uint8:
             raise ValueError(f"expected an (H, W, 3) uint8 BGR image, got {source.dtype} {source.shape}")
         yield source, "array"
         return
-    raise TypeError(f"the port's predictor takes numpy images, got {type(source).__name__}")
+    if source.__class__.__module__.startswith("PIL"):
+        arr = np.asarray(source)
+        if arr.ndim != 3 or arr.shape[2] != 3 or arr.dtype != np.uint8:
+            raise ValueError(f"expected an RGB PIL image, got mode {getattr(source, 'mode', '?')}")
+        yield np.ascontiguousarray(arr[..., ::-1]), "pil"  # RGB -> BGR
+        return
+    if not isinstance(source, (str, Path)):
+        raise TypeError(f"the port's predictor takes image paths, directories, numpy or PIL images, got "
+                        f"{type(source).__name__}")
+    text = str(source)
+    if (text.lower().startswith(STREAM_PREFIXES) or text.endswith(".streams") or text.isnumeric()
+            or text.startswith("screen") or Path(text).suffix[1:].lower() in VID_FORMATS):
+        raise NotImplementedError(f"{text}: streams, screenshots and video are not read by the port yet "
+                                  "(ROADMAP queue 1, item 3)")
+    p = Path(text)
+    if p.is_dir():
+        for f in sorted(p.rglob("*")):
+            if f.suffix[1:].lower() in IMG_FORMATS:
+                yield imread(f, device), str(f)
+        return
+    if p.is_file():
+        yield imread(p, device), str(p)
+        return
+    raise FileNotFoundError(f"source not found: {source}")
 
 
 class DetectionPredictor:
@@ -124,7 +162,7 @@ class DetectionPredictor:
             pending.clear()
             imgs.clear()
 
-        for img, path in load_source(source):
+        for img, path in load_source(source, device):
             lb, r, pad = letterbox(img, self.imgsz, scaleup=False)
             pending.append((img, path, r, pad))
             imgs.append(np.ascontiguousarray(lb[..., ::-1]))  # BGR -> RGB

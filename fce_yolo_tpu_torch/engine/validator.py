@@ -58,9 +58,11 @@ class DetectionValidator:
         self.pre_nms_topk = pre_nms_topk
 
     def get_dataloader(self, data: str | Path | dict) -> DataLoader:
-        """Fixed-shape batches of the ``val`` split of ``data``."""
+        """Fixed-shape batches of the ``val`` split of ``data``; JPEG images
+        decode on the model's device."""
         d = check_det_dataset(data)
-        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"])
+        device = next(self.model.parameters()).device
+        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"], device=device)
         return DataLoader(ds, batch_size=self.batch_size, workers=self.workers)
 
     @torch.inference_mode()

@@ -10,8 +10,9 @@ seconds); the nvcc processes of all sources start together:
 ``<hash>`` covers the sources and the flags, so an edited kernel rebuilds
 and an unchanged one loads at once. The build runs at first use, inside the
 checkout (``build/`` is git-ignored). Every C entry point takes its pointers
-and the CUDA stream as ``void*`` and returns ``cudaGetLastError()``; the
-Python wrappers raise on a non-zero code.
+and the CUDA stream as ``void*`` and returns ``cudaGetLastError()`` (the
+JPEG ones also a negative code for a file they refuse); the Python wrappers
+raise on a non-zero code.
 """
 
 from __future__ import annotations
@@ -31,13 +32,23 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # C signature of each entry point (all return cudaError_t as int)
 SIGNATURES = {
     # x_u8, weights (packed bf16), out, B, H, W, c0, c1, c2, ch, n, c3k, stream
     "fce_fused_stem": [_P, _P, _P] + [_I] * 9 + [_P],
     # boxes, scores, valid, idx, ok, sboxes, order, count, mask, B, K, max_det, iou_thres, stream
     "fce_pick_suppress": [_P] * 9 + [_I, _I, _I, _F, _P],
+    # JPEG (csrc/jpeg.cu); the int32 info record's layout: data/jpeg.py INFO_LEN
+    # buf, len, coef (host int16), its capacity, qt (host int32 3 x 64), info
+    "fce_jpeg_coefficients": [_P, _L, _P, _L, _P, _P],
+    # coef (device), qt (host), planes (device), info, stream
+    "fce_jpeg_idct": [_P] * 5,
+    # planes (device), out (device), info, stream
+    "fce_jpeg_color": [_P] * 4,
+    # buf, len, info, h_coef (pinned), d_coef, d_plane, their capacity, d_out, h_out (pinned), its capacity,
+    # times (host float[5] or null), stream
+    "fce_jpeg_decode": [_P, _L, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P],
 }
 
 

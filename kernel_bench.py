@@ -1,10 +1,11 @@
 """Time one checkout's CUDA kernel on one GPU: the fused stem beside cuDNN's
-unfused bf16 layers 0-2 at 640 px, or the NMS kernels on chip_smoke.py's
-timed cases; or that checkout's train step.
+unfused bf16 layers 0-2 at 640 px, the NMS kernels on chip_smoke.py's
+timed cases, or the JPEG decode; or that checkout's train step.
 
     python3 kernel_bench.py --kernel stem [--root CHECKOUT] [--model yolo11s-fce.yaml] [--batches 16 64]
     python3 kernel_bench.py --kernel nms [--root CHECKOUT]
     python3 kernel_bench.py --kernel train-step [--root CHECKOUT] [--batches 16]
+    python3 kernel_bench.py --kernel jpeg [--root CHECKOUT]
 
 ``--root`` imports ``fce_yolo_tpu_torch`` from another checkout, for
 example an earlier commit unpacked with ``git archive`` into ``build/``.
@@ -18,8 +19,11 @@ from a CUDA graph of 20 calls (device time, without the host's launch cost),
 once from Python, and split by kernel with torch.profiler (device time of
 each kernel per call). The train step is chip_smoke.py's phase train (c)
 (``train_step_times``: yolo11s-fce at 640 px, bf16 and float32 steps, peak
-memory, AdamW + EMA alone) on random images with 1-3 boxes each. Prints one
-JSON object per batch or case, then the card's name and power limit.
+memory, AdamW + EMA alone) on random images with 1-3 boxes each. The JPEG
+decode is chip_smoke.py's phase jpeg (c) (``time_jpeg``: a call split by
+stage, each kernel alone, img/s on 1 and 8 threads) on its 480x640 and
+1080x1920 4:2:0 q95 images. Prints one JSON object per batch or case, then
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -34,8 +38,8 @@ import numpy as np
 import torch
 
 # chip_smoke imports the port only inside its functions, so they use the checkout chosen below
-from chip_smoke import (IMGSZ, MAX_DET, SEED, card_line, check_stem, cuda_ms, graph_ms, nms_bound, nms_timed_cases,
-                        stem_bound, train_step_times)
+from chip_smoke import (IMGSZ, MAX_DET, SEED, card_line, check_stem, cuda_ms, graph_ms, jpeg_bytes, jpeg_test_image,
+                        nms_bound, nms_timed_cases, stem_bound, time_jpeg, train_step_times)
 
 
 def bench_stem(args) -> None:
@@ -132,9 +136,24 @@ def bench_train_step(args) -> None:
                           **train_step_times(bdev, nc=80)}), flush=True)
 
 
+def bench_jpeg(args) -> None:
+    from fce_yolo_tpu_torch.data import jpeg as J
+
+    card = card_line()
+    for what, seed, (h, w), n in (("480x640 4:2:0 q95", SEED + 22, (480, 640), 20),
+                                  ("1080x1920 4:2:0 q95", SEED + 21, (1080, 1920), 10)):
+        buf = jpeg_bytes(jpeg_test_image(np.random.RandomState(seed), h, w), 95, "420", 0)
+        # the plain path's Python entropy decode is for small images: held at 480x640 only
+        if h < 1000 and not (J.decode_jpeg(buf, what, "cuda") == J.decode_jpeg_reference(buf, what)).all():
+            raise SystemExit(f"kernel_bench: {what}: the card's decode differs from the plain path")
+        out = time_jpeg(buf, what, n, card)
+        print(json.dumps({"root": str(args.root), "bench": "jpeg", "image": what, "bytes": len(buf),
+                          **{k: v for k, v in out.items() if k != "bounds"}}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernel", choices=("stem", "nms", "train-step"), required=True)
+    ap.add_argument("--kernel", choices=("stem", "nms", "train-step", "jpeg"), required=True)
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parent,
                     help="checkout whose fce_yolo_tpu_torch is timed (default: this one)")
     ap.add_argument("--model", default="yolo11s-fce.yaml", help="stem: the model whose stem is timed")
@@ -154,7 +173,7 @@ def main() -> None:
     card = card_line()
     if args.batches is None:
         args.batches = [16] if args.kernel == "train-step" else [16, 64]
-    {"stem": bench_stem, "nms": bench_nms, "train-step": bench_train_step}[args.kernel](args)
+    {"stem": bench_stem, "nms": bench_nms, "train-step": bench_train_step, "jpeg": bench_jpeg}[args.kernel](args)
     print(card)
 
 

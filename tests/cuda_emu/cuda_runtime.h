@@ -57,6 +57,18 @@ template <class F> cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// copies and events on the host: one stream, run in order, so a copy is a memcpy and an event times nothing
+enum cudaMemcpyKind { cudaMemcpyHostToDevice = 1, cudaMemcpyDeviceToHost = 2 };
+inline cudaError_t cudaMemcpyAsync(void* dst, const void* src, size_t n, cudaMemcpyKind, cudaStream_t) {
+  std::memcpy(dst, src, n);
+  return cudaSuccess;
+}
+inline cudaError_t cudaStreamSynchronize(cudaStream_t) { return cudaSuccess; }
+typedef int cudaEvent_t;
+inline cudaError_t cudaEventCreate(cudaEvent_t* e) { *e = 0; return cudaSuccess; }
+inline cudaError_t cudaEventRecord(cudaEvent_t, cudaStream_t) { return cudaSuccess; }
+inline cudaError_t cudaEventElapsedTime(float* ms, cudaEvent_t, cudaEvent_t) { *ms = 0.0f; return cudaSuccess; }
+inline cudaError_t cudaEventDestroy(cudaEvent_t) { return cudaSuccess; }
 void __syncthreads();
 inline size_t __cvta_generic_to_shared(const void* p) { return static_cast<const unsigned char*>(p) - g_smem; }
 

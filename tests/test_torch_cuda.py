@@ -461,3 +461,108 @@ def test_experiment_trainer_on_the_card_takes_the_nms_kernel(cuda, tmp_path, mon
     assert out["stage1"]["save_dir"].endswith("fce_wiou_n_stage1") and out["save_dir"].endswith("fce_wiou_n_stage2")
     assert validate_run(out["save_dir"], 1, "WIoU") == []
     assert all(np.isfinite(out["stage2"]["results"][0][k]) for k in ("train/box_loss", "train/cls_loss"))
+
+
+def _jpeg_writer():
+    """chip_smoke.py's baseline JPEG writer (the card machine has no encoder)."""
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+
+    return chip_smoke.jpeg_bytes
+
+
+def _jpeg_image(rng, h, w):
+    y, x = np.mgrid[:h, :w]
+    img = np.stack([x * 255 // max(w - 1, 1), y * 255 // max(h - 1, 1), (x + y) * 9 % 256], 2)
+    return np.clip(img + rng.randint(-30, 31, img.shape), 0, 255).astype(np.uint8)
+
+
+JPEG_CASES = [(s, q, r, hw) for s in ("444", "422", "420", "440", "411", "gray")
+              for q, r, hw in ((50, 0, (1, 1)), (75, 1, (7, 9)), (95, 7, (17, 33)), (100, 0, (33, 47)))]
+# non-interleaved scans of components sampled above 1x1: gray at 2x2 and 4x1, a scan per component
+JPEG_CASES += [("gray420", 90, 0, (64, 64)), ("gray411", 75, 7, (17, 33)), ("sep420", 90, 7, (33, 47)),
+               ("sep411", 95, 0, (64, 64))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampling,quality,restart,hw", JPEG_CASES)
+def test_jpeg_kernels_match_the_plain_path(cuda, sampling, quality, restart, hw):
+    """decode_jpeg on the card (host entropy decode, both kernels) equals
+    the plain path byte for byte, and launches each kernel once."""
+    from fce_yolo_tpu_torch.data import jpeg as J
+
+    rgb = _jpeg_image(np.random.RandomState(quality), *hw)
+    buf = _jpeg_writer()(rgb[..., 0] if sampling.startswith("gray") else rgb, quality,
+                         sampling[-3:] if sampling[-3:].isdigit() else "444", restart, 6,
+                         interleave=not sampling.startswith("sep"))
+    before = (J.jpeg_idct.launches, J.jpeg_color.launches)
+    out = J.decode_jpeg(buf, "case.jpg", cuda)
+    assert (J.jpeg_idct.launches, J.jpeg_color.launches) == (before[0] + 1, before[1] + 1)
+    np.testing.assert_array_equal(out, J.decode_jpeg_reference(buf, "case.jpg"))
+
+
+@pytest.mark.cuda
+def test_jpeg_kernel_wrappers_match_the_plain_stages(cuda):
+    """The two kernels alone, on the C decoder's coefficients of a 480 x 641
+    4:2:0 image: planes equal to jpeg_idct_reference, pixels to
+    jpeg_color_reference."""
+    from fce_yolo_tpu_torch.data import jpeg as J
+
+    buf = _jpeg_writer()(_jpeg_image(np.random.RandomState(1), 480, 641), 90, "420", 0)
+    info, planes, qt = J.jpeg_coefficients(buf)
+    flat = torch.from_numpy(np.concatenate([p.ravel() for p in planes])).to(cuda)
+    dev_planes = J.jpeg_idct(flat, qt, info)
+    ref_planes = J.jpeg_idct(flat.cpu(), qt, info)
+    np.testing.assert_array_equal(dev_planes.cpu().numpy(), ref_planes.numpy())
+    bgr = J.jpeg_color(dev_planes, info)
+    np.testing.assert_array_equal(bgr.cpu().numpy(), J.jpeg_color(ref_planes, info).numpy())
+    hdr = J.parse_jpeg(buf)
+    np.testing.assert_array_equal(bgr.cpu().numpy(), J.jpeg_color_reference(
+        [J.jpeg_idct_reference(p, hdr.qt[c.tq]) for p, c in zip(J.entropy_decode(hdr), hdr.comps)], hdr))
+
+
+@pytest.mark.cuda
+def test_jpeg_decode_from_eight_threads(cuda):
+    """Eight threads decode at once (each its own stream and buffers; the
+    C decoder keeps no globals): every image equals its single-threaded
+    decode, and the counts add up."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fce_yolo_tpu_torch.data import jpeg as J
+
+    write = _jpeg_writer()
+    rng = np.random.RandomState(2)
+    bufs = [write(_jpeg_image(rng, int(rng.randint(60, 200)), int(rng.randint(60, 200))), 85, s, r)
+            for s, r in (("420", 0), ("422", 3), ("444", 1), ("411", 0)) * 8]
+    want = [J.decode_jpeg(b, f"{i}.jpg", cuda) for i, b in enumerate(bufs)]
+    before = J.jpeg_idct.launches
+    with ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(lambda ib: J.decode_jpeg(ib[1], f"{ib[0]}.jpg", cuda), enumerate(bufs)))
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert J.jpeg_idct.launches == before + len(bufs)
+
+
+@pytest.mark.cuda
+def test_jpeg_on_the_card_refuses_and_reads_through_imread(cuda, tmp_path):
+    """imread on the card: a JPEG file equals the plain path; a file cut off
+    before EOI and a progressive header raise ValueError naming the file."""
+    from fce_yolo_tpu_torch.data import jpeg as J
+    from fce_yolo_tpu_torch.data.imread import imread
+
+    buf = _jpeg_writer()(_jpeg_image(np.random.RandomState(3), 50, 70), 90, "420", 0)
+    (tmp_path / "a.jpg").write_bytes(buf)
+    np.testing.assert_array_equal(imread(tmp_path / "a.jpg", cuda), J.decode_jpeg_reference(buf))
+    (tmp_path / "cut.jpg").write_bytes(buf[:-2])
+    with pytest.raises(ValueError, match="cut.jpg: JPEG data that ends"):
+        imread(tmp_path / "cut.jpg", cuda)
+    sof = buf.index(b"\xff\xc0")
+    (tmp_path / "p.jpg").write_bytes(buf[:sof] + b"\xff\xc2" + buf[sof + 2:])
+    with pytest.raises(ValueError, match="p.jpg: a progressive JPEG"):
+        imread(tmp_path / "p.jpg", cuda)
+    (tmp_path / "big.jpg").write_bytes(buf[:sof + 5] + b"\xff\xff\xff\xff" + buf[sof + 9:])  # 65535 x 65535
+    with pytest.raises(ValueError, match="big.jpg: a JPEG over 2.30 pixels"):
+        imread(tmp_path / "big.jpg", cuda)

@@ -1,0 +1,145 @@
+"""The JPEG decoder's own source (``csrc/jpeg.cu``) run on the CPU: g++
+compiles it against the CUDA stand-in in ``tests/cuda_emu`` (one thread per
+CUDA thread, ``__syncthreads`` as a barrier, copies as memcpy), with the
+launches turned into ``emu_launch``. ``jpeg_main.cpp`` calls
+``fce_jpeg_coefficients`` and ``fce_jpeg_decode``, each first with too
+little room (it must ask for more and write nothing), and checks that no
+buffer is written past its room.
+
+Tolerance: none. The C host decoder's coefficients equal the Python
+decoder's (``entropy_decode``), its info record equals ``parse_jpeg``'s
+header, and the pixels of the two kernels equal the plain path
+(``jpeg_idct_reference`` + ``jpeg_color_reference``), on the matrix of
+``test_torch_jpeg.py`` at small sizes; the files it refuses return the
+codes the wrapper names.
+"""
+
+import re
+import struct
+import subprocess
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from cuda_emu.emulate import CSRC, build, emulated
+from fce_yolo_tpu_torch.data import jpeg as J
+from test_torch_jpeg import _chip_smoke, _exif, _image, _refused, _segment, _without_app0, _write
+
+
+def _emulated_source() -> str:
+    src = emulated((CSRC / "jpeg.cu").read_text(), {})
+    return re.sub(r"(\w+)<<<(\w+), (\w+), (\w+), (\w+)>>>\(", r"emu_launch(\2, \3, \4, \1, ", src)
+
+
+@pytest.fixture(scope="module")
+def emulator(tmp_path_factory):
+    return build(tmp_path_factory.mktemp("jpeg_emu"), "jpeg_main.cpp", "jpeg", _emulated_source())
+
+
+def _run(exe: Path, buf: bytes):
+    d = exe.parent
+    (d / "in.jpg").write_bytes(buf)
+    res = subprocess.run([str(exe), *(str(d / f) for f in ("in.jpg", "info.bin", "coef.bin", "qt.bin", "bgr.bin"))],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        return res, None
+    info = np.fromfile(d / "info.bin", np.int32)
+    return res, (info, np.fromfile(d / "coef.bin", np.int16), np.fromfile(d / "qt.bin", np.int32).reshape(3, 64),
+                 np.fromfile(d / "bgr.bin", np.uint8))
+
+
+def _assert_matches_plain(exe: Path, buf: bytes) -> np.ndarray:
+    res, out = _run(exe, buf)
+    assert res.returncode == 0, res.stderr[-2000:]
+    info, coef, qt, bgr = out
+    hdr = J.parse_jpeg(buf)
+    planes = J.entropy_decode(hdr)
+    assert list(info[:7]) == [hdr.width, hdr.height, len(hdr.comps), hdr.color, hdr.orientation, hdr.hmax, hdr.vmax]
+    off = 0
+    for c, comp in enumerate(hdr.comps):
+        assert list(info[16 + 8 * c: 24 + 8 * c]) == [comp.h, comp.v, comp.bw, comp.bh, comp.width, comp.height, off,
+                                                     comp.tq]
+        np.testing.assert_array_equal(qt[c], hdr.qt[comp.tq])
+        off += comp.bw * comp.bh * 64
+    np.testing.assert_array_equal(coef, np.concatenate([p.ravel() for p in planes]))
+    pix = J.jpeg_color_reference([J.jpeg_idct_reference(p, hdr.qt[c.tq]) for p, c in zip(planes, hdr.comps)], hdr)
+    np.testing.assert_array_equal(bgr.reshape(pix.shape), pix)
+    # the wrappers' plain branches (CPU tensors) on the C decoder's record give the same pixels
+    planes_cpu = J.jpeg_idct(torch.from_numpy(coef), qt, info)
+    np.testing.assert_array_equal(J.jpeg_color(planes_cpu, info).numpy(), pix)
+    return info
+
+
+@pytest.mark.parametrize("sampling", ["411", "420", "422", "440", "444", "gray"])
+@pytest.mark.parametrize("h,w,quality,restart", [(1, 1, 30, 0), (1, 17, 75, 1), (15, 1, 100, 5), (3, 4, 90, 0),
+                                                 (33, 47, 95, 5), (33, 47, 50, 0)])
+def test_emulated_decoder_matches_plain(emulator, tmp_path, sampling, h, w, quality, restart):
+    img = _image(np.random.RandomState(h * w + quality), h, w)
+    _assert_matches_plain(emulator, _write(tmp_path / "a.jpg", img, sampling, quality, restart).read_bytes())
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+def test_emulated_decoder_at_loader_size(emulator, tmp_path, optimize):
+    """120 x 160 4:2:0 q95 (the tiny dataset's size), Annex K and optimized tables."""
+    img = _image(np.random.RandomState(1), 120, 160)
+    _assert_matches_plain(emulator, _write(tmp_path / "a.jpg", img, "420", 95, 0, optimize).read_bytes())
+
+
+@pytest.mark.parametrize("kind", ["gray-22", "gray-41", "separate-420", "separate-411-restart"])
+def test_emulated_decoder_non_interleaved_scans(emulator, tmp_path, kind):
+    """Scans of one component whose sampling factors are above 1x1: a gray
+    file with its SOF patched to 2x2 or 4x1, and 4:2:0 / 4:1:1 files with a
+    scan per component (chip_smoke.py's writer). Each MCU is one block of
+    the component's own grid, placed in the MCU-padded plane."""
+    rng = np.random.RandomState(len(kind))
+    for h, w in [(1, 1), (17, 40), (64, 64)]:
+        if kind.startswith("gray"):
+            buf = bytearray(_write(tmp_path / "a.jpg", _image(rng, h, w), "gray", 90).read_bytes())
+            buf[buf.index(b"\xff\xc0") + 11] = {"gray-22": 0x22, "gray-41": 0x41}[kind]
+            buf = bytes(buf)
+        else:
+            buf = _chip_smoke().jpeg_bytes(_image(rng, h, w), 90, kind.split("-")[1], 5 if "restart" in kind else 0,
+                                           interleave=False)
+        _assert_matches_plain(emulator, buf)
+        np.testing.assert_array_equal(J.decode_jpeg_reference(buf), cv2.imdecode(np.frombuffer(buf, np.uint8),
+                                                                                 cv2.IMREAD_COLOR))
+
+
+@pytest.mark.parametrize("kind", ["adobe-rgb", "orientation-6", "cut-short"])
+def test_emulated_decoder_headers_and_cut_data(emulator, tmp_path, kind):
+    """Adobe transform 0 (RGB), an EXIF orientation carried in the record,
+    and data cut short by EOI: zero fill, flagged in info[8]."""
+    buf = _write(tmp_path / "a.jpg", _image(np.random.RandomState(2), 40, 56), "444" if kind == "adobe-rgb" else "420",
+                 90, 2).read_bytes()
+    if kind == "adobe-rgb":
+        buf = buf[:2] + _segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0)) + _without_app0(buf)[2:]
+    elif kind == "orientation-6":
+        buf = buf[:2] + _exif(6, b"MM") + buf[2:]
+    else:
+        start = buf.index(b"\xff\xda")
+        buf = buf[: start + (len(buf) - start) // 2] + b"\xff\xd9"
+    info = _assert_matches_plain(emulator, buf)
+    assert info[3] == (J.COLOR_RGB if kind == "adobe-rgb" else J.COLOR_YCC)
+    assert info[4] == (6 if kind == "orientation-6" else 1)
+    assert info[8] == (kind == "cut-short")
+    if kind == "cut-short":
+        ref = cv2.imdecode(np.frombuffer(buf, np.uint8), cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(J.decode_jpeg_reference(buf), ref)
+
+
+@pytest.mark.parametrize("kind,code", [("progressive", -2), ("arithmetic", -3), ("lossless", -5), ("12-bit", -4),
+                                       ("cmyk", -6), ("no-eoi", -8), ("too-large", -12)])
+def test_emulated_decoder_refuses(emulator, tmp_path, kind, code):
+    """The C parser's codes for the files the port refuses (data/jpeg.py
+    ``_ERRORS`` turns each into a ValueError naming the file)."""
+    if kind == "no-eoi":
+        buf = _write(tmp_path / "a.jpg", _image(np.random.RandomState(3), 16, 16)).read_bytes()[:-2]
+    else:
+        buf = _refused(tmp_path, kind).read_bytes()
+    res, _ = _run(emulator, buf)
+    assert res.returncode == 3 and f"fce_jpeg_coefficients {code}" in res.stderr
+    with pytest.raises(ValueError, match=r"x\.jpg: .*the port reads baseline"):
+        J._check(code, "x.jpg", "fce_jpeg_coefficients")

@@ -188,3 +188,84 @@ def test_fused_facade_saves_and_loads_folded(tmp_path):
     for a, b in zip(_boxes(again.predict(imgs, imgsz=128, batch=2)), _boxes(ref)):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
     assert not again.load(unfolded).folded and YOLO("yolo11n-fce.yaml", device="cpu").load(path).folded
+
+
+@pytest.fixture(scope="module")
+def jpeg_dir(tmp_path_factory):
+    """Three JPEG files (4:2:0 q95, a 4:2:2 q80 with restart markers, and a
+    gray one) in a tree, no larger than imgsz 128, and a PNG beside them."""
+    import cv2
+
+    root = tmp_path_factory.mktemp("predict_jpeg")
+    (root / "sub").mkdir()
+    imgs = _images(4)
+    cv2.imwrite(str(root / "b.jpg"), imgs[0], [cv2.IMWRITE_JPEG_QUALITY, 95])
+    cv2.imwrite(str(root / "sub" / "a.jpeg"), imgs[1], [cv2.IMWRITE_JPEG_QUALITY, 80, cv2.IMWRITE_JPEG_RST_INTERVAL, 2,
+                                                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                                         cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422])
+    cv2.imwrite(str(root / "c.jpg"), imgs[2][..., 0])
+    cv2.imwrite(str(root / "d.png"), imgs[2])
+    (root / "notes.txt").write_text("not an image")
+    return root
+
+
+@pytest.fixture(scope="module")
+def predict_pair():
+    jy = JaxYOLO("yolo11n-fce.yaml")
+    jy.variables = jax.jit(lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(jax.random.PRNGKey(2))
+    port = YOLO("yolo11n-fce.yaml", device="cpu").load_jax_variables(jax.tree_util.tree_map(np.asarray, jy.variables))
+    return jy, port
+
+
+@pytest.mark.parametrize("form", ["file", "directory", "list", "tuple-of-file-and-directory"])
+def test_predict_on_image_files_matches_jax_facade(jpeg_dir, predict_pair, form):
+    """``YOLO.predict`` on a JPEG file, a directory (rglob by extension,
+    sorted), a list and a tuple: the same paths in the same order as the
+    JAX facade's, and detections within this file's tolerance (the port's
+    JPEG decode is bit-equal to cv2's, so both models see the same pixels)."""
+    jy, port = predict_pair
+    source = {"file": str(jpeg_dir / "b.jpg"), "directory": str(jpeg_dir),
+              "list": [str(jpeg_dir / "sub" / "a.jpeg"), str(jpeg_dir / "c.jpg")],
+              "tuple-of-file-and-directory": (str(jpeg_dir / "d.png"), str(jpeg_dir / "sub"))}[form]
+    ref = jy.predict(source, imgsz=128, batch=2)
+    out = port.predict(source, imgsz=128, batch=2)
+    assert [r.path for r in out] == [r.path for r in ref]
+    assert len(out) == {"file": 1, "directory": 4, "list": 2, "tuple-of-file-and-directory": 2}[form]
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.orig_img, r.orig_img)
+        assert len(o) == len(r) > 0
+        np.testing.assert_array_equal(o.boxes.cls, r.boxes.cls)
+        np.testing.assert_allclose(o.boxes.xyxy, r.boxes.xyxy, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(o.boxes.conf, r.boxes.conf, rtol=0, atol=1e-5)
+
+
+def test_predict_sources_the_port_refuses(jpeg_dir, tmp_path):
+    """A file the port cannot read raises, where the JAX facade skips it in
+    a directory (a progressive JPEG, which cv2 reads but the port does not;
+    a corrupt one, which neither reads); streams, screenshots and video
+    raise NotImplementedError; a PIL image is read as the reference reads it."""
+    import cv2
+    from PIL import Image
+
+    from fce_yolo_tpu.engine.predictor import load_source as jax_load_source
+    from fce_yolo_tpu_torch.engine.predictor import load_source
+
+    bad = tmp_path / "bad"
+    bad.mkdir()
+    (bad / "broken.jpg").write_bytes(b"\xff\xd8\xff\xe0 not a jpeg")
+    assert list(jax_load_source(str(bad))) == []  # the reference skips what cv2 cannot read
+    with pytest.raises(ValueError, match="broken.jpg"):
+        list(load_source(str(bad), "cpu"))
+    cv2.imwrite(str(tmp_path / "p.jpg"), _images()[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(ValueError, match="p.jpg: a progressive JPEG"):
+        list(load_source(str(tmp_path / "p.jpg"), "cpu"))
+    for src in ("rtsp://localhost:8554/cam", "0", "screen 0", str(tmp_path / "clip.mp4"), "a.streams"):
+        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+            list(load_source(src, "cpu"))
+    with pytest.raises(FileNotFoundError):
+        list(load_source(str(tmp_path / "missing.jpg"), "cpu"))
+    rgb = _images(5)[0][..., ::-1].copy()
+    (ref, ref_id), = list(jax_load_source(Image.fromarray(rgb)))
+    (out, out_id), = list(load_source(Image.fromarray(rgb), "cpu"))
+    assert out_id == ref_id == "pil"
+    np.testing.assert_array_equal(out, ref)

@@ -1,5 +1,5 @@
-"""The port's ``YOLO.val`` against the JAX facade's on a PNG copy of the
-tiny dataset (4 val images of 96-160 px), yolo11n-fce at imgsz 160, batch
+"""The port's ``YOLO.val`` against the JAX facade's on the tiny dataset (4
+val images of 96-160 px), as JPEG and as a PNG copy, yolo11n-fce at imgsz 160, batch
 3 (two batches, the second padded with two copies), with the same bridged
 float32 weights.
 
@@ -52,15 +52,35 @@ def variables():
 
 
 @pytest.fixture(scope="module")
-def jax_results(png_dataset, variables):
-    jy = JaxYOLO("yolo11n-fce.yaml")
-    jy.variables = variables
-    return jy.val(data=png_dataset, imgsz=160, batch=3, verbose=False)
+def jax_runs(png_dataset, tiny_dataset, variables):
+    """The JAX facade's val on the PNG copy or the original JPEG files, each run once."""
+    runs = {}
+
+    def run(kind: str) -> dict:
+        if kind not in runs:
+            jy = JaxYOLO("yolo11n-fce.yaml")
+            jy.variables = variables
+            runs[kind] = jy.val(data=png_dataset if kind == "png" else tiny_dataset, imgsz=160, batch=3,
+                                verbose=False)
+        return runs[kind]
+
+    return run
 
 
-def test_val_matches_jax_facade(png_dataset, variables, jax_results, tmp_path, capsys):
+@pytest.fixture(scope="module")
+def jax_results(jax_runs):
+    return jax_runs("png")
+
+
+@pytest.mark.parametrize("kind", ["png", "jpg"])
+def test_val_matches_jax_facade(png_dataset, tiny_dataset, variables, jax_runs, kind, tmp_path, capsys):
+    """On the PNG copy and on the original JPEG files (the port's plain JPEG
+    decoder on the CPU model's device; bit-equal to cv2's, so the same
+    pixels reach both models)."""
+    jax_results = jax_runs(kind)
+    data = png_dataset if kind == "png" else tiny_dataset
     port = YOLO("yolo11n-fce.yaml", device="cpu").load_jax_variables(variables)
-    res = port.val(data=png_dataset, imgsz=160, batch=3, workers=2, save_json=tmp_path / "dets.json")
+    res = port.val(data=data, imgsz=160, batch=3, workers=2, save_json=tmp_path / "dets.json")
     assert port.names == {0: "circle", 1: "square", 2: "tri"}
     assert "all" in capsys.readouterr().out
     ref_stats, stats = jax_results["metrics"].stats, res["metrics"].stats
