@@ -31,7 +31,16 @@ from a seed) and checks that each path went through its kernels:
   JPEG kernels once an image, NMS bit-equal on every batch) and
   ``YOLO.predict`` on their directory (stem, NMS and both JPEG kernels; the
   detections equal to a predict on the plain decoder's arrays), and
-  ``YOLO.train`` on them.
+  ``YOLO.train`` on them;
+- the task heads (phase tasks): yolo11s-seg, yolo11s-pose and yolo11s-obb
+  at 640 px, ``YOLO.predict`` in bf16 at B=16 on arrays (the stem kernel
+  held against its plain version on the fed batch, the kernel path's preds
+  against the plain path's, and for segment and pose the NMS kernel's
+  idx/ok, masks and keypoints equal to the plain version's on the same
+  preds) and ``YOLO.val`` in float32 on 32 PNG images it writes with
+  polygons, 17-keypoint instances or rotated rectangles (the NMS kernel
+  once a segment or pose batch and bit-equal to the plain version on each,
+  the same P/R/mAP of every family from both, box mAP50 above zero).
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -677,13 +686,22 @@ def matching_model(yolo):
     return yolo
 
 
-def nms_kernel_vs_plain(val, preds: torch.Tensor, calls: list) -> dict:
-    """``val.nms(preds)`` with the NMS kernel, then again with its plain
-    version swapped into ``ops.nms``; the kernel then runs on the candidates
-    the plain pass saw, once the swap is undone (inside it, the kernel's
-    wrapper would count on the swapped-in function). Checks idx/ok and the
-    ``batched_nms`` outputs equal; appends (candidates, plain (idx, ok)) to
-    ``calls``; returns both passes' outputs as numpy."""
+def same_outputs(a, b) -> bool:
+    """Equal NMS outputs: dicts of arrays, or of lists of arrays (masks)."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_outputs(a[k], b[k]) for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(same_outputs(x, y) for x, y in zip(a, b))
+    return bool(np.array_equal(a, b))
+
+
+def kernel_vs_plain(run, calls: list, k: int, iou: float, max_det: int, what: str) -> dict:
+    """``run()`` (an NMS path to host arrays) with the NMS kernel, then again
+    with its plain version swapped into ``ops.nms``; the kernel then runs on
+    the candidates the plain pass saw, once the swap is undone (inside it,
+    the kernel's wrapper would count on the swapped-in function). Checks the
+    candidate count, idx/ok and every output of ``run`` equal; appends
+    (candidates, plain (idx, ok)) to ``calls``; returns both passes' outputs."""
     from fce_yolo_tpu_torch.ops import nms as nms_ops
 
     real = nms_ops.pick_suppress
@@ -693,20 +711,26 @@ def nms_kernel_vs_plain(val, preds: torch.Tensor, calls: list) -> dict:
         calls.append(((boxes.clone(), scores.clone(), valid.clone()), out))
         return out
 
-    outs = {"kernel": {k: v.cpu().numpy() for k, v in val.nms(preds).items()}}
+    outs = {"kernel": run()}
     try:
         nms_ops.pick_suppress = plain
-        outs["plain"] = {k: v.cpu().numpy() for k, v in val.nms(preds).items()}
+        outs["plain"] = run()
     finally:
         nms_ops.pick_suppress = real
     args, (ip, op) = calls[-1]
-    ik, ok = real(*args, iou_thres=val.iou, max_det=val.max_det)
-    check(args[0].shape[1] == NMS_K_VAL, f"val NMS ran at K={args[0].shape[1]}, not {NMS_K_VAL}")
+    ik, ok = real(*args, iou_thres=iou, max_det=max_det)
+    check(args[0].shape[1] == k, f"{what}: NMS ran at K={args[0].shape[1]}, not {k}")
     mism = int((ik != ip).sum() + (ok != op).sum())
-    check(mism == 0, f"val batch {len(calls)}: NMS kernel differs from the plain version ({mism})")
-    check(all((outs["kernel"][k] == outs["plain"][k]).all() for k in outs["kernel"]),
-          f"val batch {len(calls)}: batched_nms outputs differ between the kernel and the plain version")
+    check(mism == 0, f"{what}: NMS kernel differs from the plain version ({mism})")
+    check(same_outputs(outs["kernel"], outs["plain"]), f"{what}: outputs differ between the kernel and the plain version")
     return outs
+
+
+def nms_kernel_vs_plain(val, preds: torch.Tensor, calls: list) -> dict:
+    """``val.nms(preds)`` through ``kernel_vs_plain`` at the validator's K:
+    idx/ok and the ``batched_nms`` outputs equal; returns both as numpy."""
+    return kernel_vs_plain(lambda: val.to_host(val.nms(preds)), calls, NMS_K_VAL, val.iou, val.max_det,
+                           f"val batch {len(calls) + 1}")
 
 
 def val_batches_vs_plain(yolo, data: str):
@@ -1508,6 +1532,273 @@ def phase_experiments(root: Path, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ phase tasks
+TASK_MODELS = {"segment": "yolo11s-seg.yaml", "pose": "yolo11s-pose.yaml", "obb": "yolo11s-obb.yaml"}
+TASK_IMAGES = 32  # phase tasks (b): two val batches a task
+TASK_COLORS = [(80, 80, 255), (80, 255, 80), (255, 80, 80)]  # RGB of classes 0-2
+
+
+def task_images(task: str):
+    """TASK_IMAGES RGB images of 480-800 px a side, grey with 1-3 objects of
+    classes 0-2 and their label lines: filled star polygons (segment),
+    rectangles with 17 keypoints inside (pose), or rotated rectangles as
+    four corners (obb), all normalized."""
+    from fce_yolo_tpu_torch.ops.geometry import fill_poly
+
+    rng = np.random.RandomState(SEED + 5)
+    for i in range(TASK_IMAGES):
+        h, w = (int(v) for v in rng.randint(480, 801, 2))
+        img = np.full((h, w, 3), 60, np.uint8)
+        lines = []
+        for _ in range(rng.randint(1, 4)):
+            k = int(rng.randint(0, 3))
+            cx, cy = rng.uniform(0.3, 0.7) * w, rng.uniform(0.3, 0.7) * h
+            if task == "pose":
+                bw, bh = rng.uniform(0.2, 0.4) * w, rng.uniform(0.2, 0.4) * h
+                poly = np.array([[cx - bw / 2, cy - bh / 2], [cx + bw / 2, cy - bh / 2], [cx + bw / 2, cy + bh / 2],
+                                 [cx - bw / 2, cy + bh / 2]])
+                kpts = np.stack([rng.uniform(cx - bw / 2, cx + bw / 2, 17), rng.uniform(cy - bh / 2, cy + bh / 2, 17)], 1)
+            elif task == "obb":
+                bw, bh, a = rng.uniform(0.25, 0.4) * min(h, w), rng.uniform(0.12, 0.2) * min(h, w), rng.uniform(-0.7, 0.7)
+                rot = np.array([[np.cos(a), -np.sin(a)], [np.sin(a), np.cos(a)]])
+                poly = np.array([[-bw / 2, -bh / 2], [bw / 2, -bh / 2], [bw / 2, bh / 2], [-bw / 2, bh / 2]]) @ rot.T
+                poly += [cx, cy]
+            else:
+                n = int(rng.randint(8, 13))
+                ang, rad = np.sort(rng.uniform(0, 2 * np.pi, n)), rng.uniform(0.06, 0.16, n) * min(h, w)
+                poly = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+            poly = np.clip(poly / [w, h], 0.01, 0.99)
+            plane = np.zeros((h, w), np.float32)
+            fill_poly(plane, [np.round(poly * [w, h]).astype(np.int32)], 1.0)
+            img[plane > 0] = TASK_COLORS[k]
+            if task == "pose":
+                (x1, y1), (x2, y2) = poly.min(0), poly.max(0)
+                lines.append(f"{k} {(x1 + x2) / 2:.6f} {(y1 + y2) / 2:.6f} {x2 - x1:.6f} {y2 - y1:.6f} " + " ".join(
+                    f"{x / w:.6f} {y / h:.6f} 2" for x, y in kpts))
+            else:
+                lines.append(f"{k} " + " ".join(f"{v:.6f}" for v in poly.ravel()))
+        yield i, img, lines
+
+
+def write_task_dataset(root: Path, task: str) -> str:
+    """``task_images`` as PNG under ``root/task`` with their labels; VAL_NC class names."""
+    base = root / task
+    (base / "images" / "val").mkdir(parents=True)
+    (base / "labels" / "val").mkdir(parents=True)
+    for i, img, lines in task_images(task):
+        (base / "images" / "val" / f"{i:03d}.png").write_bytes(png_bytes(img))
+        (base / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
+    names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    (base / "data.yaml").write_text(f"path: {base}\nval: images/val\nnames:\n{names}")
+    return str(base / "data.yaml")
+
+
+def task_matching_model(yolo, task: str):
+    """``matching_model``'s widened boxes and raised classes, and: OBB boxes
+    twice as long as high (DFL bin 4 above and below instead of 8) at angle
+    0 (the angle branch's bias at sigmoid 0.25); segment masks that fill
+    their boxes (positive prototypes and mask coefficients)."""
+    matching_model(yolo)
+    head = yolo.model.detect
+    with torch.no_grad():
+        if task == "obb":
+            for branch in head.cv2:
+                branch[-1].bias[[24, 56]] -= 6.0
+                branch[-1].bias[[20, 52]] += 6.0
+            for branch in head.cv4:
+                branch[-1].bias.fill_(float(np.log(0.25 / 0.75)))
+        if task == "segment":
+            head.proto.cv3.bn.bias += 5.0
+            for branch in head.cv4:
+                branch[-1].bias += 1.0
+    return yolo
+
+
+def task_predict(task: str, card: str) -> dict:
+    """(a) ``YOLO.predict`` of the task's yolo11s model (bf16, folded, seed
+    weights without the class prior) on 33 random arrays at B=16: the stem
+    kernel launched once a batch, and the NMS kernel too but for OBB; finite
+    results of the task's kind. On the first batch as the predictor fed it:
+    the stem kernel against its plain version, the kernel path's preds
+    against the plain-stem path's, and (segment, pose) the NMS kernel's
+    idx/ok, boxes, keypoints and masks equal to the plain version's on the
+    same preds. Returns the launches and the numbers."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.augment import letterbox
+    from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from fce_yolo_tpu_torch.nn.model import init_weights
+    from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
+
+    yolo = YOLO(TASK_MODELS[task], device="cuda")
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    yolo.to(torch.bfloat16).fuse()
+    spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
+    check(spec is not None, f"{TASK_MODELS[task]} must take the fused stem")
+    rng = np.random.RandomState(SEED + 6)
+    imgs = [rng.randint(0, 256, (IMGSZ, IMGSZ, 3), np.uint8) for _ in range(2 * E2E_BATCH)]
+    imgs.append(rng.randint(0, 256, (IMGSZ * 3 // 4, IMGSZ, 3), np.uint8))  # letterboxed
+    yolo.predict(imgs[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    n_det = 0
+    for r, img in zip(yolo.predict(imgs, imgsz=IMGSZ, batch=E2E_BATCH, stream=True), imgs):
+        h, w = img.shape[:2]
+        n_det += len(r)
+        check(len(r) <= MAX_DET and bool(np.isfinite(r.boxes.data).all()), f"{task} predict: boxes")
+        if task == "segment":
+            check(r.masks.data.shape == (len(r), h, w), f"segment predict: masks {r.masks.data.shape}")
+        if task == "pose":
+            check(r.keypoints.data.shape == (len(r), 17, 3) and bool(np.isfinite(r.keypoints.data).all()),
+                  "pose predict: keypoints")
+        if task == "obb":
+            check(r.obb.data.shape == (len(r), 7) and bool(np.isfinite(r.obb.data).all()), "obb predict: rotated boxes")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_batches = -(-len(imgs) // E2E_BATCH)
+    want_nms = 0 if task == "obb" else n_batches  # OBB suppresses with probiou (torch ops)
+    check(launches == no_jpeg(fused_stem=n_batches, pick_suppress=want_nms),
+          f"{task} predict: launches {launches}, expected the stem and {want_nms} NMS for {n_batches} batches")
+
+    model = yolo.model
+    batch = torch.from_numpy(np.stack([np.ascontiguousarray(letterbox(im, IMGSZ, scaleup=False)[0][..., ::-1])
+                                       for im in imgs[:E2E_BATCH]])).cuda()
+    weights = stem_weights(fold_stem_params(model, spec), spec)
+    _, stem_rel, stem_spread = check_stem(batch, weights, spec, f"phase tasks {task}")
+    x = (batch.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
+    predictor = DetectionPredictor(model, yolo.names, imgsz=IMGSZ, batch_size=E2E_BATCH)
+    with torch.inference_mode():
+        out = apply_with_fused_stem(model, batch, spec, weights)
+        plain_out = model(x)
+    fused, plain = out["preds"].float().cpu().numpy(), plain_out["preds"].float().cpu().numpy()
+    dmax = float(np.abs(fused - plain).max())
+    bound = 0.02 * max(float(np.abs(plain).max()), 1.0)
+    corr = float(np.corrcoef(fused.ravel(), plain.ravel())[0, 1])
+    check(dmax <= bound and corr > 0.9999, f"{task}: kernel path preds differ: max|d|={dmax} (<= {bound}), corr={corr}")
+
+    def host(run_masks: bool):
+        nms = predictor.postprocess(out)
+        res = {k: v.cpu().numpy() for k, v in nms.items() if k not in ("proto", "extra")}
+        if run_masks:
+            res["masks"] = [m.cpu().numpy() for m in predictor.masks(nms, E2E_BATCH)]
+        return res
+
+    kept = 0
+    if task != "obb":
+        calls: list = []
+        outs = kernel_vs_plain(lambda: host(task == "segment"), calls, min(NMS_K, out["preds"].shape[1]),
+                               predictor.iou, predictor.max_det, f"{task} predict")
+        kept = int(outs["kernel"]["valid"].sum())
+
+    def device_path():
+        nms = predictor.infer(batch)
+        return predictor.masks(nms, E2E_BATCH) if task == "segment" else nms
+
+    def plain_path():
+        nms = predictor.postprocess(model(x))
+        return predictor.masks(nms, E2E_BATCH) if task == "segment" else nms
+
+    with torch.inference_mode():
+        ms = cuda_ms(device_path, iters=5)
+        ms_plain = cuda_ms(plain_path, iters=5)
+    return {"launches": launches, "img_s": len(imgs) / wall, "ms": ms, "ms_plain": ms_plain, "n_det": n_det,
+            "kept": kept, "stem_rel": stem_rel, "stem_spread": stem_spread, "dmax": dmax, "bound": bound,
+            "corr": corr, "n_images": len(imgs)}
+
+
+def task_val(root: Path, task: str, card: str) -> dict:
+    """(b) ``YOLO.val`` of the task's yolo11s model in float32 (TF32 off) on
+    TASK_IMAGES PNG images it writes, with the counts at 0: the NMS kernel
+    once a batch (segment, pose; OBB none), then every batch again with the
+    kernel and with its plain version (idx/ok and every output equal), and
+    P, R, mAP of each family equal from both, equal to ``YOLO.val``'s, box
+    mAP50 above zero. Returns the launches and the numbers."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.utils.metrics import DetMetrics
+
+    data = write_task_dataset(root, task)
+    yolo = task_matching_model(YOLO(TASK_MODELS[task], device="cuda"), task)
+    with torch.inference_mode():  # cuDNN's first-call set-up, outside the timed run
+        yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    n_batches = -(-TASK_IMAGES // VAL_BATCH)
+    want_nms = 0 if task == "obb" else n_batches
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=want_nms),
+          f"{task} val: launches {launches}, expected no stem and {want_nms} NMS for {n_batches} batches")
+
+    val = yolo._validator(imgsz=IMGSZ, batch_size=VAL_BATCH)
+    sets = {k: {tag: DetMetrics(names=yolo.names) for tag in val.families} for k in ("kernel", "plain")}
+    calls: list = []
+    yolo.model.eval()
+    for batch in val.get_dataloader(data):
+        img = torch.from_numpy(batch["img"]).cuda()
+        preds = val.forward(img)
+        if task == "obb":  # no NMS kernel on this path: the one output serves both sets
+            one = val.to_host(val.nms(preds))
+            outs = {"kernel": one, "plain": one}
+        else:
+            outs = kernel_vs_plain(lambda: val.to_host(val.nms(preds)), calls, NMS_K_VAL, val.iou, val.max_det,
+                                   f"{task} val batch {len(calls) + 1}")
+        for name, metrics in sets.items():
+            val.update_metrics(outs[name], batch, metrics)
+    results = {}
+    for name, metrics in sets.items():
+        for m in metrics.values():
+            m.process(nc=val.nc)
+        results[name] = {tag: tuple(m.mean_results()) for tag, m in metrics.items()}
+    check(results["kernel"] == results["plain"], f"{task} val: P/R/mAP differ: {results}")
+    for tag, r in results["kernel"].items():  # the same model on the same batches (cuDNN may pick other sums)
+        facade = tuple(res[f"metrics/{k}({tag})"] for k in ("precision", "recall", "mAP50", "mAP50-95"))
+        check(max(abs(a - b) for a, b in zip(r, facade)) <= 1e-4, f"{task} val: ({tag}) {r} != YOLO.val's {facade}")
+    check(results["kernel"]["B"][2] > 0, f"{task} val: box mAP50 is 0, so the comparison shows nothing")
+    with torch.inference_mode():
+        device_ms = cuda_ms(lambda: val.nms(val.forward(img)), iters=3, warmup=1)
+    return {"launches": launches, "img_s": TASK_IMAGES / wall, "ms": device_ms, "results": results["kernel"],
+            "speed": res["metrics"]["box"].speed if isinstance(res["metrics"], dict) else res["metrics"].speed}
+
+
+def phase_tasks(root: Path, card: str) -> dict:
+    """The segment, pose and OBB heads at s (full width and depth), 640 px:
+    (a) ``task_predict`` and (b) ``task_val`` for each. Returns each task
+    path's launches (predict and val together)."""
+    paths = {}
+    for task in TASK_MODELS:
+        p = task_predict(task, card)
+        torch.cuda.empty_cache()
+        v = task_val(root, task, card)
+        torch.cuda.empty_cache()
+        paths[task] = {k: p["launches"][k] + v["launches"][k] for k in p["launches"]}
+        fam = "; ".join(f"({tag}) P/R/mAP50/mAP50-95 {tuple(round(x, 6) for x in r)}" for tag, r in v["results"].items())
+        nms_note = ("NMS kernel idx/ok and outputs (" + ("masks" if task == "segment" else "keypoints")
+                    + f") equal to the plain version on the fed batch ({p['kept']} kept)") if task != "obb" else \
+            "rotated NMS in torch ops (no kernel)"
+        print(f"phase tasks: {TASK_MODELS[task]} (a) predict {IMGSZ} bf16 B={E2E_BATCH}, {p['n_images']} images, "
+              f"{p['n_det']} detections, launches {p['launches']}; stem on the fed batch max|d|/max|ref|="
+              f"{p['stem_rel']:.3e} (limit 0.02), per-row max/median={p['stem_spread']:.2f} (limit 3); preds kernel "
+              f"vs plain path max|d|={p['dmax']:.3e} (limit {p['bound']:.3e}) corr={p['corr']:.6f}; {nms_note}; "
+              f"{p['img_s']:.1f} img/s through YOLO.predict (host clock, incl. letterbox"
+              f"{' and the masks to the original size' if task == 'segment' else ''}); {p['ms']:.2f} ms/batch stem "
+              f"kernel+model+NMS{'+masks' if task == 'segment' else ''} vs {p['ms_plain']:.2f} plain stem (CUDA events) "
+              f"[{card}]", flush=True)
+        sp = v["speed"]
+        print(f"phase tasks: {TASK_MODELS[task]} (b) val {IMGSZ} f32 B={VAL_BATCH}, {TASK_IMAGES} PNG images, "
+              f"launches {v['launches']}; {fam}, equal from the kernel and the plain version on every batch and to "
+              f"YOLO.val's; {v['img_s']:.1f} img/s through YOLO.val (host clock, incl. dataset scan, PNG decode and "
+              f"the ground-truth fill); device {v['ms']:.2f} ms/batch forward + NMS{' + masks' if task == 'segment' else ''}"
+              f" (CUDA events); per image: loader wait {sp['preprocess']:.2f} ms, inference {sp['inference']:.2f} ms, "
+              f"metrics {sp['postprocess']:.2f} ms [{card}]", flush=True)
+    return paths
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script only runs on a GPU")
@@ -1551,9 +1842,10 @@ def main() -> None:
         jpeg_paths, jpeg = phase_jpeg(Path(tmp), png, card)
         train = phase_train(Path(tmp), card)
         experiments = phase_experiments(Path(tmp), card)
+        tasks = phase_tasks(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths}
+    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

@@ -1,5 +1,6 @@
-"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-284, 400-423, 495-881``):
-detect predict, val and train, checkpoints and the model summary."""
+"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 400-490, 495-881``):
+predict and val for detect, segment, pose and OBB, train for detect,
+checkpoints and the model summary."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import time
 from pathlib import Path
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 
 from fce_yolo_tpu_torch.cfg.models import load_model_dict
@@ -37,8 +39,9 @@ def _git_describe() -> dict:
 class YOLO:
     """Detection model facade: ``YOLO("yolo11s-fce.yaml", device="cuda")``.
 
-    ``model`` is a model name or YAML (built and initialized from seed 0, as
-    the JAX facade's lazy init), or a checkpoint directory written by
+    ``model`` is a model name or YAML (built with ``nc`` classes if given,
+    initialized from seed 0, as the JAX facade's lazy init), or a
+    checkpoint directory written by
     ``save``/``train`` (built from its ``meta.json``, folded if it was saved
     folded, weights loaded). The model lives on ``device``: the card unless
     another is named; no CUDA raises. ``reset_weights`` re-seeds, ``load``
@@ -48,7 +51,7 @@ class YOLO:
     BatchNorm unless ``fuse`` folds it.
     """
 
-    def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda"):
+    def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda", nc: int | None = None):
         self.device = torch.device(device)
         self.ckpt_meta: dict[str, Any] = {}
         self._folded_copy: tuple[tuple | None, torch.nn.Module] | None = None  # (weights_version, folded copy)
@@ -61,7 +64,7 @@ class YOLO:
             self.names = {int(k): v for k, v in meta.get("names", {}).items()}
             self.ckpt_meta = meta
         else:
-            self._build(str(model))
+            self._build(str(model), nc=nc)
             self.reset_weights(0)
 
     def _build(self, cfg: str, scale: str | None = None, nc: int | None = None) -> None:
@@ -76,6 +79,12 @@ class YOLO:
     @property
     def nc(self) -> int:
         return self.spec.nc
+
+    @property
+    def task(self) -> str:
+        """"detect", "segment", "pose" or "obb", from the model's head."""
+        return self.spec.task
+
 
     @property
     def folded(self) -> bool:
@@ -154,17 +163,22 @@ class YOLO:
         self.device = next(self.model.parameters()).device
         return self
 
-    def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640,
-                max_det: int = 300, batch: int = 1) -> list:
-        """Detect on ``source``: an image file, a directory, a numpy BGR
+    def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640, max_det: int = 300,
+                batch: int = 1, stream: bool = False, classes: list[int] | None = None, verbose: bool = False):
+        """Predict on ``source``: an image file, a directory, a numpy BGR
         image, a PIL image, or a list of these (``engine/predictor.py::
-        load_source``); a list of ``Results``. Files decode on the model's
+        load_source``). Returns a list of ``Results`` (boxes, and masks,
+        keypoints or oriented boxes by the task), or with ``stream`` a
+        generator of them. ``classes`` keeps only those class ids (NMS
+        offsets boxes by class, so a filter after it keeps the same boxes);
+        ``verbose`` prints a line an image. Files decode on the model's
         device. Runs a folded copy of the model (``_inference_model``)."""
         from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
         predictor = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
                                        max_det=max_det, batch_size=batch)
-        return list(predictor.stream(source))
+        gen = _postfilter(predictor.stream(source), classes, verbose)
+        return gen if stream else list(gen)
 
     def val(self, data, imgsz: int = 640, batch: int = 16, conf: float = 0.001, iou: float = 0.7,
             max_det: int = 300, workers: int = 8, verbose: bool = True, save_json=None) -> dict:
@@ -174,14 +188,27 @@ class YOLO:
         names replace ``class_*`` placeholders. Returns the validator's
         results dict."""
         from fce_yolo_tpu_torch.data.dataset import check_det_dataset
-        from fce_yolo_tpu_torch.engine.validator import DetectionValidator
 
         d = check_det_dataset(data)
         if not self.names or all(v.startswith("class_") for v in self.names.values()):
             self.names = d["names"]
-        validator = DetectionValidator(self.model, self.names, imgsz=imgsz, conf=conf, iou=iou, max_det=max_det,
-                                       batch_size=batch, workers=workers)
+        validator = self._validator(imgsz=imgsz, conf=conf, iou=iou, max_det=max_det, batch_size=batch,
+                                    workers=workers)
         return validator(data=d, verbose=verbose, save_json=save_json)
+
+    def _validator(self, **kw):
+        """The task's validator on the facade's model (reference ``_make_validator``, api.py:469-490)."""
+        from fce_yolo_tpu_torch.engine.seg_validator import SegmentationValidator
+        from fce_yolo_tpu_torch.engine.task_validators import OBBValidator, PoseValidator
+        from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+
+        if self.task == "segment":
+            return SegmentationValidator(self.model, self.names, **kw)
+        if self.task == "pose":
+            return PoseValidator(self.model, self.names, kpt_shape=self.model.detect.kpt_shape, **kw)
+        if self.task == "obb":
+            return OBBValidator(self.model, self.names, **kw)
+        return DetectionValidator(self.model, self.names, **kw)
 
     def train(self, data, epochs: int = 100, batch: int = 16, imgsz: int = 640, optimizer: str = "auto",
               lr0: float | None = None, lrf: float = 0.01, cos_lr: bool = False, iou_type: str = "CIoU",
@@ -213,6 +240,10 @@ class YOLO:
         from fce_yolo_tpu_torch.train.trainer import EarlyStopping, create_train_state, make_train_step
         from fce_yolo_tpu_torch.utils.files import get_latest_run, increment_path
 
+        if self.task != "detect":
+            raise NotImplementedError(f"YOLO.train for the {self.task} head is not ported yet: its losses, the "
+                                      "rotated assigner and the train augment of polygons and keypoints are the next "
+                                      "slice (ROADMAP queue 1, item 5)")
         if self.folded:
             raise RuntimeError("YOLO.train: the model is folded (YOLO.fuse() or a checkpoint saved folded): its "
                                "BatchNorms are gone, so it cannot train; build the model anew or load an unfolded "
@@ -372,6 +403,18 @@ class YOLO:
         self.model.eval()
         return {"save_dir": str(save_dir), "best_fitness": best_fitness, "epochs_run": len(csv_rows),
                 "results": csv_rows, "speed": speed}
+
+
+def _postfilter(results, classes: list[int] | None, verbose: bool):
+    """Keep only ``classes`` (through ``Results`` indexing, so masks,
+    keypoints and oriented boxes stay in step) and print a line an image
+    (reference ``_postfilter``, api.py:286-297)."""
+    for i, r in enumerate(results):
+        if classes is not None:
+            r = r[np.isin(r.boxes.cls.astype(int), np.asarray(classes, int))]
+        if verbose:
+            print(f"image {i + 1} {r.path}: {r.verbose()} {r.speed['inference']:.1f}ms")
+        yield r
 
 
 def _cpu(tree):

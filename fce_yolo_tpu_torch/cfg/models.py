@@ -1,7 +1,8 @@
 """Packaged model configs as Python dicts.
 
 Equal to ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml``,
-``yolo11-fce.yaml`` and ``yolo11-bifpn.yaml`` (YAML's unquoted ``None`` is the string "None", resolved
+``yolo11-fce.yaml``, ``yolo11-bifpn.yaml`` and the task heads' ``yolo11-seg.yaml``,
+``yolo11-pose.yaml`` and ``yolo11-obb.yaml`` (YAML's unquoted ``None`` is the string "None", resolved
 by the parser like the reference's literal_eval pass). A user-given model
 YAML file is read by the port's own reader (``utils/yaml_read.py``): the
 port needs no pyyaml.
@@ -123,6 +124,20 @@ MODELS: dict[str, dict] = {
         ],
     },
 }
+
+
+
+def _yolo11_with_head(head: list, **top) -> dict:
+    """yolo11 with another last layer (the task heads' YAMLs differ from
+    yolo11.yaml only there, and pose in its top-level ``kpt_shape``)."""
+    d = copy.deepcopy(MODELS["yolo11"])
+    d["head"][-1] = [[16, 19, 22], 1, *head]
+    return {**top, **d}
+
+
+MODELS["yolo11-seg"] = _yolo11_with_head(["Segment", ["nc", 32, 256]])
+MODELS["yolo11-pose"] = _yolo11_with_head(["Pose", ["nc", "kpt_shape"]], kpt_shape=[17, 3])
+MODELS["yolo11-obb"] = _yolo11_with_head(["OBB", ["nc", 1]])
 
 
 def guess_scale(model_name: str) -> str | None:

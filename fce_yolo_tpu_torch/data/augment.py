@@ -246,9 +246,10 @@ def _apply_letterbox_boxes(bboxes: np.ndarray, r: float, pad: tuple[int, int]) -
 
 def val_transform(sample: dict, imgsz: int) -> dict:
     """Val path: letterbox only (``scaleup=False``); records ratio, pad and
-    the original shape for box scale-back."""
+    the original shape for box scale-back. Pixel ``segments`` (polygons) and
+    ``keypoints`` (x, y, visibility) go through the letterbox too."""
     img, r, pad = letterbox(sample["img"], imgsz, scaleup=False)
-    return {
+    out = {
         "img": img,
         "cls": sample["cls"],
         "bboxes": _apply_letterbox_boxes(sample["bboxes"].copy(), r, pad),
@@ -256,6 +257,12 @@ def val_transform(sample: dict, imgsz: int) -> dict:
         "pad": pad,
         "orig_shape": sample["img"].shape[:2],
     }
+    if "segments" in sample:
+        out["segments"] = [s * r + np.array(pad, np.float32) for s in sample["segments"]]
+    if "keypoints" in sample:
+        out["keypoints"] = [k * np.array([r, r, 1], np.float32) + np.array([*pad, 0], np.float32)
+                            for k in sample["keypoints"]]
+    return out
 
 
 # ------------------------------------------------------------- train augment

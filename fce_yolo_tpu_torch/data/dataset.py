@@ -18,7 +18,12 @@
 - ``collate`` pads labels to a fixed count per image, as the JAX batches do.
 
 Labels live in the sibling ``labels/`` tree, one ``.txt`` per image, one
-``cls cx cy w h`` row (normalized xywh) per object.
+row per object, normalized to the image: ``cls cx cy w h`` (detect),
+``cls x1 y1 x2 y2 ...`` (a segment polygon; its extent is the box),
+``cls cx cy w h`` and ``nk`` keypoints of ``x y [v]`` (pose), or
+``cls x1 y1 ... x4 y4`` (an OBB's four corners). For the task heads the
+val batch adds the ground-truth masks, keypoints or rotated boxes
+(``collate``); their train mode is not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import numpy as np
 
 from fce_yolo_tpu_torch.data.augment import AugmentCfg, train_augment, val_transform
 from fce_yolo_tpu_torch.data.imread import imread
+from fce_yolo_tpu_torch.ops.geometry import fill_poly, min_area_rect
 from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
@@ -146,14 +152,41 @@ def _scan_images(src: str | list) -> list[str]:
     return files
 
 
-def _read_labels(label_path: str) -> dict:
-    """One label file -> {"cls" (n,), "xywhn" (n, 4)} float32; none if absent."""
+def _extent(pts: np.ndarray) -> list:
+    """A polygon's axis-aligned extent as normalized (cx, cy, w, h)."""
+    lo, hi = pts.min(0), pts.max(0)
+    return [(lo[0] + hi[0]) / 2, (lo[1] + hi[1]) / 2, hi[0] - lo[0], hi[1] - lo[1]]
+
+
+def _read_labels(label_path: str, task: str = "detect", kpt_shape: tuple[int, int] = (17, 3)) -> dict:
+    """One label file -> {"cls" (n,), "xywhn" (n, 4)} float32, with
+    "segments" (polygons, and an OBB's corners) or "keypoints" ((nk, 3),
+    the visibility 1 where the file has none), as the JAX reader parses them
+    (reference ``fce_yolo_tpu/data/dataset.py:306-345``: rows longer than
+    five numbers are polygons whatever the task). No file: no labels."""
     rows = []
     if os.path.exists(label_path):
         rows = [l.split() for l in Path(label_path).read_text().splitlines() if l.strip()]
-    if any(len(r) != 5 for r in rows):
-        raise ValueError(f"{label_path}: a detect label row is 'cls cx cy w h'; segment, pose and "
-                         "OBB labels are not read by the port yet")
+    if rows and task == "pose":
+        nk, nd = kpt_shape
+        cls, xywhn, kpts = [], [], []
+        for r in rows:
+            vals = np.array(r[1:], np.float32)
+            cls.append(float(r[0]))
+            xywhn.append(vals[:4])
+            k = vals[4: 4 + nk * nd].reshape(nk, nd)
+            if nd == 2:
+                k = np.concatenate([k, np.ones((nk, 1), np.float32)], 1)
+            kpts.append(k)
+        return {"cls": np.array(cls, np.float32), "xywhn": np.stack(xywhn), "keypoints": kpts}
+    if rows and (task == "obb" or len(rows[0]) > 5):
+        cls, xywhn, segs = [], [], []
+        for r in rows:
+            pts = np.array(r[1:9] if task == "obb" else r[1:], np.float32).reshape(-1, 2)
+            cls.append(float(r[0]))
+            xywhn.append(_extent(pts))
+            segs.append(pts)
+        return {"cls": np.array(cls, np.float32), "xywhn": np.array(xywhn, np.float32), "segments": segs}
     arr = np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
     return {"cls": arr[:, 0], "xywhn": arr[:, 1:5]}
 
@@ -170,12 +203,24 @@ class YOLODataset:
         seed: seeds the generator until the first ``set_epoch``.
         device: where JPEG images decode (``imread``): the card unless
             another is named.
+        task: "detect", "segment", "pose" or "obb" (the label format; the
+            task heads read val data only).
+        kpt_shape: (keypoints, 2 or 3) of pose labels.
     """
 
     def __init__(self, img_path: str | list, imgsz: int = 640, mode: str = "val", hyp: AugmentCfg | None = None,
-                 nc: int | None = None, seed: int = 0, device="cuda"):
+                 nc: int | None = None, seed: int = 0, device="cuda", task: str = "detect",
+                 kpt_shape: tuple[int, int] = (17, 3)):
         if mode not in ("train", "val"):
             raise ValueError(f"mode {mode!r}: 'train' or 'val'")
+        if task not in ("detect", "segment", "pose", "obb"):
+            raise ValueError(f"task {task!r}: 'detect', 'segment', 'pose' or 'obb'")
+        if mode == "train" and task != "detect":
+            raise NotImplementedError(f"training the {task} head is not ported yet: the task losses, the rotated "
+                                      "assigner and the train augment of polygons and keypoints are the next slice "
+                                      "(ROADMAP queue 1, item 5)")
+        self.task = task
+        self.kpt_shape = tuple(kpt_shape)
         self.imgsz = imgsz
         self.mode = mode
         self.device = device
@@ -183,7 +228,7 @@ class YOLODataset:
         self.im_files = _scan_images(img_path)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
-        self.labels = [_read_labels(img2label_path(f)) for f in self.im_files]
+        self.labels = [_read_labels(img2label_path(f), task, self.kpt_shape) for f in self.im_files]
         self.nc = nc if nc is not None else int(max((l["cls"].max() for l in self.labels if l["cls"].size), default=0) + 1)
         self.mosaic_enabled = mode == "train"
         self.epoch_seed = seed
@@ -202,7 +247,8 @@ class YOLODataset:
             self.mosaic_enabled = False
 
     def load_raw(self, i: int) -> dict:
-        """Image i as read (BGR uint8) with its labels as pixel xyxy."""
+        """Image i as read (BGR uint8) with its labels as pixel xyxy, and its
+        polygons and keypoints in pixels."""
         img = imread(self.im_files[i], self.device)
         h, w = img.shape[:2]
         lab = self.labels[i]
@@ -213,7 +259,12 @@ class YOLODataset:
             boxes[:, 1] = xywh[:, 1] - xywh[:, 3] / 2
             boxes[:, 2] = xywh[:, 0] + xywh[:, 2] / 2
             boxes[:, 3] = xywh[:, 1] + xywh[:, 3] / 2
-        return {"img": img, "cls": lab["cls"].copy(), "bboxes": boxes}
+        out = {"img": img, "cls": lab["cls"].copy(), "bboxes": boxes}
+        if "segments" in lab:
+            out["segments"] = [seg * np.array([w, h], np.float32) for seg in lab["segments"]]
+        if "keypoints" in lab:
+            out["keypoints"] = [k * np.array([w, h, 1], np.float32) for k in lab["keypoints"]]
+        return out
 
     def get(self, i: int, rng: np.random.Generator | None = None) -> dict:
         """Item i; a train item draws from ``rng`` (else the dataset's generator)."""
@@ -229,16 +280,39 @@ class YOLODataset:
         return self.get(i)
 
 
-def collate(samples: list[dict], max_labels: int = 128) -> dict:
+MASK_RATIO = 4  # ground-truth masks at the prototypes' resolution (the reference's mask_ratio)
+
+
+def collate(samples: list[dict], max_labels: int = 128, obb: bool = False) -> dict:
     """Stack samples into one fixed-shape batch: img (B, S, S, 3) uint8 NHWC,
     cls (B, M), bboxes (B, M, 4) xywh normalized by the image size, mask
     (B, M) bool, and the val extras ratio (B,), pad (B, 2), orig_shape (B, 2).
-    Labels past ``max_labels`` in an image are dropped."""
+    Labels past ``max_labels`` in an image are dropped. With the task heads'
+    labels (reference ``fce_yolo_tpu/data/dataset.py:438-530``):
+
+    - polygons (not ``obb``): ``masks`` (B, M, S/4, S/4) float32, each
+      polygon's rounded vertices filled as ``cv2.fillPoly`` fills them
+      (``ops/geometry.py::fill_poly``; fewer than 3 points: no fill), then
+      the overlap rule: every pixel goes to the smallest instance covering
+      it (area-descending ``np.argsort(-areas)``, a 1-based index plane);
+    - keypoints: ``keypoints`` (B, M, nk, 3), x and y normalized;
+    - ``obb``: ``bboxes`` (B, M, 5) normalized xywhr from each four-corner
+      polygon's minimum-area rectangle (``min_area_rect``), w >= h and the
+      angle in [-pi/4, 3pi/4).
+    """
     b = len(samples)
+    sh, sw = samples[0]["img"].shape[:2]
     img = np.stack([x["img"] for x in samples], 0)
     cls = np.zeros((b, max_labels), np.float32)
     bboxes = np.zeros((b, max_labels, 4), np.float32)
     mask = np.zeros((b, max_labels), bool)
+    has_segments = any("segments" in x for x in samples) and not obb
+    has_kpts = any("keypoints" in x for x in samples)
+    nk = max((len(x["keypoints"][0]) for x in samples if x.get("keypoints")), default=17) if has_kpts else 0
+    smh, smw = sh // MASK_RATIO, sw // MASK_RATIO
+    seg_masks = np.zeros((b, max_labels, smh, smw), np.float32) if has_segments else None
+    kpts_arr = np.zeros((b, max_labels, nk, 3), np.float32) if has_kpts else None
+    rboxes = np.zeros((b, max_labels, 5), np.float32) if obb else None
     for i, x in enumerate(samples):
         n = min(len(x["cls"]), max_labels)
         if n:
@@ -251,7 +325,39 @@ def collate(samples: list[dict], max_labels: int = 128) -> dict:
             bh = (xyxy[:, 3] - xyxy[:, 1]) / h
             bboxes[i, :n] = np.stack([cx, cy, bw, bh], 1)
             mask[i, :n] = True
-    out = {"img": img, "cls": cls, "bboxes": bboxes, "mask": mask}
+            if has_segments and "segments" in x:
+                scale = np.array([smw / w, smh / h], np.float32)
+                for j, seg in enumerate(x["segments"][:n]):
+                    pts = np.round(seg * scale).astype(np.int32)
+                    if len(pts) >= 3:
+                        fill_poly(seg_masks[i, j], [pts], 1.0)
+            if has_kpts and "keypoints" in x:
+                norm = np.array([1.0 / w, 1.0 / h, 1.0], np.float32)
+                for j, kp in enumerate(x["keypoints"][:n]):
+                    kpts_arr[i, j] = kp * norm
+            if obb and "segments" in x:
+                for j, seg in enumerate(x["segments"][:n]):
+                    (rcx, rcy), (rw, rh), ang = min_area_rect(seg.astype(np.float32))
+                    theta = np.deg2rad(ang)
+                    if rw < rh:  # the long side is w
+                        rw, rh = rh, rw
+                        theta += np.pi / 2
+                    theta = (theta + np.pi / 4) % np.pi - np.pi / 4
+                    rboxes[i, j] = [rcx / w, rcy / h, rw / w, rh / h, theta]
+    if seg_masks is not None:
+        for inst in seg_masks:  # (M, h, w) of one image: each pixel to the smallest instance on it
+            areas = inst.reshape(inst.shape[0], -1).sum(1)
+            plane = np.zeros(inst.shape[1:], np.int32)
+            for j in np.argsort(-areas):
+                if areas[j] > 0:
+                    plane[inst[j] > 0.5] = j + 1
+            for j in np.flatnonzero(areas > 0):
+                inst[j] = (plane == j + 1).astype(np.float32)
+    out = {"img": img, "cls": cls, "bboxes": bboxes if rboxes is None else rboxes, "mask": mask}
+    if seg_masks is not None:
+        out["masks"] = seg_masks
+    if kpts_arr is not None:
+        out["keypoints"] = kpts_arr
     if "ratio" in samples[0]:
         out["ratio"] = np.array([x["ratio"] for x in samples], np.float32)
         out["pad"] = np.array([x["pad"] for x in samples], np.float32)

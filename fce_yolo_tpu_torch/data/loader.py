@@ -90,7 +90,7 @@ class DataLoader:
                     samples = [f.result() for f in futures]
                     n_valid = len(samples)
                     samples += [samples[-1]] * (bs - n_valid)  # pad the val tail to the fixed shape
-                    out = collate(samples, self.max_labels)
+                    out = collate(samples, self.max_labels, obb=self.dataset.task == "obb")
                     out["n_valid"] = n_valid
                     yield out
             finally:  # the consumer stopped early: drop what was read ahead

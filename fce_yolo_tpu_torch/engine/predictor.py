@@ -8,6 +8,14 @@ original-image pixels. The caller's model is never folded in place: an
 unfolded one is folded in a copy (the reference folds a copy too,
 predictor.py:247-268).
 
+Task heads (reference predictor.py:219-243, 303-351): segment runs NMS
+with the mask coefficients as extras, then ``process_mask`` at the input
+size for the rows that survived only, then ``scale_masks`` (cv2's
+INTER_LINEAR in integer torch ops) on the model's device; pose
+un-letterboxes the decoded keypoints; OBB suppresses with
+``rotated_batched_nms`` (probiou) and only the centre leaves the
+letterbox, w and h scaled and never clipped.
+
 Stem gate (the port's form of the JAX gate at predictor.py:163-188): layers
 0..2 run in the fused stem kernel when the model matches
 ``stem_spec_from_model``, the model is on a CUDA device and its conv weights
@@ -29,7 +37,8 @@ from fce_yolo_tpu_torch.data.dataset import IMG_FORMATS
 from fce_yolo_tpu_torch.data.imread import imread
 from fce_yolo_tpu_torch.engine.results import Results
 from fce_yolo_tpu_torch.nn.model import DetectionModel, fold_conv_bn, is_folded
-from fce_yolo_tpu_torch.ops.nms import batched_nms
+from fce_yolo_tpu_torch.ops.masks import process_mask, scale_masks
+from fce_yolo_tpu_torch.ops.nms import batched_nms, rotated_batched_nms
 from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
 
 __all__ = ["DetectionPredictor", "load_source"]
@@ -85,14 +94,17 @@ def load_source(source, device="cuda") -> Iterator[tuple[np.ndarray, str]]:
 
 
 class DetectionPredictor:
-    """Fixed-shape batched detect predictor. On first use it runs ``model``
-    as it is when folded (``YOLO`` hands it its memoized folded copy), else a
-    folded copy of it; ``model`` itself is left as it was."""
+    """Fixed-shape batched predictor for detect and the task heads (the
+    model's ``task``). On first use it runs ``model`` as it is when folded
+    (``YOLO`` hands it its memoized folded copy), else a folded copy of it;
+    ``model`` itself is left as it was."""
 
     def __init__(self, model: DetectionModel, names: dict[int, str], imgsz: int = 640,
                  conf: float = 0.25, iou: float = 0.7, max_det: int = 300, batch_size: int = 1):
         self.model = model
         self.names = names
+        self.nc = len(names)
+        self.task = model.task
         self.imgsz = imgsz
         self.conf = conf
         self.iou = iou
@@ -112,19 +124,52 @@ class DetectionPredictor:
         self._ready = True
 
     @torch.inference_mode()
-    def infer(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
-        """uint8 RGB NHWC batch on the model's device -> fixed-shape NMS dict."""
+    def forward(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
+        """uint8 RGB NHWC batch on the model's device -> the head's eval dict
+        (layers 0-2 in the stem kernel where the gate allows)."""
         if not self._ready:
             self._setup()
         if self._stem is not None:
-            out = apply_with_fused_stem(self.model, batch_u8, *self._stem)
-        else:
-            dtype = self.model.model[0].conv.weight.dtype
-            x = (batch_u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
-            out = self.model(x)
-        # predict is single-label per box (reference nms.py:19 default)
-        return batched_nms(out["preds"], conf_thres=self.conf, iou_thres=self.iou,
-                           max_det=self.max_det, multi_label=False)
+            return apply_with_fused_stem(self.model, batch_u8, *self._stem)
+        dtype = self.model.model[0].conv.weight.dtype
+        return self.model((batch_u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype))
+
+    @torch.inference_mode()
+    def postprocess(self, out: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+        """The head's eval dict -> the fixed-shape NMS dict, single-label
+        (reference nms.py:19 default): ``boxes``, ``scores``, ``classes``,
+        ``valid``, and ``angle`` (OBB), ``keypoints`` (pose), or the mask
+        coefficients ``extra`` and ``proto`` (segment; ``masks`` makes the
+        masks of the rows kept)."""
+        if self.task == "obb":
+            nms = rotated_batched_nms(out["preds"], conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                                      multi_label=False, nc=self.nc)
+            nms["angle"] = nms.pop("extra")
+            return nms
+        nms = batched_nms(out["preds"], conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                          multi_label=False, nc=self.nc if self.task in ("segment", "pose") else None)
+        if self.task == "segment":
+            nms["proto"] = out["proto"]
+        elif self.task == "pose":
+            nms["keypoints"] = nms.pop("extra")
+        return nms
+
+    @torch.inference_mode()
+    def infer(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
+        """uint8 RGB NHWC batch on the model's device -> fixed-shape NMS dict."""
+        return self.postprocess(self.forward(batch_u8))
+
+    @torch.inference_mode()
+    def masks(self, nms: dict[str, torch.Tensor], n: int) -> list[torch.Tensor]:
+        """Segment: the (kept, imgsz, imgsz) bool masks of the first ``n``
+        images, for the rows NMS kept only (the JAX package makes all
+        ``max_det`` of them)."""
+        out = []
+        for i in range(n):
+            keep = nms["valid"][i]
+            out.append(process_mask(nms["extra"][i][keep], nms["proto"][i], nms["boxes"][i][keep],
+                                    (self.imgsz, self.imgsz)))
+        return out
 
     def stream(self, source) -> Iterator[Results]:
         """Generator over Results, batching the source internally."""
@@ -142,19 +187,38 @@ class DetectionPredictor:
             batch = torch.from_numpy(np.stack(imgs, 0)).to(device)
             t_pre = time.perf_counter() - t0
             t0 = time.perf_counter()
-            out = {k: v.cpu().numpy() for k, v in self.infer(batch).items()}
+            nms = self.infer(batch)
+            masks = self.masks(nms, n) if self.task == "segment" else None
+            out = {k: v.cpu().numpy() for k, v in nms.items() if k not in ("proto", "extra")}
             t_inf = time.perf_counter() - t0
             t0 = time.perf_counter()
             for i in range(n):
                 orig, path, r, (pw, ph) = pending[i]
                 valid = out["valid"][i]
                 oh, ow = orig.shape[:2]
-                boxes = (out["boxes"][i][valid] - np.array([pw, ph, pw, ph])) / r
-                boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, ow)
-                boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, oh)
-                data = np.concatenate(
-                    [boxes, out["scores"][i][valid, None], out["classes"][i][valid, None]], 1)
-                yield Results(orig, path, self.names, boxes=data, speed={
+                kw = {}
+                if self.task == "obb":  # only the centre leaves the letterbox; w and h are scaled, never clipped
+                    xywhr = np.concatenate([out["boxes"][i][valid], out["angle"][i][valid][:, :1]], 1)
+                    xywhr[:, :2] = (xywhr[:, :2] - np.array([pw, ph])) / r
+                    xywhr[:, 2:4] = xywhr[:, 2:4] / r
+                    kw["obb"] = np.concatenate([xywhr, out["scores"][i][valid, None],
+                                                out["classes"][i][valid, None]], 1)
+                else:
+                    boxes = (out["boxes"][i][valid] - np.array([pw, ph, pw, ph])) / r
+                    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, ow)
+                    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, oh)
+                    kw["boxes"] = np.concatenate(
+                        [boxes, out["scores"][i][valid, None], out["classes"][i][valid, None]], 1)
+                if masks is not None:  # to the original image on the device, then to the host
+                    kw["masks"] = scale_masks(masks[i], (oh, ow), (pw, ph)).cpu().numpy()
+                if "keypoints" in out:
+                    k = out["keypoints"][i][valid]
+                    ndim = 3 if k.shape[-1] % 3 == 0 else 2
+                    kpts = k.reshape(len(k), k.shape[-1] // ndim, ndim).copy()
+                    kpts[..., 0] = (kpts[..., 0] - pw) / r
+                    kpts[..., 1] = (kpts[..., 1] - ph) / r
+                    kw["keypoints"] = kpts
+                yield Results(orig, path, self.names, **kw, speed={
                     "preprocess": t_pre * 1000 / n,
                     "inference": t_inf * 1000 / n,
                     "postprocess": (time.perf_counter() - t0) * 1000 / n,

@@ -8,7 +8,8 @@ then ``batched_nms`` multi-label at ``conf=0.001``, ``iou=0.7``,
 greedy pass is the NMS kernel on a card. With fewer dataset classes than the
 model has, the other class channels ride along as ``extra``. Predictions are
 matched to the labels in letterbox pixels; only the first ``n_valid`` images
-of a batch count.
+of a batch count. ``TaskValidator`` runs the same pass for the task heads'
+validators (``engine/seg_validator.py``, ``engine/task_validators.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from fce_yolo_tpu_torch.nn.model import DetectionModel
 from fce_yolo_tpu_torch.ops.nms import batched_nms
 from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
 
-__all__ = ["DetectionValidator"]
+__all__ = ["DetectionValidator", "TaskValidator", "xywh_to_xyxy_np"]
 
 
 class DetectionValidator:
@@ -42,6 +43,9 @@ class DetectionValidator:
         conf, iou, max_det, pre_nms_topk: NMS settings (the val defaults).
         batch_size, workers: loader batch and reader threads.
     """
+
+    task = "detect"  # the label format its loader reads
+    kpt_shape = (17, 3)
 
     def __init__(self, model: DetectionModel, names: dict[int, str], imgsz: int = 640, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, batch_size: int = 16, workers: int = 8,
@@ -62,7 +66,8 @@ class DetectionValidator:
         decode on the model's device."""
         d = check_det_dataset(data)
         device = next(self.model.parameters()).device
-        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"], device=device)
+        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"], device=device, task=self.task,
+                         kpt_shape=self.kpt_shape)
         return DataLoader(ds, batch_size=self.batch_size, workers=self.workers)
 
     @torch.inference_mode()
@@ -86,38 +91,14 @@ class DetectionValidator:
 
         ``save_json``: write COCO-format detections (original image pixels) there.
         """
-        loader = dataloader if dataloader is not None else self.get_dataloader(data)
-        device = next(self.model.parameters()).device
         metrics = DetMetrics(names=self.names)
         cm = ConfusionMatrix(names=self.names)
         json_dets: list[dict] = []
-        t_pre = t_infer = t_post = 0.0
-        n_images = 0
-        was_training = self.model.training
-        self.model.eval()
-        batches = iter(loader)
-        try:
-            while True:
-                t0 = time.perf_counter()
-                batch = next(batches, None)
-                t_pre += time.perf_counter() - t0
-                if batch is None:
-                    break
-                t0 = time.perf_counter()
-                img = torch.from_numpy(batch["img"]).to(device)
-                out = {k: v.cpu().numpy() for k, v in self.nms(self.forward(img)).items()}
-                t_infer += time.perf_counter() - t0
-                t0 = time.perf_counter()
-                self._update_metrics(out, batch, metrics, cm, json_dets if save_json else None, n_images)
-                t_post += time.perf_counter() - t0
-                n_images += batch["n_valid"]
-        finally:
-            batches.close()  # stops the loader's reader threads if a batch raised
-            self.model.train(was_training)
-
+        n_images, speed = self.run(dataloader if dataloader is not None else self.get_dataloader(data),
+                                   lambda out, batch, base: self._update_metrics(
+                                       out, batch, metrics, cm, json_dets if save_json else None, base))
         metrics.process(nc=self.nc)
-        ms = 1000.0 / max(n_images, 1)
-        metrics.speed = {"preprocess": t_pre * ms, "inference": t_infer * ms, "loss": 0.0, "postprocess": t_post * ms}
+        metrics.speed = speed
         results = metrics.results_dict
         if verbose:
             print(f"{'Class':>12} {'Images':>8} {'Instances':>10} {'P':>8} {'R':>8} {'mAP50':>8} {'mAP50-95':>9}")
@@ -136,6 +117,44 @@ class DetectionValidator:
         results["metrics"] = metrics
         return results
 
+    def to_host(self, out: dict[str, torch.Tensor]) -> dict:
+        """The NMS dict as numpy arrays."""
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def run(self, loader: DataLoader, update) -> tuple[int, dict[str, float]]:
+        """One pass over ``loader``: per batch the model and NMS on the
+        model's device (``forward``, ``nms``, ``to_host``), then ``update(out,
+        batch, images before it)`` on the host; the model is validated in eval
+        mode and handed back in the mode it came in. Returns the count of
+        images scored and the ms an image of the loader wait, inference and
+        metrics."""
+        device = next(self.model.parameters()).device
+        t_pre = t_infer = t_post = 0.0
+        n_images = 0
+        was_training = self.model.training
+        self.model.eval()
+        batches = iter(loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                batch = next(batches, None)
+                t_pre += time.perf_counter() - t0
+                if batch is None:
+                    break
+                t0 = time.perf_counter()
+                img = torch.from_numpy(batch["img"]).to(device)
+                out = self.to_host(self.nms(self.forward(img)))
+                t_infer += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                update(out, batch, n_images)
+                t_post += time.perf_counter() - t0
+                n_images += batch["n_valid"]
+        finally:
+            batches.close()  # stops the loader's reader threads if a batch raised
+            self.model.train(was_training)
+        ms = 1000.0 / max(n_images, 1)
+        return n_images, {"preprocess": t_pre * ms, "inference": t_infer * ms, "loss": 0.0, "postprocess": t_post * ms}
+
     def _update_metrics(self, out: dict, batch: dict, metrics: DetMetrics, cm: ConfusionMatrix,
                         json_dets: list | None = None, image_id_base: int = 0) -> None:
         """Match one batch's predictions to its labels in letterbox pixels
@@ -150,14 +169,8 @@ class DetectionValidator:
             pcls = np.asarray(out["classes"][i])[valid].astype(float)
 
             m = batch["mask"][i]
-            gxywh = batch["bboxes"][i][m] * s  # letterbox-pixel xywh
+            gboxes = xywh_to_xyxy_np(batch["bboxes"][i][m] * s)  # letterbox pixels
             gcls = batch["cls"][i][m].astype(float)
-            gboxes = np.empty_like(gxywh)
-            if len(gxywh):
-                gboxes[:, 0] = gxywh[:, 0] - gxywh[:, 2] / 2
-                gboxes[:, 1] = gxywh[:, 1] - gxywh[:, 3] / 2
-                gboxes[:, 2] = gxywh[:, 0] + gxywh[:, 2] / 2
-                gboxes[:, 3] = gxywh[:, 1] + gxywh[:, 3] / 2
 
             if len(pcls) and len(gcls):
                 tp = match_predictions(pcls, gcls, box_iou_np(gboxes, pboxes))
@@ -180,3 +193,53 @@ class DetectionValidator:
                                  round(float(bb[2] - bb[0]), 3), round(float(bb[3] - bb[1]), 3)],
                         "score": round(float(cf), 5),
                     })
+
+
+def xywh_to_xyxy_np(xywh: np.ndarray) -> np.ndarray:
+    """Label boxes (n, 4) xywh -> xyxy, as the JAX validators build them."""
+    if not len(xywh):
+        return np.zeros((0, 4))
+    return np.stack([xywh[:, 0] - xywh[:, 2] / 2, xywh[:, 1] - xywh[:, 3] / 2,
+                     xywh[:, 0] + xywh[:, 2] / 2, xywh[:, 1] + xywh[:, 3] / 2], 1)
+
+
+class TaskValidator(DetectionValidator):
+    """The pass of the task heads' validators (segment, pose, OBB): the base
+    class's loop, one ``DetMetrics`` per metric family (``families``: B for
+    boxes, M masks, P poses; the rotated family is tagged B, as in the JAX
+    package), filled by ``update_metrics`` batch by batch."""
+
+    families: dict[str, str] = {"B": "box"}  # tag -> name in results["metrics"]
+
+    def update_metrics(self, out: dict, batch: dict, metrics: dict[str, DetMetrics]) -> None:
+        raise NotImplementedError
+
+    def __call__(self, data: str | Path | dict | None = None, verbose: bool = True,
+                 save_json: str | Path | None = None, dataloader: DataLoader | None = None) -> dict[str, Any]:
+        """Validate on the ``val`` split of ``data`` or on ``dataloader``.
+        Returns P, R, mAP50 and mAP50-95 of each family, ``fitness`` (their
+        mean) and ``metrics``. ``save_json`` (COCO detection rows) is
+        detect's only."""
+        if save_json:
+            raise NotImplementedError(f"save_json writes detect rows only, not {self.task} results")
+        nc = self.model.spec.nc
+        if self.nc != nc:  # the class scores and the extras share one output (the JAX validators assume it)
+            raise ValueError(f"the {self.task} head has {nc} classes and the data names {self.nc}: build the "
+                             "model with the data's class count (YOLO(..., nc=...))")
+        metrics = {tag: DetMetrics(names=self.names) for tag in self.families}
+        n_images, speed = self.run(dataloader if dataloader is not None else self.get_dataloader(data),
+                                   lambda out, batch, _: self.update_metrics(out, batch, metrics))
+        results: dict[str, Any] = {}
+        for tag, m in metrics.items():
+            m.process(nc=self.nc)
+            m.speed = speed
+            mp, mr, map50, map5095 = m.mean_results()
+            results.update({f"metrics/precision({tag})": mp, f"metrics/recall({tag})": mr,
+                            f"metrics/mAP50({tag})": map50, f"metrics/mAP50-95({tag})": map5095})
+        results["fitness"] = sum(m.fitness for m in metrics.values()) / len(metrics)
+        results["metrics"] = ({self.families[t]: m for t, m in metrics.items()} if len(metrics) > 1
+                              else metrics["B"])
+        if verbose:
+            print(" | ".join(f"{self.families[t]} mAP50-95 {m.map:.3f}" for t, m in metrics.items())
+                  + f" ({n_images} images)")
+        return results

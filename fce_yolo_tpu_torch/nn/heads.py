@@ -1,0 +1,133 @@
+"""Task heads beyond detect: Segment, Pose and OBB, and the mask prototypes
+(reference ``fce_yolo_tpu/nn/heads.py:31-193``).
+
+Each head is the port's ``Detect`` with one more branch per level (``cv4``:
+Conv3x3 -> Conv3x3 -> bare 1x1), so its ``state_dict`` keys are
+Ultralytics' flat names (``model.23.cv2.0.0.conv.weight``,
+``model.23.cv4.1.2.weight``, ``model.23.proto.upsample.weight``); the JAX
+package nests the Detect trunk under a ``detect`` scope, which the weight
+bridge drops and restores (``nn/weights.py``).
+
+Eval outputs are anchor-major, in the JAX order, decoded in float32 whatever
+the model's dtype:
+- Segment: ``preds`` (B, A, 4 + nc + nm) and ``proto`` (B, nm, Hp, Wp);
+- Pose: ``preds`` (B, A, 4 + nc + nk), keypoints ``(raw * 2 + anchor - 0.5) * stride``
+  with a sigmoid on the visibility;
+- OBB: ``preds`` (B, A, 4 + nc + 1), rotated (cx, cy, w, h) from ``dist2rbox``
+  and the angle ``(sigmoid(theta) - 0.25) * pi``.
+In training mode they return the JAX package's keys: ``feats`` with
+``mask_coefs`` and ``proto``, ``kpts`` or ``angle``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Sequence
+
+import torch
+from torch import nn
+
+from fce_yolo_tpu_torch.nn.modules import Conv2d, ConvBNAct, Detect
+from fce_yolo_tpu_torch.ops.anchors import dfl_expectation, dist2rbox, make_anchors
+
+__all__ = ["Proto", "Segment", "Pose", "OBB"]
+
+
+class Proto(nn.Module):
+    """Mask prototypes (reference block.py:83-104): cv1 3x3 -> 2x2 stride-2
+    ``ConvTranspose2d`` -> cv2 3x3 -> cv3 1x1, at twice the P3 resolution."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = ConvBNAct(c_, c_, 3)
+        self.cv3 = ConvBNAct(c_, c2, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.cv2(self.upsample(self.cv1(x))))
+
+
+def _branches4(ch: Sequence[int], c4: int, out: int) -> nn.ModuleList:
+    """The ``cv4`` branch shared by Segment, Pose and OBB, one per level."""
+    return nn.ModuleList(nn.Sequential(ConvBNAct(x, c4, 3), ConvBNAct(c4, c4, 3), Conv2d(c4, out, 1)) for x in ch)
+
+
+def _anchor_major(maps: list[torch.Tensor]) -> torch.Tensor:
+    """Per-level (B, C, H, W) maps -> (B, sum(H*W), C), the JAX anchor order."""
+    b, c = maps[0].shape[:2]
+    return torch.cat([m.permute(0, 2, 3, 1).reshape(b, -1, c) for m in maps], dim=1)
+
+
+class Segment(Detect):
+    """Detect + per-anchor mask coefficients + prototypes (reference head.py:215-263)."""
+
+    def __init__(self, nc: int, nm: int = 32, npr: int = 256, ch: Sequence[int] = (),
+                 strides: Sequence[int] | None = None):
+        super().__init__(nc, ch, strides=strides)
+        self.nm, self.npr = nm, npr
+        self.proto = Proto(ch[0], npr, nm)
+        self.cv4 = _branches4(ch, max(ch[0] // 4, nm), nm)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> dict[str, Any]:
+        proto = self.proto(xs[0])
+        mc = _anchor_major([branch(x) for x, branch in zip(xs, self.cv4)])
+        det = super().forward(xs)
+        if self.training:
+            return {"feats": det["feats"], "mask_coefs": mc, "proto": proto}
+        return {"preds": torch.cat([det["preds"], mc.float()], dim=-1), "proto": proto, "feats": det["feats"]}
+
+
+class Pose(Detect):
+    """Detect + decoded keypoints (reference head.py:319-386)."""
+
+    def __init__(self, nc: int, kpt_shape: Sequence[int] = (17, 3), ch: Sequence[int] = (),
+                 strides: Sequence[int] | None = None):
+        super().__init__(nc, ch, strides=strides)
+        self.kpt_shape = tuple(kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        self.cv4 = _branches4(ch, max(ch[0] // 4, self.nk), self.nk)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> dict[str, Any]:
+        kpt = _anchor_major([branch(x) for x, branch in zip(xs, self.cv4)])
+        det = super().forward(xs)
+        if self.training:
+            return {"feats": det["feats"], "kpts": kpt}
+        anchors, stride_t = make_anchors([f.shape[2:] for f in det["feats"]], list(self.strides), 0.5,
+                                         dtype=torch.float32, device=kpt.device)
+        decoded = self.kpts_decode(kpt.float(), anchors, stride_t)
+        return {"preds": torch.cat([det["preds"], decoded], dim=-1), "kpts": kpt, "feats": det["feats"]}
+
+    def kpts_decode(self, kpts: torch.Tensor, anchors: torch.Tensor, stride_t: torch.Tensor) -> torch.Tensor:
+        """x, y = (raw * 2 + anchor - 0.5) * stride; a sigmoid on the visibility."""
+        nkp, ndim = self.kpt_shape
+        b, a, _ = kpts.shape
+        y = kpts.reshape(b, a, nkp, ndim)
+        xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride_t[None, :, None, :]
+        if ndim == 3:
+            xy = torch.cat([xy, y[..., 2:3].sigmoid()], dim=-1)
+        return xy.reshape(b, a, nkp * ndim)
+
+
+class OBB(Detect):
+    """Detect + a per-anchor angle; eval boxes are rotated (reference head.py:265-318)."""
+
+    def __init__(self, nc: int, ne: int = 1, ch: Sequence[int] = (), strides: Sequence[int] | None = None):
+        super().__init__(nc, ch, strides=strides)
+        self.ne = ne
+        self.cv4 = _branches4(ch, max(ch[0] // 4, ne), ne)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> dict[str, Any]:
+        raw = _anchor_major([branch(x) for x, branch in zip(xs, self.cv4)])
+        angle = (raw.float().sigmoid() - 0.25) * math.pi  # (B, A, ne) in [-pi/4, 3pi/4)
+        feats = self.level_maps(xs)
+        if self.training:
+            return {"feats": feats, "angle": angle}
+        flat = _anchor_major(feats)
+        box_logits, cls_logits = flat[..., : self.reg_max * 4], flat[..., self.reg_max * 4:]
+        anchors, stride_t = make_anchors([f.shape[2:] for f in feats], list(self.strides), 0.5,
+                                         dtype=torch.float32, device=flat.device)
+        dist = dfl_expectation(box_logits.float(), self.reg_max)
+        rbox = dist2rbox(dist, angle, anchors[None]) * stride_t[None]
+        preds = torch.cat([rbox, cls_logits.float().sigmoid(), angle], dim=-1)
+        return {"preds": preds, "angle": angle, "feats": feats}

@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from fce_yolo_tpu_torch.nn import fce
+from fce_yolo_tpu_torch.nn import heads as H
 from fce_yolo_tpu_torch.nn import modules as M
 from fce_yolo_tpu_torch.nn.parser import LayerSpec, ModelSpec, load_model_yaml, parse_model_yaml
 
@@ -40,19 +41,30 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
         if legacy:
             raise KeyError(f"the v8-era Detect head (layer {ls.i}) is not ported yet")
         return M.Detect(nc=a[0], ch=tuple(a[-1]), strides=strides)
+    if n in ("Segment", "Pose", "OBB") and legacy:
+        raise KeyError(f"the v8-era {n} head (layer {ls.i}) is not ported yet")
+    if n == "Segment":  # [nc, nm, npr, ch]
+        return H.Segment(nc=a[0], nm=a[1] if len(a) > 2 else 32, npr=a[2] if len(a) > 3 else 256,
+                         ch=tuple(a[-1]), strides=strides)
+    if n == "Pose":  # [nc, kpt_shape, ch]
+        return H.Pose(nc=a[0], kpt_shape=tuple(a[1]), ch=tuple(a[-1]), strides=strides)
+    if n == "OBB":  # [nc, ne, ch]
+        return H.OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=tuple(a[-1]), strides=strides)
     if n == "BiFPN_Concat":
         return fce.BiFPN_Concat(c1=tuple(a[0]), c2=a[1])
     if n == "BiCoordCrossAtt":
         return fce.BiCoordCrossAtt(inp=a[0], oup=a[1], reduction=a[2], num_heads=a[3])
+    if n == "Classify":
+        raise KeyError(f"the Classify head (layer {ls.i}) is not ported yet (ROADMAP queue 1, item 5)")
     raise KeyError(f"module {n!r} at layer {ls.i} is not ported yet")
 
 
 class DetectionModel(nn.Module):
     """Config-defined detection graph (reference DetectionModel, nn/tasks.py:339-490).
 
-    ``forward`` returns the Detect head's dict: ``{"feats"}`` in training
+    ``forward`` returns the head's dict: for Detect ``{"feats"}`` in training
     mode, ``{"preds", "feats"}`` in eval mode (preds (B, N, 4 + nc), xywh
-    pixels + class scores).
+    pixels + class scores); a task head (``nn/heads.py``) adds its own keys.
     """
 
     def __init__(self, spec: ModelSpec, strides: tuple[int, ...] | None = None):
@@ -63,7 +75,12 @@ class DetectionModel(nn.Module):
 
     @property
     def detect(self) -> M.Detect:
+        """The head: a Detect, or a task head built on one."""
         return self.model[-1]
+
+    @property
+    def task(self) -> str:
+        return self.spec.task
 
     def forward(self, x: torch.Tensor, start_layer: int = 0) -> dict[str, Any]:
         """``start_layer > 0``: ``x`` is already the output of layer
@@ -131,12 +148,16 @@ def _lecun_normal(shape: torch.Size, generator: torch.Generator) -> torch.Tensor
 def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: bool = True) -> DetectionModel:
     """Initialize like the JAX ``init_variables`` (nn/model.py:366-388): conv
     kernels lecun-normal, conv biases 0, BN (1, 0, mean 0, var 1), BiFPN
-    weights 1, then the Detect bias priors when ``bias_prior``. Values are
+    weights 1, then the Detect bias priors when ``bias_prior`` (on a task
+    head's Detect trunk only, as the JAX package does). Values are
     drawn on the CPU from ``generator`` (a CPU generator) so one seed gives
     the same weights on every device."""
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            m.weight.copy_(_lecun_normal(m.weight.shape, generator))
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            if isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw): the fan-in is in * kh * kw
+                m.weight.copy_(_lecun_normal(m.weight.transpose(0, 1).shape, generator).transpose(0, 1))
+            else:
+                m.weight.copy_(_lecun_normal(m.weight.shape, generator))
             if m.bias is not None:
                 m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):

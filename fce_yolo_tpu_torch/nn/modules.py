@@ -283,8 +283,12 @@ class Detect(nn.Module):
             Conv2d(c3, nc, 1),
         ) for x in ch)
 
+    def level_maps(self, xs: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+        """The per-level (B, 4*reg_max + nc, H, W) maps of the box and class branches."""
+        return [torch.cat([b(x), c(x)], dim=1) for x, b, c in zip(xs, self.cv2, self.cv3)]
+
     def forward(self, xs: Sequence[torch.Tensor]) -> dict[str, Any]:
-        feats = [torch.cat([b(x), c(x)], dim=1) for x, b, c in zip(xs, self.cv2, self.cv3)]
+        feats = self.level_maps(xs)
         if self.training:
             return {"feats": feats}
         assert self.strides is not None, "Detect.strides unresolved; build via build_model()"

@@ -56,6 +56,12 @@ class ModelSpec:
     yaml_dict: dict = field(default_factory=dict)
     legacy: bool = False  # v8-era Detect cls branch (reference tasks.py:1504)
 
+    @property
+    def task(self) -> str:
+        """The task, from the head's name (reference ``ModelSpec.task``, parser.py:62-69)."""
+        return {"Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify"}.get(
+            self.layers[-1].name, "detect")
+
 
 def _adaptive_reduction(inp: int) -> int:
     """Default reduction = sqrt(inp) clamped to [8, 32] (tasks.py:1646-1652)."""
@@ -98,6 +104,8 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
             if isinstance(a, str):
                 if a == "nc":
                     args[j] = nc
+                elif a == "kpt_shape":
+                    args[j] = d.get("kpt_shape", [17, 3])
                 elif a in ("None", "none"):
                     args[j] = None
                 elif a in ("True", "False"):
@@ -137,7 +145,12 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                 heads = args[2] if len(args) > 2 else _adaptive_heads(inp, reduction)
                 args = [inp, oup, reduction, heads]
             c2 = oup
-        elif name == "Detect":
+        elif name in ("Detect", "Segment", "Pose", "OBB"):
+            # Detect [nc]; Segment [nc, nm, npr] (npr width-scaled); Pose [nc, kpt_shape]; OBB [nc, ne]
+            if name == "Segment" and len(args) > 2:
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
+            if name == "Pose" and len(args) < 2:
+                args.append(d.get("kpt_shape", [17, 3]))
             args = [*args, [ch_list[x] for x in f]]
             c2 = ch_list[f[-1]]
         elif name in ("nn.Upsample", "Upsample"):

@@ -7,6 +7,16 @@
   batch_stats/layers_0/bn/{mean,var}       ->  model.0.bn.running_{mean,var}
   params/layers_23/cv2_0_2/conv2d/kernel   ->  model.23.cv2.0.2.weight
   params/layers_14/w                       ->  model.14.w
+  params/layers_23/detect/cv2_0_0/conv/kernel  ->  model.23.cv2.0.0.conv.weight  (a task head's trunk)
+  params/layers_23/proto/upsample/kernel  ->  model.23.proto.upsample.weight  (ConvTranspose2d)
+
+A task head (Segment, Pose, OBB) nests its Detect trunk under a ``detect``
+scope in flax; the port's keys are Ultralytics' flat names, so the scope is
+dropped here and put back by ``key_to_flax``. A flax ``ConvTranspose``
+kernel (kh, kw, in, out) becomes torch's (in, out, kh, kw) with both
+spatial axes flipped: flax's transposed convolution (``transpose_kernel``
+False) applies the kernel unflipped to the dilated input, torch's is the
+gradient of a convolution, which applies it flipped.
 
 Takes plain numpy trees, so it needs no JAX (``jax.device_get`` or
 ``np.asarray`` the variables first). ``key_to_flax`` is the inverse, for a
@@ -23,6 +33,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from fce_yolo_tpu_torch.nn.heads import OBB, Pose, Segment
+
 _LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
     ("params", "kernel"): (nn.Conv2d, "weight"),
     ("params", "scale"): (nn.BatchNorm2d, "weight"),
@@ -31,6 +43,8 @@ _LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
 }
 _FLAX_LEAF = {v: k for k, v in _LEAF.items()}
 _BARE_CONV = "conv2d"  # the flax scope of a bare Conv2d (not a ConvBNAct's ``conv``)
+_TRUNK = "detect"  # the flax scope of a task head's Detect trunk
+_CONV_T = "upsample"  # the flax name of Proto's ConvTranspose (its only one)
 
 
 def _module_token(name: str) -> str:
@@ -53,7 +67,7 @@ def _walk(node: Mapping[str, Any], path: tuple[str, ...] = ()):
 def flax_path_to_key(collection: str, path: tuple[str, ...]) -> str:
     """One flax leaf path -> the port's state_dict key."""
     *mods, leaf = path
-    parts = [_module_token(p) for p in mods if p != _BARE_CONV]
+    parts = [_module_token(p) for p in mods if p not in (_BARE_CONV, _TRUNK)]
     parts.append(_LEAF.get((collection, leaf), (None, leaf))[1])
     return ".".join(parts)
 
@@ -73,10 +87,14 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
             mods.append(t)
     if mods and tokens[0] == "model":
         mods[0] = "layers" + mods[0][len("model"):]
-    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d) if isinstance(owner, k)), None)
+        head = model.get_submodule(".".join(tokens[:2])) if len(tokens) > 2 else None
+        if isinstance(head, (Segment, Pose, OBB)) and tokens[2] in ("cv2", "cv3"):
+            mods.insert(1, _TRUNK)
+    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d, nn.ConvTranspose2d) if isinstance(owner, k)), None)
     if kind is nn.Conv2d and tokens[-1] != "conv":
         mods.append(_BARE_CONV)
-    collection, flax_leaf = _FLAX_LEAF.get((kind, leaf), ("params", leaf))
+    collection, flax_leaf = _FLAX_LEAF.get((nn.Conv2d if kind is nn.ConvTranspose2d else kind, leaf),
+                                           ("params", leaf))
     return collection, tuple(mods) + (flax_leaf,)
 
 
@@ -92,7 +110,9 @@ def variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Ten
                 t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(a))  # a writable copy
-            if path[-1] == "kernel" and t.ndim == 4:
+            if path[-1] == "kernel" and t.ndim == 4 and path[-2] == _CONV_T:
+                t = t.flip(0, 1).permute(2, 3, 0, 1).contiguous()  # flax ConvTranspose -> torch (I, O, kH, kW)
+            elif path[-1] == "kernel" and t.ndim == 4:
                 t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
             key = flax_path_to_key(coll, path)
             if key in out:

@@ -35,6 +35,18 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor, xywh: bool = 
     return torch.cat([x1y1, x2y2], dim=-1)
 
 
+def dist2rbox(distance: torch.Tensor, angle: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tensor:
+    """(l, t, r, b) distances and an angle -> rotated (cx, cy, w, h): the
+    lt/rb midpoint offset rotated by the angle around the anchor (reference
+    ``fce_yolo_tpu/ops/anchors.py:63-78``). ``angle`` is (..., 1)."""
+    lt, rb = distance[..., :2], distance[..., 2:4]
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    xf, yf = ((rb - lt) / 2).split(1, dim=-1)
+    x = xf * cos - yf * sin
+    y = xf * sin + yf * cos
+    return torch.cat([torch.cat([x, y], dim=-1) + anchor_points, lt + rb], dim=-1)
+
+
 def dfl_expectation(pred_dist: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
     """DFL decode: softmax over ``reg_max`` bins times arange, per side.
 

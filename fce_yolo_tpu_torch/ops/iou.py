@@ -1,6 +1,6 @@
-"""IoU family (reference ``fce_yolo_tpu/ops/iou.py:21-133``): IoU, GIoU,
-DIoU and CIoU between broadcastable box tensors, Wise-IoU v1, and the
-pairwise (N, M) IoU. Each function consumes the trailing 4-axis; the CIoU
+"""IoU family (reference ``fce_yolo_tpu/ops/iou.py:21-169``): IoU, GIoU,
+DIoU and CIoU between broadcastable box tensors, Wise-IoU v1, the
+pairwise (N, M) IoU, and the probabilistic IoU of rotated boxes. Each function consumes the trailing 4-axis; the CIoU
 aspect-ratio weight is taken without gradient, as the JAX package's
 ``stop_gradient`` does."""
 
@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["bbox_iou", "bbox_wiou", "box_iou_pairwise"]
+__all__ = ["bbox_iou", "bbox_wiou", "box_iou_pairwise", "probiou"]
 
 
 def _corners(box: torch.Tensor, xywh: bool):
@@ -84,3 +84,31 @@ def box_iou_pairwise(box1: torch.Tensor, box2: torch.Tensor, eps: float = 1e-7) 
     area1 = (box1[:, 2:] - box1[:, :2]).clamp(min=0).prod(-1)
     area2 = (box2[:, 2:] - box2[:, :2]).clamp(min=0).prod(-1)
     return inter / (area1[:, None] + area2[None, :] - inter + eps)
+
+
+def _obb_covariance(obb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gaussian covariance terms (a, b, c) of (..., 5) xywhr boxes (reference iou.py:134-147)."""
+    w, h, r = obb[..., 2], obb[..., 3], obb[..., 4]
+    a = w * w / 12.0
+    b = h * h / 12.0
+    cos, sin = torch.cos(r), torch.sin(r)
+    return a * cos * cos + b * sin * sin, a * sin * sin + b * cos * cos, (a - b) * cos * sin
+
+
+def probiou(obb1: torch.Tensor, obb2: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """Probabilistic IoU of broadcastable (..., 5) xywhr boxes: one minus the
+    Hellinger distance of their Gaussians (reference iou.py:150-169,
+    arXiv:2106.06072), op by op in the JAX order."""
+    x1, y1 = obb1[..., 0], obb1[..., 1]
+    x2, y2 = obb2[..., 0], obb2[..., 1]
+    a1, b1, c1 = _obb_covariance(obb1)
+    a2, b2, c2 = _obb_covariance(obb2)
+    dy, dx = y1 - y2, x1 - x2
+    den = (a1 + a2) * (b1 + b2) - (c1 + c2) * (c1 + c2) + eps
+    t1 = ((a1 + a2) * (dy * dy) + (b1 + b2) * (dx * dx)) / den * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * dy) / den * 0.5
+    det1 = (a1 * b1 - c1 * c1).clamp(min=0.0)
+    det2 = (a2 * b2 - c2 * c2).clamp(min=0.0)
+    t3 = torch.log((den - eps + eps) / (4.0 * torch.sqrt(det1 * det2) + eps) + eps) * 0.5
+    bd = (t1 + t2 + t3).clamp(eps, 100.0)
+    return 1.0 - torch.sqrt(1.0 - torch.exp(-bd) + eps)

@@ -9,6 +9,11 @@
    plain version ``pick_suppress_reference`` for CPU tensors. Same keep-set
    and emit order as torchvision's greedy NMS.
 
+Rotated boxes (``rotated_batched_nms``, reference nms.py:232-319) take the
+same candidates and suppress with a K x K probabilistic IoU in one pass
+(Fast-NMS: a suppressed box still suppresses), as torch ops on any device:
+the JAX package has no kernel for it either.
+
 Outputs are fixed (B, max_det, ...) tensors with invalid rows zeroed.
 """
 
@@ -18,6 +23,7 @@ import torch
 
 from fce_yolo_tpu_torch.kernels import build as kbuild
 from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
+from fce_yolo_tpu_torch.ops.iou import probiou
 
 MAX_WH = 7680.0  # class offset (reference utils/nms.py:143-149)
 K_MAX = 10240  # the scan's removed-bitset: 32 lanes x 10 words x 32 bits (csrc/nms.cu kMaxK)
@@ -190,3 +196,64 @@ def batched_nms(
         out["extra"] = torch.where(
             kept[..., None], torch.gather(extra, 1, kept_anchor[..., None].expand(-1, -1, e)), 0.0)
     return out
+
+
+def _fast_nms_rotated(obb: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                      max_det: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fast-NMS over score-sorted rotated candidates (reference nms.py:232-265):
+    candidate j survives iff no earlier valid candidate has probiou >= the
+    threshold with it.
+
+    Args: obb (B, K, 5) xywhr with class offsets on cx/cy, scores (B, K)
+    descending, valid (B, K). Returns idx (B, max_det) int64 and kept (B,
+    max_det) bool, in descending score.
+    """
+    b, k = scores.shape
+    iou = probiou(obb[:, :, None, :], obb[:, None, :, :])  # (B, K, K)
+    order = torch.arange(k, device=obb.device)
+    higher = (order[:, None] < order[None, :])[None] & valid[:, :, None]
+    keep = valid & ~((iou >= iou_thres) & higher).any(dim=1)
+    kept_scores = torch.where(keep, scores, torch.full_like(scores, float("-inf")))
+    top, idx = _topk(kept_scores, min(max_det, k))
+    if top.shape[1] < max_det:  # fewer candidates than max_det
+        pad = max_det - top.shape[1]
+        idx = torch.nn.functional.pad(idx, (0, pad))
+        top = torch.nn.functional.pad(top, (0, pad), value=float("-inf"))
+    return idx, top > float("-inf")
+
+
+def rotated_batched_nms(
+    prediction: torch.Tensor,
+    *,
+    conf_thres: float = 0.25,
+    iou_thres: float = 0.45,
+    max_det: int = 300,
+    pre_nms_topk: int = 1024,
+    multi_label: bool = True,
+    agnostic: bool = False,
+    nc: int,
+) -> dict[str, torch.Tensor]:
+    """Rotated-box NMS with probiou suppression (reference nms.py:268-319).
+
+    ``prediction``: (B, N, 4 + nc + E) rotated xywh, class scores and extras
+    whose first channel is the angle. Returns ``boxes`` (B, max_det, 4) as
+    (cx, cy, w, h), ``scores``, ``classes``, ``valid`` and ``extra`` (the
+    angle and any further channels of each kept detection).
+    """
+    prediction = prediction.float()
+    boxes, scores, extra = prediction[..., :4], prediction[..., 4: 4 + nc], prediction[..., 4 + nc:]
+    cand_boxes, top_scores, cls_idx, anchor_idx = _select_candidates(boxes, scores, pre_nms_topk, multi_label)
+    cand_angle = torch.gather(extra[..., 0], 1, anchor_idx)
+    valid = top_scores > conf_thres
+    off = torch.zeros_like(top_scores) if agnostic else cls_idx.float() * MAX_WH
+    obb = torch.cat([cand_boxes[..., :2] + off[..., None], cand_boxes[..., 2:4], cand_angle[..., None]], dim=-1)
+    idx, kept = _fast_nms_rotated(obb, top_scores, valid, iou_thres, max_det)
+    e = extra.shape[-1]
+    kept_anchor = torch.gather(anchor_idx, 1, idx)
+    return {
+        "boxes": torch.where(kept[..., None], torch.gather(cand_boxes, 1, idx[..., None].expand(-1, -1, 4)), 0.0),
+        "scores": torch.where(kept, torch.gather(top_scores, 1, idx), 0.0),
+        "classes": torch.where(kept, torch.gather(cls_idx, 1, idx), -1).to(torch.int32),
+        "valid": kept,
+        "extra": torch.where(kept[..., None], torch.gather(extra, 1, kept_anchor[..., None].expand(-1, -1, e)), 0.0),
+    }

@@ -14,7 +14,10 @@ overlaps stored in float32) and its gradient within 1e-4 of the largest; a
 float32 train step (TF32 off) on the card within 1e-4 of the CPU's on the
 loss parts and the BN statistics, and within 1e-3 of each leaf's largest
 update on the parameters; training BatchNorm's running statistics on the
-card within 1e-5 of flax's rule applied in float64.
+card within 1e-5 of flax's rule applied in float64; the segment, pose and
+OBB heads on the card (float32, TF32 off) within 1e-3 of the largest CPU
+output, and their NMS kernel's outputs in val (masks, keypoints) equal to
+the plain version's.
 """
 
 import struct
@@ -566,3 +569,89 @@ def test_jpeg_on_the_card_refuses_and_reads_through_imread(cuda, tmp_path):
     (tmp_path / "big.jpg").write_bytes(buf[:sof + 5] + b"\xff\xff\xff\xff" + buf[sof + 9:])  # 65535 x 65535
     with pytest.raises(ValueError, match="big.jpg: a JPEG over 2.30 pixels"):
         imread(tmp_path / "big.jpg", cuda)
+
+
+# ------------------------------------------------------------ task heads
+TASK_MODELS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml", "obb": "yolo11n-obb.yaml"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", sorted(TASK_MODELS))
+def test_task_head_on_the_card_matches_the_cpu(cuda, task, monkeypatch):
+    """Each task model (n, seed weights, float32 with TF32 off) on the card
+    against the same model on the CPU: preds (and the prototypes) within
+    1e-3 of the largest."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = YOLO(TASK_MODELS[task], device="cpu").model.eval()
+    card = YOLO(TASK_MODELS[task], device=cuda).model.eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(1).uniform(0, 1, (2, 3, 160, 128)).astype(np.float32))
+    with torch.inference_mode():
+        ref, out = cpu(x), card(x.to(cuda))
+    for key in ("preds", "proto") if task == "segment" else ("preds",):
+        r, o = ref[key].numpy(), out[key].cpu().numpy()
+        assert np.abs(o - r).max() <= 1e-3 * np.abs(r).max(), key
+
+
+def _task_dataset(root, task: str, n: int = 6):
+    """``_val_dataset``'s images with segment (the rectangle's corners) or
+    pose (its box and 17 keypoints inside) labels."""
+    data = _val_dataset(root, n)
+    rng = np.random.RandomState(1)
+    for lbl in sorted((root / "labels" / "val").glob("*.txt")):
+        rows = []
+        for line in lbl.read_text().split("\n"):
+            if not line:
+                continue
+            k, cx, cy, bw, bh = line.split()
+            cx, cy, bw, bh = (float(v) for v in (cx, cy, bw, bh))
+            x1, y1, x2, y2 = cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2
+            if task == "segment":
+                rows.append(f"{k} {x1:.6f} {y1:.6f} {x2:.6f} {y1:.6f} {x2:.6f} {y2:.6f} {x1:.6f} {y2:.6f}")
+            else:
+                kp = " ".join(f"{x:.6f} {y:.6f} 2" for x, y in zip(rng.uniform(x1, x2, 17), rng.uniform(y1, y2, 17)))
+                rows.append(f"{line} {kp}")
+        lbl.write_text("\n".join(rows) + "\n")
+    return data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_task_val_nms_kernel_matches_the_plain_version(cuda, task, tmp_path, monkeypatch):
+    """Segment and pose val on the card: the NMS kernel once per batch at
+    K=4096, and on each batch the kernel and the plain version give the
+    same outputs (masks, keypoints) and the same metrics."""
+    data = _task_dataset(tmp_path, task)
+    y = YOLO(TASK_MODELS[task], device=cuda)
+    init_weights(y.model, torch.Generator().manual_seed(0), bias_prior=False)
+    before = pick_suppress.launches
+    res = y.val(data=data, imgsz=160, batch=4, verbose=False)
+    assert pick_suppress.launches == before + 2 and len(res["metrics"]["box"].stats["conf"]) == 6
+
+    val = y._validator(imgsz=160, batch_size=4)
+    sets = {k: {t: DetMetrics(names=y.names) for t in val.families} for k in ("kernel", "plain")}
+    seen = {}
+
+    def plain(boxes, scores, valid, iou_thres, max_det):
+        seen["k"] = boxes.shape[1]
+        return pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+
+    y.model.eval()
+    for batch in val.get_dataloader(data):
+        out = val.forward(torch.from_numpy(batch["img"]).to(cuda))
+        outs = {}
+        for name, fn in (("kernel", pick_suppress), ("plain", plain)):
+            monkeypatch.setattr(nms_ops, "pick_suppress", fn)
+            outs[name] = val.to_host(val.nms(out))
+        assert seen["k"] == 4096
+        for k, v in outs["kernel"].items():
+            for a, b in zip(v if isinstance(v, list) else [v], outs["plain"][k] if isinstance(v, list) else
+                            [outs["plain"][k]]):
+                np.testing.assert_array_equal(a, b, err_msg=k)
+        for name, metrics in sets.items():
+            val.update_metrics(outs[name], batch, metrics)
+    for name in sets:
+        for m in sets[name].values():
+            m.process(nc=val.nc)
+    assert all(sets["kernel"][t].mean_results() == sets["plain"][t].mean_results() for t in val.families)

@@ -62,7 +62,7 @@ torch.set_num_threads(1)
 
 # ------------------------------------------------------------ counts
 @pytest.mark.parametrize("scale", ["n", "s"])
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + ["yolo11-seg", "yolo11-pose", "yolo11-obb"])
 def test_param_count_matches_jax(name, scale):
     jmodel, _, _ = jax_build_model(str(REPO / "fce_yolo_tpu" / "cfg" / "models" / f"{name}.yaml"), scale=scale)
     shapes = jax.eval_shape(lambda k: init_variables(jmodel, k, imgsz=64), jax.random.PRNGKey(0))

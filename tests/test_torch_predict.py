@@ -57,8 +57,8 @@ def test_predict_matches_jax_facade(name):
 
 def test_import_and_predict_without_jax_cv2_pil(tmp_path):
     """Every port module imports, a model YAML file is read, and a CPU
-    predict and a CPU val (on a PNG dataset written with zlib) run, with jax,
-    flax, cv2, PIL, yaml and the JAX package blocked."""
+    predict, a CPU segment predict and a CPU val (on a PNG dataset written
+    with zlib) run, with jax, flax, cv2, PIL, yaml and the JAX package blocked."""
     code = textwrap.dedent("""
         import sys
         for m in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
@@ -75,6 +75,8 @@ def test_import_and_predict_without_jax_cv2_pil(tmp_path):
         img = np.random.RandomState(0).randint(0, 256, (48, 64, 3), np.uint8)
         res = YOLO("yolo11n-fce.yaml", device="cpu").predict([img, img], imgsz=64, batch=2)
         assert len(res) == 2 and res[0].boxes.data.shape[1] == 6
+        seg = YOLO("yolo11n-seg.yaml", device="cpu").predict(img, imgsz=64, conf=0.0)[0]
+        assert len(seg) > 0 and seg.masks.data.shape == (len(seg), 48, 64)
 
         root = Path(sys.argv[1])
         def chunk(kind, body):
@@ -269,3 +271,141 @@ def test_predict_sources_the_port_refuses(jpeg_dir, tmp_path):
     (out, out_id), = list(load_source(Image.fromarray(rgb), "cpu"))
     assert out_id == ref_id == "pil"
     np.testing.assert_array_equal(out, ref)
+
+
+# ------------------------------------------------------------ task heads
+TASK_MODELS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml", "obb": "yolo11n-obb.yaml"}
+
+
+@pytest.fixture(scope="module")
+def task_predicts():
+    """Each task head's JAX and port facades on the same seed-1 weights
+    without the class prior (scores near 0.5, so NMS works through every
+    candidate), and both predicts on ``_images()`` at imgsz 128, batch 2, run once."""
+    done = {}
+
+    def run(task: str):
+        if task not in done:
+            jy = JaxYOLO(TASK_MODELS[task])
+            jy.variables = jax.tree_util.tree_map(np.array, jax.jit(
+                lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(jax.random.PRNGKey(1)))
+            if task == "segment":  # mask coefficients up a little: masks of about half their boxes
+                for name, branch in jy.variables["params"]["layers_23"].items():
+                    if name.startswith("cv4_") and name.endswith("_2"):
+                        branch["conv2d"]["bias"] += 0.3
+            port = YOLO(TASK_MODELS[task], device="cpu").load_jax_variables(jy.variables)
+            done[task] = (jy, port, jy.predict(_images(), imgsz=128, batch=2), port.predict(_images(), imgsz=128, batch=2))
+        return done[task]
+
+    return run
+
+
+def _jax_mask_probabilities(jy, img: np.ndarray) -> np.ndarray:
+    """The JAX predictor's mask probabilities before the 0.5 threshold for
+    one image no larger than 128 px (the predictor's folded model, NMS and
+    ``process_mask`` steps with the threshold left out), in letterbox pixels."""
+    import jax.numpy as jnp
+
+    from fce_yolo_tpu.nn.model import fold_conv_bn as jax_fold
+    from fce_yolo_tpu.nn.modules import fused_bn_scope
+    from fce_yolo_tpu.ops.masks import crop_mask
+    from fce_yolo_tpu.ops.nms import batched_nms as jax_nms
+
+    lb = jax_letterbox(img, 128, scaleup=False)[0][..., ::-1]
+    with fused_bn_scope():
+        out = jy.model.apply(jax_fold(jy.variables), jnp.asarray(lb, jnp.float32)[None] / 255.0, train=False)
+    nms = jax_nms(out["preds"], conf_thres=0.25, iou_thres=0.7, max_det=300, multi_label=False, nc=80)
+    keep = np.asarray(nms["valid"][0])
+    m = jax.nn.sigmoid(jnp.einsum("nk,hwk->nhw", nms["extra"][0][keep], out["proto"][0]))
+    m = crop_mask(m, nms["boxes"][0][keep] * jnp.asarray([0.25, 0.25, 0.25, 0.25], jnp.float32))
+    return np.asarray(jax.image.resize(m, (m.shape[0], 128, 128), method="bilinear"))
+
+
+@pytest.mark.parametrize("task", sorted(TASK_MODELS))
+def test_task_predict_matches_jax_facade(task_predicts, task):
+    """Classes and keep order equal; boxes, keypoints and xywhr within 1e-3
+    px; mask pixels equal except where the JAX side's probability lies
+    within 1e-5 of 0.5 (the images are no larger than imgsz, so the masks
+    leave the letterbox by a crop alone)."""
+    jy, port, ref, out = task_predicts(task)
+    assert len(out) == len(ref) == 3
+    for i, (r, o) in enumerate(zip(ref, out)):
+        assert len(o) == len(r) > 0
+        np.testing.assert_array_equal(o.boxes.cls, r.boxes.cls)
+        np.testing.assert_allclose(o.boxes.xyxy, r.boxes.xyxy, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(o.boxes.conf, r.boxes.conf, rtol=0, atol=1e-5)
+        if task == "pose":
+            assert o.keypoints.data.shape == (len(o), 17, 3)
+            np.testing.assert_allclose(o.keypoints.data, r.keypoints.data, rtol=0, atol=1e-3)
+        if task == "obb":
+            np.testing.assert_allclose(o.obb.data, r.obb.data, rtol=0, atol=1e-3)
+            np.testing.assert_allclose(o.obb.xyxyxyxy, r.obb.xyxyxyxy, rtol=0, atol=2e-3)
+        if task == "segment":
+            h, w = o.orig_shape
+            top, left = (128 - h) // 2, (128 - w) // 2
+            p = _jax_mask_probabilities(jy, _images()[i])[:, top: top + h, left: left + w]
+            assert o.masks.data.shape == r.masks.data.shape == (len(o), h, w) and r.masks.data.any()
+            differ = o.masks.data != r.masks.data
+            assert (differ <= (np.abs(p - 0.5) <= 1e-5)).all()
+
+
+@pytest.mark.parametrize("task", sorted(TASK_MODELS))
+def test_predict_classes_stream_verbose_match_jax(task_predicts, task, capsys):
+    """``classes`` keeps the same detections as the JAX facade's, with their
+    masks, keypoints or oriented boxes in step; ``stream`` gives a generator;
+    ``verbose`` prints the JAX facade's line (its time aside)."""
+    import logging
+
+    from fce_yolo_tpu.utils import LOGGER
+
+    jy, port, _, full = task_predicts(task)
+    records: list[str] = []
+    handler = logging.Handler()
+    handler.emit = lambda rec: records.append(rec.getMessage())
+    LOGGER.addHandler(handler)
+    try:
+        ref = jy.predict(_images(), imgsz=128, batch=2, classes=[0, 2, 5], verbose=True)
+    finally:
+        LOGGER.removeHandler(handler)
+    capsys.readouterr()
+    gen = port.predict(_images(), imgsz=128, batch=2, classes=[0, 2, 5], verbose=True, stream=True)
+    assert not isinstance(gen, list)
+    out = list(gen)
+    lines = capsys.readouterr().out.strip().splitlines()
+    def bare(line: str) -> tuple[str, str]:  # the image number and the counts (the port numbers array ids)
+        head, counts = line.split(": ", 1)
+        return head.split()[1], counts.rsplit(" ", 1)[0]
+
+    assert len(lines) == len(records) == 3 and [bare(ln) for ln in lines] == [bare(ln) for ln in records]
+    for r, o, f in zip(ref, out, full):
+        keep = np.isin(f.boxes.cls.astype(int), [0, 2, 5])
+        np.testing.assert_array_equal(o.boxes.cls, r.boxes.cls)
+        np.testing.assert_array_equal(o.boxes.data, f.boxes.data[keep])
+        if task == "segment":
+            np.testing.assert_array_equal(o.masks.data, f.masks.data[keep])
+        if task == "pose":
+            np.testing.assert_array_equal(o.keypoints.data, f.keypoints.data[keep])
+        if task == "obb":
+            np.testing.assert_array_equal(o.obb.data, f.obb.data[keep])
+
+
+def test_task_results_api():
+    """OBB results give their hulls as boxes and index in step; mask
+    outlines and the summary of masks name the queue item that ports them."""
+    from fce_yolo_tpu_torch.engine.results import OBB
+
+    obb = np.array([[50, 40, 20, 10, 0.3, 0.9, 1], [10, 10, 4, 8, 0.0, 0.5, 0]], np.float32)
+    r = Results(np.zeros((100, 200, 3), np.uint8), "x", {0: "a", 1: "b"}, obb=obb)
+    assert len(r) == 2 and isinstance(r.obb, OBB) and r.verbose() == "1 a, 1 b, "
+    np.testing.assert_allclose(r.boxes.xyxy[1], [8, 6, 12, 14], atol=1e-5)
+    assert r[1:].obb.data.tolist() == obb[1:].tolist() and len(r[[True, False]]) == 1
+    masks = np.zeros((2, 100, 200), bool)
+    rm = Results(np.zeros((100, 200, 3), np.uint8), "x", {0: "a"}, boxes=obb[:, [0, 1, 2, 3, 5, 6]], masks=masks)
+    assert rm[[1]].masks.data.shape == (1, 100, 200)
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        rm.masks.xy
+    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        rm.summary()
+    kp = np.ones((2, 4, 3), np.float32)
+    rk = Results(np.zeros((100, 200, 3), np.uint8), "x", {0: "a"}, boxes=obb[:, [0, 1, 2, 3, 5, 6]], keypoints=kp)
+    assert rk.summary()[0]["keypoints"]["visible"] == [1.0] * 4

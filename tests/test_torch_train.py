@@ -360,8 +360,9 @@ def test_train_resume_is_bit_equal(png_dataset, tmp_path):
 
 def test_train_modules_import_and_train_without_jax_cv2_pil(tmp_path):
     """Every port module imports, and a CPU ``YOLO.train`` (one epoch, mosaic,
-    val on the EMA model, checkpoints) and a reload of ``best`` run, with
-    jax, flax, optax, orbax, cv2, PIL, yaml and the JAX package blocked."""
+    val on the EMA model, checkpoints), a reload of ``best`` and an OBB
+    ``YOLO.val`` run, with jax, flax, optax, orbax, cv2, PIL, yaml and the
+    JAX package blocked."""
     code = textwrap.dedent("""
         import sys
         for m in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
@@ -397,6 +398,11 @@ def test_train_modules_import_and_train_without_jax_cv2_pil(tmp_path):
         best = Path(res["save_dir"]) / "weights" / "best"
         out = YOLO(str(best), device="cpu").val(str(root / "data.yaml"), imgsz=64, batch=2, verbose=False)
         assert abs(out["metrics/mAP50-95(B)"] - res["results"][0]["metrics/mAP50-95(B)"]) <= 1e-9
+        for i in range(4):  # the same images as an OBB dataset: the rectangle's four corners
+            (root / "labels" / "val" / f"{i}.txt").write_text("0 0.25 0.25 0.75 0.25 0.75 0.75 0.25 0.75\\n")
+        obb = YOLO("yolo11n-obb.yaml", device="cpu", nc=2).val(str(root / "data.yaml"), imgsz=64, batch=2,
+                                                               verbose=False)
+        assert 0 <= obb["metrics/mAP50-95(B)"] <= 1 and len(obb["metrics"].stats["conf"]) == 4
         print("ok", res["epochs_run"])
     """)
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, capture_output=True, text=True,

@@ -1,7 +1,8 @@
 """The JAX -> port weight bridge (nn/weights.py) is a bijection: every port
 state_dict tensor comes from exactly one flax leaf and back through the
 JAX importer's ``torch_key_to_flax``, with matching shapes; the bridge's
-own inverse ``key_to_flax`` gives the importer's paths."""
+own inverse ``key_to_flax`` gives the importer's paths (for the task heads,
+with their Detect trunk under the ``detect`` scope)."""
 
 from pathlib import Path
 
@@ -18,7 +19,8 @@ from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn
 from fce_yolo_tpu_torch.nn.weights import flax_path_to_key, key_to_flax, variables_to_state_dict
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "fce_yolo_tpu" / "cfg" / "models"
-CONFIGS = [("yolo11", "n"), ("yolo11-fce", "s"), ("yolo11-fce", "n"), ("yolo11-bifpn", "n")]
+CONFIGS = [("yolo11", "n"), ("yolo11-fce", "s"), ("yolo11-fce", "n"), ("yolo11-bifpn", "n"),
+           ("yolo11-seg", "n"), ("yolo11-pose", "n"), ("yolo11-obb", "n")]
 
 torch.set_num_threads(1)
 
@@ -45,15 +47,22 @@ def test_bridge_is_a_bijection(name, scale):
     model, _, _ = build_model(f"{name}.yaml", scale=scale, device="cpu")
     port = _port_state(model)
 
-    # port key -> flax leaf (the JAX importer), one leaf each, all leaves hit
+    # port key -> flax leaf (the JAX importer), one leaf each, all leaves hit; a task head's Detect trunk
+    # sits under its ``detect`` scope in flax, where the importer's template step puts it
     hit = {}
     for key, t in port.items():
         coll, path, kind = torch_key_to_flax(key)
+        if (coll, path) not in leaves and (coll, (path[0], "detect", *path[1:])) in leaves:
+            path = (path[0], "detect", *path[1:])
         assert (coll, path) in leaves, key
         assert (coll, path) not in hit, f"{key} and {hit.get((coll, path))} share a leaf"
         hit[(coll, path)] = key
         shape = leaves[(coll, path)]
-        want = (shape[3], shape[2], shape[0], shape[1]) if kind == "conv_kernel" else shape
+        want = shape
+        if kind == "conv_kernel":
+            want = (shape[3], shape[2], shape[0], shape[1])
+        elif kind == "convT_kernel":  # flax (kh, kw, in, out) -> torch (in, out, kh, kw)
+            want = (shape[2], shape[3], shape[0], shape[1])
         assert tuple(t.shape) == want, (key, tuple(t.shape), shape)
     assert set(hit) == set(leaves)
     # flax leaf -> port key (the bridge) inverts the importer exactly, and key_to_flax is the importer
