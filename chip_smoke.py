@@ -40,7 +40,14 @@ from a seed) and checks that each path went through its kernels:
   preds) and ``YOLO.val`` in float32 on 32 PNG images it writes with
   polygons, 17-keypoint instances or rotated rectangles (the NMS kernel
   once a segment or pose batch and bit-equal to the plain version on each,
-  the same P/R/mAP of every family from both, box mAP50 above zero).
+  the same P/R/mAP of every family from both, box mAP50 above zero);
+- their training (phase task_train), on those images as both splits: one
+  float32 SGD step of each on the card against the CPU, then ``YOLO.train``
+  (bf16, AdamW, B=16, 2 epochs of 2 steps; mosaic on segment and pose,
+  ``copy_paste`` on segment): finite losses, the task validator on the EMA
+  model each epoch, the NMS kernel (segment, pose) bit-equal to its plain
+  version on every val batch, ``best`` reloaded with its task and keypoint
+  shape.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -1798,6 +1805,244 @@ def phase_tasks(root: Path, card: str) -> dict:
     return paths
 
 
+# ------------------------------------------------------------ phase task_train
+TASK_TRAIN_BATCH, TASK_STEP_BATCH = 16, 4  # (b) YOLO.train: 2 epochs of TASK_IMAGES // 16 steps; (a) the card vs CPU step
+COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
+
+
+def task_train_data(root: Path, task: str) -> dict:
+    """Phase tasks' PNG images of ``task`` as both splits, VAL_NC names; pose
+    with COCO's left-right swap of its 17 keypoints, so its flips run."""
+    d = {"path": str(root / task), "train": "images/val", "val": "images/val",
+         "names": [f"class{i}" for i in range(VAL_NC)]}
+    return {**d, "flip_idx": COCO_FLIP_IDX} if task == "pose" else d
+
+
+def task_step_check(task: str, data: dict, card: str) -> dict:
+    """(a) One float32 SGD step (no warmup, nbs = the batch: the step fires
+    and every parameter moves; TF32 off; the assigner's overlaps in float32)
+    of the task's yolo11s at IMGSZ, B=TASK_STEP_BATCH, through
+    ``make_train_step`` on the card and on the CPU from the same seed weights
+    and the same mosaic batch, with BatchNorm frozen (eval mode): the loss
+    parts within TRAIN_TOL relative and the parameter updates within
+    TRAIN_TOL of the CPU's largest update. Frozen, because with training
+    BatchNorm on these flat-colour images at B=4 a float32 step is
+    ill-posed: on the card and on the CPU alike it strays from the float64
+    step by up to 6.3e-3 of the largest update (pose). The same step with
+    training BatchNorm is run and printed beside it, and each float32 step
+    is printed against the float64 one on the card (the witness)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from fce_yolo_tpu_torch.data.loader import DataLoader
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg, LossState
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.task_losses import task_loss_for
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    d = check_det_dataset(data)
+    ds = YOLODataset(d["train"], imgsz=IMGSZ, mode="train", nc=VAL_NC, task=task, flip_idx=d.get("flip_idx"),
+                     device="cpu")
+    batch = next(iter(DataLoader(ds, batch_size=TASK_STEP_BATCH, workers=8)))
+    batch = {k: batch[k] for k in ("img", "cls", "bboxes", "mask", *task_loss_for(task, DetectionLossCfg())[1])}
+    cfg = OptimCfg(optimizer="SGD", batch_size=TASK_STEP_BATCH, nbs=TASK_STEP_BATCH, epochs=2, steps_per_epoch=2,
+                   nc=VAL_NC, warmup_epochs=0.0)
+    sd0 = YOLO(TASK_MODELS[task], device="cpu").model.state_dict()
+    weights = [k for k in sd0 if "running" not in k and "num_batches" not in k]
+
+    def step(device: str, frozen_bn: bool, dtype=torch.float32):
+        """The step's parts and weights after it; float32 through the port's
+        train step, float64 by hand (forward, task loss, backward, SGD)."""
+        yolo = YOLO(TASK_MODELS[task], device=device)
+        yolo.model.load_state_dict(sd0)
+        lcfg = DetectionLossCfg(nc=VAL_NC, strides=tuple(yolo.strides), tal_dtype="float32")
+        task_loss = task_loss_for(task, lcfg)[0]
+        t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        if dtype == torch.float32:
+            opt = Optimizer(cfg, yolo.model)
+            _, m = make_train_step(yolo.model, opt, lcfg, task_loss=task_loss, frozen_bn=frozen_bn)(
+                create_train_state(yolo.model, opt), t)
+            check(m["finite"] and opt.count == 1, f"phase task_train (a) {task}: the {device} step did not update")
+            parts = {k: float(v) for k, v in m.items() if k not in ("finite", "sync_s", "loss")}
+        else:
+            model = yolo.model.to(dtype).train()
+            for mod in model.modules():
+                if frozen_bn and isinstance(mod, torch.nn.BatchNorm2d):
+                    mod.eval()
+            t["bboxes"] = t["bboxes"].to(dtype)
+            total, p, _ = task_loss(model(t["img"].permute(0, 3, 1, 2).to(dtype) / 255.0), t, lcfg,
+                                    LossState.init(device))
+            total.backward()
+            params = [q for _, q in model.named_parameters()]
+            Optimizer(cfg, model).step(params, [q.grad for q in params])
+            parts = {k: float(v) for k, v in p.items()}
+        after = {k: v.detach().cpu().double() for k, v in yolo.model.state_dict().items()}
+        del yolo
+        torch.cuda.empty_cache()
+        return parts, after
+
+    def distance(a, ref) -> tuple[float, float]:
+        """Loss parts (relative) and updates (of ref's largest update)."""
+        rel = max(abs(a[0][k] - v) / max(abs(v), 1e-12) for k, v in ref[0].items())
+        largest = max(float((ref[1][k] - sd0[k].double()).abs().max()) for k in weights)
+        return rel, max(float((a[1][k] - ref[1][k]).abs().max()) for k in weights) / largest
+
+    out = {}
+    for frozen in (True, False):
+        t0 = time.perf_counter()
+        cpu = step("cpu", frozen)
+        t_cpu = time.perf_counter() - t0
+        runs = {"card": step("cuda", frozen), "CPU": cpu, "float64": step("cuda", frozen, torch.float64)}
+        check(runs["card"][0]["fg_count"] == runs["CPU"][0]["fg_count"] > 0, f"phase task_train (a) {task}: fg counts")
+        out["frozen" if frozen else "training"] = {
+            "card_cpu": distance(runs["card"], runs["CPU"]), "card_f64": distance(runs["card"], runs["float64"]),
+            "cpu_f64": distance(runs["CPU"], runs["float64"]), "parts": runs["card"][0], "cpu_s": t_cpu}
+    rel, du = out["frozen"]["card_cpu"]
+    check(rel <= TRAIN_TOL, f"phase task_train (a) {task}: loss parts card vs CPU differ by {rel:.3e}")
+    check(du <= TRAIN_TOL, f"phase task_train (a) {task}: the updates card vs CPU differ by {du:.3e} of the largest")
+    return {**out, "batch": batch}
+
+
+def task_step_ms(task: str, batch: dict) -> float:
+    """The task's bf16 train step (forward + task loss + backward + clip +
+    AdamW + EMA, with its host sync) at B=TASK_TRAIN_BATCH on the card, on
+    (a)'s batch repeated to that size: CUDA events over 5 steps after 2."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.task_losses import task_loss_for
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    reps = TASK_TRAIN_BATCH // int(batch["img"].shape[0])
+    batch = {k: torch.from_numpy(np.concatenate([v] * reps)).cuda() for k, v in batch.items()}
+    yolo = YOLO(TASK_MODELS[task], device="cuda")
+    b = int(batch["img"].shape[0])
+    opt = Optimizer(OptimCfg(optimizer="AdamW", batch_size=b, nbs=b, nc=VAL_NC), yolo.model)
+    state = create_train_state(yolo.model, opt)
+    lcfg = DetectionLossCfg(nc=VAL_NC, strides=tuple(yolo.strides))
+    step = make_train_step(yolo.model, opt, lcfg, bf16=True, task_loss=task_loss_for(task, lcfg)[0])
+    ms = cuda_ms(lambda: step(state, batch), iters=5, warmup=2)
+    del yolo, opt, state, step
+    torch.cuda.empty_cache()
+    return ms
+
+
+def task_train_run(root: Path, task: str, card: str, step_batch: dict) -> dict:
+    """(b) ``YOLO.train`` of the task's yolo11s from phase tasks' matching
+    weights for 2 epochs of TASK_IMAGES // TASK_TRAIN_BATCH steps (bf16,
+    AdamW from "auto", B=TASK_TRAIN_BATCH;
+    mosaic on for segment and pose, off for OBB; ``copy_paste=0.5`` on
+    segment), counts at 0: finite losses, one results.csv row an epoch with
+    the task validator's metrics (run on the EMA model), last and best
+    written; the NMS kernel once a val batch (segment, pose; OBB none) and
+    equal to its plain version on every val batch of both epochs (the preds
+    kept through a wrapper of the validator's ``nms``); ``best`` reloaded
+    keeps the task and the keypoint shape and gives the run's fitness; (c)
+    ``task_step_ms`` on (a)'s batch. Returns the launches and the numbers."""
+    import csv as _csv
+
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.engine.seg_validator import SegmentationValidator
+    from fce_yolo_tpu_torch.engine.task_validators import OBBValidator, PoseValidator
+
+    data = task_train_data(root, task)
+    cls = {"segment": SegmentationValidator, "pose": PoseValidator, "obb": OBBValidator}[task]
+    yolo = task_matching_model(YOLO(TASK_MODELS[task], device="cuda"), task)  # phase tasks' weights: mAP above 0
+    captured: list = []
+    real_nms = cls.nms
+
+    def capturing_nms(self, preds):  # keeps each val batch's input to NMS for the check after the run
+        captured.append({k: v.detach().clone() if torch.is_tensor(v) else v for k, v in preds.items()}
+                        if isinstance(preds, dict) else preds.detach().clone())
+        return real_nms(self, preds)
+
+    epochs, n_val = 2, -(-TASK_IMAGES // TASK_TRAIN_BATCH)
+    extra = {"copy_paste": 0.5} if task == "segment" else {}
+    cls.nms = capturing_nms
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        res = yolo.train(data, epochs=epochs, batch=TASK_TRAIN_BATCH, imgsz=IMGSZ, project=str(root / "runs"),
+                         name=f"{task}_train", close_mosaic=0 if task != "obb" else epochs, verbose=True, **extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        cls.nms = real_nms
+    want_nms = 0 if task == "obb" else n_val * epochs
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=want_nms),
+          f"{task} train path: launches {launches}, expected no stem and {want_nms} NMS")
+    rows = res["results"]
+    check(res["epochs_run"] == len(rows) == epochs, f"{task} train ran {res['epochs_run']} epochs")
+    check(all(np.isfinite(r[k]) for r in rows for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")),
+          f"{task} train: a logged loss is not finite {rows}")
+    fams = {"segment": ("B", "M"), "pose": ("B", "P"), "obb": ("B",)}[task]
+    check(all(f"metrics/mAP50-95({t})" in r and "fitness" in r for r in rows for t in fams),
+          f"{task} train: the task validator's metrics are missing {rows}")
+    save_dir = Path(res["save_dir"])
+    with open(save_dir / "results.csv") as f:
+        check(len(list(_csv.DictReader(f))) == epochs, f"{task} train: results.csv rows")
+    check(len(captured) == n_val * epochs, f"{task} train: {len(captured)} val batches seen")
+    val = yolo._validator(imgsz=IMGSZ, batch_size=TASK_TRAIN_BATCH)  # the run's NMS settings
+    calls: list = []
+    if task != "obb":
+        for preds in captured:
+            kernel_vs_plain(lambda: val.to_host(val.nms(preds)), calls, NMS_K_VAL, val.iou, val.max_det,
+                            f"{task} train val batch {len(calls) + 1}")
+    del captured
+    best = save_dir / "weights" / "best"
+    again = YOLO(str(best), device="cuda")
+    check(again.task == task, f"{task}: best reloads as {again.task}")
+    if task == "pose":
+        check(again.model.detect.kpt_shape == yolo.model.detect.kpt_shape == (17, 3), "pose: kpt_shape lost")
+    rerun = again.val(data, imgsz=IMGSZ, batch=TASK_TRAIN_BATCH, verbose=False)
+    best_fit = max(r["fitness"] for r in rows)
+    check(abs(rerun["fitness"] - best_fit) <= 1e-6, f"{task}: best reloaded fitness {rerun['fitness']} vs {best_fit}")
+    del again, yolo
+    torch.cuda.empty_cache()
+    step_ms = task_step_ms(task, step_batch)
+    return {"launches": launches, "rows": rows, "speed": res["speed"], "wall": wall, "step_ms": step_ms,
+            "n_nms_checked": len(calls), "refit": rerun["fitness"], "best_fit": best_fit}
+
+
+def phase_task_train(root: Path, card: str) -> dict:
+    """Training of the segment, pose and OBB heads at s (full width and
+    depth), 640 px, on phase tasks' PNG images: (a) ``task_step_check``,
+    (b) and (c) ``task_train_run``, for each. Returns each train path's
+    launches, keyed "<task>_train"."""
+    t_phase = time.perf_counter()
+    paths = {}
+    for task in TASK_MODELS:
+        a = task_step_check(task, task_train_data(root, task), card)
+        r = task_train_run(root, task, card, a.pop("batch"))
+        paths[f"{task}_train"] = r["launches"]
+        for bn in ("frozen", "training"):
+            x = a[bn]
+            parts = " ".join(f"{k} {v:.5f}" for k, v in x["parts"].items())
+            note = f"limit {TRAIN_TOL} each" if bn == "frozen" else "not checked"
+            print(f"phase task_train: {TASK_MODELS[task]} (a) one f32 SGD step {IMGSZ} B={TASK_STEP_BATCH}, {bn} BN: "
+                  f"card vs CPU loss parts max rel {x['card_cpu'][0]:.2e}, updates {x['card_cpu'][1]:.2e} of the CPU's "
+                  f"largest ({note}); witness against the float64 step on the card (parts, updates): card "
+                  f"{x['card_f64'][0]:.2e} {x['card_f64'][1]:.2e}, CPU {x['cpu_f64'][0]:.2e} {x['cpu_f64'][1]:.2e}; "
+                  f"card parts {parts}; CPU step {x['cpu_s']:.1f} s [{card}]", flush=True)
+        for e, (row, sp) in enumerate(zip(r["rows"], r["speed"])):
+            fam = " ".join(f"mAP50({t}) {row[f'metrics/mAP50({t})']:.6f}" for t in ("B", "M", "P")
+                           if f"metrics/mAP50({t})" in row)
+            print(f"phase task_train: {TASK_MODELS[task]} (b) epoch {e + 1}/2: loss box/cls/dfl "
+                  f"{row['train/box_loss']:.4f}/{row['train/cls_loss']:.4f}/{row['train/dfl_loss']:.4f}, {fam}, "
+                  f"fitness {row['fitness']:.6f}; {sp['img_per_s']:.2f} img/s; per step: loader wait "
+                  f"{sp['loader_wait_ms']:.1f} ms, step call {sp['step_ms']:.1f} ms (host clock); val {sp['val_s']:.2f} s "
+                  f"[{card}]", flush=True)
+        nms_note = (f"NMS kernel idx/ok and outputs equal to the plain version on all {r['n_nms_checked']} val batches"
+                    if task != "obb" else "rotated NMS in torch ops (no kernel)")
+        print(f"phase task_train: {TASK_MODELS[task]} (b) YOLO.train {IMGSZ} bf16 B={TASK_TRAIN_BATCH} AdamW, 2 epochs "
+              f"of {TASK_IMAGES // TASK_TRAIN_BATCH} steps{', copy_paste 0.5' if task == 'segment' else ''}"
+              f"{', no mosaic' if task == 'obb' else ''}, launches {r['launches']}; {nms_note}; best reloaded: fitness "
+              f"{r['refit']:.6f} vs {r['best_fit']:.6f}; {r['wall']:.1f} s in all; (c) step on the card bf16 "
+              f"B={TASK_TRAIN_BATCH} {r['step_ms']:.1f} ms (CUDA events) [{card}]", flush=True)
+    print(f"phase task_train: every check passed; {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return paths
+
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -1843,9 +2088,11 @@ def main() -> None:
         train = phase_train(Path(tmp), card)
         experiments = phase_experiments(Path(tmp), card)
         tasks = phase_tasks(Path(tmp), card)
+        task_train = phase_task_train(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks}
+    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks,
+             **task_train}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

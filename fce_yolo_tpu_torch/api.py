@@ -1,6 +1,6 @@
 """``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 400-490, 495-881``):
-predict and val for detect, segment, pose and OBB, train for detect,
-checkpoints and the model summary."""
+predict, val and train for detect, segment, pose and OBB, checkpoints and
+the model summary."""
 
 from __future__ import annotations
 
@@ -55,9 +55,10 @@ class YOLO:
         self.device = torch.device(device)
         self.ckpt_meta: dict[str, Any] = {}
         self._folded_copy: tuple[tuple | None, torch.nn.Module] | None = None  # (weights_version, folded copy)
+        self.yaml_overrides: dict[str, Any] = {}
         if is_checkpoint(model):
             tree, meta = load_checkpoint(model)
-            self._build(meta["cfg_yaml"], meta.get("scale"), meta.get("nc"))
+            self._build(meta["cfg_yaml"], meta.get("scale"), meta.get("nc"), meta.get("yaml_overrides"))
             if meta.get("folded"):
                 fold_conv_bn(self.model)
             self.model.load_state_dict(tree["model"])
@@ -67,10 +68,16 @@ class YOLO:
             self._build(str(model), nc=nc)
             self.reset_weights(0)
 
-    def _build(self, cfg: str, scale: str | None = None, nc: int | None = None) -> None:
+    def _build(self, cfg: str, scale: str | None = None, nc: int | None = None,
+               overrides: Mapping[str, Any] | None = None) -> None:
+        """Build the model of ``cfg`` with ``nc`` classes and the model-dict
+        ``overrides`` a training set (a pose head's ``kpt_shape`` from the
+        data); checkpoints record the overrides and rebuild with them."""
         d, guessed = load_model_dict(cfg)
         if nc is not None:
             d["nc"] = nc
+        self.yaml_overrides = dict(overrides or {})
+        d.update(self.yaml_overrides)
         self.cfg_yaml, self.scale = cfg, scale or guessed
         self.model, self.spec, self.strides = build_model(d, scale=self.scale, device=self.device)
         self.scale = self.spec.scale
@@ -115,7 +122,7 @@ class YOLO:
         tree, meta = load_checkpoint(weights)
         if bool(meta.get("folded")) != self.folded:
             if self.folded:
-                self._build(self.cfg_yaml, self.scale, self.nc)
+                self._build(self.cfg_yaml, self.scale, self.nc, self.yaml_overrides)
             else:
                 fold_conv_bn(self.model)
         self.model.load_state_dict(tree["model"])
@@ -124,8 +131,9 @@ class YOLO:
         return self
 
     def _meta(self, extra: dict | None = None) -> dict:
+        over = {"yaml_overrides": self.yaml_overrides} if self.yaml_overrides else {}
         return {"cfg_yaml": self.cfg_yaml, "scale": self.scale, "nc": self.nc, "names": self.names,
-                "folded": self.folded, **(extra or {})}
+                "folded": self.folded, **over, **(extra or {})}
 
     def save(self, path: str | Path, extra_meta: dict | None = None) -> str:
         """Write the model's weights and ``meta.json`` to the directory ``path``."""
@@ -196,19 +204,22 @@ class YOLO:
                                     workers=workers)
         return validator(data=d, verbose=verbose, save_json=save_json)
 
-    def _validator(self, **kw):
-        """The task's validator on the facade's model (reference ``_make_validator``, api.py:469-490)."""
+    def _validator(self, model: torch.nn.Module | None = None, **kw):
+        """The task's validator on ``model`` (the facade's unless another,
+        such as training's EMA copy, is given; reference ``_make_validator``,
+        api.py:469-490)."""
         from fce_yolo_tpu_torch.engine.seg_validator import SegmentationValidator
         from fce_yolo_tpu_torch.engine.task_validators import OBBValidator, PoseValidator
         from fce_yolo_tpu_torch.engine.validator import DetectionValidator
 
+        model = self.model if model is None else model
         if self.task == "segment":
-            return SegmentationValidator(self.model, self.names, **kw)
+            return SegmentationValidator(model, self.names, **kw)
         if self.task == "pose":
-            return PoseValidator(self.model, self.names, kpt_shape=self.model.detect.kpt_shape, **kw)
+            return PoseValidator(model, self.names, kpt_shape=model.detect.kpt_shape, **kw)
         if self.task == "obb":
-            return OBBValidator(self.model, self.names, **kw)
-        return DetectionValidator(self.model, self.names, **kw)
+            return OBBValidator(model, self.names, **kw)
+        return DetectionValidator(model, self.names, **kw)
 
     def train(self, data, epochs: int = 100, batch: int = 16, imgsz: int = 640, optimizer: str = "auto",
               lr0: float | None = None, lrf: float = 0.01, cos_lr: bool = False, iou_type: str = "CIoU",
@@ -217,10 +228,14 @@ class YOLO:
               seed: int = 0, verbose: bool = True, freeze: int | list | None = None, resume: bool = False,
               exist_ok: bool = False, time_limit_hours: float | None = None, bf16: bool | None = None,
               **hyp_overrides) -> dict:
-        """Train for detect on ``data`` (a data YAML path or dict) on the
-        model's device (reference ``api.py:495-881``).
+        """Train on ``data`` (a data YAML path or dict) on the model's device
+        (reference ``api.py:495-881``), with the task's loss: detection,
+        segmentation (the batch carries the instance masks), pose (the
+        keypoints; the data's ``kpt_shape`` rebuilds a head of another
+        shape, and its ``flip_idx`` swaps left and right on a flip) or OBB
+        (rotated boxes from the corners).
 
-        After every epoch: a val on the EMA model (if ``val``), a row of
+        After every epoch: a val of the task on the EMA model (if ``val``), a row of
         ``results.csv``, ``weights/last`` (EMA weights and the full train
         state, for ``resume``) and, when the fitness improves, ``weights/best``
         (EMA weights). The best weights are loaded at the end. ``bf16=None``
@@ -234,28 +249,28 @@ class YOLO:
         from fce_yolo_tpu_torch.data.augment import AugmentCfg
         from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
         from fce_yolo_tpu_torch.data.loader import DataLoader
-        from fce_yolo_tpu_torch.engine.validator import DetectionValidator
         from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
         from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer, accumulate_steps, boundary_schedule
+        from fce_yolo_tpu_torch.train.task_losses import task_loss_for
         from fce_yolo_tpu_torch.train.trainer import EarlyStopping, create_train_state, make_train_step
         from fce_yolo_tpu_torch.utils.files import get_latest_run, increment_path
 
-        if self.task != "detect":
-            raise NotImplementedError(f"YOLO.train for the {self.task} head is not ported yet: its losses, the "
-                                      "rotated assigner and the train augment of polygons and keypoints are the next "
-                                      "slice (ROADMAP queue 1, item 5)")
         if self.folded:
             raise RuntimeError("YOLO.train: the model is folded (YOLO.fuse() or a checkpoint saved folded): its "
                                "BatchNorms are gone, so it cannot train; build the model anew or load an unfolded "
                                "checkpoint")
         d = check_det_dataset(data)
-        if d["nc"] != self.nc:  # a data YAML with another class count rebuilds the model
-            self._build(self.cfg_yaml, self.scale, d["nc"])
+        over = {}  # the data's kpt_shape makes the pose head (reference PoseTrainer)
+        if self.task == "pose" and d.get("kpt_shape") and tuple(d["kpt_shape"]) != self.model.detect.kpt_shape:
+            over["kpt_shape"] = [int(x) for x in d["kpt_shape"]]
+        if d["nc"] != self.nc or over:  # another class count or keypoint shape rebuilds the model
+            self._build(self.cfg_yaml, self.scale, d["nc"], {**self.yaml_overrides, **over})
             self.reset_weights(0)
         self.names = d["names"]
+        kpt_shape = tuple(self.model.detect.kpt_shape) if self.task == "pose" else (17, 3)
         hyp = AugmentCfg(**{k: v for k, v in hyp_overrides.items() if k in AugmentCfg.__dataclass_fields__})
         train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed,
-                               device=self.device)
+                               device=self.device, task=self.task, kpt_shape=kpt_shape, flip_idx=d.get("flip_idx"))
         loader = DataLoader(train_ds, batch_size=batch, workers=workers, max_labels=max_labels, seed=seed)
         steps_per_epoch = len(loader)
         save_dir = increment_path(Path(project) / name, exist_ok=resume or exist_ok, mkdir=True)
@@ -277,7 +292,10 @@ class YOLO:
                                    ema_dtype=torch.bfloat16 if hyp_overrides.get("bf16_ema") else None)
         if bf16 is None:  # the autocast analog is on for the accelerator
             bf16 = self.device.type == "cuda"
-        step_fn = make_train_step(model, opt, loss_cfg, bf16=bf16, accumulate=accumulate, boundaries=bounds)
+        task_loss, extra_keys = task_loss_for(self.task, loss_cfg, kpt_shape)
+        batch_keys = ("img", "cls", "bboxes", "mask", *extra_keys)
+        step_fn = make_train_step(model, opt, loss_cfg, bf16=bf16, accumulate=accumulate, boundaries=bounds,
+                                  task_loss=task_loss)
 
         start_epoch = 0
         if resume and not is_checkpoint(save_dir / "weights" / "last"):
@@ -302,8 +320,7 @@ class YOLO:
                 for (_, b_ema), (_, b) in zip(ema_model.named_buffers(), model.named_buffers()):
                     b_ema.copy_(b)
 
-        validator = (DetectionValidator(ema_model, self.names, imgsz=imgsz, batch_size=batch, workers=workers)
-                     if val else None)
+        validator = self._validator(ema_model, imgsz=imgsz, batch_size=batch, workers=workers) if val else None
         val_loader = validator.get_dataloader(d) if validator else None
         if verbose:
             n_params = sum(p.numel() for p in model.parameters())
@@ -332,7 +349,7 @@ class YOLO:
                     if b is None:
                         break
                     ts = time.perf_counter()
-                    bdev = {k: torch.from_numpy(b[k]).to(self.device) for k in ("img", "cls", "bboxes", "mask")}
+                    bdev = {k: torch.from_numpy(b[k]).to(self.device) for k in batch_keys}
                     state, m = step_fn(state, bdev)
                     t_step += time.perf_counter() - ts
                     t_sync += m["sync_s"]

@@ -21,15 +21,19 @@ products; the sum may round twice where OpenCV's rounds once). The tests
 hold each function against cv2 pixel for pixel.
 
 The train augment (``mosaic4``/``mosaic9`` -> ``random_perspective``, or a
-letterbox then ``random_perspective``; then ``mixup``/``cutmix``,
-``random_hsv``, ``random_flip``) draws from its ``np.random.Generator`` in
-the reference's order, so one generator state gives the reference's
-geometry and labels. Detect labels only: ``copy_paste`` needs polygons and
-is not ported; the reference's Albumentations bridge is a no-op that draws
-nothing when the package is absent, and the port has none.
+letterbox then ``random_perspective``; then ``copy_paste``, ``mixup``,
+``cutmix``, ``random_hsv``, ``random_flip``) draws from its
+``np.random.Generator`` in the reference's order, so one generator state
+gives the reference's geometry and labels. The reference's Albumentations
+bridge is a no-op that draws nothing when the package is absent, and the
+port has none. Two differences from the reference, on purpose:
+``random_flip`` reorders keypoints by ``flip_idx`` after a left-right flip,
+and ``mixup`` and ``cutmix`` keep polygons and keypoints.
 
 Sample contract: {"img": (H, W, 3) uint8 BGR, "cls": (n,) float, "bboxes":
-(n, 4) float pixel xyxy}.
+(n, 4) float pixel xyxy}, and for the task heads "segments" (n polygons
+(k, 2), pixels; an OBB's four corners ride here) or "keypoints" (n arrays
+(nk, 3): pixel x, y and the visibility), index-aligned with "cls".
 """
 
 from __future__ import annotations
@@ -41,7 +45,7 @@ import numpy as np
 
 __all__ = ["AugmentCfg", "resize_linear", "warp_affine", "warp_perspective", "bgr_to_hsv", "hsv_to_bgr",
            "get_rotation_matrix_2d", "letterbox", "box_candidates", "random_perspective", "mosaic4", "mosaic9",
-           "random_hsv", "random_flip", "mixup", "cutmix", "train_augment", "val_transform"]
+           "random_hsv", "random_flip", "mixup", "cutmix", "copy_paste", "train_augment", "val_transform"]
 
 _f32 = np.float32
 BORDER = 114
@@ -276,15 +280,31 @@ def box_candidates(before: np.ndarray, after: np.ndarray, wh_thr: float = 2.0, a
     return (w2 > wh_thr) & (h2 > wh_thr) & (w2 * h2 / (w1 * h1 + eps) > area_thr) & (ar < ar_thr)
 
 
+def _with_labels(out: dict, segments: list | None, keypoints: list | None) -> dict:
+    """``out`` with the ``segments`` and ``keypoints`` that are not None."""
+    if segments is not None:
+        out["segments"] = segments
+    if keypoints is not None:
+        out["keypoints"] = keypoints
+    return out
+
+
 def random_perspective(sample: dict, rng: np.random.Generator, cfg: AugmentCfg,
                        border: tuple[int, int] = (0, 0), pre_letterbox: int | None = None) -> dict:
     """Random perspective, rotation, scale, shear and translation of the image
-    and its boxes about the image centre (reference ``augment.py:120-204``):
-    M = T @ S @ R @ P @ C, output size = input + 2 * border, fill 114."""
+    and its labels about the image centre (reference ``augment.py:120-204``):
+    M = T @ S @ R @ P @ C, output size = input + 2 * border, fill 114.
+    Polygons are warped and clipped to the canvas; keypoints are warped and
+    lose their visibility off the canvas; both follow the boxes' filter."""
     img, cls, bboxes = sample["img"], sample["cls"], sample["bboxes"]
+    segments, keypoints = sample.get("segments"), sample.get("keypoints")
     if pre_letterbox is not None:
         img, r, pad = letterbox(img, pre_letterbox)
         bboxes = _apply_letterbox_boxes(bboxes, r, pad)
+        if segments is not None:
+            segments = [s * r + np.array(pad, _f32) for s in segments]
+        if keypoints is not None:
+            keypoints = [k * np.array([r, r, 1], _f32) + np.array([*pad, 0], _f32) for k in keypoints]
     h, w = img.shape[:2]
     out_w, out_h = w + border[0] * 2, h + border[1] * 2
 
@@ -310,6 +330,10 @@ def random_perspective(sample: dict, rng: np.random.Generator, cfg: AugmentCfg,
     else:
         img = warp_affine(img, M[:2], (out_w, out_h))
 
+    def warp(pts: np.ndarray) -> np.ndarray:
+        p = np.concatenate([pts, np.ones((len(pts), 1), _f32)], 1) @ M.T
+        return p[:, :2] / p[:, 2:3] if cfg.perspective else p[:, :2]
+
     if len(bboxes):
         n = len(bboxes)
         pts = np.ones((n * 4, 3), _f32)
@@ -322,7 +346,24 @@ def random_perspective(sample: dict, rng: np.random.Generator, cfg: AugmentCfg,
         new[:, [1, 3]] = new[:, [1, 3]].clip(0, out_h)
         keep = box_candidates(bboxes * s, new, area_thr=0.1)
         bboxes, cls = new[keep], cls[keep]
-    return {"img": img, "cls": cls, "bboxes": bboxes}
+        kept = np.nonzero(keep)[0]
+        if segments is not None:
+            warped = []
+            for seg in segments:
+                q = warp(seg)
+                q[:, 0] = q[:, 0].clip(0, out_w)
+                q[:, 1] = q[:, 1].clip(0, out_h)
+                warped.append(q.astype(_f32))
+            segments = [warped[i] for i in kept]
+        if keypoints is not None:
+            warped_k = []
+            for kp in keypoints:
+                q = warp(kp[:, :2])
+                vis = kp[:, 2].copy()
+                vis[(q[:, 0] < 0) | (q[:, 0] > out_w) | (q[:, 1] < 0) | (q[:, 1] > out_h)] = 0.0
+                warped_k.append(np.concatenate([q, vis[:, None]], 1).astype(_f32))
+            keypoints = [warped_k[i] for i in kept]
+    return _with_labels({"img": img, "cls": cls, "bboxes": bboxes}, segments, keypoints)
 
 
 def _prescale(img: np.ndarray, s: int) -> tuple[np.ndarray, float]:
@@ -334,25 +375,58 @@ def _prescale(img: np.ndarray, s: int) -> tuple[np.ndarray, float]:
     return img, r
 
 
-def _gather_boxes(all_cls: list, all_boxes: list, limit: int) -> tuple[np.ndarray, np.ndarray]:
-    """Concatenate, clip to [0, limit] and drop empty boxes."""
-    if not all_boxes:
-        return np.zeros((0,), np.float32), np.zeros((0, 4), np.float32)
-    boxes = np.concatenate(all_boxes, 0).clip(0, limit)
-    cls = np.concatenate(all_cls, 0)
-    ok = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
-    return cls[ok], boxes[ok]
+def _box_polygons(bboxes: np.ndarray) -> list[np.ndarray]:
+    """Pixel xyxy boxes as 4-point polygons (a sample without polygons in a polygon batch)."""
+    return [np.array([[b[0], b[1]], [b[2], b[1]], [b[2], b[3]], [b[0], b[3]]], _f32) for b in bboxes]
+
+
+class _Tiles:
+    """The labels of a mosaic's tiles, shifted as they are placed."""
+
+    def __init__(self, samples: list[dict]):
+        self.cls, self.boxes = [], []
+        self.segs = [] if any("segments" in x for x in samples) else None
+        self.kpts = [] if any("keypoints" in x for x in samples) else None
+
+    def add(self, sample: dict, r: float, offx, offy) -> None:
+        if not len(sample["bboxes"]):
+            return
+        b = sample["bboxes"] * r
+        b[:, [0, 2]] += offx
+        b[:, [1, 3]] += offy
+        self.boxes.append(b)
+        self.cls.append(sample["cls"])
+        if self.segs is not None:
+            off = np.array([offx, offy], _f32)
+            segs = sample.get("segments") or _box_polygons(sample["bboxes"])
+            self.segs.extend([sg * r + off for sg in segs])
+        if self.kpts is not None:
+            offk = np.array([offx, offy, 0], _f32)
+            self.kpts.extend(kp * np.array([r, r, 1], _f32) + offk for kp in sample.get("keypoints", []))
+
+    def sample(self, img: np.ndarray, limit: int) -> dict:
+        """The canvas with its labels clipped to [0, limit], empty boxes dropped."""
+        if not self.boxes:
+            return _with_labels({"img": img, "cls": np.zeros((0,), np.float32), "bboxes": np.zeros((0, 4), np.float32)},
+                                None if self.segs is None else [], None if self.kpts is None else [])
+        boxes = np.concatenate(self.boxes, 0).clip(0, limit)
+        cls = np.concatenate(self.cls, 0)
+        ok = (boxes[:, 2] > boxes[:, 0]) & (boxes[:, 3] > boxes[:, 1])
+        segs = None if self.segs is None else [np.clip(sg, 0, limit) for sg, k in zip(self.segs, ok) if k]
+        kpts = None if self.kpts is None else [kp for kp, k in zip(self.kpts, ok) if k]
+        return _with_labels({"img": img, "cls": cls[ok], "bboxes": boxes[ok]}, segs, kpts)
 
 
 def mosaic4(samples: list[dict], imgsz: int, rng: np.random.Generator) -> dict:
     """Four samples on a (2 * imgsz)^2 canvas around a random centre in
-    [imgsz/2, 3 * imgsz/2), fill 114 (reference ``augment.py:207-279``). The
-    caller follows with ``random_perspective(border=(-imgsz // 2,) * 2)``."""
+    [imgsz/2, 3 * imgsz/2), fill 114 (reference ``augment.py:207-279``). A
+    sample without polygons in a polygon batch gives its boxes as 4-point
+    polygons. The caller follows with ``random_perspective(border=(-imgsz // 2,) * 2)``."""
     s = imgsz
     yc = int(rng.uniform(s // 2, 2 * s - s // 2))
     xc = int(rng.uniform(s // 2, 2 * s - s // 2))
     canvas = np.full((2 * s, 2 * s, 3), BORDER, np.uint8)
-    all_cls, all_boxes = [], []
+    tiles = _Tiles(samples[:4])
     for i, sample in enumerate(samples[:4]):
         img, r = _prescale(sample["img"], s)
         h, w = img.shape[:2]
@@ -369,15 +443,8 @@ def mosaic4(samples: list[dict], imgsz: int, rng: np.random.Generator) -> dict:
             x1a, y1a, x2a, y2a = xc, yc, min(xc + w, 2 * s), min(2 * s, yc + h)
             x1b, y1b, x2b, y2b = 0, 0, min(w, x2a - x1a), min(y2a - y1a, h)
         canvas[y1a:y2a, x1a:x2a] = img[y1b:y2b, x1b:x2b]
-        padw, padh = x1a - x1b, y1a - y1b
-        if len(sample["bboxes"]):
-            b = sample["bboxes"] * r
-            b[:, [0, 2]] += padw
-            b[:, [1, 3]] += padh
-            all_boxes.append(b)
-            all_cls.append(sample["cls"])
-    cls, boxes = _gather_boxes(all_cls, all_boxes, 2 * s)
-    return {"img": canvas, "cls": cls, "bboxes": boxes}
+        tiles.add(sample, r, x1a - x1b, y1a - y1b)
+    return tiles.sample(canvas, 2 * s)
 
 
 def mosaic9(samples: list[dict], imgsz: int, rng: np.random.Generator) -> dict:
@@ -386,7 +453,7 @@ def mosaic9(samples: list[dict], imgsz: int, rng: np.random.Generator) -> dict:
     same ``random_perspective`` as ``mosaic4``. Draws nothing itself."""
     s = imgsz
     canvas = np.full((3 * s, 3 * s, 3), BORDER, np.uint8)
-    all_cls, all_boxes = [], []
+    tiles = _Tiles(samples[:9])
     hp = wp = h0 = w0 = 0
     for i, sample in enumerate(samples[:9]):
         img, r = _prescale(sample["img"], s)
@@ -415,16 +482,8 @@ def mosaic9(samples: list[dict], imgsz: int, rng: np.random.Generator) -> dict:
         x2, y2 = min(x2, 3 * s), min(y2, 3 * s)
         canvas[y1:y2, x1:x2] = img[y1 - padh: y2 - padh, x1 - padw: x2 - padw]
         hp, wp = h, w
-        offx, offy = padw - s // 2, padh - s // 2  # the tile origin minus the s // 2 crop
-        if len(sample["bboxes"]):
-            b = sample["bboxes"] * r
-            b[:, [0, 2]] += offx
-            b[:, [1, 3]] += offy
-            all_boxes.append(b)
-            all_cls.append(sample["cls"])
-    crop = canvas[s // 2: s // 2 + 2 * s, s // 2: s // 2 + 2 * s]
-    cls, boxes = _gather_boxes(all_cls, all_boxes, 2 * s)
-    return {"img": crop, "cls": cls, "bboxes": boxes}
+        tiles.add(sample, r, padw - s // 2, padh - s // 2)  # the tile origin minus the s // 2 crop
+    return tiles.sample(canvas[s // 2: s // 2 + 2 * s, s // 2: s // 2 + 2 * s], 2 * s)
 
 
 def random_hsv(img: np.ndarray, rng: np.random.Generator, cfg: AugmentCfg) -> np.ndarray:
@@ -440,35 +499,73 @@ def random_hsv(img: np.ndarray, rng: np.random.Generator, cfg: AugmentCfg) -> np
     return hsv_to_bgr(np.stack([lut[hsv[..., i]] for i, lut in enumerate(luts)], -1))
 
 
-def random_flip(sample: dict, rng: np.random.Generator, cfg: AugmentCfg) -> dict:
+def random_flip(sample: dict, rng: np.random.Generator, cfg: AugmentCfg, flip_idx=None) -> dict:
     """Vertical then horizontal flip with their probabilities; a zero
-    probability draws nothing (reference ``augment.py:296-325``)."""
+    probability draws nothing (reference ``augment.py:296-325``). Polygons
+    and keypoints flip with the image; after a left-right flip each
+    keypoint array is reordered by ``flip_idx`` (left and right swap), as
+    the Ultralytics ``RandomFlip`` does. The JAX package never reorders
+    (``augment.py:318-319``), so its pose samples keep a left shoulder's
+    label on the right one (ROADMAP queue 3)."""
     img, bboxes = sample["img"], sample["bboxes"]
+    segments, keypoints = sample.get("segments"), sample.get("keypoints")
     h, w = img.shape[:2]
     if cfg.flipud and rng.random() < cfg.flipud:
         img = np.flipud(img)
         if len(bboxes):
             bboxes = bboxes.copy()
             bboxes[:, [1, 3]] = h - bboxes[:, [3, 1]]
+        if segments is not None:
+            segments = [np.stack([s[:, 0], h - s[:, 1]], 1) for s in segments]
+        if keypoints is not None:
+            keypoints = [np.stack([k[:, 0], h - k[:, 1], k[:, 2]], 1) for k in keypoints]
     if cfg.fliplr and rng.random() < cfg.fliplr:
         img = np.fliplr(img)
         if len(bboxes):
             bboxes = bboxes.copy()
             bboxes[:, [0, 2]] = w - bboxes[:, [2, 0]]
-    return {"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": bboxes}
+        if segments is not None:
+            segments = [np.stack([w - s[:, 0], s[:, 1]], 1) for s in segments]
+        if keypoints is not None:
+            keypoints = [np.stack([w - k[:, 0], k[:, 1], k[:, 2]], 1) for k in keypoints]
+            if flip_idx is not None:
+                keypoints = [k[np.asarray(flip_idx)] for k in keypoints]
+    return _with_labels({"img": np.ascontiguousarray(img), "cls": sample["cls"], "bboxes": bboxes}, segments,
+                        keypoints)
+
+
+def _joined(parts: list[tuple[dict, np.ndarray | None]], key: str) -> list | None:
+    """The ``key`` labels ("segments" or "keypoints") of samples put
+    together, each taking the rows ``keep`` (None: all), or None when no
+    sample has any. A sample without polygons gives its boxes as polygons,
+    as in ``mosaic4``; a pose sample without keypoints has no labels."""
+    if not any(key in s for s, _ in parts):
+        return None
+    out = []
+    for s, keep in parts:
+        rows = s[key] if key in s else _box_polygons(s["bboxes"]) if key == "segments" else []
+        out += [rows[i] for i in (range(len(rows)) if keep is None else np.flatnonzero(keep))]
+    return out
 
 
 def mixup(a: dict, b: dict, rng: np.random.Generator) -> dict:
-    """Beta(32, 32) blend of two images, their labels together (reference ``augment.py:328-336``)."""
+    """Beta(32, 32) blend of two images, their labels together (reference
+    ``augment.py:328-336``), polygons and keypoints too: the JAX package
+    returns boxes only, so its masks and keypoints of such a sample are
+    empty (ROADMAP queue 3)."""
     lam = rng.beta(32.0, 32.0)
     img = (a["img"].astype(np.float32) * lam + b["img"].astype(np.float32) * (1 - lam)).astype(np.uint8)
-    return {"img": img, "cls": np.concatenate([a["cls"], b["cls"]], 0),
-            "bboxes": np.concatenate([a["bboxes"], b["bboxes"]], 0)}
+    out = {"img": img, "cls": np.concatenate([a["cls"], b["cls"]], 0),
+           "bboxes": np.concatenate([a["bboxes"], b["bboxes"]], 0)}
+    parts = [(a, None), (b, None)]
+    return _with_labels(out, _joined(parts, "segments"), _joined(parts, "keypoints"))
 
 
 def cutmix(a: dict, b: dict, rng: np.random.Generator, beta: float = 1.0) -> dict:
     """Paste a random rectangle of b into a, with b's labels whose centres
-    fall inside it (reference ``augment.py:339-370``)."""
+    fall inside it (reference ``augment.py:339-370``); their polygons and
+    keypoints come along, scaled as their boxes (the JAX package drops
+    them, ROADMAP queue 3)."""
     h, w = a["img"].shape[:2]
     lam = rng.beta(beta, beta)
     cut = math.sqrt(1 - lam)
@@ -480,6 +577,7 @@ def cutmix(a: dict, b: dict, rng: np.random.Generator, beta: float = 1.0) -> dic
     img[cy: cy + ch, cx: cx + cw] = patch[cy: cy + ch, cx: cx + cw]
     sx, sy = w / bw, h / bh
     bb = b["bboxes"] * np.array([sx, sy, sx, sy]) if len(b["bboxes"]) else b["bboxes"]
+    inside = np.zeros(len(bb), bool)
     if len(bb):
         cx_c = (bb[:, 0] + bb[:, 2]) / 2
         cy_c = (bb[:, 1] + bb[:, 3]) / 2
@@ -487,18 +585,62 @@ def cutmix(a: dict, b: dict, rng: np.random.Generator, beta: float = 1.0) -> dic
         bb, bcls = bb[inside], b["cls"][inside]
     else:
         bcls = b["cls"]
-    return {"img": img, "cls": np.concatenate([a["cls"], bcls], 0),
-            "bboxes": np.concatenate([a["bboxes"], bb], 0) if len(bb) else a["bboxes"]}
+    out = {"img": img, "cls": np.concatenate([a["cls"], bcls], 0),
+           "bboxes": np.concatenate([a["bboxes"], bb], 0) if len(bb) else a["bboxes"]}
+    scaled = dict(b)
+    if "segments" in b:
+        scaled["segments"] = [sg * np.array([sx, sy], _f32) for sg in b["segments"]]
+    if "keypoints" in b:
+        scaled["keypoints"] = [kp * np.array([sx, sy, 1], _f32) for kp in b["keypoints"]]
+    parts = [(a, None), (scaled, inside)]
+    return _with_labels(out, _joined(parts, "segments"), _joined(parts, "keypoints"))
+
+
+def copy_paste(a: dict, b: dict, rng: np.random.Generator, p: float = 0.5) -> dict:
+    """Paste each polygon instance of b into a with probability ``p``: the
+    pixels inside the polygon (``fill_poly`` of its rounded vertices, as
+    ``cv2.fillPoly``), when they are 16 or more, with its class, its extent
+    as the box and the polygon (reference ``augment.py:368-409``, the
+    cross-image form). No-op, drawing nothing, when b has no polygons or no
+    labels. Like the reference, the result carries no keypoints."""
+    from fce_yolo_tpu_torch.ops.geometry import fill_poly
+
+    if "segments" not in b or not len(b.get("cls", [])):
+        return a
+    h, w = a["img"].shape[:2]
+    bh, bw = b["img"].shape[:2]
+    img = a["img"].copy()
+    new_cls, new_boxes = list(a["cls"]), list(a["bboxes"])
+    new_segs = list(a["segments"]) if "segments" in a else None
+    sx, sy = w / bw, h / bh
+    for cls_v, seg in zip(b["cls"], b["segments"]):
+        if rng.random() > p:
+            continue
+        pts = (seg * np.array([sx, sy], _f32)).astype(_f32)
+        mask = fill_poly(np.zeros((h, w), np.uint8), [np.round(pts).astype(np.int32)], 1)
+        if mask.sum() < 16:
+            continue
+        donor = resize_linear(b["img"], (w, h)) if (bh, bw) != (h, w) else b["img"]
+        img[mask > 0] = donor[mask > 0]
+        lo, hi = pts.min(0), pts.max(0)
+        new_cls.append(float(cls_v))
+        new_boxes.append(np.array([lo[0], lo[1], hi[0], hi[1]], _f32))
+        if new_segs is not None:
+            new_segs.append(pts)
+    out = {"img": img, "cls": np.asarray(new_cls, np.float32),
+           "bboxes": np.asarray(new_boxes, np.float32).reshape(-1, 4)}
+    return _with_labels(out, new_segs, None)
 
 
 def train_augment(get_sample, index: int, n_total: int, imgsz: int, cfg: AugmentCfg, rng: np.random.Generator,
-                  mosaic_enabled: bool = True) -> dict:
+                  mosaic_enabled: bool = True, flip_idx=None) -> dict:
     """The train pipeline for one output sample (reference ``augment.py:547-588``).
 
-    ``get_sample(i)`` returns a fresh sample of image i (pixel xyxy boxes).
+    ``get_sample(i)`` returns a fresh sample of image i (pixel xyxy boxes,
+    and pixel polygons or keypoints). ``copy_paste``, ``mixup`` and
+    ``cutmix`` each take a donor sample made by this pipeline without them;
+    ``flip_idx`` goes to ``random_flip``.
     """
-    if cfg.copy_paste > 0:
-        raise NotImplementedError("copy_paste needs polygon labels (the segment task), not ported yet")
     use_mosaic = mosaic_enabled and cfg.mosaic > 0 and rng.random() < cfg.mosaic
     if use_mosaic:
         nine = cfg.mosaic9 > 0 and rng.random() < cfg.mosaic9
@@ -507,12 +649,17 @@ def train_augment(get_sample, index: int, n_total: int, imgsz: int, cfg: Augment
         sample = random_perspective(sample, rng, cfg, border=(-imgsz // 2, -imgsz // 2))
     else:
         sample = random_perspective(get_sample(index), rng, cfg, pre_letterbox=imgsz)
-    no_mix = replace(cfg, mixup=0.0, cutmix=0.0)
+    no_mix = replace(cfg, mixup=0.0, cutmix=0.0, copy_paste=0.0)
+
+    def donor() -> dict:
+        return train_augment(get_sample, int(rng.integers(0, n_total)), n_total, imgsz, no_mix, rng, mosaic_enabled,
+                             flip_idx)
+
+    if cfg.copy_paste > 0 and rng.random() < cfg.copy_paste:
+        sample = copy_paste(sample, donor(), rng, p=0.5)
     if cfg.mixup > 0 and rng.random() < cfg.mixup:
-        other = train_augment(get_sample, int(rng.integers(0, n_total)), n_total, imgsz, no_mix, rng, mosaic_enabled)
-        sample = mixup(sample, other, rng)
+        sample = mixup(sample, donor(), rng)
     if cfg.cutmix > 0 and rng.random() < cfg.cutmix:
-        other = train_augment(get_sample, int(rng.integers(0, n_total)), n_total, imgsz, no_mix, rng, mosaic_enabled)
-        sample = cutmix(sample, other, rng)
+        sample = cutmix(sample, donor(), rng)
     sample["img"] = random_hsv(sample["img"], rng, cfg)
-    return random_flip(sample, rng, cfg)
+    return random_flip(sample, rng, cfg, flip_idx)

@@ -4,7 +4,8 @@
   port's registry (``cfg/datasets/``: byte-equal copies of the JAX
   package's detect dataset YAMLs) or a dict. The YAML is read by
   ``utils/yaml_read.py``, so no pyyaml is needed; only ``path``, ``train``,
-  ``val``, ``test``, ``nc`` and ``names`` are kept, and ``download`` is
+  ``val``, ``test``, ``nc``, ``names``, and for pose ``kpt_shape`` and
+  ``flip_idx``, are kept, and ``download`` is
   read only to name the data's source when it is missing. Nothing is ever
   downloaded.
 - ``YOLODataset`` parses the labels at construction, every time: the JAX
@@ -21,14 +22,16 @@ Labels live in the sibling ``labels/`` tree, one ``.txt`` per image, one
 row per object, normalized to the image: ``cls cx cy w h`` (detect),
 ``cls x1 y1 x2 y2 ...`` (a segment polygon; its extent is the box),
 ``cls cx cy w h`` and ``nk`` keypoints of ``x y [v]`` (pose), or
-``cls x1 y1 ... x4 y4`` (an OBB's four corners). For the task heads the
-val batch adds the ground-truth masks, keypoints or rotated boxes
-(``collate``); their train mode is not ported yet.
+``cls x1 y1 ... x4 y4`` (an OBB's four corners). For the task heads a
+batch adds the ground-truth masks, keypoints or rotated boxes
+(``collate``); in train mode the polygons (an OBB's corners among them) and
+keypoints go through the augment with the boxes.
 """
 
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -39,7 +42,7 @@ from fce_yolo_tpu_torch.ops.geometry import fill_poly, min_area_rect
 from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
 
 IMG_FORMATS = {"bmp", "dng", "jpeg", "jpg", "mpo", "png", "tif", "tiff", "webp", "pfm"}
-DATA_KEYS = ("path", "train", "val", "test", "nc", "names")
+DATA_KEYS = ("path", "train", "val", "test", "nc", "names", "kpt_shape", "flip_idx")
 REGISTRY = Path(__file__).resolve().parent.parent / "cfg" / "datasets"
 DATASETS_DIR = "datasets"  # the JAX package's default datasets_dir (utils/settings.py)
 
@@ -48,9 +51,8 @@ __all__ = ["IMG_FORMATS", "read_data_yaml", "resolve_dataset_yaml", "check_det_d
 
 
 def read_data_yaml(text: str) -> dict:
-    """The top-level ``path``, ``train``, ``val``, ``test``, ``nc`` and
-    ``names`` of a data YAML; other keys (``download: |`` scripts included)
-    are skipped unread."""
+    """The top-level ``DATA_KEYS`` of a data YAML; other keys (``download:
+    |`` scripts included) are skipped unread."""
     return read_yaml(text, keys=DATA_KEYS)
 
 
@@ -203,28 +205,29 @@ class YOLODataset:
         seed: seeds the generator until the first ``set_epoch``.
         device: where JPEG images decode (``imread``): the card unless
             another is named.
-        task: "detect", "segment", "pose" or "obb" (the label format; the
-            task heads read val data only).
+        task: "detect", "segment", "pose" or "obb" (the label format).
         kpt_shape: (keypoints, 2 or 3) of pose labels.
+        flip_idx: the keypoints' left-right swap map (the data YAML's);
+            a pose dataset without one flips neither way, as the
+            reference does.
     """
 
     def __init__(self, img_path: str | list, imgsz: int = 640, mode: str = "val", hyp: AugmentCfg | None = None,
                  nc: int | None = None, seed: int = 0, device="cuda", task: str = "detect",
-                 kpt_shape: tuple[int, int] = (17, 3)):
+                 kpt_shape: tuple[int, int] = (17, 3), flip_idx: list[int] | None = None):
         if mode not in ("train", "val"):
             raise ValueError(f"mode {mode!r}: 'train' or 'val'")
         if task not in ("detect", "segment", "pose", "obb"):
             raise ValueError(f"task {task!r}: 'detect', 'segment', 'pose' or 'obb'")
-        if mode == "train" and task != "detect":
-            raise NotImplementedError(f"training the {task} head is not ported yet: the task losses, the rotated "
-                                      "assigner and the train augment of polygons and keypoints are the next slice "
-                                      "(ROADMAP queue 1, item 5)")
         self.task = task
         self.kpt_shape = tuple(kpt_shape)
         self.imgsz = imgsz
         self.mode = mode
         self.device = device
         self.hyp = hyp or AugmentCfg()
+        self.flip_idx = list(flip_idx) if flip_idx else None
+        if task == "pose" and self.flip_idx is None:
+            self.hyp = replace(self.hyp, fliplr=0.0, flipud=0.0)
         self.im_files = _scan_images(img_path)
         if not self.im_files:
             raise FileNotFoundError(f"no images found in {img_path}")
@@ -270,7 +273,7 @@ class YOLODataset:
         """Item i; a train item draws from ``rng`` (else the dataset's generator)."""
         if self.mode == "train":
             out = train_augment(self.load_raw, i, len(self), self.imgsz, self.hyp,
-                                self._rng if rng is None else rng, self.mosaic_enabled)
+                                self._rng if rng is None else rng, self.mosaic_enabled, self.flip_idx)
         else:
             out = val_transform(self.load_raw(i), self.imgsz)
         out["img"] = np.ascontiguousarray(out["img"][..., ::-1])  # BGR -> RGB at the exit

@@ -22,7 +22,7 @@ from fce_yolo_tpu_torch.ops.boxes import xywh2xyxy
 from fce_yolo_tpu_torch.ops.iou import bbox_iou, bbox_wiou
 from fce_yolo_tpu_torch.train import tal
 
-__all__ = ["LossState", "DetectionLossCfg", "wiouv3_focusing", "detection_loss"]
+__all__ = ["LossState", "DetectionLossCfg", "wiouv3_focusing", "detection_loss", "bce_with_logits"]
 
 
 class LossState(NamedTuple):
@@ -85,7 +85,7 @@ class DetectionLossCfg(NamedTuple):
 
 
 def detection_loss(feats: list[torch.Tensor], batch: dict[str, torch.Tensor], cfg: DetectionLossCfg,
-                   state: LossState) -> tuple[torch.Tensor, dict[str, torch.Tensor], LossState]:
+                   state: LossState, return_aux: bool = False):
     """Summed detection loss of one batch (reference ``loss.py:121-241``).
 
     Args:
@@ -96,7 +96,10 @@ def detection_loss(feats: list[torch.Tensor], batch: dict[str, torch.Tensor], cf
             unchanged by the other IoU types).
 
     Returns (total, parts {"box", "cls", "dfl", "fg_count"}, new state);
-    total = (box + cls + dfl) * B, each part already times its gain.
+    total = (box + cls + dfl) * B, each part already times its gain. With
+    ``return_aux`` a fourth item holds what the task losses build on:
+    "assign" (the ``AssignResult``), "target_scores_sum", "stride_tensor",
+    "anchor_points" and "imgsz" (h, w).
     """
     nc, reg_max = cfg.nc, cfg.reg_max
     b = feats[0].shape[0]
@@ -147,4 +150,14 @@ def detection_loss(feats: list[torch.Tensor], batch: dict[str, torch.Tensor], cf
         "fg_count": fg.sum().float(),
     }
     total = (parts["box"] + parts["cls"] + parts["dfl"]) * b
+    if return_aux:
+        aux = {"assign": assigned, "target_scores_sum": target_scores_sum, "stride_tensor": stride_tensor,
+               "anchor_points": anchor_points, "imgsz": (imgsz_h, imgsz_w)}
+        return total, parts, state, aux
     return total, parts, state
+
+
+def bce_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise binary cross-entropy with logits, in the JAX package's
+    form (``loss.py:244-246``): max(x, 0) - x * t + log1p(exp(-|x|))."""
+    return logits.clamp(min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))

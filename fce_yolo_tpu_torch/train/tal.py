@@ -1,4 +1,5 @@
-"""Task-aligned assigner (reference ``fce_yolo_tpu/train/tal.py:51-222``).
+"""Task-aligned assigner (reference ``fce_yolo_tpu/train/tal.py:51-281``),
+axis-aligned (``assign``) and rotated (``assign_rotated``).
 
 For each ground truth: align metric = score(gt class)^alpha * CIoU^beta
 over the anchors whose centres lie inside its box; its candidates are the
@@ -22,14 +23,14 @@ from typing import NamedTuple
 
 import torch
 
-from fce_yolo_tpu_torch.ops.iou import bbox_iou
+from fce_yolo_tpu_torch.ops.iou import bbox_iou, probiou
 
-__all__ = ["AssignResult", "assign"]
+__all__ = ["AssignResult", "assign", "assign_rotated"]
 
 
 class AssignResult(NamedTuple):
     target_labels: torch.Tensor  # (B, A) int64, 0 outside fg
-    target_bboxes: torch.Tensor  # (B, A, 4) xyxy, 0 outside fg
+    target_bboxes: torch.Tensor  # (B, A, 4) xyxy (5, xywhr, when rotated), 0 outside fg
     target_norm: torch.Tensor  # (B, A) float32 = dense target_scores.sum(-1), 0 outside fg
     fg_mask: torch.Tensor  # (B, A) bool
     target_gt_idx: torch.Tensor  # (B, A) int64
@@ -113,3 +114,49 @@ def assign(
     metric = torch.where(live, cls_sc**alpha * ov**beta, 0.0)
     kth = _kth_value(metric, topk)
     return _finalize(metric, overlaps, live, kth, labels, gt_bboxes, eps)
+
+
+def assign_rotated(
+    pd_scores: torch.Tensor,  # (B, A, nc) sigmoid scores, or logits with scores_logits
+    pd_rboxes: torch.Tensor,  # (B, A, 5) xywhr pixels
+    anc_points: torch.Tensor,  # (A, 2) anchor centres, pixels
+    gt_labels: torch.Tensor,  # (B, M) int
+    gt_rboxes: torch.Tensor,  # (B, M, 5) xywhr pixels
+    mask_gt: torch.Tensor,  # (B, M) bool
+    topk: int = 10,
+    alpha: float = 0.5,
+    beta: float = 6.0,
+    eps: float = 1e-9,
+    scores_logits: bool = False,
+    metric_dtype: torch.dtype = torch.bfloat16,
+) -> AssignResult:
+    """Rotated task-aligned assignment (reference ``tal.py:224-281``): the
+    candidates are the anchors inside the rotated gt box (the projections
+    of corner A -> anchor on the box's two edge vectors lie within the
+    edges, bounds included), the overlaps are ``probiou`` clipped at 0; the
+    rest is ``assign``'s. The targets are the gts' xywhr boxes."""
+    b, a_n, nc = pd_scores.shape
+    m = gt_labels.shape[1]
+    labels = gt_labels.long().clamp(0, nc - 1)
+
+    cx, cy, w, h, r = gt_rboxes.unbind(-1)
+    cos, sin = torch.cos(r), torch.sin(r)
+    dx1, dy1 = w / 2 * cos, w / 2 * sin  # half-width vector
+    dx2, dy2 = -h / 2 * sin, h / 2 * cos  # half-height vector
+    a_x, a_y = (cx - dx1 - dx2)[:, :, None], (cy - dy1 - dy2)[:, :, None]  # corner A
+    abx, aby = (2 * dx1)[:, :, None], (2 * dy1)[:, :, None]
+    adx, ady = (2 * dx2)[:, :, None], (2 * dy2)[:, :, None]
+    norm_ab, norm_ad = abx * abx + aby * aby, adx * adx + ady * ady
+    apx, apy = anc_points[None, None, :, 0] - a_x, anc_points[None, None, :, 1] - a_y
+    ap_ab, ap_ad = apx * abx + apy * aby, apx * adx + apy * ady
+    inside = (ap_ab >= 0) & (ap_ab <= norm_ab) & (ap_ad >= 0) & (ap_ad <= norm_ad)
+    live = inside & mask_gt[:, :, None]  # (B, M, A)
+
+    cls_sc = torch.gather(pd_scores, 2, labels[:, None, :].expand(b, a_n, m)).transpose(1, 2)
+    if scores_logits:
+        cls_sc = torch.sigmoid(cls_sc)
+    ov = probiou(gt_rboxes[:, :, None, :], pd_rboxes[:, None, :, :]).clamp(min=0)
+    overlaps = torch.where(live, ov, 0.0).to(metric_dtype)
+    metric = torch.where(live, cls_sc**alpha * ov**beta, 0.0)  # float32 ranking, as in assign
+    kth = _kth_value(metric, topk)
+    return _finalize(metric, overlaps, live, kth, labels, gt_rboxes, eps)

@@ -1,14 +1,15 @@
 """The train step (reference ``fce_yolo_tpu/train/trainer.py:36-250``).
 
 ``make_train_step`` returns a function that runs one micro-batch: forward,
-detection loss, backward, then, on an optimizer boundary, the optimizer and
-the EMA. It mutates the ``TrainState`` in place and returns the metrics.
+the loss (the detection loss, or a task loss handed the whole head output),
+backward, then, on an optimizer boundary, the optimizer and the EMA. It
+mutates the ``TrainState`` in place and returns the metrics.
 
 - The batch image is uint8 NHWC; it becomes NCHW float ``/ 255`` on the device.
 - ``bf16``: the forward and backward run under ``torch.autocast`` to
   bfloat16 (convolutions and matmuls in bfloat16, the float32 parameters
-  stay the master weights, gradients land in float32); the head's maps are
-  cast to float32 and the loss is computed in float32.
+  stay the master weights, gradients land in float32); every floating head
+  output is cast to float32 and the loss is computed in float32.
 - ``frozen_bn``: BatchNorm runs in eval mode (running statistics, never
   updated) inside the loss graph.
 - ``accumulate > 1``: gradients are summed into a buffer over micro-batches;
@@ -90,14 +91,18 @@ def _bn_buffers(model: nn.Module) -> list[torch.Tensor]:
 
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionLossCfg, ema_decay: float = 0.9999,
                     bf16: bool = False, accumulate: int = 1, frozen_bn: bool = False,
-                    boundaries: np.ndarray | None = None) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+                    boundaries: np.ndarray | None = None,
+                    task_loss: Callable | None = None) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build ``train_step(state, batch) -> (state, metrics)`` (module docstring).
 
     ``batch``: "img" (B, H, W, 3) uint8 (or float in [0, 1]), "cls" (B, M),
-    "bboxes" (B, M, 4) normalized xywh, "mask" (B, M) bool, all on the
-    model's device. ``metrics``: "loss" and the loss parts as device
-    tensors, "finite" (bool) and "sync_s", the seconds the host waited for
-    the device to tell whether the loss was finite.
+    "bboxes" (B, M, 4) normalized xywh (5 with the angle for OBB), "mask"
+    (B, M) bool, and the task's "masks" or "keypoints", all on the model's
+    device. ``task_loss(out, batch, loss_cfg, loss_state) -> (total, parts,
+    new_state)`` replaces the detection loss (``train/task_losses.py``).
+    ``metrics``: "loss" and the loss parts as device tensors, "finite"
+    (bool) and "sync_s", the seconds the host waited for the device to tell
+    whether the loss was finite.
     """
     bn_modules = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
 
@@ -114,10 +119,13 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionL
         for p in params:
             p.grad = None
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            feats = model(x)["feats"]
-        feats = [f.float() for f in feats]
-        targets = {k: batch[k] for k in ("cls", "bboxes", "mask")}
-        total, parts, new_ls = detection_loss(feats, targets, loss_cfg, state.loss_state)
+            out = model(x)
+        out = {k: [f.float() for f in v] if isinstance(v, (list, tuple)) else v.float() for k, v in out.items()}
+        targets = {k: batch[k] for k in ("cls", "bboxes", "mask", "masks", "keypoints") if k in batch}
+        if task_loss is not None:
+            total, parts, new_ls = task_loss(out, targets, loss_cfg, state.loss_state)
+        else:
+            total, parts, new_ls = detection_loss(out["feats"], targets, loss_cfg, state.loss_state)
         total.backward()
         t_sync = time.perf_counter()
         finite = bool(torch.isfinite(total))  # the step's one wait for the device

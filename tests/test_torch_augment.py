@@ -22,9 +22,10 @@ import pytest
 
 from fce_yolo_tpu.data import augment as J
 from fce_yolo_tpu.data.dataset import YOLODataset as JaxDataset
+from fce_yolo_tpu.data.dataset import collate as jax_collate
 from fce_yolo_tpu.data.loader import DataLoader as JaxLoader
 from fce_yolo_tpu_torch.data import augment as A
-from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset, collate
 from fce_yolo_tpu_torch.data.loader import DataLoader
 from test_torch_data import png_copy
 
@@ -165,9 +166,172 @@ def test_augment_functions_match_jax(raw_samples, seed):
     np.testing.assert_array_equal(A.box_candidates(before, after), J.box_candidates(before, after))
 
 
-def test_copy_paste_is_not_ported(raw_samples):
-    with pytest.raises(NotImplementedError, match="copy_paste"):
-        A.train_augment(lambda i: raw_samples[i], 0, 8, 64, A.AugmentCfg(copy_paste=0.5), np.random.default_rng(0))
+# ------------------------------------------------ polygons and keypoints vs the JAX package
+TASKS = {"segment": ("tiny_seg_dataset", (17, 3)), "pose": ("tiny_pose_dataset", (4, 3)),
+         "obb": ("tiny_obb_dataset", (17, 3))}
+
+
+@pytest.fixture(scope="module")
+def task_samples(request):
+    """Each tiny task dataset's train images (BGR, 128 px) with pixel labels:
+    polygons (segment), 4 keypoints (pose) or four corners (OBB)."""
+    done = {}
+
+    def get(task: str) -> list[dict]:
+        if task not in done:
+            fixture, kpt_shape = TASKS[task]
+            d = check_det_dataset(request.getfixturevalue(fixture))
+            ds = YOLODataset(d["train"], imgsz=96, mode="val", task=task, kpt_shape=kpt_shape, device="cpu")
+            done[task] = [ds.load_raw(i) for i in range(len(ds))]
+        return done[task]
+
+    return get
+
+
+def fresh_task(samples):
+    return [{k: ([x.copy() for x in v] if isinstance(v, list) else v.copy()) for k, v in s.items()} for s in samples]
+
+
+def assert_task_samples_match(out: dict, ref: dict) -> None:
+    """Images bit-equal, classes equal, boxes, polygons and keypoints within 1e-5 px."""
+    assert set(out) == set(ref), (set(out), set(ref))
+    np.testing.assert_array_equal(out["img"], ref["img"])
+    np.testing.assert_array_equal(out["cls"], ref["cls"])
+    assert out["bboxes"].shape == ref["bboxes"].shape
+    np.testing.assert_allclose(out["bboxes"], ref["bboxes"], rtol=0, atol=1e-5)
+    for k in ("segments", "keypoints"):
+        assert len(out.get(k, [])) == len(ref.get(k, [])) == (len(out["cls"]) if k in out else 0)
+        for a, b in zip(out.get(k, []), ref.get(k, [])):
+            assert a.shape == b.shape
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.parametrize("task", sorted(TASKS))
+@pytest.mark.parametrize("seed", range(2))
+def test_task_augment_functions_match_jax(task_samples, task, seed):
+    """``random_perspective`` (letterboxed and after a mosaic), ``mosaic4``,
+    ``mosaic9``, ``random_flip`` (the identity ``flip_idx`` for the port:
+    the JAX package takes none) and ``copy_paste`` on the task's samples,
+    one generator state on both sides."""
+    samples = task_samples(task)
+    cfg = A.AugmentCfg(degrees=15.0, shear=3.0, perspective=2e-4, flipud=0.5, fliplr=0.5)
+    jcfg = J.AugmentCfg(**dataclasses.asdict(cfg))
+    rng, jrng = np.random.default_rng(seed), np.random.default_rng(seed)
+    for fn, jfn in ((A.mosaic4, J.mosaic4), (A.mosaic9, J.mosaic9)):
+        out, ref = fn(fresh_task(samples) * 2, 80, rng), jfn(fresh_task(samples) * 2, 80, jrng)
+        assert_task_samples_match(out, ref)
+        assert_task_samples_match(A.random_perspective(out, rng, cfg, border=(-40, -40)),
+                                  J.random_perspective(ref, jrng, jcfg, border=(-40, -40)))
+    a, b = fresh_task(samples[:2])
+    lb_a = A.random_perspective(a, rng, cfg, pre_letterbox=96)
+    jlb_a = J.random_perspective(fresh_task([a])[0], jrng, jcfg, pre_letterbox=96)
+    assert_task_samples_match(lb_a, jlb_a)
+    lb_b = A.random_perspective(b, rng, A.AugmentCfg(), pre_letterbox=96)
+    jlb_b = J.random_perspective(fresh_task([b])[0], jrng, J.AugmentCfg(), pre_letterbox=96)
+    nk = TASKS[task][1][0]
+    for _ in range(3):
+        assert_task_samples_match(A.random_flip(lb_b, rng, cfg, flip_idx=list(range(nk))),
+                                  J.random_flip(jlb_b, jrng, jcfg))
+    pasted = A.copy_paste(lb_a, lb_b, rng, p=1.0)
+    assert_task_samples_match(pasted, J.copy_paste(jlb_a, jlb_b, jrng, p=1.0))
+    if task != "pose":  # the donor's polygons were pasted
+        assert len(pasted["cls"]) > len(lb_a["cls"])
+    assert rng.bit_generator.state == jrng.bit_generator.state
+
+
+TASK_CFGS = {
+    "default": {},
+    "copy-paste": dict(copy_paste=0.9, degrees=10.0, flipud=0.5),
+    "mosaic9-letterbox": dict(mosaic=0.5, mosaic9=0.6, shear=4.0, perspective=3e-4),
+}
+
+
+@pytest.mark.parametrize("name", list(TASK_CFGS))
+@pytest.mark.parametrize("task", sorted(TASKS))
+def test_task_train_augment_and_collate_match_jax(task_samples, task, name):
+    """The whole ``train_augment`` on each task's samples (copy_paste on
+    segment and OBB; on pose it draws nothing, the donor having no
+    polygons), then ``collate``: the same masks, keypoints and rotated boxes."""
+    samples = task_samples(task)
+    kw = TASK_CFGS[name]
+    cfg, jcfg = A.AugmentCfg(**kw), J.AugmentCfg(**kw)
+    rng, jrng = np.random.default_rng(3), np.random.default_rng(3)
+    n = len(samples)
+    outs, refs = [], []
+    for index in range(4):
+        outs.append(A.train_augment(lambda i: fresh_task(samples)[i], index, n, 96, cfg, rng))
+        refs.append(J.train_augment(lambda i: fresh_task(samples)[i], index, n, 96, jcfg, jrng))
+        assert_task_samples_match(outs[-1], refs[-1])
+    assert rng.bit_generator.state == jrng.bit_generator.state
+    assert sum(len(o["cls"]) for o in outs) > 0
+    obb = task == "obb"
+    out = collate([dict(o, img=o["img"][..., ::-1]) for o in outs], max_labels=8, obb=obb)
+    ref = jax_collate([dict(r, img=r["img"][..., ::-1]) for r in refs], max_labels=8, obb=obb)
+    assert set(out) == set(ref)
+    for k in out:
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    assert {"segment": "masks", "pose": "keypoints", "obb": "bboxes"}[task] in out
+    if obb:
+        assert out["bboxes"].shape[-1] == 5
+
+
+def test_flip_idx_reorders_keypoints_where_jax_does_not(task_samples):
+    """A left-right flip with a non-symmetric ``flip_idx`` reorders each
+    keypoint array; the JAX ``random_flip`` (``fce_yolo_tpu/data/augment.py:318-319``)
+    mirrors x and keeps the order, so its left keypoints land on the right.
+    Up-down flips and ``flip_idx=None`` reorder nothing."""
+    sample = A.random_perspective(fresh_task(task_samples("pose")[:1])[0], np.random.default_rng(0), A.AugmentCfg(),
+                                  pre_letterbox=96)
+    flip_idx = [1, 0, 3, 2]
+    lr = A.AugmentCfg(fliplr=1.0)
+    out = A.random_flip(sample, np.random.default_rng(0), lr, flip_idx=flip_idx)
+    ref = J.random_flip(sample, np.random.default_rng(0), J.AugmentCfg(fliplr=1.0))
+    for k, r, s in zip(out["keypoints"], ref["keypoints"], sample["keypoints"]):
+        np.testing.assert_array_equal(k, r[flip_idx])
+        np.testing.assert_array_equal(k[:, 0], 96 - s[flip_idx, 0])
+        assert not np.array_equal(k, r)
+    np.testing.assert_array_equal(out["img"], ref["img"])
+    ud = A.random_flip(sample, np.random.default_rng(0), A.AugmentCfg(fliplr=0.0, flipud=1.0), flip_idx=flip_idx)
+    jud = J.random_flip(sample, np.random.default_rng(0), J.AugmentCfg(fliplr=0.0, flipud=1.0))
+    for k, r in zip(ud["keypoints"], jud["keypoints"]):
+        np.testing.assert_array_equal(k, r)
+    for k, r in zip(A.random_flip(sample, np.random.default_rng(0), lr)["keypoints"], ref["keypoints"]):
+        np.testing.assert_array_equal(k, r)
+
+
+@pytest.mark.parametrize("task", ["segment", "pose"])
+def test_mixup_and_cutmix_keep_polygons_and_keypoints_where_jax_drops_them(task_samples, task):
+    """``mixup`` joins both samples' polygons or keypoints and ``cutmix``
+    keeps the donor's for the instances it keeps, scaled as their boxes; the
+    JAX ``mixup``/``cutmix`` (``fce_yolo_tpu/data/augment.py:328-366``) return
+    boxes only. Images, classes and boxes equal to JAX's."""
+    key = "segments" if task == "segment" else "keypoints"
+    samples = fresh_task(task_samples(task)[:3])
+    rng0 = np.random.default_rng(1)
+    a, b = (A.random_perspective(s, rng0, A.AugmentCfg(), pre_letterbox=96) for s in samples[:2])
+    donor = samples[2]  # 128 px: cutmix scales it to 96
+    mixed = A.mixup(a, b, np.random.default_rng(2))
+    jmixed = J.mixup(a, b, np.random.default_rng(2))
+    assert key not in jmixed
+    np.testing.assert_array_equal(mixed["img"], jmixed["img"])
+    np.testing.assert_array_equal(mixed["bboxes"], jmixed["bboxes"])
+    assert len(mixed[key]) == len(mixed["cls"]) == len(a["cls"]) + len(b["cls"])
+    for x, y in zip(mixed[key], a[key] + b[key]):
+        np.testing.assert_array_equal(x, y)
+    for seed in range(40):  # a draw whose window keeps a donor instance
+        cut, jcut = A.cutmix(a, donor, np.random.default_rng(seed)), J.cutmix(a, donor, np.random.default_rng(seed))
+        if len(cut["cls"]) > len(a["cls"]):
+            break
+    assert len(cut["cls"]) > len(a["cls"]) and key not in jcut
+    np.testing.assert_array_equal(cut["img"], jcut["img"])
+    np.testing.assert_allclose(cut["bboxes"], jcut["bboxes"], rtol=0, atol=1e-5)
+    assert len(cut[key]) == len(cut["cls"])
+    scale = np.array([96 / 128, 96 / 128] + ([1] if key == "keypoints" else []), np.float32)
+    for x, y in zip(cut[key][len(a["cls"]):], donor[key]):
+        np.testing.assert_allclose(x, y * scale, rtol=0, atol=1e-5)
+    batch = collate([cut], max_labels=8)
+    assert (batch["masks"].sum((2, 3)) > 0).sum() == len(cut["cls"]) if task == "segment" else \
+        (batch["keypoints"][0, : len(cut["cls"]), :, 2] > 0).any(1).all()
 
 
 # ------------------------------------------------------- dataset and loader

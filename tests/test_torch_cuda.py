@@ -17,7 +17,8 @@ update on the parameters; training BatchNorm's running statistics on the
 card within 1e-5 of flax's rule applied in float64; the segment, pose and
 OBB heads on the card (float32, TF32 off) within 1e-3 of the largest CPU
 output, and their NMS kernel's outputs in val (masks, keypoints) equal to
-the plain version's.
+the plain version's; their losses on the card within 1e-3 relative of the
+CPU's and their gradients within 1e-3 of the largest.
 """
 
 import struct
@@ -655,3 +656,55 @@ def test_task_val_nms_kernel_matches_the_plain_version(cuda, task, tmp_path, mon
         for m in sets[name].values():
             m.process(nc=val.nc)
     assert all(sets["kernel"][t].mean_results() == sets["plain"][t].mean_results() for t in val.families)
+
+
+def _task_loss_case(task: str, seed: int = 0, b: int = 2, imgsz: int = 256, nc: int = 3, m: int = 8):
+    """Random train-mode outputs of a task head (NCHW maps, anchor-major
+    extras) and a padded batch with its masks, keypoints or rotated boxes."""
+    feats, batch = _loss_case(seed, b, imgsz, nc, m)
+    rng = np.random.RandomState(seed + 100)
+    a = sum((imgsz // s) ** 2 for s in (8, 16, 32))
+    out = {"feats": feats}
+    if task == "segment":
+        out["mask_coefs"] = rng.normal(0, 1, (b, a, 32)).astype(np.float32)
+        out["proto"] = rng.normal(0, 1, (b, 32, imgsz // 4, imgsz // 4)).astype(np.float32)
+        batch["masks"] = (rng.rand(b, m, imgsz // 4, imgsz // 4) > 0.5).astype(np.float32) * batch["mask"][..., None,
+                                                                                                           None]
+    elif task == "pose":
+        out["kpts"] = rng.normal(0, 1, (b, a, 51)).astype(np.float32)
+        kp = np.concatenate([rng.uniform(0.1, 0.9, (b, m, 17, 2)), rng.randint(0, 3, (b, m, 17, 1))], -1)
+        batch["keypoints"] = (kp * batch["mask"][..., None, None]).astype(np.float32)
+    else:
+        out["angle"] = rng.uniform(-np.pi / 4, 3 * np.pi / 4, (b, a, 1)).astype(np.float32)
+        ang = rng.uniform(-np.pi / 4, 3 * np.pi / 4, (b, m, 1)).astype(np.float32)
+        batch["bboxes"] = np.concatenate([batch["bboxes"], ang * batch["mask"][..., None]], -1)
+    return out, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("task", ["segment", "pose", "obb"])
+def test_task_loss_on_the_card_matches_the_cpu(cuda, task):
+    """The segment, pose and OBB losses (float32, the assigner's overlaps in
+    float32) on the card against the CPU: parts within 1e-3 relative, the
+    gradient of every head output within 1e-3 of its largest."""
+    from fce_yolo_tpu_torch.train import task_losses as T
+
+    cfg = DetectionLossCfg(nc=3, tal_dtype="float32")
+    fn = {"segment": T.segmentation_loss, "obb": T.obb_loss,
+          "pose": lambda o, b, c, s: T.pose_loss(o, b, T.PoseLossCfg(det=c), s)}[task]
+    out_np, batch = _task_loss_case(task)
+    res = {}
+    for name, dev in (("cpu", torch.device("cpu")), ("card", cuda)):
+        out = {k: [torch.from_numpy(f).to(dev).requires_grad_() for f in v] if k == "feats"
+               else torch.from_numpy(v).to(dev).requires_grad_() for k, v in out_np.items()}
+        total, parts, _ = fn(out, {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}, cfg, LossState.init(dev))
+        total.backward()
+        leaves = [*out["feats"], *(v for k, v in out.items() if k != "feats")]
+        res[name] = ({k: float(v.detach()) for k, v in parts.items()}, [t.grad.cpu().numpy() for t in leaves])
+    (p_cpu, g_cpu), (p_card, g_card) = res["cpu"], res["card"]
+    assert p_card["fg_count"] == p_cpu["fg_count"] > 0
+    for k, v in p_cpu.items():
+        assert abs(p_card[k] - v) <= 1e-3 * abs(v), (k, p_card[k], v)
+    for gc, gg in zip(g_card, g_cpu):
+        assert np.isfinite(gc).all()
+        np.testing.assert_allclose(gc, gg, rtol=0, atol=1e-3 * np.abs(gg).max())

@@ -1,8 +1,9 @@
 """The task heads' data path against the JAX package and cv2: the polygon
 fill against ``cv2.fillPoly``, the convex hull and the minimum-area
 rectangle against ``cv2.convexHull`` and ``cv2.minAreaRect`` (all bit for
-bit), and the label reader, the val item and ``collate`` against the JAX
-dataset on the tiny segment, pose and OBB datasets (every array equal)."""
+bit), and the label reader, the val and train items and ``collate`` against
+the JAX dataset on the tiny segment, pose and OBB datasets (every array
+equal; the train items' labels within 1e-5 px)."""
 
 import cv2
 import numpy as np
@@ -11,6 +12,8 @@ import pytest
 from fce_yolo_tpu.data.dataset import YOLODataset as JaxDataset
 from fce_yolo_tpu.data.dataset import check_det_dataset as jax_check
 from fce_yolo_tpu.data.dataset import collate as jax_collate
+from fce_yolo_tpu.data.augment import AugmentCfg as JaxAugmentCfg
+from fce_yolo_tpu_torch.data.augment import AugmentCfg
 from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset, collate
 from fce_yolo_tpu_torch.ops.geometry import convex_hull, fill_poly, min_area_rect, regularize_rboxes, xywhr2xyxyxyxy
 from fce_yolo_tpu.ops import geometry as jgeometry
@@ -149,7 +152,49 @@ def test_collate_overlap_rule_and_short_polygons():
     assert m[3].sum() == 0 and m[0].sum() > 0 and (m.sum(0) <= 1).all()
 
 
-def test_train_mode_refuses_the_task_heads(tiny_seg_dataset):
-    d = check_det_dataset(tiny_seg_dataset)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        YOLODataset(d["train"], mode="train", task="segment", device="cpu")
+@pytest.mark.parametrize("task", sorted(TASKS))
+def test_train_mode_items_and_collate_match_jax(task, request):
+    """Train mode on each tiny task dataset, the dataset's own generator after
+    ``set_epoch`` on both sides: the same items (images bit-equal, polygons,
+    corners and keypoints equal), the same generator state, and ``collate``
+    giving the same masks, keypoints and rotated boxes. A pose dataset
+    without ``flip_idx`` turns both flips off, as the JAX dataset does."""
+    fixture, kpt_shape = TASKS[task]
+    d = check_det_dataset(request.getfixturevalue(fixture))
+    kw = dict(imgsz=96, mode="train", task=task, kpt_shape=kpt_shape, seed=4)
+    ds = YOLODataset(d["train"], device="cpu", hyp=AugmentCfg(flipud=0.5, copy_paste=0.5), **kw)
+    ref_ds = JaxDataset(d["train"], cache_labels=False, hyp=JaxAugmentCfg(flipud=0.5, copy_paste=0.5), **kw)
+    assert (ds.hyp.fliplr, ds.hyp.flipud) == (ref_ds.hyp.fliplr, ref_ds.hyp.flipud)
+    assert (ds.hyp.fliplr == 0.0) == (task == "pose")
+    for epoch in (0, 2):
+        ds.set_epoch(epoch, close_mosaic_at=1, total_epochs=3)
+        ref_ds.set_epoch(epoch, close_mosaic_at=1, total_epochs=3)
+        items, refs = [ds[i] for i in (0, 5, 3, 6)], [ref_ds[i] for i in (0, 5, 3, 6)]
+        for it, ref in zip(items, refs):
+            assert set(it) == set(ref)
+            for k in it:
+                for a, b in zip(it[k] if isinstance(it[k], list) else [it[k]],
+                                ref[k] if isinstance(ref[k], list) else [ref[k]]):
+                    np.testing.assert_allclose(a, b, rtol=0, atol=1e-5 if k != "img" else 0, err_msg=k)
+        assert ds._rng.bit_generator.state == ref_ds._rng.bit_generator.state
+        out = collate(items, max_labels=8, obb=task == "obb")
+        ref = jax_collate(refs, max_labels=8, obb=task == "obb")
+        assert set(out) == set(ref) - {"txt_feats", "visual_prompts"}
+        for k in out:
+            np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+        assert out["mask"].sum() > 0
+
+
+def test_pose_flip_idx_from_the_data_reaches_the_augment(tiny_pose_dataset):
+    """With ``flip_idx`` the pose dataset keeps its flips and reorders the
+    keypoints on a left-right flip; the label reader is the same."""
+    d = check_det_dataset(tiny_pose_dataset)
+    ds = YOLODataset(d["train"], imgsz=96, mode="train", task="pose", kpt_shape=(4, 3), device="cpu",
+                     flip_idx=[1, 0, 3, 2], hyp=AugmentCfg(fliplr=1.0, mosaic=0.0))
+    plain = YOLODataset(d["train"], imgsz=96, mode="train", task="pose", kpt_shape=(4, 3), device="cpu",
+                        flip_idx=[0, 1, 2, 3], hyp=AugmentCfg(fliplr=1.0, mosaic=0.0))
+    assert ds.hyp.fliplr == 1.0 and ds.flip_idx == [1, 0, 3, 2]
+    a, b = ds.get(2, np.random.default_rng(0)), plain.get(2, np.random.default_rng(0))
+    np.testing.assert_array_equal(a["img"], b["img"])
+    for k, r in zip(a["keypoints"], b["keypoints"]):
+        np.testing.assert_array_equal(k, r[[1, 0, 3, 2]])
