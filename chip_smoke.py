@@ -47,7 +47,17 @@ from a seed) and checks that each path went through its kernels:
   ``copy_paste`` on segment): finite losses, the task validator on the EMA
   model each epoch, the NMS kernel (segment, pose) bit-equal to its plain
   version on every val batch, ``best`` reloaded with its task and keypoint
-  shape.
+  shape;
+- tracking (phase track): ``YOLO.track`` of the bf16 yolo11s-fce at 640 px,
+  one frame a batch, over 48 frames of 720x1280 (a textured scene panned 3
+  px a frame there and back, 4 rectangles that move, cross, and leave the
+  view and come back), with ByteTrack, BoT-SORT (camera-motion compensation
+  on the host, no cv2) and BoT-SORT with ReID through ``YOLO.embed``: the
+  stem and the NMS kernel once a frame, the NMS kernel bit-equal to the
+  plain version on every frame and the tracks bit-equal through both, the
+  stem held and timed at B=1 on a fed frame; the rectangles' true boxes
+  keep their ids through BoT-SORT (and through ByteTrack, but the one the
+  pan takes out of view) and the GMC recovers the pan within 0.1 px.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -238,16 +248,19 @@ def stem_bound(spec, batch: int) -> tuple[float, str]:
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def time_stem(model, spec, batch: int, card: str, what: str) -> dict:
-    """Check the kernel on a seeded batch, then time it beside its plain
-    version and the unfused bf16 layers 0-2 (cuDNN, what the predictor runs
-    without the kernel) on the same batch."""
+def time_stem(model, spec, batch: int, card: str, what: str, x: torch.Tensor | None = None,
+              phase: str = "stem") -> dict:
+    """Check the kernel on ``x`` (a uint8 NHWC batch on the card; a seeded
+    one when None), then time it beside its plain version and the unfused
+    bf16 layers 0-2 (cuDNN, what the predictor runs without the kernel) on
+    the same batch."""
     from fce_yolo_tpu_torch.ops.stem import fold_stem_params, fused_stem, stem_reference, stem_weights
 
-    rng = np.random.RandomState(SEED)
-    x = torch.from_numpy(rng.randint(0, 256, (batch, spec.H, spec.W, 3), np.uint8)).cuda()
+    if x is None:
+        rng = np.random.RandomState(SEED)
+        x = torch.from_numpy(rng.randint(0, 256, (batch, spec.H, spec.W, 3), np.uint8)).cuda()
     weights = stem_weights(fold_stem_params(model, spec), spec)
-    dmax, rel, spread = check_stem(x, weights, spec, f"phase stem {what} B={batch}")
+    dmax, rel, spread = check_stem(x, weights, spec, f"phase {phase} {what} B={batch}")
     x_nchw = (x.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
     stem_layers = torch.nn.Sequential(*model.model[:3])
     with torch.inference_mode():
@@ -256,7 +269,7 @@ def time_stem(model, spec, batch: int, card: str, what: str) -> dict:
         layers_ms = cuda_ms(lambda: stem_layers(x_nchw))
         ms2 = cuda_ms(lambda: fused_stem(x, weights, spec))  # kernel, cuDNN, kernel: one spread
     bound_ms, bound_by = stem_bound(spec, batch)
-    print(f"phase stem: {what} {spec} B={batch} max|d|/max|ref|={rel:.3e} (limit 0.02) "
+    print(f"phase {phase}: {what} {spec} B={batch} max|d|/max|ref|={rel:.3e} (limit 0.02) "
           f"per-row max/median={spread:.2f} (limit 3) kernel {ms:.3f} / {ms2:.3f} ms, plain f32 {plain_ms:.3f} ms, "
           f"unfused bf16 layers 0-2 {layers_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}) [{card}]", flush=True)
     return {"max_abs_err": dmax, "ms": min(ms, ms2), "plain_ms": plain_ms, "library_ms": layers_ms,
@@ -2044,6 +2057,243 @@ def phase_task_train(root: Path, card: str) -> dict:
 
 
 
+# ------------------------------------------------------------ phase track
+TRACK_FRAMES, TRACK_H, TRACK_W = 48, 720, 1280
+TRACK_PAN = 3  # px a frame: the camera pans right for half the frames, then back
+TRACK_RECTS = [  # world box on frame 0 (x1, y1, x2, y2), world velocity (px a frame), BGR; the class is the index
+    ((100, 150, 260, 270), (14, 0), (40, 40, 230)),  # crosses the next one near frame 32
+    ((1000, 200, 1180, 320), (-14, 0), (40, 230, 40)),
+    ((600, 450, 780, 600), (0, 0), (230, 40, 40)),  # still in the world
+    ((45, 560, 85, 620), (0, 0), (230, 230, 40)),  # out of view on frames 16-32 as the camera pans
+]
+GMC_TOL = 0.1  # px: the GMC's translation against the pan
+
+
+def track_pan(t: int) -> int:
+    """The camera's x offset in the world on frame ``t``."""
+    return TRACK_PAN * min(t, TRACK_FRAMES - t)
+
+
+def track_scene() -> tuple[list[np.ndarray], list[tuple[np.ndarray, np.ndarray]]]:
+    """``TRACK_FRAMES`` BGR frames of TRACK_H x TRACK_W: a textured world
+    (random colours every 4 px, interpolated, and noise) seen through
+    ``augment.warp_affine`` at the camera's offset, with ``TRACK_RECTS``
+    painted on; and per frame the true boxes (N, 4) and classes (N,) of the
+    rectangles wholly in view."""
+    from fce_yolo_tpu_torch.data.augment import resize_linear, warp_affine
+
+    rng = np.random.RandomState(SEED + 7)
+    world_w = TRACK_W + TRACK_PAN * TRACK_FRAMES // 2 + 16
+    coarse = rng.randint(0, 256, (TRACK_H // 4 + 2, world_w // 4 + 2, 3), np.uint8)
+    world = resize_linear(coarse, (world_w, TRACK_H)).astype(np.int32)
+    world = np.clip(world + rng.randint(-6, 7, world.shape), 0, 255).astype(np.uint8)
+    views: dict[int, np.ndarray] = {}
+    frames, truth = [], []
+    for t in range(TRACK_FRAMES):
+        pan = track_pan(t)
+        if pan not in views:  # the pan goes there and back: each view is warped once
+            views[pan] = warp_affine(world, np.array([[1.0, 0, -pan], [0, 1, 0]]), (TRACK_W, TRACK_H))
+        img = views[pan].copy()
+        boxes, classes = [], []
+        for k, ((x1, y1, x2, y2), (vx, vy), color) in enumerate(TRACK_RECTS):
+            dx, dy = vx * t - pan, vy * t
+            bx = (x1 + dx, y1 + dy, x2 + dx, y2 + dy)
+            img[max(bx[1], 0): max(bx[3], 0), max(bx[0], 0): max(bx[2], 0)] = color
+            if bx[0] >= 0 and bx[1] >= 0 and bx[2] <= TRACK_W and bx[3] <= TRACK_H:
+                boxes.append(bx)
+                classes.append(k)
+        frames.append(img)
+        truth.append((np.array(boxes, float), np.array(classes, float)))
+    return frames, truth
+
+
+class TrackTimers:
+    """Host-clock time of ``GMC.apply``, ``BYTETracker.update`` (BoT-SORT's
+    too) and the facade's ``embed`` while installed, and every warp the GMC
+    returned."""
+
+    def __init__(self, yolo):
+        from fce_yolo_tpu_torch.trackers import GMC, BYTETracker
+
+        self.yolo, self.classes = yolo, (GMC, BYTETracker)
+        self.real = (GMC.apply, BYTETracker.update, yolo.embed)
+        self.reset()
+
+    def reset(self) -> None:
+        self.s = {"gmc": 0.0, "update": 0.0, "embed": 0.0}
+        self.warps: list[np.ndarray] = []
+
+    def _timed(self, key: str, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            self.s[key] += time.perf_counter() - t0
+            if key == "gmc":
+                self.warps.append(out)
+            return out
+        return run
+
+    def __enter__(self) -> "TrackTimers":
+        gmc, tracker = self.classes
+        gmc.apply = self._timed("gmc", self.real[0])
+        tracker.update = self._timed("update", self.real[1])
+        self.yolo.embed = self._timed("embed", self.real[2])
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gmc, tracker = self.classes
+        gmc.apply, tracker.update = self.real[:2]
+        del self.yolo.embed
+
+
+def track_truth(frames, truth, timers: TrackTimers, card: str) -> None:
+    """The rectangles' true boxes (score 0.9, class = rectangle) through
+    ByteTrack and BoT-SORT with the GMC on the host: each rectangle keeps one
+    id through the pan and the crossing (under ByteTrack the one the pan
+    takes out of view comes back under a new id: nothing there follows the
+    camera); the GMC's warp is the pan within GMC_TOL px, its 2x2 part the
+    identity within 1e-3."""
+    from fce_yolo_tpu_torch.trackers import build_tracker
+
+    notes = []
+    for name in ("bytetrack.yaml", "botsort.yaml"):
+        tk = build_tracker(name)
+        timers.reset()
+        ids: dict[int, set] = {k: set() for k in range(len(TRACK_RECTS))}
+        seen, shown = np.zeros(len(TRACK_RECTS), int), np.zeros(len(TRACK_RECTS), int)
+        for img, (boxes, classes) in zip(frames, truth):
+            out = tk.update(boxes, np.full(len(boxes), 0.9), classes, img=img)
+            seen[classes.astype(int)] += 1
+            for row in out:
+                ids[int(row[6])].add(int(row[4]))
+                shown[int(row[6])] += 1
+        keep = range(len(TRACK_RECTS)) if name == "botsort.yaml" else range(len(TRACK_RECTS) - 1)
+        check(all(len(ids[k]) == 1 for k in keep), f"truth {name}: a rectangle changed its id: {ids}")
+        # a new track shows from its second frame
+        check(bool((shown >= seen - len(ids[len(TRACK_RECTS) - 1])).all()), f"truth {name}: tracked {shown} of {seen}")
+        notes.append(f"{name} ids by rectangle {[sorted(v) for v in ids.values()]}")
+    warps = np.stack(timers.warps)
+    want = np.array([track_pan(t - 1) - track_pan(t) for t in range(1, len(frames))], float)
+    dt = np.abs(warps[1:, 0, 2] - want).max()
+    dy = np.abs(warps[1:, 1, 2]).max()
+    dr = np.abs(warps[1:, :, :2] - np.eye(2)).max()
+    check(max(dt, dy) <= GMC_TOL and dr <= 1e-3,
+          f"GMC: translation off the pan by {dt:.4f} / {dy:.4f} px (limit {GMC_TOL}), 2x2 off by {dr:.2e}")
+    print(f"phase track: true boxes on the host: {'; '.join(notes)}; GMC warp against the {TRACK_PAN} px pan: "
+          f"x within {dt:.4f} px, y within {dy:.4f} px (limit {GMC_TOL}), 2x2 within {dr:.2e} of the identity "
+          f"(limit 1e-3); GMC {timers.s['gmc'] * 1e3 / len(frames):.1f} ms a frame (host clock) [{card}]", flush=True)
+
+
+def phase_track(root: Path, card: str) -> tuple[dict, dict]:
+    """``YOLO.track`` of yolo11s-fce at 640 px, bf16, ``matching_model``'s
+    weights (up to 300 detections a frame above 0.1), one frame a batch, on
+    ``track_scene``'s frames: ByteTrack, BoT-SORT with the GMC and BoT-SORT
+    with ReID through ``YOLO.embed``, with the counts at 0 (the stem and the
+    NMS kernel once a frame); ByteTrack again with the plain NMS swapped
+    into ``ops.nms``: the same tracks bit for bit, and the kernel bit-equal
+    to the plain version on every frame's candidates; the stem kernel on a
+    fed frame at B=1 against its plain version and timed beside cuDNN; the
+    true boxes through the trackers (``track_truth``). Returns (the track
+    path's launches, the stem's B=1 numbers)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.augment import letterbox
+    from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+    from fce_yolo_tpu_torch.ops.nms import batched_nms
+    from fce_yolo_tpu_torch.ops.stem import stem_spec_from_model
+
+    t_phase = time.perf_counter()
+    frames, truth = track_scene()
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda")).to(torch.bfloat16)
+    reid = root / "botsort_reid.yaml"
+    cfg = (Path(__file__).resolve().parent / "fce_yolo_tpu_torch" / "trackers" / "cfg" / "botsort.yaml").read_text()
+    reid.write_text(cfg.replace("with_reid: False", "with_reid: True"))
+    trackers = {"bytetrack": "bytetrack.yaml", "botsort": "botsort.yaml", "botsort+reid": str(reid)}
+    yolo.track(frames[:2], tracker=str(reid), imgsz=IMGSZ)  # warm-up: the folded copy, cuDNN's set-up
+    torch.cuda.synchronize()
+
+    def run(tracker: str, timers: TrackTimers) -> tuple[list, dict]:
+        timers.reset()
+        out, n_det = [], 0
+        t0 = time.perf_counter()
+        for res, tracks in yolo.track(frames, tracker=tracker, imgsz=IMGSZ, stream=True):
+            n_det += len(res)
+            out.append(tracks)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = len(frames)
+        check(len(out) == n, f"{tracker}: {len(out)} frames of tracks for {n}")
+        for tracks in out:
+            check(tracks.ndim == 2 and tracks.shape[1] == 7 and bool(np.isfinite(tracks).all()), f"{tracker}: tracks")
+            check(bool((tracks[:, 4] >= 1).all()) and len(set(tracks[:, 4].tolist())) == len(tracks),
+                  f"{tracker}: track ids not distinct positive integers")
+        s = timers.s
+        return out, {"fps": n / wall, "predict": (wall - s["update"]) * 1e3 / n, "gmc": s["gmc"] * 1e3 / n,
+                     "embed": s["embed"] * 1e3 / n, "assoc": (s["update"] - s["gmc"] - s["embed"]) * 1e3 / n,
+                     "det": n_det / n, "tracks": sum(len(x) for x in out) / n,
+                     "ids": len({i for x in out for i in x[:, 4].tolist()})}
+
+    with TrackTimers(yolo) as timers:
+        reset_launches()
+        runs = {name: run(tracker, timers) for name, tracker in trackers.items()}
+        launches = read_launches()
+        n = len(frames) * len(trackers)
+        check(launches == no_jpeg(fused_stem=n, pick_suppress=n),
+              f"track path: {launches}, expected the stem and the NMS kernel once for each of {n} frames")
+
+        calls: list = []
+        real = nms_ops.pick_suppress
+
+        def plain(boxes, scores, valid, iou_thres, max_det):
+            out = nms_ops.pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+            calls.append(((boxes.clone(), scores.clone(), valid.clone()), out, iou_thres, max_det))
+            return out
+
+        try:
+            nms_ops.pick_suppress = plain
+            plain_tracks, _ = run(trackers["bytetrack"], timers)
+        finally:
+            nms_ops.pick_suppress = real
+        check(len(calls) == len(frames), f"plain path: {len(calls)} NMS calls for {len(frames)} frames")
+        for t, ((args, (ip, op), iou, max_det), a, b) in enumerate(zip(calls, runs["bytetrack"][0], plain_tracks)):
+            check(tuple(args[0].shape) == (1, NMS_K, 4), f"frame {t}: NMS ran on {tuple(args[0].shape)}")
+            ik, ok = real(*args, iou_thres=iou, max_det=max_det)
+            check(bool((ik == ip).all() and (ok == op).all()), f"frame {t}: NMS kernel differs from the plain version")
+            check(np.array_equal(a, b), f"frame {t}: the kernel path's tracks differ from the plain NMS path's")
+        kept = int(calls[0][1][1].sum())
+        args = calls[0][0]
+        with torch.inference_mode():
+            nms_ms = graph_ms(lambda: real(*args, iou_thres=0.7, max_det=MAX_DET))
+            nms_plain_ms = cuda_ms(lambda: nms_ops.pick_suppress_reference(*args, 0.7, MAX_DET), iters=3, warmup=1)
+        nms_bound_ms, nms_bound_by = nms_bound(1, NMS_K, kept)
+
+        track_truth(frames, truth, timers, card)
+
+    model = yolo._inference_model()
+    spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
+    x = torch.from_numpy(np.ascontiguousarray(letterbox(frames[0], IMGSZ, scaleup=False)[0][..., ::-1])[None]).cuda()
+    stem = time_stem(model, spec, 1, card, f"s, frame 0 of {TRACK_H}x{TRACK_W} as fed,", x=x, phase="track")
+    x_nchw = (x.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
+    predictor = DetectionPredictor(model, yolo.names, imgsz=IMGSZ, conf=0.1, batch_size=1)
+    with torch.inference_mode():
+        dev_ms = cuda_ms(lambda: predictor.infer(x), iters=10)
+        dev_plain_ms = cuda_ms(lambda: batched_nms(model(x_nchw)["preds"], conf_thres=0.1, iou_thres=0.7,
+                                                   multi_label=False), iters=10)
+    print(f"phase track: yolo11s-fce {IMGSZ} bf16, {len(frames)} frames of {TRACK_H}x{TRACK_W} a run, one a batch, "
+          f"conf 0.1; launches over the {len(trackers)} runs {launches}; NMS kernel idx/ok equal to the plain "
+          f"version on all {len(calls)} frames (B=1, K={NMS_K}) and ByteTrack's tracks bit-equal through both; "
+          f"NMS kernel at B=1 {nms_ms:.4f} ms ({kept} picks; CUDA graph; bound {nms_bound_ms:.4f} ms, "
+          f"{nms_bound_by}; plain {nms_plain_ms:.2f} ms); device B=1 {dev_ms:.2f} ms stem kernel+model+NMS vs "
+          f"{dev_plain_ms:.2f} ms plain stem (CUDA events) [{card}]", flush=True)
+    for name, (_, r) in runs.items():
+        print(f"phase track: {name}: {r['fps']:.2f} frames/s through YOLO.track; ms a frame (host clock): predict "
+              f"{r['predict']:.1f}, GMC {r['gmc']:.1f}, ReID embed {r['embed']:.1f}, association {r['assoc']:.1f}; "
+              f"{r['det']:.1f} detections and {r['tracks']:.1f} tracks a frame, {r['ids']} ids [{card}]", flush=True)
+    print(f"phase track: every check passed; {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return launches, {"track_b1_ms": stem["ms"], "track_b1_library_ms": stem["library_ms"],
+                      "track_b1_plain_ms": stem["plain_ms"], "track_b1_bound_ms": stem["bound_ms"]}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available; this script only runs on a GPU")
@@ -2089,10 +2339,11 @@ def main() -> None:
         experiments = phase_experiments(Path(tmp), card)
         tasks = phase_tasks(Path(tmp), card)
         task_train = phase_task_train(Path(tmp), card)
+        track, stem_b1 = phase_track(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks,
-             **task_train}
+             **task_train, "track": track}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),
@@ -2100,7 +2351,8 @@ def main() -> None:
 
     kernels = [
         {"name": "fused_stem", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/stem.cu",
-         "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", **launches("fused_stem"), **{k: stem[k] for k in keys}},
+         "replaces": "fce_yolo_tpu/ops/pallas_stem.py:309", **launches("fused_stem"), **{k: stem[k] for k in keys},
+         **stem_b1},
         {"name": "pick_suppress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/nms.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", **launches("pick_suppress"), **{k: nms[k] for k in keys},
          **nms_val},

@@ -1,6 +1,6 @@
-"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 400-490, 495-881``):
-predict, val and train for detect, segment, pose and OBB, checkpoints and
-the model summary."""
+"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 365-397, 400-490, 495-881``):
+predict, embed, track, val and train for detect, segment, pose and OBB,
+checkpoints and the model summary."""
 
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from fce_yolo_tpu_torch.nn.model import (build_model, estimate_flops, fold_conv_
 from fce_yolo_tpu_torch.nn.weights import variables_to_state_dict
 from fce_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
 
+EMBED_BATCH = 64  # images a forward in ``embed``
 OPTIM_KEYS = ("momentum", "weight_decay", "warmup_epochs", "warmup_momentum", "warmup_bias_lr", "nbs")
 
 
@@ -55,6 +56,7 @@ class YOLO:
         self.device = torch.device(device)
         self.ckpt_meta: dict[str, Any] = {}
         self._folded_copy: tuple[tuple | None, torch.nn.Module] | None = None  # (weights_version, folded copy)
+        self._tracker: tuple[str, Any] | None = None  # (tracker config, tracker) that ``track(persist=True)`` keeps
         self.yaml_overrides: dict[str, Any] = {}
         if is_checkpoint(model):
             tree, meta = load_checkpoint(model)
@@ -186,6 +188,53 @@ class YOLO:
         predictor = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
                                        max_det=max_det, batch_size=batch)
         gen = _postfilter(predictor.stream(source), classes, verbose)
+        return gen if stream else list(gen)
+
+    def embed(self, source, imgsz: int = 640) -> list[np.ndarray]:
+        """One feature vector an image of ``source`` (what ``predict``
+        takes; reference api.py:365): the image letterboxed to ``imgsz``
+        (BGR -> RGB, / 255), the folded model (``_inference_model``, the plain
+        graph: no stem kernel), the deepest level of the Detect head's
+        output maps (4 * reg_max + nc channels) averaged over H and W. float32
+        vectors; the images run ``EMBED_BATCH`` a forward."""
+        from fce_yolo_tpu_torch.data.augment import letterbox
+        from fce_yolo_tpu_torch.engine.predictor import load_source
+
+        model = self._inference_model()
+        dtype = next(model.parameters()).dtype
+        imgs = [np.ascontiguousarray(letterbox(img, imgsz)[0][..., ::-1])  # BGR -> RGB
+                for img, _ in load_source(source, self.device)]
+        out: list[np.ndarray] = []
+        with torch.inference_mode():
+            for i in range(0, len(imgs), EMBED_BATCH):
+                x = torch.from_numpy(np.stack(imgs[i: i + EMBED_BATCH])).to(self.device).permute(0, 3, 1, 2)
+                feats = model((x.float() / 255.0).to(dtype))["feats"][-1]
+                out.extend(feats.float().mean((2, 3)).cpu().numpy())
+        return out
+
+    def track(self, source, tracker: str = "bytetrack.yaml", stream: bool = False, persist: bool = False,
+              conf: float | None = None, batch: int | None = None, **predict_kw):
+        """Detection and multi-object tracking over ``source`` (what
+        ``predict`` takes: frames, a directory of frame images, files;
+        reference api.py:388): a list, or with ``stream`` a generator, of
+        (Results, tracks (M, 7) [x1, y1, x2, y2, id, score, cls]) a frame.
+        ``tracker`` is a tracker YAML (``bytetrack.yaml``, ``botsort.yaml``
+        or a path). Two differences from the JAX facade, which are the
+        Ultralytics ``Model.track``'s: ``conf`` defaults to 0.1 and ``batch``
+        to 1 (at predict's 0.25, ByteTrack's second association, on scores in
+        (0.1, 0.25), never sees a detection); ``persist=True`` keeps the
+        tracker of the last call, and its ids, where the JAX facade starts a
+        new one every call. Segment and pose models track their boxes; OBB
+        models raise."""
+        from fce_yolo_tpu_torch.trackers.track import _crop_embed_encoder, build_tracker, track_stream
+
+        if self.task == "obb":
+            raise NotImplementedError("YOLO.track follows axis-aligned boxes; an OBB model's rotated boxes are not "
+                                      "tracked")
+        if not (persist and self._tracker is not None and self._tracker[0] == str(tracker)):
+            self._tracker = (str(tracker), build_tracker(tracker, encoder=_crop_embed_encoder(self)))
+        gen = track_stream(self, source, self._tracker[1], conf=0.1 if conf is None else conf,
+                           batch=1 if batch is None else batch, **predict_kw)
         return gen if stream else list(gen)
 
     def val(self, data, imgsz: int = 640, batch: int = 16, conf: float = 0.001, iou: float = 0.7,

@@ -18,7 +18,9 @@ card within 1e-5 of flax's rule applied in float64; the segment, pose and
 OBB heads on the card (float32, TF32 off) within 1e-3 of the largest CPU
 output, and their NMS kernel's outputs in val (masks, keypoints) equal to
 the plain version's; their losses on the card within 1e-3 relative of the
-CPU's and their gradients within 1e-3 of the largest.
+CPU's and their gradients within 1e-3 of the largest; ``YOLO.track`` on
+the card launching both kernels once a frame, its tracks bit-equal with
+the plain NMS.
 """
 
 import struct
@@ -207,6 +209,33 @@ def test_predict_on_card_takes_both_kernels(cuda):
     res = y.predict(imgs, imgsz=160, batch=4)
     assert S.fused_stem.launches == stem0 + 2 and pick_suppress.launches == nms0 + 2
     assert len(res) == 6 and all(np.isfinite(r.boxes.data).all() for r in res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tracker", ["bytetrack.yaml", "botsort.yaml", "reid"])
+def test_track_on_card_takes_both_kernels_each_frame(cuda, tracker, monkeypatch, tmp_path):
+    """``YOLO.track`` of a bf16 model on the card: the stem and the NMS kernel
+    once a frame (B=1), and the same tracks bit for bit with the plain NMS
+    swapped into ``ops.nms``."""
+    if tracker == "reid":
+        tracker = str(tmp_path / "reid.yaml")
+        (tmp_path / "reid.yaml").write_text("tracker_type: botsort\nwith_reid: True\n")
+    y = YOLO("yolo11s-fce.yaml", device=cuda)
+    init_weights(y.model, torch.Generator().manual_seed(0), bias_prior=False)  # scores near 0.5: detections
+    y.to(torch.bfloat16)
+    rng = np.random.RandomState(0)
+    base = rng.randint(0, 256, (150, 220, 3), np.uint8)
+    frames = [np.ascontiguousarray(base[:, 3 * t: 3 * t + 200]) for t in range(5)]
+    stem0, nms0 = S.fused_stem.launches, pick_suppress.launches
+    out = y.track(frames, tracker=tracker, imgsz=160)
+    assert S.fused_stem.launches == stem0 + 5 and pick_suppress.launches == nms0 + 5
+    assert len(out) == 5 and all(t.shape[1] == 7 and np.isfinite(t).all() for _, t in out)
+    assert sum(len(t) for _, t in out) > 0
+    monkeypatch.setattr(nms_ops, "pick_suppress", lambda b, s, v, iou_thres, max_det:
+                        pick_suppress_reference(b, s, v, iou_thres, max_det))
+    plain = y.track(frames, tracker=tracker, imgsz=160)
+    for (_, a), (_, b) in zip(out, plain):
+        np.testing.assert_array_equal(a, b)
 
 
 def _write_png(path, rgb):

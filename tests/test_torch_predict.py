@@ -103,6 +103,36 @@ def test_import_and_predict_without_jax_cv2_pil(tmp_path):
     assert out.stdout.startswith("ok")
 
 
+def test_import_and_track_without_jax_cv2_pil(tmp_path):
+    """The trackers import, and a BoT-SORT update with the GMC and a CPU
+    ``YOLO.track`` with ReID run, with jax, cv2, PIL and the JAX package
+    blocked."""
+    code = textwrap.dedent("""
+        import sys
+        for m in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
+            sys.modules[m] = None
+        import numpy as np
+        from fce_yolo_tpu_torch import YOLO
+        from fce_yolo_tpu_torch.trackers import BOTSORT, TrackerArgs
+        rng = np.random.default_rng(0)
+        base = rng.integers(0, 256, (130, 170, 3), dtype=np.uint8)
+        tk = BOTSORT(TrackerArgs(tracker_type="botsort"))
+        for t in range(3):
+            out = tk.update(np.array([[40.0 + 2 * t, 40, 80 + 2 * t, 80]]), np.array([0.9]), np.array([0]),
+                            img=base[:, 2 * t: 2 * t + 160].copy())
+        assert out.shape == (1, 7) and out[0, 4] == 1
+        root = sys.argv[1]
+        open(root + "/reid.yaml", "w").write("tracker_type: botsort\\nwith_reid: True\\ngmc_method: sparseOptFlow\\n")
+        res = YOLO("yolo11n-fce.yaml", device="cpu").track([base, base], tracker=root + "/reid.yaml", imgsz=64)
+        assert len(res) == 2 and res[1][1].shape[1] == 7
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("ok")
+
+
 @pytest.mark.parametrize("shape,imgsz,scaleup", [
     ((96, 128, 3), 128, False),  # pad only
     ((128, 80, 3), 128, False),
