@@ -57,7 +57,20 @@ from a seed) and checks that each path went through its kernels:
   plain version on every frame and the tracks bit-equal through both, the
   stem held and timed at B=1 on a fed frame; the rectangles' true boxes
   keep their ids through BoT-SORT (and through ByteTrack, but the one the
-  pan takes out of view) and the GMC recovers the pan within 0.1 px.
+  pan takes out of view) and the GMC recovers the pan within 0.1 px;
+- video (phase video): those 48 frames as a Motion-JPEG AVI written here
+  (frame 0 without DHT, a ``LIST rec `` group, an odd-sized chunk), each
+  frame decoded on the card (both JPEG kernels once a frame) byte-equal to
+  the plain decoder; ``YOLO.predict(stream=True)`` and ``YOLO.track``
+  (ByteTrack) on the file, the stem, NMS and JPEG kernels once a frame,
+  detections and tracks equal to those on the plain decoder's arrays and
+  the NMS kernel bit-equal to the plain version on every frame; an OBB
+  model tracked over the first 8 frames;
+- classify (phase classify): yolo11s-cls at 224 px on a 3-class folder of
+  JPEGs written here: ``YOLO.predict`` on the directory (probabilities
+  against a CPU copy) and on the AVI, ``YOLO.val``, ``YOLO.train`` for 2
+  epochs of 2 steps, the JPEG kernels once an image read, ``best``
+  reloaded with its names giving the run's top-1.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -654,6 +667,49 @@ def jpeg_bytes(img: np.ndarray, quality: int = 95, sampling: str = "420", restar
         sos = bytes([len(scan)]) + b"".join(bytes([i + 1, min(i, 1) * 17]) for i in scan) + b"\x00\x3f\x00"
         out += segment(0xDA, sos) + _jpeg_scan([comps[i] for i in scan], restart)
     return out + b"\xff\xd9"
+
+
+def strip_dht(buf: bytes) -> bytes:
+    """A JPEG with its DHT segments taken out, as Motion-JPEG (AVI1) frames
+    come: a decoder takes the Annex K.3 tables, which ``jpeg_bytes`` uses."""
+    out, pos = bytearray(buf[:2]), 2
+    while buf[pos + 1] != 0xDA:
+        end = pos + 2 + struct.unpack(">H", buf[pos + 2: pos + 4])[0]
+        if buf[pos + 1] != 0xC4:
+            out += buf[pos:end]
+        pos = end
+    return bytes(out + buf[pos:])
+
+
+def avi_bytes(frames: list, width: int, height: int, fps: int = 30, fourcc: bytes = b"MJPG",
+              index: bool = True) -> bytes:
+    """A Motion-JPEG AVI of one video stream: ``frames`` holds each frame's
+    JPEG bytes (one ``00dc`` chunk; b"" is a dropped frame) or a list of
+    them (one ``LIST rec `` group); an odd-sized chunk is followed by its pad
+    byte; ``idx1`` indexes the chunks when ``index``."""
+    def chunk(tag: bytes, body: bytes) -> bytes:
+        return tag + struct.pack("<I", len(body)) + body + b"\0" * (len(body) & 1)
+
+    def listed(kind: bytes, body: bytes) -> bytes:
+        return b"LIST" + struct.pack("<I", len(body) + 4) + kind + body
+
+    n = sum(len(f) if isinstance(f, list) else 1 for f in frames)
+    avih = struct.pack("<14I", 1_000_000 // fps, 0, 0, 0x10 if index else 0, n, 0, 1, 0, width, height, 0, 0, 0, 0)
+    strh = b"vids" + fourcc + struct.pack("<IHHIIIIIIIIhhhh", 0, 0, 0, 0, 1, fps, 0, n, 0, 0xFFFFFFFF, 0, 0, 0,
+                                          width, height)
+    strf = struct.pack("<IiiHH4sIiiII", 40, width, height, 1, 24, fourcc, width * height * 3, 0, 0, 0, 0)
+    hdrl = listed(b"hdrl", chunk(b"avih", avih) + listed(b"strl", chunk(b"strh", strh) + chunk(b"strf", strf)))
+    movi, entries = b"", []
+    for f in frames:
+        group = f if isinstance(f, list) else [f]
+        at = len(movi) + (16 if isinstance(f, list) else 4)  # idx1 offsets count from the 'movi' tag
+        body = b""
+        for frame in group:
+            entries.append(b"00dc" + struct.pack("<III", 0x10, at + len(body), len(frame)))
+            body += chunk(b"00dc", frame)
+        movi += listed(b"rec ", body) if isinstance(f, list) else body
+    out = hdrl + listed(b"movi", movi) + (chunk(b"idx1", b"".join(entries)) if index else b"")
+    return b"RIFF" + struct.pack("<I", len(out) + 4) + b"AVI " + out
 
 
 def val_images():
@@ -2291,7 +2347,320 @@ def phase_track(root: Path, card: str) -> tuple[dict, dict]:
               f"{r['det']:.1f} detections and {r['tracks']:.1f} tracks a frame, {r['ids']} ids [{card}]", flush=True)
     print(f"phase track: every check passed; {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return launches, {"track_b1_ms": stem["ms"], "track_b1_library_ms": stem["library_ms"],
-                      "track_b1_plain_ms": stem["plain_ms"], "track_b1_bound_ms": stem["bound_ms"]}
+                      "track_b1_plain_ms": stem["plain_ms"], "track_b1_bound_ms": stem["bound_ms"]}, frames
+
+
+# ------------------------------------------------------------ phase video
+VIDEO_QUALITY = 90  # the AVI's frames: baseline 4:2:0 at this quality
+VIDEO_OBB_FRAMES = 8  # the OBB track and the classify predict read the first frames as a short AVI
+
+
+def video_frame(job: tuple[np.ndarray, bool]) -> tuple[bytes, np.ndarray]:
+    """A worker's job in phase video: one BGR frame -> (its baseline JPEG,
+    without DHT if asked; the plain decoder's image of those bytes)."""
+    from fce_yolo_tpu_torch.data.jpeg import decode_jpeg_reference
+
+    frame, no_dht = job
+    buf = jpeg_bytes(np.ascontiguousarray(frame[..., ::-1]), VIDEO_QUALITY, "420")
+    if no_dht:
+        buf = strip_dht(buf)
+    return buf, decode_jpeg_reference(buf)
+
+
+def write_video(root: Path, frames: list) -> tuple[Path, Path, list, int]:
+    """``frames`` as an MJPEG AVI (frame 0 without DHT, frames 1-2 in a
+    ``LIST rec `` group, frame 3 odd-sized: a byte after its EOI) and its
+    first VIDEO_OBB_FRAMES as a second one; the JPEGs are written and
+    decoded by the plain path in spawned worker processes (the numpy writer
+    and the Python entropy decode take ~0.5 s a 720x1280 frame each).
+    Returns (path, short path, the plain decoder's frames, bytes)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        out = list(pool.map(video_frame, [(f, i == 0) for i, f in enumerate(frames)]))
+    jpgs, plain = [b for b, _ in out], [img for _, img in out]
+    if len(jpgs[3]) % 2 == 0:
+        jpgs[3] += b"\0"
+    h, w = frames[0].shape[:2]
+    path, short = root / "video.avi", root / "video_short.avi"
+    path.write_bytes(avi_bytes([jpgs[0], jpgs[1:3], *jpgs[3:]], w, h))
+    short.write_bytes(avi_bytes(jpgs[:VIDEO_OBB_FRAMES], w, h))
+    return path, short, plain, sum(len(b) for b in jpgs)
+
+
+def phase_video(root: Path, frames: list, card: str) -> tuple[dict, dict, Path]:
+    """Phase track's 48 frames of 720x1280 as an MJPEG AVI (``write_video``):
+    (a) ``data/avi.py`` decodes every frame on the card, both JPEG kernels
+    once a frame, byte-equal to the plain decoder; (b) ``YOLO.predict(stream=
+    True)`` of phase track's bf16 yolo11s-fce on the file, the stem, NMS and
+    both JPEG kernels once a frame, detections equal to a predict on the
+    plain decoder's arrays; (c) ``YOLO.track`` (ByteTrack) on the file with
+    the counts at 0, then on the plain decoder's arrays with the plain NMS
+    swapped into ``ops.nms``: the same tracks bit for bit, and the kernel
+    bit-equal to the plain version on every frame's candidates; (d)
+    ``YOLO.track`` of a bf16 yolo11s-obb on the short AVI: finite tracks, the
+    stem kernel once a frame. Returns (launches by path, timings for the
+    record, the short AVI)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data import jpeg as J
+    from fce_yolo_tpu_torch.data.avi import avi_frames, read_avi
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+
+    t_phase = time.perf_counter()
+    path, short, plain, n_bytes = write_video(root, frames)
+    write_s = time.perf_counter() - t_phase
+    n = len(plain)
+    list(avi_frames(short, "cuda"))  # warm: this thread's stream and buffers
+    reset_launches()
+    t0 = time.perf_counter()
+    decoded = list(avi_frames(path, "cuda"))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n
+    decode_launches = read_launches()
+    check(decode_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": n, "jpeg_color": n},
+          f"AVI decode: launches {decode_launches}, expected both JPEG kernels once for each of {n} frames")
+    check(len(decoded) == n, f"AVI decode: {len(decoded)} frames of {n}")
+    for i, (a, b) in enumerate(zip(decoded, plain)):
+        check(bool(np.array_equal(a, b)), f"frame {i}: the card's decode differs from the plain decoder's")
+    split, t = np.zeros(5), np.zeros(5, np.float32)
+    at, size = read_avi(path).frames[1]
+    frame1 = path.read_bytes()[at: at + size]
+    for _ in range(10):
+        J.decode_jpeg(frame1, "frame 1", "cuda", times=t)
+        split += t
+    split /= 10
+    print(f"phase video (a): {n} frames of {frames[0].shape[0]}x{frames[0].shape[1]} as MJPEG AVI ({n_bytes} bytes; "
+          f"frame 0 without DHT, a rec list, an odd chunk; written and plain-decoded in {write_s:.1f} s) decoded on "
+          f"the card byte-equal to the plain decoder, launches {decode_launches}; {decode_ms:.2f} ms a frame, "
+          f"{1e3 / decode_ms:.1f} frames/s (host clock, one thread); frame 1 split (CUDA events, mean of 10): host "
+          f"entropy decode {split[0]:.3f} ms, H2D {split[1]:.3f}, jpeg_idct {split[2]:.4f}, jpeg_color "
+          f"{split[3]:.4f}, D2H {split[4]:.3f} [{card}]", flush=True)
+
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda")).to(torch.bfloat16)
+    yolo.predict(plain[:2], imgsz=IMGSZ, conf=0.1)  # warm-up: the folded copy, cuDNN's set-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    gen = yolo.predict(str(path), imgsz=IMGSZ, conf=0.1, stream=True)
+    check(not isinstance(gen, list), "predict(stream=True) returned a list")
+    results = list(gen)
+    torch.cuda.synchronize()
+    predict_fps = n / (time.perf_counter() - t0)
+    predict_launches = read_launches()
+    check(predict_launches == {"fused_stem": n, "pick_suppress": n, "jpeg_idct": n, "jpeg_color": n},
+          f"predict on the AVI: launches {predict_launches}, expected every kernel once for each of {n} frames")
+    check([r.path for r in results] == [f"{path}#frame{i}" for i in range(n)], "predict on the AVI: frame names")
+    again = yolo.predict(plain, imgsz=IMGSZ, conf=0.1)
+    dmax = 0.0
+    for i, (r, a) in enumerate(zip(results, again)):
+        check(bool((r.orig_img == a.orig_img).all()), f"frame {i}: the predicted frame differs from the plain decode")
+        check(len(r) == len(a) and bool((r.boxes.cls == a.boxes.cls).all()), f"frame {i}: detections differ")
+        if len(r):
+            dmax = max(dmax, float(np.abs(r.boxes.data - a.boxes.data).max()))
+    check(dmax <= 1e-3, f"predict on the AVI vs on the plain decoder's arrays: detections differ by {dmax}")
+    n_det = sum(len(r) for r in results)
+
+    reset_launches()
+    t0 = time.perf_counter()
+    tracks = [trk for _, trk in yolo.track(str(path), tracker="bytetrack.yaml", imgsz=IMGSZ, stream=True)]
+    torch.cuda.synchronize()
+    track_fps = n / (time.perf_counter() - t0)
+    track_launches = read_launches()
+    check(track_launches == {"fused_stem": n, "pick_suppress": n, "jpeg_idct": n, "jpeg_color": n},
+          f"track on the AVI: launches {track_launches}, expected every kernel once for each of {n} frames")
+    calls: list = []
+    real = nms_ops.pick_suppress
+
+    def plain_nms(boxes, scores, valid, iou_thres, max_det):
+        out = nms_ops.pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+        calls.append(((boxes.clone(), scores.clone(), valid.clone()), out, iou_thres, max_det))
+        return out
+
+    try:
+        nms_ops.pick_suppress = plain_nms
+        plain_tracks = [trk for _, trk in yolo.track(plain, tracker="bytetrack.yaml", imgsz=IMGSZ, stream=True)]
+    finally:
+        nms_ops.pick_suppress = real
+    check(len(calls) == n == len(tracks), f"plain path: {len(calls)} NMS calls, {len(tracks)} frames of tracks")
+    for i, ((args, (ip, op), iou, max_det), a, b) in enumerate(zip(calls, tracks, plain_tracks)):
+        ik, ok = real(*args, iou_thres=iou, max_det=max_det)
+        check(bool((ik == ip).all() and (ok == op).all()), f"frame {i}: NMS kernel differs from the plain version")
+        check(a.shape[1] == 7 and np.array_equal(a, b), f"frame {i}: the AVI's tracks differ from the plain path's")
+    args = calls[0][0]
+    with torch.inference_mode():
+        nms_ms = graph_ms(lambda: real(*args, iou_thres=0.7, max_det=MAX_DET))
+    n_ids = len({i for trk in tracks for i in trk[:, 4].tolist()})
+    print(f"phase video (b, c): yolo11s-fce {IMGSZ} bf16, one frame a batch, conf 0.1: predict(stream=True) on "
+          f"the AVI launches {predict_launches}, {n_det / n:.1f} detections a frame equal to a predict on the plain "
+          f"decoder's arrays (max|d| {dmax:.1e}, limit 1e-3), {predict_fps:.2f} frames/s; ByteTrack on the AVI "
+          f"launches {track_launches}, {n_ids} ids, tracks bit-equal to the plain path's (arrays, plain NMS) on "
+          f"all {n} frames, the NMS kernel bit-equal to the plain version on each; {track_fps:.2f} frames/s "
+          f"through YOLO.track (host clock, decode included); NMS kernel on frame 0's candidates {nms_ms:.4f} ms "
+          f"(CUDA graph) [{card}]", flush=True)
+    del yolo
+
+    obb = task_matching_model(YOLO("yolo11s-obb.yaml", device="cuda"), "obb").to(torch.bfloat16)
+    obb.track(plain[:1], imgsz=IMGSZ)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    obb_out = obb.track(str(short), imgsz=IMGSZ)
+    torch.cuda.synchronize()
+    obb_fps = VIDEO_OBB_FRAMES / (time.perf_counter() - t0)
+    obb_launches = read_launches()
+    k = VIDEO_OBB_FRAMES
+    check(obb_launches == {"fused_stem": k, "pick_suppress": 0, "jpeg_idct": k, "jpeg_color": k},
+          f"OBB track on the AVI: launches {obb_launches}, expected the stem and JPEG kernels once for each of {k}")
+    check(len(obb_out) == k, f"OBB track: {len(obb_out)} frames of {k}")
+    for res, trk in obb_out:
+        check(res.obb is not None and trk.ndim == 2 and trk.shape[1] == 7 and bool(np.isfinite(trk).all()),
+              "OBB track: tracks not finite (M, 7)")
+    n_obb = sum(len(t) for _, t in obb_out)
+    check(n_obb > 0, "OBB track: no track on any frame")
+    print(f"phase video (d): ByteTrack of yolo11s-obb {IMGSZ} bf16 (the axis-aligned hulls) on the first {k} frames "
+          f"as an AVI: launches {obb_launches}, {n_obb / k:.1f} finite tracks a frame, {obb_fps:.2f} frames/s; "
+          f"phase video {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del obb
+    return ({"video_predict": predict_launches, "video_track": track_launches, "video_obb_track": obb_launches},
+            {"decode_ms": decode_ms, "predict_fps": predict_fps, "track_fps": track_fps, "nms_ms": nms_ms}, short)
+
+
+
+# ------------------------------------------------------------ phase classify
+CLS_NC, CLS_TRAIN, CLS_VAL = 3, 8, 4  # classes; train and val images a class
+CLS_BATCH = 12  # 24 train images: 2 steps an epoch; the 12 val images in one batch
+CLS_EPOCHS = 2
+CLS_TOL = 1e-4  # probabilities, card vs CPU: float32 in both (TF32 off), sums in another order
+
+
+def write_cls_dataset(root: Path) -> Path:
+    """A class-folder dataset of JPEGs (``jpeg_bytes``, q90 4:2:0) of
+    200-400 px noise, each class tinted in its own channel:
+    ``root/cls/{train,val}/class<c>/<i>.jpg``."""
+    rng = np.random.RandomState(SEED + 11)
+    for split, n in (("train", CLS_TRAIN), ("val", CLS_VAL)):
+        for c in range(CLS_NC):
+            folder = root / "cls" / split / f"class{c}"
+            folder.mkdir(parents=True)
+            for i in range(n):
+                h, w = rng.randint(200, 401, 2)
+                img = rng.randint(0, 120, (h, w, 3)).astype(np.uint8)
+                img[..., c] += 120
+                (folder / f"{i}.jpg").write_bytes(jpeg_bytes(img, 90, "420"))
+    return root / "cls"
+
+
+def calibrated_classifier(yolo, data: Path):
+    """Seed-0 weights with every BatchNorm's running statistics set from one
+    train-mode forward of the train split (val transform, momentum 1 for
+    that pass): the eval logits are O(1), so an image's top-1 has a margin
+    (at the raw init they are ~1e-5 and every image a near-tie)."""
+    from fce_yolo_tpu_torch.data.classify import ClassificationDataset, classify_collate
+
+    ds = ClassificationDataset(data / "train", imgsz=224, mode="val", device="cuda")
+    x = torch.from_numpy(classify_collate([ds[i] for i in range(len(ds))])["img"]).cuda().permute(0, 3, 1, 2)
+    bns = [m for m in yolo.model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    momentum = bns[0].momentum
+    with torch.no_grad():
+        for m in bns:
+            m.momentum = 1.0
+        yolo.model.train()(x.float() / 255.0)
+        for m in bns:
+            m.momentum = momentum
+    yolo.model.eval()
+    return yolo
+
+
+def phase_classify(root: Path, short_avi: Path, card: str) -> dict:
+    """yolo11s-cls at 224 px (float32, seed-0 weights, ``calibrated_classifier``)
+    on a 3-class dataset of JPEGs it writes: ``YOLO.predict`` on the val
+    directory (both JPEG kernels once an image; the probabilities within
+    CLS_TOL of a CPU copy's, the same top-1) and on phase video's short AVI;
+    ``YOLO.val`` (top-1 equal to predict's per-image hits); ``YOLO.train``
+    bf16 for 2 epochs of 2 steps (finite losses, the JPEG kernels once an
+    image read, ``best`` reloaded with its names giving the run's top-1).
+    Returns the launches by path."""
+    from fce_yolo_tpu_torch import YOLO
+
+    t_phase = time.perf_counter()
+    data = write_cls_dataset(root)
+    val_dir = data / "val"
+    n_val, n_train = CLS_NC * CLS_VAL, CLS_NC * CLS_TRAIN
+    yolo = calibrated_classifier(YOLO("yolo11s-cls.yaml", device="cuda", nc=CLS_NC), data)
+    yolo.predict(str(val_dir / "class0"), batch=CLS_BATCH)  # warm-up: the folded copy, cuDNN's set-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.predict(str(val_dir), batch=CLS_BATCH)
+    torch.cuda.synchronize()
+    predict_ips = n_val / (time.perf_counter() - t0)
+    predict_launches = read_launches()
+    check(predict_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": n_val, "jpeg_color": n_val},
+          f"classify predict: launches {predict_launches}, expected both JPEG kernels once for each of {n_val}")
+    cpu = YOLO("yolo11s-cls.yaml", device="cpu", nc=CLS_NC)
+    cpu.model.load_state_dict(yolo.model.state_dict())
+    ref = cpu.predict(str(val_dir), batch=CLS_BATCH)
+    check([r.path for r in res] == [r.path for r in ref], "classify predict: paths differ from the CPU's")
+    probs, ref_probs = np.stack([r.probs.data for r in res]), np.stack([r.probs.data for r in ref])
+    dmax = float(np.abs(probs - ref_probs).max())
+    top2 = np.sort(ref_probs, 1)[:, -2:]
+    margin = float((top2[:, 1] - top2[:, 0]).min())
+    check(bool(np.isfinite(probs).all()) and dmax <= CLS_TOL, f"classify predict: card vs CPU probs differ by {dmax}")
+    check(margin > 2 * CLS_TOL and [r.probs.top1 for r in res] == [r.probs.top1 for r in ref],
+          f"classify predict: top-1 differs from the CPU's (smallest margin {margin:.2e})")
+    hits = np.mean([r.probs.top1 == int(Path(r.path).parent.name.removeprefix("class")) for r in res])
+
+    reset_launches()
+    on_avi = list(yolo.predict(str(short_avi), stream=True))
+    avi_launches = read_launches()
+    k = VIDEO_OBB_FRAMES
+    check(avi_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": k, "jpeg_color": k},
+          f"classify predict on the AVI: launches {avi_launches}")
+    check([r.path for r in on_avi] == [f"{short_avi}#frame{i}" for i in range(k)]
+          and all(r.probs is not None and np.isfinite(r.probs.data).all() for r in on_avi),
+          "classify predict on the AVI: names or probabilities")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    val = yolo.val(str(data), batch=CLS_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    val_ips = n_val / (time.perf_counter() - t0)
+    val_launches = read_launches()
+    check(val_launches == predict_launches, f"classify val: launches {val_launches}")
+    check(abs(val["metrics/accuracy_top1"] - hits) < 1e-9, f"classify val: top-1 {val} against predict's {hits}")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out = yolo.train(data=str(data), epochs=CLS_EPOCHS, batch=CLS_BATCH, imgsz=224, project=str(root / "runs_cls"),
+                     verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    reads = CLS_EPOCHS * (n_train + n_val)
+    check(train_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": reads, "jpeg_color": reads},
+          f"classify train: launches {train_launches}, expected a decode for each of {reads} image reads")
+    check(out["epochs_run"] == CLS_EPOCHS and all(np.isfinite(r["train/loss"]) for r in out["results"]),
+          f"classify train: {out['results']}")
+    best = YOLO(str(Path(out["save_dir"]) / "weights" / "best"), device="cuda")
+    check(best.task == "classify" and best.names == yolo.names == {c: f"class{c}" for c in range(CLS_NC)},
+          f"classify best: task {best.task}, names {best.names}")
+    best_top1 = best.val(str(data), imgsz=224, batch=CLS_BATCH, verbose=False)["metrics/accuracy_top1"]
+    check(best_top1 == out["best_fitness"], f"classify best: top-1 {best_top1} against the run's {out['best_fitness']}")
+    print(f"phase classify: yolo11s-cls 224 f32, {CLS_NC} classes, {n_train} train and {n_val} val JPEGs of 200-400 "
+          f"px: predict on the val directory launches {predict_launches}, probabilities within {dmax:.1e} of the "
+          f"CPU copy's (limit {CLS_TOL}; smallest top-1 margin {margin:.3f}), the same top-1, {predict_ips:.1f} img/s; "
+          f"on the short AVI launches {avi_launches}; val top-1 {val['metrics/accuracy_top1']:.3f} top-5 "
+          f"{val['metrics/accuracy_top5']:.3f} (= predict's hits), launches {val_launches}, {val_ips:.1f} img/s; "
+          f"train bf16 B={CLS_BATCH} {CLS_EPOCHS} epochs, losses "
+          f"{[round(r['train/loss'], 4) for r in out['results']]}, top-1 {[r['metrics/accuracy_top1'] for r in out['results']]}, "
+          f"launches {train_launches}, {train_s:.1f} s ("
+          + ", ".join(f"{sp['img_per_s']:.1f} img/s" for sp in out["speed"])
+          + f"); best reloaded with its names gives top-1 {best_top1:.3f}; phase classify "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {"classify_predict": predict_launches, "classify_avi": avi_launches, "classify_val": val_launches,
+            "classify_train": train_launches}
 
 
 def main() -> None:
@@ -2339,11 +2708,14 @@ def main() -> None:
         experiments = phase_experiments(Path(tmp), card)
         tasks = phase_tasks(Path(tmp), card)
         task_train = phase_task_train(Path(tmp), card)
-        track, stem_b1 = phase_track(Path(tmp), card)
+        track, stem_b1, frames = phase_track(Path(tmp), card)
+        video, video_times, short_avi = phase_video(Path(tmp), frames, card)
+        del frames
+        classify = phase_classify(Path(tmp), short_avi, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks,
-             **task_train, "track": track}
+             **task_train, "track": track, **video, **classify}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),
@@ -2355,9 +2727,10 @@ def main() -> None:
          **stem_b1},
         {"name": "pick_suppress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/nms.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", **launches("pick_suppress"), **{k: nms[k] for k in keys},
-         **nms_val},
+         **nms_val, "video_b1_ms": video_times["nms_ms"]},
     ] + [{"name": name, "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
-          "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches(name), **jpeg[name]}
+          "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches(name), **jpeg[name],
+          "video_frame_decode_ms": video_times["decode_ms"]}
          for name in ("jpeg_idct", "jpeg_color")]
     print(json.dumps({"kernels": kernels}))
     print(card)

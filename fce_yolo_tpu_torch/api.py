@@ -1,6 +1,6 @@
-"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 365-397, 400-490, 495-881``):
+"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 312-329, 365-397, 400-490, 495-995``):
 predict, embed, track, val and train for detect, segment, pose and OBB,
-checkpoints and the model summary."""
+predict, val and train for classify, checkpoints and the model summary."""
 
 from __future__ import annotations
 
@@ -175,20 +175,58 @@ class YOLO:
 
     def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640, max_det: int = 300,
                 batch: int = 1, stream: bool = False, classes: list[int] | None = None, verbose: bool = False):
-        """Predict on ``source``: an image file, a directory, a numpy BGR
-        image, a PIL image, or a list of these (``engine/predictor.py::
-        load_source``). Returns a list of ``Results`` (boxes, and masks,
+        """Predict on ``source``: an image file, a directory, an MJPEG
+        ``.avi`` video, a numpy BGR image, a PIL image, or a list of these
+        (``engine/predictor.py::load_source``). Returns a list of
+        ``Results`` (boxes, and masks,
         keypoints or oriented boxes by the task), or with ``stream`` a
         generator of them. ``classes`` keeps only those class ids (NMS
         offsets boxes by class, so a filter after it keeps the same boxes);
         ``verbose`` prints a line an image. Files decode on the model's
-        device. Runs a folded copy of the model (``_inference_model``)."""
+        device. Runs a folded copy of the model (``_inference_model``). A
+        classify model gives each image's ``probs`` (``_predict_classify``;
+        ``imgsz`` 640 means its 224)."""
         from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
+        if self.task == "classify":
+            gen = _postfilter(self._predict_classify(source, imgsz=imgsz if imgsz != 640 else 224, batch=batch),
+                              None, verbose)
+            return gen if stream else list(gen)
         predictor = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
                                        max_det=max_det, batch_size=batch)
         gen = _postfilter(predictor.stream(source), classes, verbose)
         return gen if stream else list(gen)
+
+    def _predict_classify(self, source, imgsz: int = 224, batch: int = 1):
+        """Classification predict (reference ``_predict_classify``,
+        api.py:312-329): each image through ``val_transform`` (BGR -> RGB,
+        / 255), ``batch`` images a forward of the folded model, softmax ->
+        ``Results.probs``."""
+        from fce_yolo_tpu_torch.data.classify import val_transform
+        from fce_yolo_tpu_torch.engine.predictor import load_source
+        from fce_yolo_tpu_torch.engine.results import Results
+
+        model = self._inference_model()
+        dtype = next(model.parameters()).dtype
+        pending: list[tuple[np.ndarray, str, np.ndarray]] = []
+
+        def flush():
+            t0 = time.perf_counter()
+            x = torch.from_numpy(np.stack([x for _, _, x in pending])).to(self.device).permute(0, 3, 1, 2)
+            with torch.inference_mode():
+                probs = model((x.float() / 255.0).to(dtype))["probs"].cpu().numpy()
+            ms = (time.perf_counter() - t0) * 1000 / len(pending)
+            for (img, path, _), p in zip(pending, probs):
+                yield Results(img, path, self.names, probs=p,
+                              speed={"preprocess": 0.0, "inference": ms, "postprocess": 0.0})
+            pending.clear()
+
+        for img, path in load_source(source, self.device):
+            pending.append((img, path, np.ascontiguousarray(val_transform(img, imgsz)[..., ::-1])))
+            if len(pending) == batch:
+                yield from flush()
+        if pending:
+            yield from flush()
 
     def embed(self, source, imgsz: int = 640) -> list[np.ndarray]:
         """One feature vector an image of ``source`` (what ``predict``
@@ -215,22 +253,22 @@ class YOLO:
     def track(self, source, tracker: str = "bytetrack.yaml", stream: bool = False, persist: bool = False,
               conf: float | None = None, batch: int | None = None, **predict_kw):
         """Detection and multi-object tracking over ``source`` (what
-        ``predict`` takes: frames, a directory of frame images, files;
-        reference api.py:388): a list, or with ``stream`` a generator, of
-        (Results, tracks (M, 7) [x1, y1, x2, y2, id, score, cls]) a frame.
+        ``predict`` takes: frames, a directory of frame images, files, an
+        MJPEG ``.avi`` video; reference api.py:388): a list, or with
+        ``stream`` a generator, of (Results, tracks (M, 7) [x1, y1, x2, y2,
+        id, score, cls]) a frame.
         ``tracker`` is a tracker YAML (``bytetrack.yaml``, ``botsort.yaml``
         or a path). Two differences from the JAX facade, which are the
         Ultralytics ``Model.track``'s: ``conf`` defaults to 0.1 and ``batch``
         to 1 (at predict's 0.25, ByteTrack's second association, on scores in
         (0.1, 0.25), never sees a detection); ``persist=True`` keeps the
         tracker of the last call, and its ids, where the JAX facade starts a
-        new one every call. Segment and pose models track their boxes; OBB
-        models raise."""
+        new one every call. Segment and pose models track their boxes, OBB
+        models the axis-aligned hulls of their rotated boxes (``Results.boxes``),
+        and a classify model, which has no boxes, gives empty tracks, as in
+        the JAX facade."""
         from fce_yolo_tpu_torch.trackers.track import _crop_embed_encoder, build_tracker, track_stream
 
-        if self.task == "obb":
-            raise NotImplementedError("YOLO.track follows axis-aligned boxes; an OBB model's rotated boxes are not "
-                                      "tracked")
         if not (persist and self._tracker is not None and self._tracker[0] == str(tracker)):
             self._tracker = (str(tracker), build_tracker(tracker, encoder=_crop_embed_encoder(self)))
         gen = track_stream(self, source, self._tracker[1], conf=0.1 if conf is None else conf,
@@ -243,15 +281,37 @@ class YOLO:
         baseline JPEG, PNG or ``.npy`` images), on the model's device (JPEGs
         decode there too). The dataset's class
         names replace ``class_*`` placeholders. Returns the validator's
-        results dict."""
+        results dict. A classify model takes a class-folder directory
+        (``_val_classify``; ``imgsz`` 640 means its 224)."""
         from fce_yolo_tpu_torch.data.dataset import check_det_dataset
 
+        if self.task == "classify":
+            return self._val_classify(data, imgsz=imgsz if imgsz != 640 else 224, batch=batch, verbose=verbose)
         d = check_det_dataset(data)
         if not self.names or all(v.startswith("class_") for v in self.names.values()):
             self.names = d["names"]
         validator = self._validator(imgsz=imgsz, conf=conf, iou=iou, max_det=max_det, batch_size=batch,
                                     workers=workers)
         return validator(data=d, verbose=verbose, save_json=save_json)
+
+    def _val_classify(self, data, imgsz: int = 224, batch: int = 16, verbose: bool = True) -> dict:
+        """Top-1 and top-5 accuracy on the ``val`` split of the class-folder
+        directory ``data`` (else ``test``, else ``data`` itself; reference
+        ``_val_classify``, api.py:425-467), ``batch`` images a forward of the
+        folded model; the dataset's class names replace ``class_*``
+        placeholders."""
+        from fce_yolo_tpu_torch.data.classify import ClassificationDataset
+
+        root = Path(data)
+        split = next((root / s for s in ("val", "test") if (root / s).is_dir()), root)
+        ds = ClassificationDataset(split, imgsz=imgsz, mode="val", device=self.device)
+        if not self.names or all(v.startswith("class_") for v in self.names.values()):
+            self.names = dict(ds.names)
+        res = _classify_accuracy(self._inference_model(), ds, batch, self.device)
+        if verbose:
+            print(f"top1 {res['metrics/accuracy_top1']:.3f}  top5 {res['metrics/accuracy_top5']:.3f}  "
+                  f"({len(ds)} images)")
+        return res
 
     def _validator(self, model: torch.nn.Module | None = None, **kw):
         """The task's validator on ``model`` (the facade's unless another,
@@ -282,7 +342,8 @@ class YOLO:
         segmentation (the batch carries the instance masks), pose (the
         keypoints; the data's ``kpt_shape`` rebuilds a head of another
         shape, and its ``flip_idx`` swaps left and right on a flip) or OBB
-        (rotated boxes from the corners).
+        (rotated boxes from the corners); a classify model trains on a
+        class-folder directory (``_train_classify``).
 
         After every epoch: a val of the task on the EMA model (if ``val``), a row of
         ``results.csv``, ``weights/last`` (EMA weights and the full train
@@ -295,6 +356,11 @@ class YOLO:
         Returns {"save_dir", "best_fitness", "epochs_run", "results" (the csv
         rows), "speed" (per epoch: img/s and the per-step split in ms)}.
         """
+        if self.task == "classify":
+            return self._train_classify(data, epochs=epochs, batch=batch, imgsz=imgsz, optimizer=optimizer,
+                                        lr0=lr0, lrf=lrf, cos_lr=cos_lr, patience=patience, project=project,
+                                        name=name, val=val, seed=seed, verbose=verbose, exist_ok=exist_ok or resume,
+                                        bf16=bf16, **hyp_overrides)
         from fce_yolo_tpu_torch.data.augment import AugmentCfg
         from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
         from fce_yolo_tpu_torch.data.loader import DataLoader
@@ -469,6 +535,142 @@ class YOLO:
         self.model.eval()
         return {"save_dir": str(save_dir), "best_fitness": best_fitness, "epochs_run": len(csv_rows),
                 "results": csv_rows, "speed": speed}
+
+    def _train_classify(self, data, epochs: int = 100, batch: int = 16, imgsz: int = 640, optimizer: str = "auto",
+                        lr0: float | None = None, lrf: float = 0.01, cos_lr: bool = False, patience: int = 100,
+                        project: str = "runs/detect", name: str = "train", val: bool = True, seed: int = 0,
+                        verbose: bool = True, exist_ok: bool = False, bf16: bool | None = None, **hyp) -> dict:
+        """Classification training (reference ``_train_classify``,
+        api.py:883-995) on the class-folder directory ``data`` (``train``,
+        and ``val`` else ``test``): the port's optimizer, EMA and train step
+        with ``classification_loss``, one optimizer step a batch (the
+        reference accumulates nothing here), the items of an epoch in a
+        permutation drawn from ``default_rng(seed)``, a batch short of
+        ``batch`` dropped. The model is rebuilt when the folder's class
+        count differs from ``nc``. After every epoch: top-1/top-5 of the EMA
+        model on the val split (the mean over its images; queue 3 item 21:
+        the reference averages per-batch means over a padded last batch), a
+        row of ``results.csv``, ``weights/last`` and, when the top-1
+        improves, ``weights/best`` (EMA weights, with the class names). The
+        facade keeps the last epoch's EMA weights, as the reference does.
+        Of ``hyp``, only ``momentum``, ``weight_decay`` and
+        ``warmup_epochs`` are read. ``bf16=None`` means bfloat16 autocast on
+        a card, float32 on the CPU."""
+        from fce_yolo_tpu_torch.data.classify import ClassificationDataset, classify_collate
+        from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
+        from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+        from fce_yolo_tpu_torch.train.task_losses import task_loss_for
+        from fce_yolo_tpu_torch.train.trainer import EarlyStopping, create_train_state, make_train_step
+        from fce_yolo_tpu_torch.utils.files import increment_path
+
+        if self.folded:
+            raise RuntimeError("YOLO.train: the model is folded; build the model anew or load an unfolded checkpoint")
+        root = Path(data)
+        train_ds = ClassificationDataset(root / "train", imgsz=imgsz, mode="train", seed=seed, device=self.device)
+        val_ds = ClassificationDataset(root / ("val" if (root / "val").exists() else "test"), imgsz=imgsz,
+                                       mode="val", device=self.device) if val else None
+        if len(train_ds.names) != self.nc:
+            self._build(self.cfg_yaml, self.scale, len(train_ds.names), self.yaml_overrides)
+            self.reset_weights(0)
+        self.names = dict(train_ds.names)
+        n = len(train_ds)
+        steps = max(n // batch, 1)
+        cfg = OptimCfg(optimizer=optimizer, lr0=lr0 if lr0 is not None else 0.01, lrf=lrf, cos_lr=cos_lr,
+                       batch_size=batch, epochs=epochs, steps_per_epoch=steps, nc=self.nc,
+                       **{k: hyp[k] for k in ("momentum", "weight_decay", "warmup_epochs") if k in hyp})
+        model = self.model
+        state = create_train_state(model, Optimizer(cfg, model))
+        if bf16 is None:
+            bf16 = self.device.type == "cuda"
+        task_loss, _ = task_loss_for("classify", DetectionLossCfg(nc=self.nc))
+        step_fn = make_train_step(model, state.optimizer, DetectionLossCfg(nc=self.nc), bf16=bf16,
+                                  task_loss=task_loss)
+        save_dir = increment_path(Path(project) / name, exist_ok=exist_ok, mkdir=True)
+        (save_dir / "weights").mkdir(parents=True, exist_ok=True)
+        ema_model = copy.deepcopy(model).eval()
+        ema_params = [p for _, p in ema_model.named_parameters()]
+        if verbose:
+            print(f"train: {self.cfg_yaml} scale={self.scale} classes={self.nc} imgsz={imgsz} batch={batch} "
+                  f"epochs={epochs} steps/epoch={steps} optimizer={state.optimizer.cfg.optimizer} "
+                  f"device={self.device} bf16={bf16}")
+        stopper = EarlyStopping(patience)
+        rng = np.random.default_rng(seed)
+        rows: list[dict] = []
+        speed: list[dict] = []
+        best = -1.0
+        for epoch in range(epochs):
+            train_ds.set_epoch(epoch)
+            order = rng.permutation(n)
+            t0 = time.perf_counter()
+            losses: list[torch.Tensor] = []
+            t_load = 0.0
+            for bi in range(steps):
+                idx = order[bi * batch: (bi + 1) * batch]
+                if len(idx) < batch:
+                    break
+                tl = time.perf_counter()
+                b = classify_collate([train_ds[int(j)] for j in idx])
+                t_load += time.perf_counter() - tl
+                bdev = {"img": torch.from_numpy(b["img"]).to(self.device),
+                        "cls": torch.from_numpy(b["label"]).to(self.device)}
+                state, m = step_fn(state, bdev)
+                losses.append(m["loss"].float())
+            train_s = time.perf_counter() - t0
+            row = {"epoch": epoch, "train/loss": torch.stack(losses).double().mean().item() if losses else 0.0}
+            with torch.no_grad():
+                torch._foreach_copy_(ema_params, state.ema.params)
+                for (_, b_ema), (_, b_live) in zip(ema_model.named_buffers(), model.named_buffers()):
+                    b_ema.copy_(b_live)
+            fitness = None
+            tv = time.perf_counter()
+            if val_ds is not None:
+                acc = _classify_accuracy(ema_model, val_ds, batch, self.device)
+                row.update(acc)
+                fitness = acc["metrics/accuracy_top1"]
+            speed.append({"epoch": epoch, "img_per_s": len(losses) * batch / max(train_s, 1e-9),
+                          "loader_ms": t_load * 1e3 / max(len(losses), 1), "val_s": time.perf_counter() - tv})
+            rows.append(row)
+            _write_csv(save_dir / "results.csv", rows)
+            meta = self._meta({"epoch": epoch, "fitness": fitness})
+            ema_sd = _cpu(ema_model.state_dict())
+            save_checkpoint(save_dir / "weights" / "last", {"model": ema_sd}, meta)
+            if fitness is not None and fitness > best:
+                best = fitness
+                save_checkpoint(save_dir / "weights" / "best", {"model": ema_sd}, meta)
+            if verbose:
+                print(f"epoch {epoch + 1}/{epochs} loss={row['train/loss']:.3f}"
+                      + (f" top1={fitness:.3f}" if fitness is not None else "")
+                      + f" ({speed[-1]['img_per_s']:.1f} img/s)")
+            if stopper(epoch, fitness):
+                break
+        if rows:
+            self.model.load_state_dict(ema_model.state_dict())
+        self.model.eval()
+        return {"save_dir": str(save_dir), "best_fitness": best, "epochs_run": len(rows), "results": rows,
+                "speed": speed}
+
+
+def _classify_accuracy(model: torch.nn.Module, ds, batch: int, device: torch.device) -> dict:
+    """Top-1 and top-5 accuracy of ``model`` (in eval mode) over the
+    classification dataset ``ds``, the mean over its images (the reference
+    pads the last batch to a fixed shape and drops the pads)."""
+    from fce_yolo_tpu_torch.data.classify import classify_collate
+
+    dtype = next(model.parameters()).dtype
+    t1s: list[torch.Tensor] = []
+    t5s: list[torch.Tensor] = []
+    with torch.inference_mode():
+        for i in range(0, len(ds), batch):
+            b = classify_collate([ds[j] for j in range(i, min(i + batch, len(ds)))])
+            x = torch.from_numpy(b["img"]).to(device).permute(0, 3, 1, 2)
+            y = torch.from_numpy(b["label"]).to(device).long()
+            probs = model((x.float() / 255.0).to(dtype))["probs"]
+            top5 = torch.argsort(-probs, dim=-1, stable=True)[:, :5]
+            t1s.append(top5[:, 0] == y)
+            t5s.append((top5 == y[:, None]).any(-1))
+    t1 = torch.cat(t1s).double().mean().item() if t1s else 0.0
+    t5 = torch.cat(t5s).double().mean().item() if t5s else 0.0
+    return {"metrics/accuracy_top1": t1, "metrics/accuracy_top5": t5}
 
 
 def _postfilter(results, classes: list[int] | None, verbose: bool):

@@ -1,9 +1,10 @@
 """Packaged model configs as Python dicts.
 
 Equal to ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml``,
-``yolo11-fce.yaml``, ``yolo11-bifpn.yaml`` and the task heads' ``yolo11-seg.yaml``,
-``yolo11-pose.yaml`` and ``yolo11-obb.yaml`` (YAML's unquoted ``None`` is the string "None", resolved
-by the parser like the reference's literal_eval pass). A user-given model
+``yolo11-fce.yaml``, ``yolo11-bifpn.yaml`` and the task heads'
+``yolo11-seg.yaml``, ``yolo11-pose.yaml``, ``yolo11-obb.yaml`` and
+``yolo11-cls.yaml`` (YAML's unquoted ``None`` is the string "None",
+resolved by the parser like the reference's literal_eval pass). A user-given model
 YAML file is read by the port's own reader (``utils/yaml_read.py``): the
 port needs no pyyaml.
 """
@@ -138,6 +139,12 @@ def _yolo11_with_head(head: list, **top) -> dict:
 MODELS["yolo11-seg"] = _yolo11_with_head(["Segment", ["nc", 32, 256]])
 MODELS["yolo11-pose"] = _yolo11_with_head(["Pose", ["nc", "kpt_shape"]], kpt_shape=[17, 3])
 MODELS["yolo11-obb"] = _yolo11_with_head(["OBB", ["nc", 1]])
+MODELS["yolo11-cls"] = {  # yolo11's backbone without SPPF, then the Classify head
+    "nc": 1000,
+    "scales": _SCALES,
+    "backbone": [*copy.deepcopy(MODELS["yolo11"]["backbone"][:9]), [-1, 2, "C2PSA", [1024]]],
+    "head": [[-1, 1, "Classify", ["nc"]]],
+}
 
 
 def guess_scale(model_name: str) -> str | None:

@@ -14,8 +14,9 @@ Two paths give the same bytes:
   ``jpeg_color_reference`` (numpy int32).
 
 What is read: SOF0/SOF1 (8-bit Huffman sequential), 1 or 3 components with
-sampling factors 1-4, 8- or 16-bit quantisation tables, restart intervals,
-interleaved and non-interleaved scans (a non-interleaved scan covers
+sampling factors 1-4, 8- or 16-bit quantisation tables, Huffman slots 0 and
+1 that no DHT defined (Motion-JPEG frames) read as the Annex K.3 tables,
+restart intervals, interleaved and non-interleaved scans (a non-interleaved scan covers
 ceil(comp_w / 8) x ceil(comp_h / 8) blocks, not the MCU-padded grid), the
 JFIF/Adobe colour rules of libjpeg (``default_decompress_parms``) and the
 EXIF orientation as ``cv2.imdecode`` applies it. Progressive, arithmetic,
@@ -59,7 +60,7 @@ import numpy as np
 
 __all__ = ["JpegHeader", "parse_jpeg", "entropy_decode", "jpeg_idct_reference", "jpeg_color_reference",
            "apply_orientation", "decode_jpeg_reference", "decode_jpeg", "jpeg_idct", "jpeg_color",
-           "jpeg_coefficients", "header_from_info", "JPEG_SIGNATURE"]
+           "jpeg_coefficients", "header_from_info", "JPEG_SIGNATURE", "STD_HUFFMAN"]
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"
 # zig-zag position k -> natural (row-major) index; positions past 63 land on 63, as libjpeg's table does
@@ -80,6 +81,23 @@ _SEGMENT_END = re.compile(rb"\xff(?![\x00\xd0-\xd7\xff])")  # a marker that ends
 _RST = re.compile(rb"\xff+[\xd0-\xd7]")
 MAX_PIXELS = 1 << 30  # cv2's CV_IO_MAX_IMAGE_PIXELS: imdecode refuses a larger frame
 INT_MAX = (1 << 31) - 1
+# The Huffman tables of ITU T.81 Annex K.3, (class, slot) -> (counts, symbols): libjpeg-turbo's
+# std_huff_tables fills slots 0 (luminance) and 1 (chrominance) with them when no DHT defined them,
+# as Motion-JPEG frames rely on (AVI1 frames carry no DHT)
+STD_HUFFMAN = {
+    (0, 0): ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0], bytes(range(12))),
+    (0, 1): ([0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0], bytes(range(12))),
+    (1, 0): ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7D], bytes.fromhex(
+        "01020300041105122131410613516107227114328191a1082342b1c11552d1f02433627282090a161718191a25262728292a"
+        "3435363738393a434445464748494a535455565758595a636465666768696a737475767778797a838485868788898a929394"
+        "95969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8"
+        "e9eaf1f2f3f4f5f6f7f8f9fa")),
+    (1, 1): ([0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77], bytes.fromhex(
+        "000102031104052131061241510761711322328108144291a1b1c109233352f0156272d10a162434e125f11718191a2627"
+        "28292a35363738393a434445464748494a535455565758595a636465666768696a737475767778797a82838485868788898a"
+        "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6"
+        "e7e8e9eaf2f3f4f5f6f7f8f9fa")),
+}
 
 
 @dataclass
@@ -237,8 +255,8 @@ def parse_jpeg(buf: bytes, name: str = "<jpeg>") -> JpegHeader:
             end = m.start() if m else n
             if m is None or end + 1 >= n:
                 raise ValueError(f"{name}: JPEG data ends or breaks off before the EOI marker")
-            tables = {("dc", j): huffman.get((0, t)) for j, t in zip(sel, td)}
-            tables.update({("ac", j): huffman.get((1, t)) for j, t in zip(sel, ta)})
+            tables = {("dc", j): huffman.get((0, t), STD_HUFFMAN.get((0, t))) for j, t in zip(sel, td)}
+            tables.update({("ac", j): huffman.get((1, t), STD_HUFFMAN.get((1, t))) for j, t in zip(sel, ta)})
             scans.append(Scan(sel, buf[pos:end], restart, tables))
             pos = end
         elif marker == 0xE0:  # APP0
@@ -283,7 +301,7 @@ def _lookup(table, name: str) -> list[int]:
     prefix no code starts is (17 << 8) | 0 (libjpeg's "bad Huffman code":
     17 bits consumed, symbol 0)."""
     if table is None:
-        raise ValueError(f"{name}: a scan uses a Huffman table that was never defined")
+        raise ValueError(f"{name}: a scan uses a Huffman table (slot 2 or 3) that was never defined")
     counts, symbols = table
     out = [(17 << 8)] * 65536
     code, k = 0, 0

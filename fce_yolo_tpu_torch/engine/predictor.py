@@ -1,6 +1,7 @@
 """Streaming detection predictor (reference ``fce_yolo_tpu/engine/predictor.py:97-363``).
 
-Sources (files, directories, numpy or PIL images; ``load_source``) are
+Sources (files, directories, MJPEG AVI video, streams of it, numpy or PIL
+images; ``load_source``) are
 letterboxed to fixed-size uint8 batches on the host (BGR -> RGB, padded to
 the predictor's batch size), run through the model with
 Conv+BN folded on its device, NMS'd there, and come back as ``Results`` in
@@ -33,8 +34,10 @@ import numpy as np
 import torch
 
 from fce_yolo_tpu_torch.data.augment import letterbox
+from fce_yolo_tpu_torch.data.avi import avi_frames
 from fce_yolo_tpu_torch.data.dataset import IMG_FORMATS
 from fce_yolo_tpu_torch.data.imread import imread
+from fce_yolo_tpu_torch.data.loaders import STREAM_PREFIXES, LoadScreenshots, LoadStreams
 from fce_yolo_tpu_torch.engine.results import Results
 from fce_yolo_tpu_torch.nn.model import DetectionModel, fold_conv_bn, is_folded
 from fce_yolo_tpu_torch.ops.masks import process_mask, scale_masks
@@ -45,18 +48,21 @@ __all__ = ["DetectionPredictor", "load_source"]
 
 
 VID_FORMATS = {"asf", "avi", "gif", "m4v", "mkv", "mov", "mp4", "mpeg", "mpg", "ts", "webm", "wmv"}
-STREAM_PREFIXES = ("rtsp://", "rtmp://", "http://", "https://", "tcp://")
 
 
 def load_source(source, device="cuda") -> Iterator[tuple[np.ndarray, str]]:
     """Yield (BGR uint8 image, path or id) from an image file, a directory
-    (its image files by extension, ``rglob``, sorted), a numpy BGR image, a
-    PIL image (recognised by its class's module, PIL is not imported), or a
-    list/tuple of these (the reference ``load_source``,
+    (its image files by extension, ``rglob``, sorted), an MJPEG ``.avi``
+    video (each frame, named ``<path>#frame<i>``), a ``.streams`` file or a
+    stream URL (``data/loaders.py::LoadStreams``, named by the source), a
+    numpy BGR image, a PIL image (recognised by its class's module, PIL is
+    not imported), or a list/tuple of these (the reference ``load_source``,
     ``fce_yolo_tpu/engine/predictor.py:28-100``). Files are read by
-    ``imread`` (a JPEG decodes on ``device``). A file that cannot be read
-    raises: nothing is skipped (the reference skips what cv2 cannot read).
-    Streams, screenshots and video raise NotImplementedError."""
+    ``imread`` and video frames by ``data/avi.py`` (a JPEG decodes on
+    ``device``). A file that cannot be read raises: nothing is skipped (the
+    reference skips what cv2 cannot read). Other video containers and
+    codecs, network streams, webcams and screenshots raise
+    NotImplementedError."""
     if isinstance(source, (list, tuple)):
         for i, s in enumerate(source):
             for img, path in load_source(s, device):
@@ -74,20 +80,36 @@ def load_source(source, device="cuda") -> Iterator[tuple[np.ndarray, str]]:
         yield np.ascontiguousarray(arr[..., ::-1]), "pil"  # RGB -> BGR
         return
     if not isinstance(source, (str, Path)):
-        raise TypeError(f"the port's predictor takes image paths, directories, numpy or PIL images, got "
-                        f"{type(source).__name__}")
+        raise TypeError(f"the port's predictor takes image paths, directories, videos, streams, numpy or PIL "
+                        f"images, got {type(source).__name__}")
     text = str(source)
-    if (text.lower().startswith(STREAM_PREFIXES) or text.endswith(".streams") or text.isnumeric()
-            or text.startswith("screen") or Path(text).suffix[1:].lower() in VID_FORMATS):
-        raise NotImplementedError(f"{text}: streams, screenshots and video are not read by the port yet "
-                                  "(ROADMAP queue 1, item 3)")
+    if text.lower().startswith(STREAM_PREFIXES) or text.endswith(".streams") or text.isnumeric():
+        streams = LoadStreams(text, device=device)
+        try:
+            for names, frames in streams:
+                yield from zip(frames, names)
+        finally:
+            streams.close()
+        return
+    if text.startswith("screen"):
+        for names, frames in LoadScreenshots(text):
+            yield frames[0], names[0]
+        return
     p = Path(text)
     if p.is_dir():
         for f in sorted(p.rglob("*")):
             if f.suffix[1:].lower() in IMG_FORMATS:
                 yield imread(f, device), str(f)
         return
+    suffix = p.suffix[1:].lower()
+    if suffix in VID_FORMATS and suffix != "avi":
+        raise NotImplementedError(f"{text}: the {suffix} video container is not read by the port; it reads "
+                                  "Motion-JPEG AVI (.avi) video only")
     if p.is_file():
+        if suffix == "avi":
+            for i, frame in enumerate(avi_frames(p, device)):
+                yield frame, f"{p}#frame{i}"
+            return
         yield imread(p, device), str(p)
         return
     raise FileNotFoundError(f"source not found: {source}")

@@ -1,6 +1,6 @@
 """Result containers, host-side numpy (reference
 ``fce_yolo_tpu/engine/results.py:18-178, 180-278, 364``): boxes, and for
-the task heads masks, keypoints and oriented boxes. Plotting, and the
+the task heads masks, keypoints, oriented boxes and class probabilities. Plotting, and the
 mask outlines (``Masks.xy``, which the reference traces with
 ``cv2.findContours``), are not ported yet (ROADMAP queue 1, item 4)."""
 
@@ -12,7 +12,7 @@ import numpy as np
 
 from fce_yolo_tpu_torch.ops.geometry import xywhr2xyxyxyxy
 
-__all__ = ["Boxes", "Masks", "Keypoints", "OBB", "Results"]
+__all__ = ["Boxes", "Masks", "Keypoints", "OBB", "Probs", "Results"]
 
 NOT_PORTED = "mask outlines (cv2.findContours in the reference) are not ported yet (ROADMAP queue 1, item 4)"
 
@@ -132,14 +132,38 @@ class OBB:
         return np.concatenate([p.min(1), p.max(1)], -1)
 
 
+class Probs:
+    """Class probabilities of one image (reference results.py:107-127)."""
+
+    def __init__(self, data: np.ndarray):
+        self.data = np.asarray(data, np.float32).reshape(-1)
+
+    @property
+    def top1(self) -> int:
+        return int(self.data.argmax())
+
+    @property
+    def top5(self) -> list[int]:
+        return np.argsort(-self.data)[:5].tolist()
+
+    @property
+    def top1conf(self) -> float:
+        return float(self.data.max())
+
+    @property
+    def top5conf(self) -> np.ndarray:
+        return self.data[self.top5]
+
+
 class Results:
     """One image's predictions: ``boxes``, and ``masks`` (segment),
-    ``keypoints`` (pose) or ``obb`` (whose axis-aligned hulls are ``boxes``)."""
+    ``keypoints`` (pose), ``obb`` (whose axis-aligned hulls are ``boxes``)
+    or ``probs`` (classify, whose ``boxes`` are empty)."""
 
     def __init__(self, orig_img: np.ndarray, path: str, names: dict[int, str],
                  boxes: np.ndarray | None = None, masks: np.ndarray | None = None,
                  keypoints: np.ndarray | None = None, obb: np.ndarray | None = None,
-                 speed: dict | None = None):
+                 probs: np.ndarray | None = None, speed: dict | None = None):
         self.orig_img = orig_img
         self.orig_shape = orig_img.shape[:2]
         self.path = path
@@ -150,6 +174,7 @@ class Results:
         self.boxes = Boxes(boxes if boxes is not None else np.zeros((0, 6)), self.orig_shape)
         self.masks = Masks(masks, self.orig_shape) if masks is not None else None
         self.keypoints = Keypoints(keypoints, self.orig_shape) if keypoints is not None else None
+        self.probs = Probs(probs) if probs is not None else None
         self.speed = speed or {"preprocess": 0.0, "inference": 0.0, "postprocess": 0.0}
 
     def __len__(self) -> int:
@@ -167,10 +192,14 @@ class Results:
             return None if c is None else c.data[sel]
 
         return Results(self.orig_img, self.path, self.names, boxes=pick(self.boxes) if self.obb is None else None,
-                       masks=pick(self.masks), keypoints=pick(self.keypoints), obb=pick(self.obb), speed=self.speed)
+                       masks=pick(self.masks), keypoints=pick(self.keypoints), obb=pick(self.obb),
+                       probs=None if self.probs is None else self.probs.data, speed=self.speed)
 
     def verbose(self) -> str:
-        """Per-image log string, e.g. '2 persons, 1 bus, '."""
+        """Per-image log string, e.g. '2 persons, 1 bus, ', or the top-5
+        classes with their probabilities, e.g. 'cat 0.81, dog 0.10, ...'."""
+        if self.probs is not None:
+            return ", ".join(f"{self.names.get(i, str(i))} {self.probs.data[i]:.2f}" for i in self.probs.top5)
         if len(self) == 0:
             return "(no detections), "
         counts: dict[int, int] = {}
@@ -181,8 +210,9 @@ class Results:
 
     def summary(self, normalize: bool = False, decimals: int = 5) -> list[dict]:
         """Per-detection dicts with keypoints when present (reference
-        Results.summary); the segments of masks need their outlines, which
-        are not ported yet."""
+        Results.summary; a classify result has no detections, so its list is
+        empty, as the reference's); the segments of masks need their
+        outlines, which are not ported yet."""
         if self.masks is not None:
             raise NotImplementedError(NOT_PORTED)
         h, w = self.orig_shape if normalize else (1, 1)

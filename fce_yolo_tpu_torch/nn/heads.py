@@ -1,5 +1,5 @@
-"""Task heads beyond detect: Segment, Pose and OBB, and the mask prototypes
-(reference ``fce_yolo_tpu/nn/heads.py:31-193``).
+"""Task heads beyond detect: Segment, Pose and OBB, the mask prototypes, and
+Classify (reference ``fce_yolo_tpu/nn/heads.py:31-211``).
 
 Each head is the port's ``Detect`` with one more branch per level (``cv4``:
 Conv3x3 -> Conv3x3 -> bare 1x1), so its ``state_dict`` keys are
@@ -30,7 +30,7 @@ from torch import nn
 from fce_yolo_tpu_torch.nn.modules import Conv2d, ConvBNAct, Detect
 from fce_yolo_tpu_torch.ops.anchors import dfl_expectation, dist2rbox, make_anchors
 
-__all__ = ["Proto", "Segment", "Pose", "OBB"]
+__all__ = ["Proto", "Segment", "Pose", "OBB", "Classify"]
 
 
 class Proto(nn.Module):
@@ -131,3 +131,23 @@ class OBB(Detect):
         rbox = dist2rbox(dist, angle, anchors[None]) * stride_t[None]
         preds = torch.cat([rbox, cls_logits.float().sigmoid(), angle], dim=-1)
         return {"preds": preds, "angle": angle, "feats": feats}
+
+
+class Classify(nn.Module):
+    """Image classification head (reference ``fce_yolo_tpu/nn/heads.py:195-211``):
+    ConvBNAct to 1280 channels -> mean over H and W -> ``Linear`` -> softmax.
+    The logits and probabilities come out in float32: ``{"logits"}`` in
+    training mode, ``{"probs", "logits"}`` in eval mode."""
+
+    C_ = 1280
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1):
+        super().__init__()
+        self.conv = ConvBNAct(c1, self.C_, k, s)
+        self.linear = nn.Linear(self.C_, c2)
+
+    def forward(self, x: torch.Tensor) -> dict[str, Any]:
+        logits = self.linear(self.conv(x).mean((2, 3))).float()
+        if self.training:
+            return {"logits": logits}
+        return {"probs": logits.softmax(-1), "logits": logits}

@@ -54,8 +54,8 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
         return fce.BiFPN_Concat(c1=tuple(a[0]), c2=a[1])
     if n == "BiCoordCrossAtt":
         return fce.BiCoordCrossAtt(inp=a[0], oup=a[1], reduction=a[2], num_heads=a[3])
-    if n == "Classify":
-        raise KeyError(f"the Classify head (layer {ls.i}) is not ported yet (ROADMAP queue 1, item 5)")
+    if n == "Classify":  # [c1, c2, k, s]
+        return H.Classify(a[0], a[1], k=a[2] if len(a) > 2 else 1, s=a[3] if len(a) > 3 else 1)
     raise KeyError(f"module {n!r} at layer {ls.i} is not ported yet")
 
 
@@ -64,7 +64,8 @@ class DetectionModel(nn.Module):
 
     ``forward`` returns the head's dict: for Detect ``{"feats"}`` in training
     mode, ``{"preds", "feats"}`` in eval mode (preds (B, N, 4 + nc), xywh
-    pixels + class scores); a task head (``nn/heads.py``) adds its own keys.
+    pixels + class scores); a task head (``nn/heads.py``) adds its own keys,
+    and Classify gives ``{"logits"}`` / ``{"probs", "logits"}``.
     """
 
     def __init__(self, spec: ModelSpec, strides: tuple[int, ...] | None = None):
@@ -74,8 +75,8 @@ class DetectionModel(nn.Module):
         self.model = nn.ModuleList(make_layer(ls, strides, legacy=spec.legacy) for ls in spec.layers)
 
     @property
-    def detect(self) -> M.Detect:
-        """The head: a Detect, or a task head built on one."""
+    def detect(self) -> M.Detect | H.Classify:
+        """The head: a Detect, a task head built on one, or Classify."""
         return self.model[-1]
 
     @property
@@ -107,7 +108,10 @@ class DetectionModel(nn.Module):
 
 
 def resolve_strides(spec: ModelSpec, probe: int = 256) -> tuple[int, ...]:
-    """Per-level strides from a training-mode forward on the ``meta`` device."""
+    """Per-level strides from a training-mode forward on the ``meta`` device;
+    none for a classifier (reference ``resolve_strides``, nn/model.py:318-321)."""
+    if spec.task == "classify":
+        return ()
     with torch.device("meta"):
         model = DetectionModel(spec, strides=None)
         feats = model(torch.empty(1, 3, probe, probe))["feats"]
@@ -147,13 +151,13 @@ def _lecun_normal(shape: torch.Size, generator: torch.Generator) -> torch.Tensor
 @torch.no_grad()
 def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: bool = True) -> DetectionModel:
     """Initialize like the JAX ``init_variables`` (nn/model.py:366-388): conv
-    kernels lecun-normal, conv biases 0, BN (1, 0, mean 0, var 1), BiFPN
+    and dense kernels lecun-normal, their biases 0, BN (1, 0, mean 0, var 1), BiFPN
     weights 1, then the Detect bias priors when ``bias_prior`` (on a task
     head's Detect trunk only, as the JAX package does). Values are
     drawn on the CPU from ``generator`` (a CPU generator) so one seed gives
     the same weights on every device."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if isinstance(m, nn.ConvTranspose2d):  # (in, out, kh, kw): the fan-in is in * kh * kw
                 m.weight.copy_(_lecun_normal(m.weight.transpose(0, 1).shape, generator).transpose(0, 1))
             else:
@@ -164,7 +168,7 @@ def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: 
             m.reset_parameters()
         elif isinstance(m, fce.BiFPN_Concat):
             m.w.fill_(1.0)
-    if bias_prior:
+    if bias_prior and isinstance(model.detect, M.Detect):
         model.detect.bias_init()
     return model
 

@@ -153,6 +153,10 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                 args.append(d.get("kpt_shape", [17, 3]))
             args = [*args, [ch_list[x] for x in f]]
             c2 = ch_list[f[-1]]
+        elif name == "Classify":  # [c1, c2 (nc), k, s]
+            c1 = ch_list[f] if isinstance(f, int) else ch_list[f[-1]]
+            c2 = args[0]
+            args = [c1, c2, *args[1:]]
         elif name in ("nn.Upsample", "Upsample"):
             c2 = ch_list[f]
         else:

@@ -9,6 +9,7 @@
   params/layers_14/w                       ->  model.14.w
   params/layers_23/detect/cv2_0_0/conv/kernel  ->  model.23.cv2.0.0.conv.weight  (a task head's trunk)
   params/layers_23/proto/upsample/kernel  ->  model.23.proto.upsample.weight  (ConvTranspose2d)
+  params/layers_10/linear/kernel   (in, out)  ->  model.10.linear.weight     (out, in)  (Classify's Linear)
 
 A task head (Segment, Pose, OBB) nests its Detect trunk under a ``detect``
 scope in flax; the port's keys are Ultralytics' flat names, so the scope is
@@ -90,10 +91,11 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
         head = model.get_submodule(".".join(tokens[:2])) if len(tokens) > 2 else None
         if isinstance(head, (Segment, Pose, OBB)) and tokens[2] in ("cv2", "cv3"):
             mods.insert(1, _TRUNK)
-    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d, nn.ConvTranspose2d) if isinstance(owner, k)), None)
+    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d, nn.ConvTranspose2d, nn.Linear) if isinstance(owner, k)),
+                None)
     if kind is nn.Conv2d and tokens[-1] != "conv":
         mods.append(_BARE_CONV)
-    collection, flax_leaf = _FLAX_LEAF.get((nn.Conv2d if kind is nn.ConvTranspose2d else kind, leaf),
+    collection, flax_leaf = _FLAX_LEAF.get((nn.Conv2d if kind in (nn.ConvTranspose2d, nn.Linear) else kind, leaf),
                                            ("params", leaf))
     return collection, tuple(mods) + (flax_leaf,)
 
@@ -114,6 +116,8 @@ def variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Ten
                 t = t.flip(0, 1).permute(2, 3, 0, 1).contiguous()  # flax ConvTranspose -> torch (I, O, kH, kW)
             elif path[-1] == "kernel" and t.ndim == 4:
                 t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
+            elif path[-1] == "kernel" and t.ndim == 2:
+                t = t.t().contiguous()  # flax Dense (in, out) -> torch Linear (out, in)
             key = flax_path_to_key(coll, path)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key}")

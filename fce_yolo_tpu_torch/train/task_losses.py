@@ -1,5 +1,5 @@
-"""Task losses beyond detect: segment, pose and OBB (reference
-``fce_yolo_tpu/train/task_losses.py:36-286``).
+"""Task losses beyond detect: segment, pose, OBB and classify (reference
+``fce_yolo_tpu/train/task_losses.py:36-293``).
 
 - Segment and pose add their terms to ``detection_loss`` on a fixed subset
   of foreground anchors per image: the first ``max_fg`` by assignment
@@ -11,8 +11,9 @@
   ``feats`` NCHW per level, ``mask_coefs``/``kpts``/``angle`` anchor-major in
   ``detection_loss``'s anchor order, ``proto`` (B, nm, Hp, Wp).
 
-Each loss returns (total, parts, state) with total = (sum of the parts) * B,
-as the JAX package does.
+Each box loss returns (total, parts, state) with total = B times the sum of
+the parts, as the JAX package does; the classification loss is the batch
+mean.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ from fce_yolo_tpu_torch.ops.iou import probiou
 from fce_yolo_tpu_torch.train import tal
 from fce_yolo_tpu_torch.train.loss import DetectionLossCfg, LossState, _dfl_loss, bce_with_logits, detection_loss
 
-__all__ = ["OKS_SIGMA", "PoseLossCfg", "segmentation_loss", "pose_loss", "obb_loss", "task_loss_for"]
+__all__ = ["OKS_SIGMA", "PoseLossCfg", "segmentation_loss", "pose_loss", "obb_loss", "classification_loss",
+           "task_loss_for"]
 
 # COCO keypoint sigmas (reference task_losses.py:37-42)
 OKS_SIGMA = torch.tensor([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87,
@@ -211,11 +213,26 @@ def obb_loss(out: dict, batch: dict[str, torch.Tensor], cfg: DetectionLossCfg,
     return (parts["box"] + parts["cls"] + parts["dfl"]) * b, parts, state
 
 
+def classification_loss(logits: torch.Tensor, labels: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Cross-entropy (reference ``task_losses.py:289-293``): the batch mean of
+    -log softmax at each label, in float32; (loss, {"cls": loss})."""
+    nll = -torch.log_softmax(logits.float(), -1).gather(-1, labels.long()[:, None]).mean()
+    return nll, {"cls": nll}
+
+
+def _classify_task_loss(out: dict, batch: dict, _cfg, state: LossState):
+    """``classification_loss`` as the train step's ``task_loss``: the labels come as the batch's "cls"."""
+    loss, parts = classification_loss(out["logits"], batch["cls"])
+    return loss, parts, state
+
+
 def task_loss_for(task: str, cfg: DetectionLossCfg, kpt_shape: tuple[int, int] = (17, 3)):
     """The train step's ``task_loss`` of a task and the batch keys it reads
     beyond the boxes (reference ``api.py:656-672``): (None, ()) for detect,
     which takes ``detection_loss``; pose takes ``PoseLossCfg(det=cfg,
-    kpt_shape=kpt_shape)``."""
+    kpt_shape=kpt_shape)``; classify reads the labels as "cls"."""
+    if task == "classify":
+        return _classify_task_loss, ()
     if task == "segment":
         return segmentation_loss, ("masks",)
     if task == "obb":

@@ -20,7 +20,9 @@ output, and their NMS kernel's outputs in val (masks, keypoints) equal to
 the plain version's; their losses on the card within 1e-3 relative of the
 CPU's and their gradients within 1e-3 of the largest; ``YOLO.track`` on
 the card launching both kernels once a frame, its tracks bit-equal with
-the plain NMS.
+the plain NMS; an MJPEG AVI's frames decoded on the card byte-equal to the
+plain path; yolo11n-cls on the card (float32, TF32 off) within 1e-3 of the
+largest CPU logit and its probabilities on an AVI within 1e-4.
 """
 
 import struct
@@ -737,3 +739,64 @@ def test_task_loss_on_the_card_matches_the_cpu(cuda, task):
     for gc, gg in zip(g_card, g_cpu):
         assert np.isfinite(gc).all()
         np.testing.assert_allclose(gc, gg, rtol=0, atol=1e-3 * np.abs(gg).max())
+
+
+# ------------------------------------------------------------ video and classify
+def _avi_file(tmp_path, n: int = 6, h: int = 96, w: int = 128):
+    """An MJPEG AVI written with chip_smoke.py's writers: frame 0 without
+    DHT, frames 1-2 in a ``rec `` list, a dropped frame, moving rectangles."""
+    import chip_smoke  # _jpeg_writer put the repository on the path
+
+    write = _jpeg_writer()
+    rng = np.random.RandomState(2)
+    frames = []
+    for t in range(n):
+        img = _jpeg_image(rng, h, w)
+        img[10:40, 5 + 8 * t: 35 + 8 * t] = (230, 40, 40)
+        frames.append(write(img, 90, "420", 0))
+    items = [chip_smoke.strip_dht(frames[0]), frames[1:3], b"", *frames[3:]]
+    path = tmp_path / "clip.avi"
+    path.write_bytes(chip_smoke.avi_bytes(items, w, h))
+    return path
+
+
+@pytest.mark.cuda
+def test_avi_frames_on_the_card_match_the_plain_path(cuda, tmp_path):
+    """Each frame of an MJPEG AVI decoded on the card (both JPEG kernels
+    once a frame) is byte-equal to the plain path's."""
+    from fce_yolo_tpu_torch.data import jpeg as J
+    from fce_yolo_tpu_torch.data.avi import avi_frames
+
+    path = _avi_file(tmp_path)
+    before = (J.jpeg_idct.launches, J.jpeg_color.launches)
+    card = list(avi_frames(path, cuda))
+    assert len(card) == 6 and (J.jpeg_idct.launches, J.jpeg_color.launches) == (before[0] + 6, before[1] + 6)
+    for a, b in zip(card, avi_frames(path, "cpu")):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_classify_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """yolo11n-cls (seed weights, float32, TF32 off) on the card against the
+    CPU: logits within 1e-3 of the largest; ``predict`` on an AVI decodes
+    each frame with both JPEG kernels and gives the CPU's probabilities
+    within 1e-4; ``track`` gives empty tracks."""
+    from fce_yolo_tpu_torch.data import jpeg as J
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu = YOLO("yolo11n-cls.yaml", device="cpu", nc=3)
+    card = YOLO("yolo11n-cls.yaml", device=cuda, nc=3)
+    card.model.load_state_dict(cpu.model.state_dict())
+    x = torch.from_numpy(np.random.RandomState(3).uniform(0, 1, (2, 3, 128, 96)).astype(np.float32))
+    with torch.inference_mode():
+        ref, out = cpu.model.eval()(x)["logits"].numpy(), card.model.eval()(x.to(cuda))["logits"].cpu().numpy()
+    assert np.abs(out - ref).max() <= 1e-3 * np.abs(ref).max()
+    path = _avi_file(tmp_path)
+    before = J.jpeg_color.launches
+    res = card.predict(str(path), imgsz=64, batch=4)
+    assert J.jpeg_color.launches == before + 6
+    exp = cpu.predict(str(path), imgsz=64, batch=4)
+    np.testing.assert_allclose(np.stack([r.probs.data for r in res]), np.stack([r.probs.data for r in exp]),
+                               rtol=0, atol=1e-4)
+    assert all(t.shape == (0, 7) for _, t in card.track(str(path), imgsz=64))

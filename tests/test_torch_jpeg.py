@@ -299,3 +299,52 @@ def test_chip_smoke_jpeg_writer_gives_files_cv2_reads(sampling):
         want = np.repeat(src[..., None], 3, 2) if sampling == "gray" else src[..., ::-1]
         assert unrotated.shape == want.shape
         assert np.abs(unrotated.astype(int) - want).mean() < 40
+
+
+@pytest.mark.parametrize("restart", [0, 3])
+@pytest.mark.parametrize("sampling", ["420", "444", "gray"])
+def test_jpeg_without_huffman_tables_matches_cv2(tmp_path, sampling, restart):
+    """A file with no DHT, as Motion-JPEG (AVI1) frames come (cv2 writes the
+    Annex K tables, so taking them out with chip_smoke.py's ``strip_dht``
+    changes nothing for libjpeg-turbo, which fills slots 0 and 1 with them):
+    the port decodes it byte-equal to ``cv2.imdecode`` of the stripped file."""
+    rng = np.random.RandomState(int(restart) + len(sampling))
+    for h, w in SIZES + [(48, 64)]:
+        buf = _write(tmp_path / "src.jpg", _image(rng, h, w), sampling, 90, restart).read_bytes()
+        stripped = _chip_smoke().strip_dht(buf)
+        assert b"\xff\xc4" not in stripped[:stripped.index(b"\xff\xda")] and len(stripped) < len(buf)
+        path = tmp_path / f"{h}x{w}.jpg"
+        path.write_bytes(stripped)
+        np.testing.assert_array_equal(jax_imread(path), jax_imread(tmp_path / "src.jpg"))
+        _assert_equal_to_jax(path)
+
+
+def test_std_huffman_tables_are_the_ones_cv2_writes(tmp_path):
+    """``STD_HUFFMAN`` equals the four DHT tables of a default cv2 file
+    (libjpeg-turbo writes Annex K.3's unless asked to optimise)."""
+    buf = _write(tmp_path / "a.jpg", _image(np.random.RandomState(7), 16, 16), "420", 90).read_bytes()
+    tables, pos = {}, 2
+    while buf[pos + 1] != 0xDA:
+        end = pos + 2 + struct.unpack(">H", buf[pos + 2: pos + 4])[0]
+        if buf[pos + 1] == 0xC4:
+            p = pos + 4
+            while p < end:
+                counts = list(buf[p + 1: p + 17])
+                tables[(buf[p] >> 4, buf[p] & 15)] = (counts, buf[p + 17: p + 17 + sum(counts)])
+                p += 17 + sum(counts)
+        pos = end
+    assert tables == J.STD_HUFFMAN
+
+
+def test_jpeg_slot_2_without_a_table_still_raises(tmp_path):
+    """Only slots 0 and 1 have standard tables: a scan that names slot 2
+    with no DHT raises, naming the file (cv2 gives None for it)."""
+    buf = _chip_smoke().strip_dht(_write(tmp_path / "src.jpg", _image(np.random.RandomState(8), 16, 16), "gray",
+                                         90).read_bytes())
+    sos = buf.index(b"\xff\xda")
+    buf = buf[:sos + 6] + b"\x22" + buf[sos + 7:]  # component 1: DC and AC table 2
+    path = tmp_path / "slot2.jpg"
+    path.write_bytes(buf)
+    assert jax_imread(path) is None
+    with pytest.raises(ValueError, match="slot2.jpg: a scan uses a Huffman table"):
+        imread(path, device="cpu")

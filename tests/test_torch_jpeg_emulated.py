@@ -143,3 +143,18 @@ def test_emulated_decoder_refuses(emulator, tmp_path, kind, code):
     assert res.returncode == 3 and f"fce_jpeg_coefficients {code}" in res.stderr
     with pytest.raises(ValueError, match=r"x\.jpg: .*the port reads baseline"):
         J._check(code, "x.jpg", "fce_jpeg_coefficients")
+
+
+@pytest.mark.parametrize("sampling", ["420", "444", "gray"])
+def test_emulated_decoder_without_huffman_tables(emulator, tmp_path, sampling):
+    """Motion-JPEG frames with no DHT: the C decoder takes the Annex K.3
+    tables for slots 0 and 1 as the plain path does (equal coefficients and
+    pixels, and cv2's bytes); a scan that names slot 2 returns -10."""
+    buf = _chip_smoke().strip_dht(_write(tmp_path / "a.jpg", _image(np.random.RandomState(9), 33, 47), sampling, 90,
+                                         2).read_bytes())
+    _assert_matches_plain(emulator, buf)
+    np.testing.assert_array_equal(J.decode_jpeg_reference(buf), cv2.imdecode(np.frombuffer(buf, np.uint8),
+                                                                             cv2.IMREAD_COLOR))
+    sos = buf.index(b"\xff\xda")
+    res, _ = _run(emulator, buf[:sos + 6] + b"\x22" + buf[sos + 7:])
+    assert res.returncode == 3 and "fce_jpeg_coefficients -10" in res.stderr

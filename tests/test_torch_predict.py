@@ -274,8 +274,10 @@ def test_predict_on_image_files_matches_jax_facade(jpeg_dir, predict_pair, form)
 def test_predict_sources_the_port_refuses(jpeg_dir, tmp_path):
     """A file the port cannot read raises, where the JAX facade skips it in
     a directory (a progressive JPEG, which cv2 reads but the port does not;
-    a corrupt one, which neither reads); streams, screenshots and video
-    raise NotImplementedError; a PIL image is read as the reference reads it."""
+    a corrupt one, which neither reads); network streams, webcams,
+    screenshots and video containers other than AVI raise
+    NotImplementedError, a missing ``.streams`` file FileNotFoundError; a
+    PIL image is read as the reference reads it."""
     import cv2
     from PIL import Image
 
@@ -291,9 +293,12 @@ def test_predict_sources_the_port_refuses(jpeg_dir, tmp_path):
     cv2.imwrite(str(tmp_path / "p.jpg"), _images()[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     with pytest.raises(ValueError, match="p.jpg: a progressive JPEG"):
         list(load_source(str(tmp_path / "p.jpg"), "cpu"))
-    for src in ("rtsp://localhost:8554/cam", "0", "screen 0", str(tmp_path / "clip.mp4"), "a.streams"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 3"):
+    for src, what in (("rtsp://localhost:8554/cam", "network streams"), ("0", "webcam 0"),
+                      ("screen 0", "screen capture"), (str(tmp_path / "clip.mp4"), "the mp4 video container")):
+        with pytest.raises(NotImplementedError, match=what):
             list(load_source(src, "cpu"))
+    with pytest.raises(FileNotFoundError, match="a.streams"):
+        list(load_source("a.streams", "cpu"))
     with pytest.raises(FileNotFoundError):
         list(load_source(str(tmp_path / "missing.jpg"), "cpu"))
     rgb = _images(5)[0][..., ::-1].copy()

@@ -286,5 +286,6 @@ def test_persist_keeps_the_tracker_where_jax_resets_it(pair):
         (_, ref), = jy.track(f, conf=0.25, imgsz=64, persist=True)
         _assert_same_tracks(out, ref, atol=1e-3, score_atol=1e-5)
         assert len(out) and out[:, 4].min() == 1  # a new tracker, ids from 1
-    with pytest.raises(NotImplementedError, match="OBB"):
-        YOLO("yolo11n-obb.yaml", device="cpu").track(frames[0], imgsz=64)
+    obb = YOLO("yolo11n-obb.yaml", device="cpu")  # OBB models track too (test_torch_video.py holds them to JAX)
+    (res, trk), = obb.track(frames[0], imgsz=64, persist=True)
+    assert res.obb is not None and trk.shape[1] == 7 and obb._tracker is not None
