@@ -70,7 +70,17 @@ from a seed) and checks that each path went through its kernels:
   JPEGs written here: ``YOLO.predict`` on the directory (probabilities
   against a CPU copy) and on the AVI, ``YOLO.val``, ``YOLO.train`` for 2
   epochs of 2 steps, the JPEG kernels once an image read, ``best``
-  reloaded with its names giving the run's top-1.
+  reloaded with its names giving the run's top-1;
+- drawing and image writing (phase draw): the JPEG writer's ``jpeg_fdct``
+  kernel against its plain version (coefficients equal, files byte-equal)
+  from 37x53 to 1080x1920 and on a gray frame, timed beside its bound and
+  the host entropy stage; yolo11s-seg (bf16) ``YOLO.predict`` on 16 of
+  phase track's frames, then ``Masks.xy``, ``plot``, ``save``,
+  ``save_txt`` and ``save_crop``, the stem and NMS kernels once a batch and
+  ``jpeg_fdct`` once a file, every file byte-equal to the plain writer's and
+  decoded on the card; ``YOLO.val(plots_dir=...)`` and ``YOLO.train(plots=
+  True)`` writing their mosaics (every ``YOLO.train`` above writes the
+  first three batches' mosaics too).
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -155,11 +165,11 @@ def check(cond: bool, what: str) -> None:
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the kernel's name in the record."""
-    from fce_yolo_tpu_torch.data import jpeg
+    from fce_yolo_tpu_torch.data import jpeg, jpeg_write
     from fce_yolo_tpu_torch.ops import nms, stem
 
     return {"fused_stem": stem.fused_stem, "pick_suppress": nms.pick_suppress, "jpeg_idct": jpeg.jpeg_idct,
-            "jpeg_color": jpeg.jpeg_color}
+            "jpeg_color": jpeg.jpeg_color, "jpeg_fdct": jpeg_write.jpeg_fdct}
 
 
 def reset_launches() -> None:
@@ -172,8 +182,15 @@ def read_launches() -> dict:
 
 
 def no_jpeg(**launches) -> dict:
-    """The launches a path that reads no JPEG should show."""
-    return {**launches, "jpeg_idct": 0, "jpeg_color": 0}
+    """The launches a path that reads no JPEG should show (and writes none
+    unless ``jpeg_fdct`` is given)."""
+    return {"jpeg_fdct": 0, **launches, "jpeg_idct": 0, "jpeg_color": 0}
+
+
+def train_plots(steps: int) -> int:
+    """The JPEGs one ``YOLO.train`` writes by default: a mosaic of each of
+    the first epoch's first three batches (``train_batch0..2.jpg``)."""
+    return min(3, steps)
 
 
 def nms_candidates(rng: np.random.RandomState, b: int, k: int, conf: float = 0.3):
@@ -1075,7 +1092,7 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     val_launches = read_launches()
-    check(val_launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_idct": VAL_IMAGES,
+    check(val_launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_fdct": 0, "jpeg_idct": VAL_IMAGES,
                            "jpeg_color": VAL_IMAGES}, f"val path on JPEG: launches {val_launches}")
     check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path on JPEG scored the wrong number of images")
     _, _, _, _, _, mk = val_batches_vs_plain(yolo, data)
@@ -1102,7 +1119,7 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     predict_launches = read_launches()
     n_pred = -(-VAL_IMAGES // E2E_BATCH)
-    check(predict_launches == {"fused_stem": n_pred, "pick_suppress": n_pred, "jpeg_idct": VAL_IMAGES,
+    check(predict_launches == {"fused_stem": n_pred, "pick_suppress": n_pred, "jpeg_fdct": 0, "jpeg_idct": VAL_IMAGES,
                                "jpeg_color": VAL_IMAGES}, f"predict on JPEG files: launches {predict_launches}")
     check([r.path for r in results] == files, "predict on a directory: paths or order differ from the sorted files")
     arrays = [J.decode_jpeg_reference(Path(f).read_bytes(), f) for f in files]
@@ -1132,7 +1149,8 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     train_launches = read_launches()
     decodes = train_launches["jpeg_idct"]
     check(train_launches["fused_stem"] == 0 and train_launches["pick_suppress"] == n_batches * TRAIN_EPOCHS
-          and train_launches["jpeg_color"] == decodes >= 2 * VAL_IMAGES * TRAIN_EPOCHS,
+          and train_launches["jpeg_color"] == decodes >= 2 * VAL_IMAGES * TRAIN_EPOCHS
+          and train_launches["jpeg_fdct"] == train_plots(n_batches),
           f"train on JPEG: launches {train_launches}, expected NMS once a val batch and a decode an image or more")
     check(all(np.isfinite(r["train/box_loss"]) for r in res["results"]), "train on JPEG: a loss is not finite")
     ds = YOLODataset(str(root / "jpeg" / "images" / "val"), imgsz=IMGSZ, mode="train", nc=VAL_NC, device="cuda")
@@ -1397,8 +1415,8 @@ def phase_train(root: Path, card: str) -> dict:
         launches = read_launches()
     finally:
         DetectionValidator.nms = real_nms
-    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * TRAIN_EPOCHS),
-          f"train path: launches {launches}, expected no stem and {n_val} NMS an epoch")
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * TRAIN_EPOCHS, jpeg_fdct=train_plots(n_val)),
+          f"train path: launches {launches}, expected no stem, {n_val} NMS an epoch and 3 mosaics written")
     rows = res["results"]
     check(res["epochs_run"] == len(rows) == TRAIN_EPOCHS, f"train path ran {res['epochs_run']} epochs")
     check(all(np.isfinite(r[k]) for r in rows for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")),
@@ -1556,7 +1574,7 @@ def phase_experiments(root: Path, card: str) -> dict:
         api.YOLO.train, DetectionValidator.nms = real_train, real_nms
         xconfig.MODEL_CONFIGS.update(registry)
 
-    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * stages),
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * stages, jpeg_fdct=stages * train_plots(n_val)),
           f"experiments path: launches {launches}, expected no stem and {n_val} NMS a stage over {stages} stages")
     check(report["problems"] == [], f"validate_run: {report['problems']}")
     check(len(report["table"]) == 4 and len(json.loads((project / f"ablation_{scale}.json").read_text())["table"]) == 4,
@@ -2038,8 +2056,8 @@ def task_train_run(root: Path, task: str, card: str, step_batch: dict) -> dict:
     finally:
         cls.nms = real_nms
     want_nms = 0 if task == "obb" else n_val * epochs
-    check(launches == no_jpeg(fused_stem=0, pick_suppress=want_nms),
-          f"{task} train path: launches {launches}, expected no stem and {want_nms} NMS")
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=want_nms, jpeg_fdct=train_plots(n_val)),
+          f"{task} train path: launches {launches}, expected no stem, {want_nms} NMS and {n_val} mosaics written")
     rows = res["results"]
     check(res["epochs_run"] == len(rows) == epochs, f"{task} train ran {res['epochs_run']} epochs")
     check(all(np.isfinite(r[k]) for r in rows for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")),
@@ -2419,7 +2437,7 @@ def phase_video(root: Path, frames: list, card: str) -> tuple[dict, dict, Path]:
     decoded = list(avi_frames(path, "cuda"))
     decode_ms = (time.perf_counter() - t0) * 1e3 / n
     decode_launches = read_launches()
-    check(decode_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": n, "jpeg_color": n},
+    check(decode_launches == no_jpeg(fused_stem=0, pick_suppress=0) | {"jpeg_idct": n, "jpeg_color": n},
           f"AVI decode: launches {decode_launches}, expected both JPEG kernels once for each of {n} frames")
     check(len(decoded) == n, f"AVI decode: {len(decoded)} frames of {n}")
     for i, (a, b) in enumerate(zip(decoded, plain)):
@@ -2449,7 +2467,7 @@ def phase_video(root: Path, frames: list, card: str) -> tuple[dict, dict, Path]:
     torch.cuda.synchronize()
     predict_fps = n / (time.perf_counter() - t0)
     predict_launches = read_launches()
-    check(predict_launches == {"fused_stem": n, "pick_suppress": n, "jpeg_idct": n, "jpeg_color": n},
+    check(predict_launches == no_jpeg(fused_stem=n, pick_suppress=n) | {"jpeg_idct": n, "jpeg_color": n},
           f"predict on the AVI: launches {predict_launches}, expected every kernel once for each of {n} frames")
     check([r.path for r in results] == [f"{path}#frame{i}" for i in range(n)], "predict on the AVI: frame names")
     again = yolo.predict(plain, imgsz=IMGSZ, conf=0.1)
@@ -2468,7 +2486,7 @@ def phase_video(root: Path, frames: list, card: str) -> tuple[dict, dict, Path]:
     torch.cuda.synchronize()
     track_fps = n / (time.perf_counter() - t0)
     track_launches = read_launches()
-    check(track_launches == {"fused_stem": n, "pick_suppress": n, "jpeg_idct": n, "jpeg_color": n},
+    check(track_launches == no_jpeg(fused_stem=n, pick_suppress=n) | {"jpeg_idct": n, "jpeg_color": n},
           f"track on the AVI: launches {track_launches}, expected every kernel once for each of {n} frames")
     calls: list = []
     real = nms_ops.pick_suppress
@@ -2511,7 +2529,7 @@ def phase_video(root: Path, frames: list, card: str) -> tuple[dict, dict, Path]:
     obb_fps = VIDEO_OBB_FRAMES / (time.perf_counter() - t0)
     obb_launches = read_launches()
     k = VIDEO_OBB_FRAMES
-    check(obb_launches == {"fused_stem": k, "pick_suppress": 0, "jpeg_idct": k, "jpeg_color": k},
+    check(obb_launches == no_jpeg(fused_stem=k, pick_suppress=0) | {"jpeg_idct": k, "jpeg_color": k},
           f"OBB track on the AVI: launches {obb_launches}, expected the stem and JPEG kernels once for each of {k}")
     check(len(obb_out) == k, f"OBB track: {len(obb_out)} frames of {k}")
     for res, trk in obb_out:
@@ -2597,7 +2615,7 @@ def phase_classify(root: Path, short_avi: Path, card: str) -> dict:
     torch.cuda.synchronize()
     predict_ips = n_val / (time.perf_counter() - t0)
     predict_launches = read_launches()
-    check(predict_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": n_val, "jpeg_color": n_val},
+    check(predict_launches == no_jpeg(fused_stem=0, pick_suppress=0) | {"jpeg_idct": n_val, "jpeg_color": n_val},
           f"classify predict: launches {predict_launches}, expected both JPEG kernels once for each of {n_val}")
     cpu = YOLO("yolo11s-cls.yaml", device="cpu", nc=CLS_NC)
     cpu.model.load_state_dict(yolo.model.state_dict())
@@ -2616,7 +2634,7 @@ def phase_classify(root: Path, short_avi: Path, card: str) -> dict:
     on_avi = list(yolo.predict(str(short_avi), stream=True))
     avi_launches = read_launches()
     k = VIDEO_OBB_FRAMES
-    check(avi_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": k, "jpeg_color": k},
+    check(avi_launches == no_jpeg(fused_stem=0, pick_suppress=0) | {"jpeg_idct": k, "jpeg_color": k},
           f"classify predict on the AVI: launches {avi_launches}")
     check([r.path for r in on_avi] == [f"{short_avi}#frame{i}" for i in range(k)]
           and all(r.probs is not None and np.isfinite(r.probs.data).all() for r in on_avi),
@@ -2639,7 +2657,7 @@ def phase_classify(root: Path, short_avi: Path, card: str) -> dict:
     train_s = time.perf_counter() - t0
     train_launches = read_launches()
     reads = CLS_EPOCHS * (n_train + n_val)
-    check(train_launches == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": reads, "jpeg_color": reads},
+    check(train_launches == no_jpeg(fused_stem=0, pick_suppress=0) | {"jpeg_idct": reads, "jpeg_color": reads},
           f"classify train: launches {train_launches}, expected a decode for each of {reads} image reads")
     check(out["epochs_run"] == CLS_EPOCHS and all(np.isfinite(r["train/loss"]) for r in out["results"]),
           f"classify train: {out['results']}")
@@ -2661,6 +2679,197 @@ def phase_classify(root: Path, short_avi: Path, card: str) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return {"classify_predict": predict_launches, "classify_avi": avi_launches, "classify_val": val_launches,
             "classify_train": train_launches}
+
+
+DRAW_FRAMES = 16  # phase draw (b): phase track's first frames, 720x1280
+DRAW_SIZES = ((37, 53), (480, 640), (720, 1280), (1080, 1920))  # phase draw (a), and a 720x1280 gray image
+DRAW_TRAIN_BATCH = 21  # phase draw (c): the 64 images in 3 steps (the train loader drops the rest)
+
+
+def fdct_bound(h: int, w: int, gray: bool) -> float:
+    """ms to read the image once and write its coefficients once at HBM speed."""
+    from fce_yolo_tpu_torch.data.jpeg_write import plane_grids
+
+    coef = sum(bh * bw * 64 for bh, bw in plane_grids(h, w, gray))
+    return (h * w * (1 if gray else 3) + 2 * coef) / HBM_BYTES_PER_S * 1e3
+
+
+def fdct_check(card: str) -> dict:
+    """(a) ``jpeg_fdct_kernel`` against ``jpeg_fdct_reference`` at DRAW_SIZES
+    and on a gray frame: the int16 coefficients equal, and ``encode_jpeg`` on
+    the card byte-equal to the plain writer; the kernel timed from a CUDA
+    graph beside its bound, the plain version and the host entropy stage
+    (``fce_jpeg_entropy``) on the host clock. Returns the record's numbers
+    (at 720x1280, the slice's frames) and the others by size."""
+    from fce_yolo_tpu_torch.data import jpeg_write as JW
+
+    rng = np.random.RandomState(SEED + 30)
+    rec: dict = {}
+    cases = [(f"{h}x{w}", jpeg_test_image(rng, h, w)) for h, w in DRAW_SIZES]
+    cases.append(("720x1280 gray", jpeg_test_image(rng, 720, 1280)[..., 1].copy()))
+    for name, img in cases:
+        gray = img.ndim == 2
+        d = torch.from_numpy(img).cuda()
+        coef = JW.jpeg_fdct(d).cpu().numpy()
+        t0 = time.perf_counter()
+        ref = JW.jpeg_fdct_reference(img)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(coef.shape == ref.shape and bool((coef == ref).all()),
+              f"phase draw (a) {name}: jpeg_fdct differs from jpeg_fdct_reference in {int((coef != ref).sum())} "
+              "coefficients")
+        buf, plain = JW.encode_jpeg(img, device="cuda"), JW.encode_jpeg_reference(img)
+        check(buf == plain, f"phase draw (a) {name}: the card's file differs from the plain writer's")
+        ms = graph_ms(lambda: JW.jpeg_fdct(d))
+        t0 = time.perf_counter()
+        for _ in range(3):
+            JW.entropy_encode_host(coef, img.shape[0], img.shape[1], gray)
+        entropy_ms = (time.perf_counter() - t0) * 1e3 / 3
+        bound = fdct_bound(img.shape[0], img.shape[1], gray)
+        print(f"phase draw (a) {name}: jpeg_fdct coefficients equal to the plain version ({coef.size} int16), file "
+              f"byte-equal to the plain writer ({len(buf)} bytes); kernel {ms:.4f} ms (CUDA graph; bound {bound:.5f} "
+              f"ms, bytes), plain {plain_ms:.1f} ms (numpy), host entropy + markers {entropy_ms:.2f} ms [{card}]",
+              flush=True)
+        rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "entropy_ms": entropy_ms, "bytes": len(buf)}
+    main = rec["720x1280"]
+    return {"max_abs_err": 0.0, "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "entropy_ms": main["entropy_ms"],
+            "by_size": {k: {kk: v[kk] for kk in ("ms", "plain_ms", "bound_ms", "entropy_ms")} for k, v in rec.items()}}
+
+
+def phase_draw(root: Path, frames: list, card: str) -> tuple[dict, dict]:
+    """Outlines, drawing and image writing:
+    (a) ``fdct_check``;
+    (b) the slice's path: yolo11s-seg (bf16, ``task_matching_model``'s
+    weights, so masks exist) ``YOLO.predict`` at B=16 on DRAW_FRAMES of phase
+    track's 720x1280 frames, then per result ``Masks.xy``, ``plot()``,
+    ``save()``, ``save_txt()`` and ``save_crop()``, the counts at 0: the stem
+    and NMS kernels once a batch, ``jpeg_fdct`` once a saved JPEG; every file
+    byte-equal to the plain writer's encode of the same array and decoded by
+    the port's own decoder on the card;
+    (c) ``YOLO.val(plots_dir=...)`` of phase val's float32 model on phase
+    jpeg's JPEG copy of the 64 images (its mosaics written and decoded; img/s
+    beside a val without plots), and ``YOLO.train`` for 1 epoch of 3 steps
+    with ``plots=True`` (``train_batch0..2.jpg`` written and decoded).
+    Returns (launches by path, the jpeg_fdct record)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.jpeg import decode_jpeg
+    from fce_yolo_tpu_torch.data.jpeg_write import encode_jpeg, encode_jpeg_reference
+    from fce_yolo_tpu_torch.nn.model import init_weights
+    from fce_yolo_tpu_torch.utils.annotator import save_one_box
+
+    t_phase = time.perf_counter()
+    record = fdct_check(card)
+
+    frames = frames[:DRAW_FRAMES]
+    yolo = YOLO(TASK_MODELS["segment"], device="cuda")
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    task_matching_model(yolo, "segment")
+    yolo.to(torch.bfloat16).fuse()
+    yolo.predict(frames[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
+    out_dir = root / "draw"
+    (out_dir / "crops").mkdir(parents=True)
+    torch.cuda.synchronize()
+    reset_launches()
+    t_all = time.perf_counter()
+    results = yolo.predict(frames, imgsz=IMGSZ, batch=E2E_BATCH)
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t_all
+    xy_s = plot_s = save_s = 0.0
+    saved: list[tuple[Path, np.ndarray]] = []
+    n_det = n_pts = 0
+    for i, r in enumerate(results):
+        t0 = time.perf_counter()
+        outlines = r.masks.xy
+        t1 = time.perf_counter()
+        arr = r.plot()
+        t2 = time.perf_counter()
+        r.save(str(out_dir / f"frame{i:02d}.jpg"))
+        t3 = time.perf_counter()
+        r.save_txt(str(out_dir / f"frame{i:02d}.txt"), save_conf=True)
+        r.save_crop(str(out_dir / "crops"), file_name=f"frame{i:02d}.jpg")
+        xy_s, plot_s, save_s = xy_s + t1 - t0, plot_s + t2 - t1, save_s + t3 - t2
+        n_det += len(r)
+        n_pts += sum(len(o) for o in outlines)
+        check(len(outlines) == len(r) and all(o.ndim == 2 and o.shape[1] == 2 for o in outlines),
+              f"phase draw (b) frame {i}: outlines {[o.shape for o in outlines]}")
+        saved.append((out_dir / f"frame{i:02d}.jpg", arr))
+        for j, row in enumerate(r.boxes.data):
+            name = r.names.get(int(row[5]), str(int(row[5])))
+            saved.append((out_dir / "crops" / name / f"frame{i:02d}{j}.jpg",
+                          save_one_box(row[:4], r.orig_img, square=False, save=False)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_all
+    launches = read_launches()
+    n = len(frames)
+    n_batches = -(-n // E2E_BATCH)
+    check(n_det > 0 and n_pts > 0, f"phase draw (b): {n_det} detections and {n_pts} outline points: nothing drawn")
+    check(launches == no_jpeg(fused_stem=n_batches, pick_suppress=n_batches, jpeg_fdct=len(saved)),
+          f"phase draw (b): launches {launches}, expected the stem and NMS once a batch and jpeg_fdct once for each "
+          f"of {len(saved)} files")
+    n_bytes = 0
+    for path, arr in saved:
+        buf = path.read_bytes()
+        n_bytes += len(buf)
+        check(buf == encode_jpeg_reference(arr), f"phase draw (b): {path.name} differs from the plain writer's")
+        check(decode_jpeg(buf, path.name, "cuda").shape == arr.shape, f"phase draw (b): {path.name} decodes wrong")
+    plots = [arr for path, arr in saved if path.parent == out_dir]
+    t0 = time.perf_counter()
+    for arr in plots:  # the encode alone, after the counts: a plot's JPEG through the card
+        encode_jpeg(arr, device="cuda")
+    encode_ms = (time.perf_counter() - t0) * 1e3 / len(plots)
+    per = 1e3 / n
+    print(f"phase draw (b): yolo11s-seg {IMGSZ} bf16 B={E2E_BATCH} on {n} frames of 720x1280: {n_det} detections, "
+          f"{n_pts} outline points; launches {launches}; {len(saved)} JPEGs ({n} plots, {len(saved) - n} crops, "
+          f"{n_bytes} bytes) byte-equal to the plain writer and decoded on the card; ms a frame: predict "
+          f"{predict_s * per:.1f}, outlines (Masks.xy) {xy_s * per:.1f}, plot {plot_s * per:.1f}, save (plot "
+          f"again, encode, write) {save_s * per:.1f}, of it the JPEG encode {encode_ms:.1f} (timed alone after); "
+          f"{n / wall:.2f} frames/s with outlines, plot, save, save_txt and save_crop (host clock) [{card}]",
+          flush=True)
+    del yolo, results
+    torch.cuda.empty_cache()
+
+    data = str(root / "jpeg" / "data.yaml")  # phase jpeg's JPEG copy of phase val's images
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
+    yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    n_val = -(-VAL_IMAGES // VAL_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False, plots_dir=str(root / "val_plots"))
+    torch.cuda.synchronize()
+    plots_s = time.perf_counter() - t0
+    val_launches = read_launches()
+    check(val_launches == {"fused_stem": 0, "pick_suppress": n_val, "jpeg_fdct": 2, "jpeg_idct": VAL_IMAGES,
+                           "jpeg_color": VAL_IMAGES},
+          f"phase draw (c) val: launches {val_launches}, expected NMS once a batch (K={NMS_K_VAL}), a decode an "
+          "image and two mosaics written")
+    side = int(np.ceil(VAL_BATCH ** 0.5)) * IMGSZ
+    for f in ("val_batch0_labels.jpg", "val_batch0_pred.jpg"):
+        img = decode_jpeg((root / "val_plots" / f).read_bytes(), f, "cuda")
+        check(img.shape == (side, side, 3), f"phase draw (c): {f} is {img.shape}")
+    train_dir = root / "draw_train"
+    reset_launches()
+    res = yolo.train(train_data(root / "jpeg"), epochs=1, batch=DRAW_TRAIN_BATCH, imgsz=IMGSZ, val=False,
+                     project=str(train_dir), plots=True, verbose=False)
+    torch.cuda.synchronize()
+    train_launches = read_launches()
+    save_dir = Path(res["save_dir"])
+    written = sorted(p.name for p in save_dir.glob("train_batch*.jpg"))
+    check(written == [f"train_batch{i}.jpg" for i in range(3)] and train_launches["jpeg_fdct"] == 3,
+          f"phase draw (c) train: {written}, launches {train_launches}")
+    for f in written:
+        check(decode_jpeg((save_dir / f).read_bytes(), f, "cuda").ndim == 3, f"phase draw (c): {f} does not decode")
+    print(f"phase draw (c): YOLO.val(plots_dir) on {VAL_IMAGES} JPEGs, launches {val_launches}: "
+          f"{VAL_IMAGES / plots_s:.1f} img/s with plots vs {VAL_IMAGES / plain_s:.1f} without (host clock); "
+          f"YOLO.train 1 epoch of 3 steps (B={DRAW_TRAIN_BATCH}) wrote and decoded {', '.join(written)}; "
+          f"phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    del yolo
+    torch.cuda.empty_cache()
+    return {"draw": launches, "draw_val": val_launches, "draw_train": train_launches}, record
 
 
 def main() -> None:
@@ -2710,12 +2919,13 @@ def main() -> None:
         task_train = phase_task_train(Path(tmp), card)
         track, stem_b1, frames = phase_track(Path(tmp), card)
         video, video_times, short_avi = phase_video(Path(tmp), frames, card)
+        draw, fdct = phase_draw(Path(tmp), frames, card)
         del frames
         classify = phase_classify(Path(tmp), short_avi, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks,
-             **task_train, "track": track, **video, **classify}
+             **task_train, "track": track, **video, **classify, **draw}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),
@@ -2731,7 +2941,9 @@ def main() -> None:
     ] + [{"name": name, "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
           "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches(name), **jpeg[name],
           "video_frame_decode_ms": video_times["decode_ms"]}
-         for name in ("jpeg_idct", "jpeg_color")]
+         for name in ("jpeg_idct", "jpeg_color")] + [
+        {"name": "jpeg_fdct", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
+         "replaces": "fce_yolo_tpu/utils/patches.py:30", **launches("jpeg_fdct"), **fdct}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

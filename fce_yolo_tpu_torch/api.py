@@ -218,7 +218,7 @@ class YOLO:
             ms = (time.perf_counter() - t0) * 1000 / len(pending)
             for (img, path, _), p in zip(pending, probs):
                 yield Results(img, path, self.names, probs=p,
-                              speed={"preprocess": 0.0, "inference": ms, "postprocess": 0.0})
+                              speed={"preprocess": 0.0, "inference": ms, "postprocess": 0.0}, device=self.device)
             pending.clear()
 
         for img, path in load_source(source, self.device):
@@ -276,13 +276,15 @@ class YOLO:
         return gen if stream else list(gen)
 
     def val(self, data, imgsz: int = 640, batch: int = 16, conf: float = 0.001, iou: float = 0.7,
-            max_det: int = 300, workers: int = 8, verbose: bool = True, save_json=None) -> dict:
+            max_det: int = 300, workers: int = 8, verbose: bool = True, save_json=None, plots_dir=None) -> dict:
         """mAP on the ``val`` split of ``data`` (a data YAML path or dict;
         baseline JPEG, PNG or ``.npy`` images), on the model's device (JPEGs
         decode there too). The dataset's class
         names replace ``class_*`` placeholders. Returns the validator's
         results dict. A classify model takes a class-folder directory
-        (``_val_classify``; ``imgsz`` 640 means its 224)."""
+        (``_val_classify``; ``imgsz`` 640 means its 224). ``plots_dir``: a
+        detect model writes the first batch's label and prediction mosaics
+        there; the task heads draw nothing, as the JAX package's."""
         from fce_yolo_tpu_torch.data.dataset import check_det_dataset
 
         if self.task == "classify":
@@ -292,7 +294,7 @@ class YOLO:
             self.names = d["names"]
         validator = self._validator(imgsz=imgsz, conf=conf, iou=iou, max_det=max_det, batch_size=batch,
                                     workers=workers)
-        return validator(data=d, verbose=verbose, save_json=save_json)
+        return validator(data=d, verbose=verbose, save_json=save_json, plots_dir=plots_dir)
 
     def _val_classify(self, data, imgsz: int = 224, batch: int = 16, verbose: bool = True) -> dict:
         """Top-1 and top-5 accuracy on the ``val`` split of the class-folder
@@ -336,7 +338,7 @@ class YOLO:
               project: str = "runs/detect", name: str = "train", val: bool = True, save_period: int = -1,
               seed: int = 0, verbose: bool = True, freeze: int | list | None = None, resume: bool = False,
               exist_ok: bool = False, time_limit_hours: float | None = None, bf16: bool | None = None,
-              **hyp_overrides) -> dict:
+              plots: bool = True, **hyp_overrides) -> dict:
         """Train on ``data`` (a data YAML path or dict) on the model's device
         (reference ``api.py:495-881``), with the task's loss: detection,
         segmentation (the batch carries the instance masks), pose (the
@@ -349,7 +351,9 @@ class YOLO:
         ``results.csv``, ``weights/last`` (EMA weights and the full train
         state, for ``resume``) and, when the fitness improves, ``weights/best``
         (EMA weights). The best weights are loaded at the end. ``bf16=None``
-        means bfloat16 autocast on a card, float32 on the CPU.
+        means bfloat16 autocast on a card, float32 on the CPU. ``plots``:
+        write the first epoch's first three batches as ``train_batch0..2.jpg``
+        (``plot_images``; oriented boxes as their axis-aligned hulls).
         ``hyp_overrides``: ``AugmentCfg`` fields, the optimizer's (momentum,
         weight_decay, warmup_*, nbs), ``state_bf16`` and ``bf16_ema``.
 
@@ -463,6 +467,8 @@ class YOLO:
                     t_wait += time.perf_counter() - tw
                     if b is None:
                         break
+                    if plots and epoch == start_epoch and nb < 3:
+                        _plot_train_batch(b, self.names, save_dir / f"train_batch{nb}.jpg", self.device)
                     ts = time.perf_counter()
                     bdev = {k: torch.from_numpy(b[k]).to(self.device) for k in batch_keys}
                     state, m = step_fn(state, bdev)
@@ -706,3 +712,24 @@ def _write_csv(path: Path, rows: list[dict]) -> None:
         w = csv.DictWriter(f, fieldnames=keys)
         w.writeheader()
         w.writerows(rows)
+
+
+def _plot_train_batch(b: dict, names: dict[int, str], fname: Path, device) -> None:
+    """``plot_images`` of a train batch (the reference's contract: RGB
+    uint8 NHWC, ``cls``, normalised xywh ``bboxes``, ``mask``); a batch of
+    oriented boxes (xywhr) draws their axis-aligned hulls."""
+    from fce_yolo_tpu_torch.ops.geometry import xywhr2xyxyxyxy
+    from fce_yolo_tpu_torch.utils.annotator import plot_images
+
+    bboxes = b["bboxes"]
+    if bboxes.shape[-1] == 5:
+        h, w = b["img"].shape[1:3]
+        scale = np.array([w, h], np.float32)
+        xywhr = bboxes.reshape(-1, 5).copy()
+        xywhr[:, [0, 2]] *= w
+        xywhr[:, [1, 3]] *= h
+        corners = xywhr2xyxyxyxy(xywhr) / scale
+        lo, hi = corners.min(1), corners.max(1)
+        bboxes = np.concatenate([(lo + hi) / 2, hi - lo], 1).reshape(*bboxes.shape[:-1], 4)
+    plot_images({"img": b["img"], "cls": b["cls"], "bboxes": bboxes, "mask": b["mask"]}, names=names, fname=fname,
+                device=device)

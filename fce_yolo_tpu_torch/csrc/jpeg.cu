@@ -695,6 +695,342 @@ cudaError_t launch_color(const uint8_t* planes, uint8_t* out, const Geom& g, cud
   return cudaGetLastError();
 }
 
+// ------------------------------------------------------------------ encoder
+// jpeg_fdct_kernel + fce_jpeg_entropy: cv2.imencode(".jpg", img) at cv2's defaults (quality 95 unless given,
+// 4:2:0, Annex K tables, no restart), byte for byte. The plain version: data/jpeg_write.py.
+
+// ITU T.81 Annex K.1 quantisation tables, natural order
+const uint8_t kStdQuant[2][64] = {
+    {16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,  14, 13, 16, 24, 40,  57,
+     69, 56, 14, 17, 22,  29,  51,  87,  80, 62, 18, 22, 37,  56,  68,  109, 103, 77, 24, 35, 55, 64,
+     81, 104, 113, 92, 49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95,  98,  112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99, 24, 26, 56, 99, 99, 99,
+     99, 99, 47, 66, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+
+// jccolor.c's SCALEBITS 16 constants
+constexpr int fix16(double v) { return static_cast<int>(v * 65536 + 0.5); }
+constexpr int kYR = fix16(0.29900), kYG = fix16(0.58700), kYB = fix16(0.11400);
+constexpr int kCbR = fix16(0.16874), kCbG = fix16(0.33126), kHalf = fix16(0.5);
+constexpr int kCrG = fix16(0.41869), kCrB = fix16(0.08131);
+constexpr int kCbCrOffset = (128 << 16) + (1 << 15) - 1;  // CBCR_OFFSET + ONE_HALF - 1
+
+struct EncGeom {
+  int width, height, ncomp;
+  int wib, hib;  // luma blocks that hold image samples; the MCU's others are dummies
+  int bw[3], bh[3], blk_off[4];
+  uint8_t quant[2][64];  // natural order
+  uint16_t recip[2][64], corr[2][64];
+  uint8_t shift[2][64];
+};
+
+// jcparam.c jpeg_set_quality (force_baseline) and jcdctmgr.c compute_reciprocal of each divisor 8 q
+EncGeom enc_geom(int width, int height, int ncomp, int quality) {
+  EncGeom g{};
+  g.width = width;
+  g.height = height;
+  g.ncomp = ncomp;
+  g.wib = (width + 7) / 8;
+  g.hib = (height + 7) / 8;
+  if (ncomp == 1) {
+    g.bw[0] = g.wib;
+    g.bh[0] = g.hib;
+  } else {
+    const int mx = (width + 15) / 16, my = (height + 15) / 16;
+    g.bw[0] = 2 * mx;
+    g.bh[0] = 2 * my;
+    g.bw[1] = g.bw[2] = mx;
+    g.bh[1] = g.bh[2] = my;
+  }
+  g.blk_off[0] = 0;
+  for (int c = 0; c < ncomp; ++c) g.blk_off[c + 1] = g.blk_off[c] + g.bw[c] * g.bh[c];
+  const int q = quality < 1 ? 1 : (quality > 100 ? 100 : quality);
+  const int scale = q < 50 ? 5000 / q : 200 - 2 * q;
+  for (int t = 0; t < 2; ++t) {
+    for (int k = 0; k < 64; ++k) {
+      int v = (kStdQuant[t][k] * scale + 50) / 100;
+      v = v < 1 ? 1 : (v > 255 ? 255 : v);
+      g.quant[t][k] = static_cast<uint8_t>(v);
+      const uint32_t d = static_cast<uint32_t>(v) << 3;
+      int r = 16 + (31 - __builtin_clz(d));
+      uint32_t fq = (1u << r) / d, c = d / 2;
+      const uint32_t fr = (1u << r) % d;
+      if (fr == 0) {  // a power of two: fq is one bit too large
+        fq >>= 1;
+        --r;
+      } else if (fr <= d / 2) {
+        ++c;
+      } else {
+        ++fq;
+      }
+      g.recip[t][k] = static_cast<uint16_t>(fq);
+      g.corr[t][k] = static_cast<uint16_t>(c);
+      g.shift[t][k] = static_cast<uint8_t>(r);
+    }
+  }
+  return g;
+}
+
+// One jfdctint pass over x[0..7]. pass 1 (rows): even outputs << PASS1_BITS, odd descaled by 11; pass 2
+// (columns): even descaled by PASS1_BITS, odd by 15.
+__device__ __forceinline__ void fdct8(const int* d, int* o, bool second) {
+  const int tmp0 = d[0] + d[7], tmp7 = d[0] - d[7], tmp1 = d[1] + d[6], tmp6 = d[1] - d[6];
+  const int tmp2 = d[2] + d[5], tmp5 = d[2] - d[5], tmp3 = d[3] + d[4], tmp4 = d[3] - d[4];
+  const int tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3, tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+  const int n = second ? 15 : 11, half = 1 << (n - 1);
+  if (second) {
+    o[0] = (tmp10 + tmp11 + 2) >> 2;
+    o[4] = (tmp10 - tmp11 + 2) >> 2;
+  } else {
+    o[0] = (tmp10 + tmp11) * 4;
+    o[4] = (tmp10 - tmp11) * 4;
+  }
+  int z1 = (tmp12 + tmp13) * F0541;
+  o[2] = (z1 + tmp13 * F0765 + half) >> n;
+  o[6] = (z1 - tmp12 * F1847 + half) >> n;
+  z1 = tmp4 + tmp7;
+  int z2 = tmp5 + tmp6, z3 = tmp4 + tmp6, z4 = tmp5 + tmp7;
+  const int z5 = (z3 + z4) * F1175;
+  const int t4 = tmp4 * F0298, t5 = tmp5 * F2053, t6 = tmp6 * F3072, t7 = tmp7 * F1501;
+  z1 *= -F0899;
+  z2 *= -F2562;
+  z3 = z3 * -F1961 + z5;
+  z4 = z4 * -F0390 + z5;
+  o[7] = (t4 + z1 + z3 + half) >> n;
+  o[5] = (t5 + z2 + z4 + half) >> n;
+  o[3] = (t6 + z2 + z3 + half) >> n;
+  o[1] = (t7 + z1 + z4 + half) >> n;
+}
+
+__device__ __forceinline__ int luma(const uint8_t* p) { return (kYR * p[2] + kYG * p[1] + kYB * p[0] + 32768) >> 16; }
+
+// Cb (c == 1) or Cr of the BGR pixel p
+__device__ __forceinline__ int chroma(const uint8_t* p, int c) {
+  return c == 1 ? (-kCbR * p[2] - kCbG * p[1] + kHalf * p[0] + kCbCrOffset) >> 16
+                : (kHalf * p[2] - kCrG * p[1] - kCrB * p[0] + kCbCrOffset) >> 16;
+}
+
+// img: BGR (H, W, 3) or gray (H, W) uint8, on the card; coef: every component's int16 blocks end to end
+// (g.blk_off), natural order. 32 JPEG blocks a CUDA block, 8 threads each: one thread a row of samples
+// (edge-replicated, colour-converted, 2x2-averaged for chroma), then after the rows' pass sits in shared
+// memory, a column; quantised values go through shared memory to coalesced 16-byte stores.
+__global__ void __launch_bounds__(kBlocksPerCta * 8) jpeg_fdct_kernel(const uint8_t* __restrict__ img,
+                                                                      int16_t* __restrict__ coef, const EncGeom g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s_ws = reinterpret_cast<int*>(smem);                                            // [32][64]
+  int16_t* s_out = reinterpret_cast<int16_t*>(smem + kBlocksPerCta * 64 * sizeof(int));  // [32][64]
+  const int t = threadIdx.x, lb = t >> 3, lane = t & 7;
+  const int nblocks = g.blk_off[g.ncomp];
+  const int first = blockIdx.x * kBlocksPerCta;
+  const int gb = first + lb;
+  const bool live = gb < nblocks;
+  const int c = g.ncomp > 2 && gb >= g.blk_off[2] ? 2 : (g.ncomp > 1 && gb >= g.blk_off[1] ? 1 : 0);
+  const int li = gb - g.blk_off[c];
+  int by = li / g.bw[c], bx = li % g.bw[c];
+  // a dummy luma block (jccoefct compress_data) takes the DC of its source block and no AC
+  bool dummy = false;
+  if (c == 0 && g.ncomp == 3) {
+    if (by >= g.hib) {
+      dummy = true;
+      by = g.hib - 1;
+      bx = (bx | 1) < g.wib ? (bx | 1) : (bx & ~1);
+    } else if (bx >= g.wib) {
+      dummy = true;
+      bx -= 1;
+    }
+  }
+  int x[8], o[8];
+  if (live) {  // pass 1: this thread's row of samples
+    const int W = g.width, H = g.height;
+    if (c == 0) {
+      const int py = min(8 * by + lane, H - 1);
+      for (int k = 0; k < 8; ++k) {
+        const int px = min(8 * bx + k, W - 1);
+        const long long i = (long long)py * W + px;
+        x[k] = (g.ncomp == 1 ? img[i] : luma(img + 3 * i)) - 128;
+      }
+    } else {  // h2v2_downsample of the edge-expanded full-resolution plane, bias 1, 2, 1, 2, ...
+      const int cy = min(8 * by + lane, (H + 1) / 2 - 1);
+      const int r0 = 2 * cy, r1 = min(2 * cy + 1, H - 1);
+      for (int k = 0; k < 8; ++k) {
+        const int cx = 8 * bx + k;
+        const int c0 = min(2 * cx, W - 1), c1 = min(2 * cx + 1, W - 1);
+        const int s = chroma(img + 3 * ((long long)r0 * W + c0), c) + chroma(img + 3 * ((long long)r0 * W + c1), c) +
+                      chroma(img + 3 * ((long long)r1 * W + c0), c) + chroma(img + 3 * ((long long)r1 * W + c1), c);
+        x[k] = ((s + 1 + (k & 1)) >> 2) - 128;
+      }
+    }
+    fdct8(x, o, false);
+    for (int u = 0; u < 8; ++u) s_ws[lb * 64 + lane * 8 + u] = o[u];
+  }
+  __syncthreads();
+  if (live) {  // pass 2: this thread's column, then quantisation (jcdctmgr quantize)
+    for (int r = 0; r < 8; ++r) x[r] = s_ws[lb * 64 + r * 8 + lane];
+    fdct8(x, o, true);
+    const int tb = c > 0;
+    for (int v = 0; v < 8; ++v) {
+      const int k = v * 8 + lane;
+      const unsigned a = (unsigned)abs(o[v]);
+      const int q = (int)(((a + g.corr[tb][k]) * (unsigned)g.recip[tb][k]) >> g.shift[tb][k]);
+      s_out[lb * 64 + k] = (int16_t)(dummy && k ? 0 : (o[v] < 0 ? -q : q));
+    }
+  }
+  __syncthreads();
+  if (first + (t >> 3) < nblocks) {  // each thread 8 consecutive coefficients (16 bytes)
+    *reinterpret_cast<uint4*>(coef + (long long)first * 64 + t * 8) = *reinterpret_cast<const uint4*>(s_out + t * 8);
+  }
+}
+
+cudaError_t launch_fdct(const uint8_t* img, int16_t* coef, const EncGeom& g, cudaStream_t st) {
+  const dim3 grid((g.blk_off[g.ncomp] + kBlocksPerCta - 1) / kBlocksPerCta), block(kBlocksPerCta * 8);
+  const int smem_bytes = kBlocksPerCta * 64 * (int)(sizeof(int) + sizeof(int16_t));
+  jpeg_fdct_kernel<<<grid, block, smem_bytes, st>>>(img, coef, g);
+  return cudaGetLastError();
+}
+
+// ITU T.81 Annex C: each symbol's code and length
+struct HuffCodes {
+  uint16_t code[256];
+  uint8_t size[256];
+};
+
+// Annex K.3's table of slot (tc, th), th 0 or 1
+Huff std_table(int tc, int th) {
+  const Huff none[2][4] = {};
+  return table_in_slot(none, tc, th);
+}
+
+HuffCodes huff_codes(int tc, int th) {
+  const Huff h = std_table(tc, th);
+  HuffCodes out{};
+  int code = 0, k = 0;
+  for (int len = 1; len <= 16; ++len) {
+    for (int i = 0; i < h.counts[len - 1]; ++i, ++k) {
+      out.code[h.symbols[k]] = static_cast<uint16_t>(code++);
+      out.size[h.symbols[k]] = static_cast<uint8_t>(len);
+    }
+    code <<= 1;
+  }
+  return out;
+}
+
+// MSB-first bits with a zero stuffed after every 0xFF byte (jchuff.c)
+struct BitWriter {
+  std::vector<uint8_t>& out;
+  uint64_t acc = 0;
+  int n = 0;
+  void put(uint32_t bits, int len) {
+    acc = (acc << len) | bits;
+    n += len;
+    while (n >= 8) {
+      const uint8_t b = static_cast<uint8_t>(acc >> (n - 8));
+      out.push_back(b);
+      if (b == 0xFF) out.push_back(0);
+      n -= 8;
+    }
+  }
+  void flush() {  // pad the last byte with ones
+    if (n) put((1u << (8 - n)) - 1, 8 - n);
+  }
+};
+
+inline int nbits(int v) {
+  unsigned a = static_cast<unsigned>(v < 0 ? -v : v);
+  int n = 0;
+  while (a) {
+    ++n;
+    a >>= 1;
+  }
+  return n;
+}
+
+void put_segment(std::vector<uint8_t>& out, int marker, const std::vector<uint8_t>& body) {
+  const int len = static_cast<int>(body.size()) + 2;
+  out.insert(out.end(), {0xFF, static_cast<uint8_t>(marker), static_cast<uint8_t>(len >> 8),
+                         static_cast<uint8_t>(len & 0xFF)});
+  out.insert(out.end(), body.begin(), body.end());
+}
+
+// The whole file: SOI, APP0 JFIF 1.01, DQT a table, SOF0, DHT a table, SOS, the Huffman-coded blocks in scan
+// order (4:2:0: an MCU is Y00 Y01 Y10 Y11 Cb Cr), EOI.
+void encode_file(const int16_t* coef, const EncGeom& g, std::vector<uint8_t>& out) {
+  const int ntab = g.ncomp == 1 ? 1 : 2;
+  out.clear();
+  out.insert(out.end(), {0xFF, 0xD8});
+  put_segment(out, 0xE0, {'J', 'F', 'I', 'F', 0, 1, 1, 0, 0, 1, 0, 1, 0, 0});
+  for (int t = 0; t < ntab; ++t) {
+    std::vector<uint8_t> body{static_cast<uint8_t>(t)};
+    for (int k = 0; k < 64; ++k) body.push_back(g.quant[t][kNatural[k]]);
+    put_segment(out, 0xDB, body);
+  }
+  std::vector<uint8_t> sof{8, static_cast<uint8_t>(g.height >> 8), static_cast<uint8_t>(g.height & 0xFF),
+                           static_cast<uint8_t>(g.width >> 8), static_cast<uint8_t>(g.width & 0xFF),
+                           static_cast<uint8_t>(g.ncomp)};
+  for (int c = 0; c < g.ncomp; ++c) {
+    sof.insert(sof.end(), {static_cast<uint8_t>(c + 1), static_cast<uint8_t>(g.ncomp == 3 && c == 0 ? 0x22 : 0x11),
+                           static_cast<uint8_t>(c > 0)});
+  }
+  put_segment(out, 0xC0, sof);
+  HuffCodes dc[2], ac[2];
+  for (int t = 0; t < ntab; ++t) {
+    dc[t] = huff_codes(0, t);
+    ac[t] = huff_codes(1, t);
+    for (int tc = 0; tc < 2; ++tc) {
+      const Huff h = std_table(tc, t);
+      std::vector<uint8_t> body{static_cast<uint8_t>(tc << 4 | t)};
+      body.insert(body.end(), h.counts, h.counts + 16);
+      int n = 0;
+      for (int i = 0; i < 16; ++i) n += h.counts[i];
+      body.insert(body.end(), h.symbols, h.symbols + n);
+      put_segment(out, 0xC4, body);
+    }
+  }
+  std::vector<uint8_t> sos{static_cast<uint8_t>(g.ncomp)};
+  for (int c = 0; c < g.ncomp; ++c) sos.insert(sos.end(), {static_cast<uint8_t>(c + 1), static_cast<uint8_t>(c ? 0x11 : 0)});
+  sos.insert(sos.end(), {0, 63, 0});
+  put_segment(out, 0xDA, sos);
+  BitWriter bw{out};
+  int pred[3] = {0, 0, 0};
+  auto block = [&](int c, int by, int bx) {
+    const int16_t* b = coef + ((long long)g.blk_off[c] + (long long)by * g.bw[c] + bx) * 64;
+    const int t = c > 0;
+    const int diff = b[0] - pred[c];
+    pred[c] = b[0];
+    int n = nbits(diff);
+    bw.put(dc[t].code[n], dc[t].size[n]);
+    if (n) bw.put(static_cast<uint32_t>(diff < 0 ? diff - 1 : diff) & ((1u << n) - 1), n);
+    int run = 0;
+    for (int k = 1; k < 64; ++k) {
+      const int v = b[kNatural[k]];
+      if (!v) {
+        ++run;
+        continue;
+      }
+      for (; run > 15; run -= 16) bw.put(ac[t].code[0xF0], ac[t].size[0xF0]);
+      n = nbits(v);
+      const int sym = run << 4 | n;
+      bw.put(ac[t].code[sym], ac[t].size[sym]);
+      bw.put(static_cast<uint32_t>(v < 0 ? v - 1 : v) & ((1u << n) - 1), n);
+      run = 0;
+    }
+    if (run) bw.put(ac[t].code[0], ac[t].size[0]);
+  };
+  if (g.ncomp == 1) {
+    for (int by = 0; by < g.bh[0]; ++by)
+      for (int bx = 0; bx < g.bw[0]; ++bx) block(0, by, bx);
+  } else {
+    for (int my = 0; my < g.bh[1]; ++my) {
+      for (int mx = 0; mx < g.bw[1]; ++mx) {
+        for (int i = 0; i < 4; ++i) block(0, 2 * my + (i >> 1), 2 * mx + (i & 1));
+        block(1, my, mx);
+        block(2, my, mx);
+      }
+    }
+  }
+  bw.flush();
+  out.insert(out.end(), {0xFF, 0xD9});
+}
+
 }  // namespace
 
 // info (int32[48]) gets W, H, components, colour, orientation, hmax, vmax, total coefficients, then per
@@ -775,4 +1111,30 @@ extern "C" int fce_jpeg_decode(const void* buf, long long len, int* info, void* 
     for (int i = 0; i < 5; ++i) cudaEventDestroy(ev[i]);
   }
   return static_cast<int>(e);
+}
+
+// jpeg_fdct_kernel alone, on the caller's stream: img (device, H x W x ncomp uint8, ncomp 1 or 3) -> coef
+// (device int16, every component's MCU-padded block grid end to end, natural order)
+extern "C" int fce_jpeg_fdct(const void* img, void* coef, int height, int width, int ncomp, int quality,
+                             void* stream) {
+  if ((ncomp != 1 && ncomp != 3) || height < 1 || width < 1 || height > 65535 || width > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EncGeom g = enc_geom(width, height, ncomp, quality);
+  return static_cast<int>(launch_fdct(static_cast<const uint8_t*>(img), static_cast<int16_t*>(coef), g,
+                                      static_cast<cudaStream_t>(stream)));
+}
+
+// The host half of the writer: coef (host, fce_jpeg_fdct's layout) -> the JPEG file in out (cap bytes);
+// *size gets its length. kGrow (nothing written) when cap is too small.
+extern "C" int fce_jpeg_entropy(const void* coef, int height, int width, int ncomp, int quality, void* out,
+                                long long cap, long long* size) {
+  if ((ncomp != 1 && ncomp != 3) || height < 1 || width < 1 || height > 65535 || width > 65535) return kErrFormat;
+  const EncGeom g = enc_geom(width, height, ncomp, quality);
+  std::vector<uint8_t> file;
+  encode_file(static_cast<const int16_t*>(coef), g, file);
+  *size = static_cast<long long>(file.size());
+  if (*size > cap) return kGrow;
+  memcpy(out, file.data(), file.size());
+  return 0;
 }

@@ -118,6 +118,33 @@ def resize_linear(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8).reshape(h, w, C)
 
 
+def resize_linear_f32(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)`` for a float32
+    (H, W) image: float32 taps ``1 - f`` and ``f``, columns past an edge
+    clamped, rows read at the clamped source row with their weights kept.
+    ``size`` is (width, height)."""
+    w, h = size
+    src = np.asarray(img, _f32)
+    H, W = src.shape
+    if (w, h) == (W, H):
+        return src.copy()
+
+    def taps(n_src, n_dst, clamp):
+        f = ((np.arange(n_dst) + 0.5) * (1.0 / (n_dst / n_src)) - 0.5).astype(_f32)
+        s = np.floor(f).astype(np.int64)
+        f = f - s.astype(_f32)
+        if clamp:
+            low, high = s < 0, s >= n_src - 1
+            f = np.where(low | high, _f32(0), f)
+            s = np.where(low, 0, np.where(high, n_src - 1, s))
+        return s, _f32(1) - f, f
+
+    sx, a0, a1 = taps(W, w, True)
+    sy, b0, b1 = taps(H, h, False)
+    hor = src[:, sx] * a0 + src[:, np.minimum(sx + 1, W - 1)] * a1
+    return hor[np.clip(sy, 0, H - 1)] * b0[:, None] + hor[np.clip(sy + 1, 0, H - 1)] * b1[:, None]
+
+
 def _sample_bilinear(img: np.ndarray, sx: np.ndarray, sy: np.ndarray, border: int) -> np.ndarray:
     """Bilinear samples of uint8 BGR ``img`` at float32 positions (OpenCV's
     lerp order: along x on both rows, then along y), rounded to nearest."""

@@ -244,7 +244,7 @@ class DetectionPredictor:
                     "preprocess": t_pre * 1000 / n,
                     "inference": t_inf * 1000 / n,
                     "postprocess": (time.perf_counter() - t0) * 1000 / n,
-                })
+                }, device=device)
             pending.clear()
             imgs.clear()
 

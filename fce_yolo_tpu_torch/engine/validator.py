@@ -84,19 +84,32 @@ class DetectionValidator:
                            nc=self.nc, pre_nms_topk=self.pre_nms_topk)
 
     def __call__(self, data: str | Path | dict | None = None, verbose: bool = True,
-                 save_json: str | Path | None = None, dataloader: DataLoader | None = None) -> dict[str, Any]:
+                 save_json: str | Path | None = None, dataloader: DataLoader | None = None,
+                 plots_dir: str | Path | None = None) -> dict[str, Any]:
         """Validate on the ``val`` split of ``data`` (a data YAML path or dict),
         or on ``dataloader`` (built once by ``get_dataloader`` and reused, as
         the trainer does after every epoch).
 
         ``save_json``: write COCO-format detections (original image pixels) there.
+        ``plots_dir``: write the first batch's mosaics there,
+        ``val_batch0_labels.jpg`` and ``val_batch0_pred.jpg``
+        (``_plot_val_batch``); the reference's six matplotlib figures are
+        not written yet.
         """
         metrics = DetMetrics(names=self.names)
         cm = ConfusionMatrix(names=self.names)
         json_dets: list[dict] = []
-        n_images, speed = self.run(dataloader if dataloader is not None else self.get_dataloader(data),
-                                   lambda out, batch, base: self._update_metrics(
-                                       out, batch, metrics, cm, json_dets if save_json else None, base))
+
+        def update(out, batch, base):
+            if plots_dir and base == 0:
+                self._plot_val_batch(batch, out, plots_dir)
+            self._update_metrics(out, batch, metrics, cm, json_dets if save_json else None, base)
+
+        n_images, speed = self.run(dataloader if dataloader is not None else self.get_dataloader(data), update)
+        if plots_dir:
+            print(f"val: wrote the first batch's mosaics to {plots_dir}; not yet: confusion_matrix.png, "
+                  "confusion_matrix_normalized.png, PR_curve.png, F1_curve.png, P_curve.png, R_curve.png "
+                  "(matplotlib figures, ROADMAP queue 1, item 4)")
         metrics.process(nc=self.nc)
         metrics.speed = speed
         results = metrics.results_dict
@@ -116,6 +129,39 @@ class DetectionValidator:
         results["confusion_matrix"] = cm
         results["metrics"] = metrics
         return results
+
+    def _plot_val_batch(self, batch: dict, out: dict, plots_dir: str | Path, conf: float = 0.25,
+                        max_det: int = 50) -> None:
+        """The first val batch's mosaics: its labels (``val_batch0_labels.jpg``)
+        and its predictions (``val_batch0_pred.jpg``: conf >= ``conf``, the
+        ``max_det`` best by score of each image), as the reference draws them."""
+        from fce_yolo_tpu_torch.utils.annotator import plot_images
+
+        device = next(self.model.parameters()).device
+        outp = Path(plots_dir)
+        outp.mkdir(parents=True, exist_ok=True)
+        plot_images(batch, names=self.names, fname=outp / "val_batch0_labels.jpg", device=device)
+        bh, bw = batch["img"].shape[1:3]
+        n = len(batch["img"])
+        pb = np.zeros((n, max_det, 4), np.float32)
+        pc = np.zeros((n, max_det), np.float32)
+        pm = np.zeros((n, max_det), bool)
+        for i in range(min(n, batch["n_valid"])):
+            valid = out["valid"][i]
+            boxes, scores, cls_ = out["boxes"][i][valid], out["scores"][i][valid], out["classes"][i][valid]
+            keep = np.argsort(-scores)[:max_det]
+            keep = keep[scores[keep] >= conf]
+            k = len(keep)
+            if k:
+                xyxy = boxes[keep]
+                pb[i, :k, 0] = (xyxy[:, 0] + xyxy[:, 2]) / 2 / bw
+                pb[i, :k, 1] = (xyxy[:, 1] + xyxy[:, 3]) / 2 / bh
+                pb[i, :k, 2] = (xyxy[:, 2] - xyxy[:, 0]) / bw
+                pb[i, :k, 3] = (xyxy[:, 3] - xyxy[:, 1]) / bh
+                pc[i, :k] = cls_[keep]
+                pm[i, :k] = True
+        plot_images({"img": batch["img"], "cls": pc, "bboxes": pb, "mask": pm}, names=self.names,
+                    fname=outp / "val_batch0_pred.jpg", device=device)
 
     def to_host(self, out: dict[str, torch.Tensor]) -> dict:
         """The NMS dict as numpy arrays."""
@@ -215,11 +261,13 @@ class TaskValidator(DetectionValidator):
         raise NotImplementedError
 
     def __call__(self, data: str | Path | dict | None = None, verbose: bool = True,
-                 save_json: str | Path | None = None, dataloader: DataLoader | None = None) -> dict[str, Any]:
+                 save_json: str | Path | None = None, dataloader: DataLoader | None = None,
+                 plots_dir: str | Path | None = None) -> dict[str, Any]:
         """Validate on the ``val`` split of ``data`` or on ``dataloader``.
         Returns P, R, mAP50 and mAP50-95 of each family, ``fitness`` (their
         mean) and ``metrics``. ``save_json`` (COCO detection rows) is
-        detect's only."""
+        detect's only. ``plots_dir`` is taken and nothing is drawn, as the
+        JAX task validators do (ROADMAP queue 3, item 23)."""
         if save_json:
             raise NotImplementedError(f"save_json writes detect rows only, not {self.task} results")
         nc = self.model.spec.nc

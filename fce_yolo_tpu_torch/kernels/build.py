@@ -49,6 +49,13 @@ SIGNATURES = {
     # buf, len, info, h_coef (pinned), d_coef, d_plane, their capacity, d_out, h_out (pinned), its capacity,
     # times (host float[5] or null), stream
     "fce_jpeg_decode": [_P, _L, _P, _P, _P, _P, _L, _P, _P, _L, _P, _P],
+    # img (device), coef (device), H, W, components, quality, stream
+    "fce_jpeg_fdct": [_P, _P, _I, _I, _I, _I, _P],
+    # coef (host), H, W, components, quality, out (host), its capacity, size (host int64)
+    "fce_jpeg_entropy": [_P, _I, _I, _I, _I, _P, _L, _P],
+    # mask (host uint8), H, W, row stride, points (host int32 pairs), their capacity, counts (host int32), their
+    # capacity, sizes (host int64 [2]); host code only (csrc/contours.cu)
+    "fce_find_contours": [_P, _I, _I, _L, _P, _L, _P, _L, _P],
 }
 
 

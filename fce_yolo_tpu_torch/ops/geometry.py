@@ -7,6 +7,11 @@
 by step (OpenCV's ``drawing.cpp``, ``convhull.cpp`` and ``rotcalipers.cpp``)
 so that it gives OpenCV's answer, not merely a correct one.
 ``tests/test_torch_task_data.py`` holds both against cv2.
+
+``masks2segments`` (reference ``fce_yolo_tpu/ops/geometry.py:177``) traces
+mask outlines with ``ops/contours.py`` in place of ``cv2.findContours``;
+``merge_multi_segment`` and ``min_index`` are copies of the reference's
+``fce_yolo_tpu/data/converter.py:53-71``.
 """
 
 from __future__ import annotations
@@ -15,7 +20,8 @@ import math
 
 import numpy as np
 
-__all__ = ["fill_poly", "min_area_rect", "convex_hull", "xywhr2xyxyxyxy", "regularize_rboxes"]
+__all__ = ["fill_poly", "min_area_rect", "convex_hull", "xywhr2xyxyxyxy", "regularize_rboxes", "min_index",
+           "merge_multi_segment", "masks2segments"]
 
 XY_SHIFT = 16  # OpenCV's fixed-point x of polygon edges
 XY_ONE = 1 << XY_SHIFT
@@ -386,3 +392,48 @@ def regularize_rboxes(rboxes: np.ndarray) -> np.ndarray:
     r[..., 3] = np.where(swap, w, h)
     r[..., 4] = np.where(swap, a + np.pi / 2, a) % np.pi
     return r
+
+
+def min_index(arr1: np.ndarray, arr2: np.ndarray) -> tuple[int, int]:
+    """The index pair of the closest points of two (N, 2) / (M, 2) point sets."""
+    dis = ((arr1[:, None, :] - arr2[None, :, :]) ** 2).sum(-1)
+    return tuple(int(i) for i in np.unravel_index(np.argmin(dis, axis=None), dis.shape))
+
+
+def merge_multi_segment(segments: list) -> list[np.ndarray]:
+    """One closed traversal through every part of a multi-part polygon: each
+    part is spliced in at its point closest to the outline so far, and the
+    walk returns to the splice point."""
+    parts = [np.asarray(s, np.float64).reshape(-1, 2) for s in segments]
+    merged = parts[0]
+    for nxt in parts[1:]:
+        i, j = min_index(merged, nxt)
+        nxt_rot = np.roll(nxt, -j, axis=0)
+        merged = np.concatenate([merged[: i + 1], nxt_rot, nxt_rot[:1], merged[i: i + 1], merged[i + 1:]])
+    return [merged]
+
+
+def masks2segments(masks: np.ndarray, strategy: str = "all", device="cuda") -> list[np.ndarray]:
+    """(N, H, W) binary masks -> one float32 (n, 2) polygon a mask: with
+    ``strategy="all"`` every outer outline spliced into one
+    (``merge_multi_segment``), with ``"largest"`` the outline of the most
+    points (the first of equals); (0, 2) for an empty mask. The outlines
+    come from ``find_contours_external`` on ``device``."""
+    from fce_yolo_tpu_torch.ops.contours import find_contours_external
+
+    if strategy not in ("all", "largest"):
+        raise ValueError(f"masks2segments strategy must be 'all' or 'largest', not {strategy!r}")
+    out = []
+    for m in np.asarray(masks, np.uint8):
+        contours = find_contours_external(m, device)
+        if not contours:
+            out.append(np.zeros((0, 2), np.float32))
+            continue
+        if strategy == "largest":
+            c = max(contours, key=len).reshape(-1, 2)
+        elif len(contours) > 1:
+            c = np.concatenate(merge_multi_segment([x.reshape(-1, 2) for x in contours]))
+        else:
+            c = contours[0].reshape(-1, 2)
+        out.append(c.astype(np.float32))
+    return out

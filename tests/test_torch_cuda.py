@@ -22,7 +22,10 @@ CPU's and their gradients within 1e-3 of the largest; ``YOLO.track`` on
 the card launching both kernels once a frame, its tracks bit-equal with
 the plain NMS; an MJPEG AVI's frames decoded on the card byte-equal to the
 plain path; yolo11n-cls on the card (float32, TF32 off) within 1e-3 of the
-largest CPU logit and its probabilities on an AVI within 1e-4.
+largest CPU logit and its probabilities on an AVI within 1e-4; the JPEG
+writer's forward-DCT kernel's coefficients exactly equal to its plain
+version's and its files byte-equal to the plain writer's; the card
+library's contour walk equal to the plain walk.
 """
 
 import struct
@@ -800,3 +803,46 @@ def test_classify_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
     np.testing.assert_allclose(np.stack([r.probs.data for r in res]), np.stack([r.probs.data for r in exp]),
                                rtol=0, atol=1e-4)
     assert all(t.shape == (0, 7) for _, t in card.track(str(path), imgsz=64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,c", [(1, 1, 3), (37, 53, 3), (480, 640, 3), (721, 1281, 3), (33, 47, 1)])
+def test_jpeg_fdct_kernel_matches_reference(cuda, h, w, c):
+    """``jpeg_fdct_kernel``'s coefficients equal ``jpeg_fdct_reference``'s
+    exactly, one launch a call; the card's file equals the plain writer's."""
+    from fce_yolo_tpu_torch.data import jpeg_write as JW
+
+    rng = np.random.RandomState(h + w)
+    img = rng.randint(0, 256, (h, w, c) if c == 3 else (h, w), np.uint8)
+    img[: h // 2, : w // 2] = 77  # a flat part: long zero runs
+    before = JW.jpeg_fdct.launches
+    coef = JW.jpeg_fdct(torch.from_numpy(img).to(cuda))
+    torch.cuda.synchronize()
+    assert JW.jpeg_fdct.launches == before + 1
+    np.testing.assert_array_equal(coef.cpu().numpy(), JW.jpeg_fdct_reference(img))
+    for q in (95, 50):
+        assert JW.encode_jpeg(img, q, device="cuda") == JW.encode_jpeg_reference(img, q)
+
+
+@pytest.mark.cuda
+def test_outlines_and_save_on_the_card_match_the_plain_path(cuda, tmp_path):
+    """The card library's contour walk gives the plain walk's outlines;
+    ``Results`` on the card save the plain writer's bytes."""
+    from fce_yolo_tpu_torch.data.jpeg_write import encode_jpeg_reference
+    from fce_yolo_tpu_torch.engine.results import Results
+    from fce_yolo_tpu_torch.ops.contours import find_contours_external, find_contours_reference
+
+    rng = np.random.RandomState(0)
+    for _ in range(50):
+        m = rng.rand(*rng.randint(1, 60, 2)) < rng.uniform(0.1, 0.9)
+        out, ref = find_contours_external(m, "cuda"), find_contours_reference(m)
+        assert len(out) == len(ref) and all(np.array_equal(a, b) for a, b in zip(out, ref))
+    masks = np.zeros((2, 90, 120), bool)
+    masks[0, 10:40, 20:70] = masks[1, 50:80, 60:110] = True
+    boxes = np.array([[20, 10, 70, 40, 0.9, 0], [60, 50, 110, 80, 0.6, 1]], np.float32)
+    img = rng.randint(0, 256, (90, 120, 3), np.uint8)
+    r = Results(img, "x", {0: "a", 1: "b"}, boxes=boxes, masks=masks, device="cuda")
+    ref = Results(img, "x", {0: "a", 1: "b"}, boxes=boxes, masks=masks, device="cpu")
+    assert all(np.array_equal(a, b) for a, b in zip(r.masks.xy, ref.masks.xy)) and r.summary() == ref.summary()
+    r.save(str(tmp_path / "a.jpg"))
+    assert (tmp_path / "a.jpg").read_bytes() == encode_jpeg_reference(r.plot())

@@ -1,17 +1,19 @@
-"""The JPEG decoder's own source (``csrc/jpeg.cu``) run on the CPU: g++
-compiles it against the CUDA stand-in in ``tests/cuda_emu`` (one thread per
-CUDA thread, ``__syncthreads`` as a barrier, copies as memcpy), with the
-launches turned into ``emu_launch``. ``jpeg_main.cpp`` calls
-``fce_jpeg_coefficients`` and ``fce_jpeg_decode``, each first with too
-little room (it must ask for more and write nothing), and checks that no
-buffer is written past its room.
+"""The JPEG decoder's and writer's own source (``csrc/jpeg.cu``) run on the
+CPU: g++ compiles it against the CUDA stand-in in ``tests/cuda_emu`` (one
+thread per CUDA thread, ``__syncthreads`` as a barrier, copies as memcpy),
+with the launches turned into ``emu_launch``. ``jpeg_main.cpp`` calls
+``fce_jpeg_coefficients`` and ``fce_jpeg_decode``, ``jpeg_enc_main.cpp``
+``fce_jpeg_fdct`` and ``fce_jpeg_entropy``, each first with too little room
+where it takes one (it must ask for more and write nothing), and checks
+that no buffer is written past its room.
 
 Tolerance: none. The C host decoder's coefficients equal the Python
 decoder's (``entropy_decode``), its info record equals ``parse_jpeg``'s
 header, and the pixels of the two kernels equal the plain path
 (``jpeg_idct_reference`` + ``jpeg_color_reference``), on the matrix of
 ``test_torch_jpeg.py`` at small sizes; the files it refuses return the
-codes the wrapper names.
+codes the wrapper names. The writer's kernel gives ``jpeg_fdct_reference``'s
+coefficients and its host stage the plain writer's file, which is cv2's.
 """
 
 import re
@@ -158,3 +160,33 @@ def test_emulated_decoder_without_huffman_tables(emulator, tmp_path, sampling):
     sos = buf.index(b"\xff\xda")
     res, _ = _run(emulator, buf[:sos + 6] + b"\x22" + buf[sos + 7:])
     assert res.returncode == 3 and "fce_jpeg_coefficients -10" in res.stderr
+
+
+# ------------------------------------------------------------------ the writer
+@pytest.fixture(scope="module")
+def encoder(tmp_path_factory):
+    return build(tmp_path_factory.mktemp("jpeg_enc_emu"), "jpeg_enc_main.cpp", "jpeg", _emulated_source())
+
+
+@pytest.mark.parametrize("quality", [95, 50])
+@pytest.mark.parametrize("h,w,c", [(1, 1, 3), (8, 8, 3), (17, 9, 3), (37, 53, 3), (33, 47, 1), (64, 80, 3),
+                                   (120, 160, 3)])
+def test_emulated_writer_matches_plain(encoder, tmp_path, h, w, c, quality):
+    """``jpeg_fdct_kernel`` (through ``fce_jpeg_fdct``) gives
+    ``jpeg_fdct_reference``'s coefficients, dummy blocks of the last MCU
+    column and row included, and ``fce_jpeg_entropy`` the plain writer's
+    file, which is cv2's; it first asks for room without writing."""
+    from fce_yolo_tpu_torch.data import jpeg_write as JW
+
+    rng = np.random.RandomState(h * w + quality)
+    img = _image(rng, h, w)
+    img = img if c == 3 else img[..., 1].copy()
+    (tmp_path / "in.raw").write_bytes(img.tobytes())
+    res = subprocess.run([str(encoder), str(tmp_path / "in.raw"), str(h), str(w), str(c), str(quality),
+                          str(tmp_path / "coef.bin"), str(tmp_path / "out.jpg")],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-2000:]
+    np.testing.assert_array_equal(np.fromfile(tmp_path / "coef.bin", np.int16), JW.jpeg_fdct_reference(img, quality))
+    buf = (tmp_path / "out.jpg").read_bytes()
+    assert buf == JW.encode_jpeg_reference(img, quality)
+    assert buf == cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])[1].tobytes()

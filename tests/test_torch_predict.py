@@ -426,7 +426,9 @@ def test_predict_classes_stream_verbose_match_jax(task_predicts, task, capsys):
 
 def test_task_results_api():
     """OBB results give their hulls as boxes and index in step; mask
-    outlines and the summary of masks name the queue item that ports them."""
+    outlines and the summary of masks (with their segments) equal the JAX
+    package's, which traces them with cv2.findContours."""
+    from fce_yolo_tpu.engine.results import Results as JaxResults
     from fce_yolo_tpu_torch.engine.results import OBB
 
     obb = np.array([[50, 40, 20, 10, 0.3, 0.9, 1], [10, 10, 4, 8, 0.0, 0.5, 0]], np.float32)
@@ -435,12 +437,18 @@ def test_task_results_api():
     np.testing.assert_allclose(r.boxes.xyxy[1], [8, 6, 12, 14], atol=1e-5)
     assert r[1:].obb.data.tolist() == obb[1:].tolist() and len(r[[True, False]]) == 1
     masks = np.zeros((2, 100, 200), bool)
-    rm = Results(np.zeros((100, 200, 3), np.uint8), "x", {0: "a"}, boxes=obb[:, [0, 1, 2, 3, 5, 6]], masks=masks)
-    assert rm[[1]].masks.data.shape == (1, 100, 200)
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        rm.masks.xy
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        rm.summary()
+    masks[0, 10:30, 20:60] = True
+    masks[1, 50:70, 100:150] = masks[1, 80:95, 10:20] = True  # two parts: the larger is the outline
+    img = np.zeros((100, 200, 3), np.uint8)
+    rm = Results(img, "x", {0: "a"}, boxes=obb[:, [0, 1, 2, 3, 5, 6]], masks=masks, device="cpu")
+    ref = JaxResults(img, "x", {0: "a"}, boxes=obb[:, [0, 1, 2, 3, 5, 6]], masks=masks)
+    assert rm[[1]].masks.data.shape == (1, 100, 200) and rm[[1]].masks.device == "cpu"
+    xy = rm.masks.xy
+    assert len(xy) == 2 and xy[1].tolist() == [[100, 50], [100, 69], [149, 69], [149, 50]]
+    for a, b in zip(xy, ref.masks.xy):
+        np.testing.assert_array_equal(a, b)
+    assert rm.summary() == ref.summary() and rm.summary(normalize=True) == ref.summary(normalize=True)
+    assert len(rm.summary()[1]["segments"]["x"]) == 4 + 4 + 2  # both parts, spliced into one outline
     kp = np.ones((2, 4, 3), np.float32)
     rk = Results(np.zeros((100, 200, 3), np.uint8), "x", {0: "a"}, boxes=obb[:, [0, 1, 2, 3, 5, 6]], keypoints=kp)
     assert rk.summary()[0]["keypoints"]["visible"] == [1.0] * 4
