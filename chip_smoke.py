@@ -78,9 +78,12 @@ from a seed) and checks that each path went through its kernels:
   phase track's frames, then ``Masks.xy``, ``plot``, ``save``,
   ``save_txt`` and ``save_crop``, the stem and NMS kernels once a batch and
   ``jpeg_fdct`` once a file, every file byte-equal to the plain writer's and
-  decoded on the card; ``YOLO.val(plots_dir=...)`` and ``YOLO.train(plots=
-  True)`` writing their mosaics (every ``YOLO.train`` above writes the
-  first three batches' mosaics too).
+  decoded on the card; ``YOLO.val(plots_dir=...)`` writing its mosaics and
+  the six figures (the NMS kernel bit-equal to the plain version on every
+  batch) and ``YOLO.train(plots=True)`` its mosaics (every ``YOLO.train``
+  above writes the first three batches' mosaics and ``results.png`` too);
+  each figure, drawn on the host by ``utils/chart.py``, read back through
+  the port's PNG reader and timed.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -161,6 +164,44 @@ def graph_ms(fn, iters: int = 20) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+class figure_times:
+    """Within the block, time each call of ``module``'s functions ``names``
+    (figure writers returning a path) and keep {file name: ms} in ``ms``."""
+
+    def __init__(self, module, names: tuple[str, ...]):
+        self.module, self.names, self.ms = module, names, {}
+
+    def __enter__(self):
+        self.real = {n: getattr(self.module, n) for n in self.names}
+        for n, fn in self.real.items():
+            def timed(*a, _fn=fn, _n=n, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                key = Path(str(out)).name if out else _n
+                while key in self.ms:
+                    key += "'"
+                self.ms[key] = (time.perf_counter() - t0) * 1e3
+                return out
+            setattr(self.module, n, timed)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.real.items():
+            setattr(self.module, n, fn)
+
+
+def read_figure(path: Path, size: tuple[int, int] | None = None) -> tuple[int, int]:
+    """Read a written PNG back through the port's reader; check its (width,
+    height) against ``size`` when given. Returns it."""
+    from fce_yolo_tpu_torch.data.imread import imread
+
+    img = imread(path, device="cuda")
+    got = (img.shape[1], img.shape[0])
+    check(img.ndim == 3 and img.dtype == np.uint8 and (size is None or got == size),
+          f"{path.name}: read back as {img.dtype} {img.shape}, expected {size}")
+    return got
 
 
 def kernel_wrappers() -> dict:
@@ -1386,13 +1427,16 @@ def phase_train(root: Path, card: str) -> dict:
     splits, starting from phase val's matching weights: finite losses, one
     results.csv row an epoch, last and best written, the NMS kernel launched
     once per val batch of every epoch and equal to the plain version on the
-    last epoch's batches, and ``best`` reloaded in a fresh YOLO giving the
+    last epoch's batches, ``results.png`` drawn (timed) and read back at its
+    size, and ``best`` reloaded in a fresh YOLO giving the
     run's best mAP50-95 within 1e-6; (c) times; (a) one step card vs CPU.
     Returns the train path's launches."""
     import csv as _csv
 
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+    from fce_yolo_tpu_torch.experiments.analysis import load_results
+    from fce_yolo_tpu_torch.utils import plotting
 
     data = train_data(root)
     yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
@@ -1406,13 +1450,14 @@ def phase_train(root: Path, card: str) -> dict:
     n_val = -(-VAL_IMAGES // VAL_BATCH)
     DetectionValidator.nms = capturing_nms
     try:
-        reset_launches()
-        t0 = time.perf_counter()
-        res = yolo.train(data, epochs=TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ, project=str(root / "runs"),
-                         verbose=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = read_launches()
+        with figure_times(plotting, ("plot_results",)) as figs:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = yolo.train(data, epochs=TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ, project=str(root / "runs"),
+                             verbose=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = read_launches()
     finally:
         DetectionValidator.nms = real_nms
     check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * TRAIN_EPOCHS, jpeg_fdct=train_plots(n_val)),
@@ -1426,6 +1471,12 @@ def phase_train(root: Path, card: str) -> dict:
         check(len(list(_csv.DictReader(f))) == TRAIN_EPOCHS, "results.csv does not hold one row an epoch")
     for w in ("last", "best"):
         check((save_dir / "weights" / w / "meta.json").exists(), f"weights/{w} missing")
+    panels = sum(k not in ("epoch", "time") and isinstance(v, (int, float)) for k, v in load_results(save_dir)[0].items())
+    cols = min(4, panels)  # plot_results: 4 x 3 in a panel, up to 4 a row, at dpi 120
+    check(list(figs.ms) == ["results.png"], f"phase train: figures drawn {list(figs.ms)}")
+    read_figure(save_dir / "results.png", (4 * cols * 120, 3 * -(-panels // cols) * 120))
+    print(f"phase train: results.png ({panels} panels) drawn in {figs.ms['results.png']:.1f} ms (host clock) and read "
+          f"back at its size [{card}]", flush=True)
 
     val = DetectionValidator(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=VAL_BATCH)  # nms settings of the run
     calls: list = []
@@ -1517,8 +1568,12 @@ def phase_experiments(root: Path, card: str) -> dict:
     stage (the stem never) and bit-equal to the plain version on each
     stage's val; ``inspect`` finds finite fusion weights in every
     BiFPN_Concat of fce and bifpn; ``YOLO.info`` of the three
-    architectures; the report's tables written, each figure drawn or listed
-    as skipped. Returns the path's launches."""
+    architectures; the report's tables written and its four figures drawn
+    (none skipped), ``produce_all``'s curves, bars and per-run results grids,
+    each figure timed and read back; then, outside the counted run,
+    ``compose_panels`` to a JPEG and ``visualize_image_annotations`` on it
+    with their default device, each JPEG coded by the card's kernels.
+    Returns the path's launches."""
     from dataclasses import replace
 
     from fce_yolo_tpu_torch import YOLO, api
@@ -1526,7 +1581,10 @@ def phase_experiments(root: Path, card: str) -> dict:
     from fce_yolo_tpu_torch.experiments import (ABLATION_ORDER, TrainConfig, inspect_checkpoint, run_ablation,
                                                 validate_run)
     from fce_yolo_tpu_torch.experiments import config as xconfig
-    from fce_yolo_tpu_torch.experiments.figures import produce_report
+    from fce_yolo_tpu_torch.experiments import figures as xfigures
+    from fce_yolo_tpu_torch.experiments.figures import produce_all, produce_report
+    from fce_yolo_tpu_torch.utils import plotting
+    from fce_yolo_tpu_torch.utils.chart import Figure
     from fce_yolo_tpu_torch.utils.checkpoint import load_checkpoint
 
     phase_repair(root, card)
@@ -1609,10 +1667,39 @@ def phase_experiments(root: Path, card: str) -> dict:
         best = project / xconfig.MODEL_CONFIGS[name].get_result_path(scale) / "weights" / "best"
         print(f"phase experiments: YOLO.info(flops=True) of {name}: {YOLO(str(best), device='cuda').info(flops=True)}",
               flush=True)
-    out = produce_report(report["runs"], project / "report", scale=scale, imgsz=IMGSZ)
+    with figure_times(xfigures, ("plot_metric_panels", "plot_ablation_bars", "plot_training_curves")) as figs, \
+            figure_times(plotting, ("plot_results",)) as grids:
+        out = produce_report(report["runs"], project / "report", scale=scale, imgsz=IMGSZ)
+        every = produce_all(report["runs"], project / "figures", scale=scale)
     check(all(Path(p).exists() for p in out["written"]) and sum(p.endswith(".md") for p in out["written"]) == 2,
           f"report: {out}")
-    check(len(out["written"]) + len(out["skipped"]) == 2 + 4, f"report figures neither drawn nor listed: {out}")
+    check(out["skipped"] == {} and len(out["written"]) == 2 + 4, f"report: every figure drawn: {out}")
+    sizes = {"metric_panels_en.png": (14, 10), "metric_panels_cn.png": (14, 10), "ablation_bars.png": (7, 4.5),
+             "training_curves.png": (8, 5)}  # inches, all at dpi 150
+    for f in out["written"]:
+        if f.endswith(".png"):
+            read_figure(Path(f), Figure(sizes[Path(f).name]).pixel_size(150))
+    check(len(every) == 2 + len(report["runs"]) and len(grids.ms) == len(report["runs"]),
+          f"produce_all: {every}, results grids {list(grids.ms)}")
+    for f in every:
+        read_figure(Path(f))
+    fig_ms = {**figs.ms, **{f"{Path(f).parent.name}/results.png": ms for f, ms in zip(every[2:], grids.ms.values())}}
+    print("phase experiments figures: " + ", ".join(f"{f} {ms:.1f} ms" for f, ms in fig_ms.items())
+          + f" (host clock; produce_report and produce_all), each read back [{card}]", flush=True)
+    # outside the counted run: the two image-writing entry points code on the card by default
+    reset_launches()
+    composed = xfigures.compose_panels([("(a)", every[0]), ("(b)", every[1])], project / "figures" / "composed.jpg",
+                                       fig_title="Figure 1")
+    boxes = project / "figures" / "composed.txt"
+    boxes.write_text("0 0.3 0.5 0.2 0.4\n1 0.7 0.5 0.2 0.4\n")
+    annotated = plotting.visualize_image_annotations(composed, boxes, {0: "curves", 1: "bars"})
+    jpeg_launches = read_launches()
+    size = read_figure(Path(composed))
+    read_figure(Path(annotated), size)
+    check(jpeg_launches == no_jpeg(fused_stem=0, pick_suppress=0, jpeg_fdct=2) | {"jpeg_idct": 1, "jpeg_color": 1},
+          f"compose_panels and visualize_image_annotations on the card: launches {jpeg_launches}")
+    print(f"phase experiments: compose_panels wrote {Path(composed).name} {size} and visualize_image_annotations "
+          f"{Path(annotated).name} on the card's JPEG kernels: {jpeg_launches} [{card}]", flush=True)
 
     for run, (sec, speed) in stage_runs.items():
         print(f"phase experiments: {run}: {sec:.1f} s (YOLO.train, host clock, checkpoints included); " + "; ".join(
@@ -1622,7 +1709,7 @@ def phase_experiments(root: Path, card: str) -> dict:
           f"{stages} stages of 1 epoch ({VAL_IMAGES // VAL_BATCH} steps), launches {launches}; stage 2 bit-equal to "
           f"stage 1's best for every variant; validate_run clean; NMS kernel idx/ok equal to the plain version on "
           f"all {n_val * stages} val batches; fusion weights {fusion}; report {len(out['written'])} written, "
-          f"{len(out['skipped'])} figures skipped; {wall:.1f} s in all [{card}]", flush=True)
+          f"none skipped; produce_all {len(every)} figures; {wall:.1f} s in all [{card}]", flush=True)
     return launches
 
 
@@ -2747,15 +2834,21 @@ def phase_draw(root: Path, frames: list, card: str) -> tuple[dict, dict]:
     byte-equal to the plain writer's encode of the same array and decoded by
     the port's own decoder on the card;
     (c) ``YOLO.val(plots_dir=...)`` of phase val's float32 model on phase
-    jpeg's JPEG copy of the 64 images (its mosaics written and decoded; img/s
-    beside a val without plots), and ``YOLO.train`` for 1 epoch of 3 steps
-    with ``plots=True`` (``train_batch0..2.jpg`` written and decoded).
+    jpeg's JPEG copy of the 64 images (its mosaics written and decoded, its
+    six figures timed one by one and read back at their pixel size, the NMS
+    kernel bit-equal to the plain version on every batch; img/s beside a val
+    without plots), and ``YOLO.train`` for 1 epoch of 3 steps with
+    ``plots=True`` (``train_batch0..2.jpg`` written and decoded,
+    ``results.png`` read back).
     Returns (launches by path, the jpeg_fdct record)."""
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.data.jpeg import decode_jpeg
     from fce_yolo_tpu_torch.data.jpeg_write import encode_jpeg, encode_jpeg_reference
+    from fce_yolo_tpu_torch.engine.validator import DetectionValidator
     from fce_yolo_tpu_torch.nn.model import init_weights
+    from fce_yolo_tpu_torch.utils import plotting
     from fce_yolo_tpu_torch.utils.annotator import save_one_box
+    from fce_yolo_tpu_torch.utils.chart import Figure
 
     t_phase = time.perf_counter()
     record = fdct_check(card)
@@ -2837,20 +2930,46 @@ def phase_draw(root: Path, frames: list, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     n_val = -(-VAL_IMAGES // VAL_BATCH)
-    reset_launches()
-    t0 = time.perf_counter()
-    yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False, plots_dir=str(root / "val_plots"))
-    torch.cuda.synchronize()
-    plots_s = time.perf_counter() - t0
-    val_launches = read_launches()
+    captured: list[torch.Tensor] = []
+    real_nms = DetectionValidator.nms
+
+    def capturing_nms(self, preds):  # keeps each val batch's preds for the check after the run
+        captured.append(preds.detach().clone())
+        return real_nms(self, preds)
+
+    DetectionValidator.nms = capturing_nms
+    try:
+        with figure_times(plotting, ("plot_confusion_matrix", "plot_pr_curve", "plot_mc_curve")) as figs:
+            reset_launches()
+            t0 = time.perf_counter()
+            yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False, plots_dir=str(root / "val_plots"))
+            torch.cuda.synchronize()
+            plots_s = time.perf_counter() - t0
+            val_launches = read_launches()
+    finally:
+        DetectionValidator.nms = real_nms
     check(val_launches == {"fused_stem": 0, "pick_suppress": n_val, "jpeg_fdct": 2, "jpeg_idct": VAL_IMAGES,
                            "jpeg_color": VAL_IMAGES},
           f"phase draw (c) val: launches {val_launches}, expected NMS once a batch (K={NMS_K_VAL}), a decode an "
           "image and two mosaics written")
+    val = DetectionValidator(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=VAL_BATCH)  # YOLO.val's NMS settings
+    check(len(captured) == n_val, f"phase draw (c): {len(captured)} val batches seen")
+    calls: list = []
+    for preds in captured:
+        nms_kernel_vs_plain(val, preds, calls)
+    del captured, val
     side = int(np.ceil(VAL_BATCH ** 0.5)) * IMGSZ
     for f in ("val_batch0_labels.jpg", "val_batch0_pred.jpg"):
         img = decode_jpeg((root / "val_plots" / f).read_bytes(), f, "cuda")
         check(img.shape == (side, side, 3), f"phase draw (c): {f} is {img.shape}")
+    sizes = {"confusion_matrix.png": (7, 6), "confusion_matrix_normalized.png": (7, 6), "PR_curve.png": (9, 6),
+             "F1_curve.png": (9, 6), "P_curve.png": (9, 6), "R_curve.png": (9, 6)}  # inches, all at dpi 150
+    check(sorted(figs.ms) == sorted(sizes), f"phase draw (c): figures drawn {sorted(figs.ms)}")
+    for f, inches in sizes.items():
+        read_figure(root / "val_plots" / f, Figure(inches).pixel_size(150))
+    print(f"phase draw (c) figures: YOLO.val(plots_dir) drew " + ", ".join(f"{f} {ms:.1f} ms" for f, ms in figs.ms.items())
+          + f" ({sum(figs.ms.values()):.1f} ms in all, host clock), each read back at its size; NMS kernel idx/ok "
+          f"equal to the plain version on all {n_val} batches [{card}]", flush=True)
     train_dir = root / "draw_train"
     reset_launches()
     res = yolo.train(train_data(root / "jpeg"), epochs=1, batch=DRAW_TRAIN_BATCH, imgsz=IMGSZ, val=False,
@@ -2863,6 +2982,7 @@ def phase_draw(root: Path, frames: list, card: str) -> tuple[dict, dict]:
           f"phase draw (c) train: {written}, launches {train_launches}")
     for f in written:
         check(decode_jpeg((save_dir / f).read_bytes(), f, "cuda").ndim == 3, f"phase draw (c): {f} does not decode")
+    read_figure(save_dir / "results.png")
     print(f"phase draw (c): YOLO.val(plots_dir) on {VAL_IMAGES} JPEGs, launches {val_launches}: "
           f"{VAL_IMAGES / plots_s:.1f} img/s with plots vs {VAL_IMAGES / plain_s:.1f} without (host clock); "
           f"YOLO.train 1 epoch of 3 steps (B={DRAW_TRAIN_BATCH}) wrote and decoded {', '.join(written)}; "

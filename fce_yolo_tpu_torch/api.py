@@ -353,7 +353,10 @@ class YOLO:
         (EMA weights). The best weights are loaded at the end. ``bf16=None``
         means bfloat16 autocast on a card, float32 on the CPU. ``plots``:
         write the first epoch's first three batches as ``train_batch0..2.jpg``
-        (``plot_images``; oriented boxes as their axis-aligned hulls).
+        (``plot_images``; oriented boxes as their axis-aligned hulls) and, at
+        the end, ``results.png`` from ``results.csv`` (``plot_results``). The
+        reference prints a failure of that figure and goes on; here it
+        raises, as the renderer needs no optional package.
         ``hyp_overrides``: ``AugmentCfg`` fields, the optimizer's (momentum,
         weight_decay, warmup_*, nbs), ``state_bf16`` and ``bf16_ema``.
 
@@ -532,6 +535,10 @@ class YOLO:
                     print(f"early stop at epoch {epoch + 1} (patience {patience})")
                 break
 
+        if plots and csv_rows:
+            from fce_yolo_tpu_torch.utils.plotting import plot_results
+
+            plot_results(save_dir)  # the training-curve grid, results.png
         # the facade keeps the best weights if fitness was tracked, else the last EMA weights
         best_dir = save_dir / "weights" / "best"
         if best_fitness >= 0 and is_checkpoint(best_dir):

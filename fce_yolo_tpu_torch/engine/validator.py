@@ -93,8 +93,10 @@ class DetectionValidator:
         ``save_json``: write COCO-format detections (original image pixels) there.
         ``plots_dir``: write the first batch's mosaics there,
         ``val_batch0_labels.jpg`` and ``val_batch0_pred.jpg``
-        (``_plot_val_batch``); the reference's six matplotlib figures are
-        not written yet.
+        (``_plot_val_batch``), and after the metrics the six figures
+        (``_plot_figures``): ``confusion_matrix.png``,
+        ``confusion_matrix_normalized.png`` and, when predictions were scored,
+        ``PR_curve.png``, ``F1_curve.png``, ``P_curve.png`` and ``R_curve.png``.
         """
         metrics = DetMetrics(names=self.names)
         cm = ConfusionMatrix(names=self.names)
@@ -106,10 +108,6 @@ class DetectionValidator:
             self._update_metrics(out, batch, metrics, cm, json_dets if save_json else None, base)
 
         n_images, speed = self.run(dataloader if dataloader is not None else self.get_dataloader(data), update)
-        if plots_dir:
-            print(f"val: wrote the first batch's mosaics to {plots_dir}; not yet: confusion_matrix.png, "
-                  "confusion_matrix_normalized.png, PR_curve.png, F1_curve.png, P_curve.png, R_curve.png "
-                  "(matplotlib figures, ROADMAP queue 1, item 4)")
         metrics.process(nc=self.nc)
         metrics.speed = speed
         results = metrics.results_dict
@@ -126,9 +124,27 @@ class DetectionValidator:
         if save_json:
             Path(save_json).parent.mkdir(parents=True, exist_ok=True)
             Path(save_json).write_text(json.dumps(json_dets))
+        if plots_dir:
+            self._plot_figures(metrics, cm, plots_dir)
         results["confusion_matrix"] = cm
         results["metrics"] = metrics
         return results
+
+    def _plot_figures(self, metrics: DetMetrics, cm: ConfusionMatrix, plots_dir: str | Path) -> None:
+        """The confusion matrices (counts and column-normalized) and, when
+        ``metrics.curves`` is set, the PR, F1, P and R curves (``utils/plotting.py``)."""
+        from fce_yolo_tpu_torch.utils.plotting import plot_confusion_matrix, plot_mc_curve, plot_pr_curve
+
+        out = Path(plots_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        plot_confusion_matrix(cm.matrix, self.names, out / "confusion_matrix.png", normalize=False)
+        plot_confusion_matrix(cm.matrix, self.names, out / "confusion_matrix_normalized.png", normalize=True)
+        cv = metrics.curves
+        if cv is not None:
+            plot_pr_curve(cv["x"], cv["prec_values"], metrics.all_ap, self.names, out / "PR_curve.png")
+            plot_mc_curve(cv["x"], cv["f1_curve"], self.names, out / "F1_curve.png", ylabel="F1")
+            plot_mc_curve(cv["x"], cv["p_curve"], self.names, out / "P_curve.png", ylabel="Precision")
+            plot_mc_curve(cv["x"], cv["r_curve"], self.names, out / "R_curve.png", ylabel="Recall")
 
     def _plot_val_batch(self, batch: dict, out: dict, plots_dir: str | Path, conf: float = 0.25,
                         max_det: int = 50) -> None:

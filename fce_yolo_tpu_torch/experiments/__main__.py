@@ -5,7 +5,7 @@ CLIs). Training runs on the card unless ``--device`` names another.
   train <model_type> --scale s --data d.yaml [--iou-type WIoU] [--batch N] [--device cpu] ...
   compare <m1> <m2> ... --scale s --data d.yaml     # train several, table
   ablation --scale m --data d.yaml [--models a,b,c] [--clean]
-  figures --project runs/detect --scale m           # tables; figures where matplotlib imports
+  figures --project runs/detect --scale m           # tables, paper figures, per-run grids
   inspect <checkpoint_dir>                          # FCE weight diagnosis
 """
 
@@ -104,6 +104,7 @@ def main(argv=None):
 
         from fce_yolo_tpu_torch.experiments import MODEL_CONFIGS
         from fce_yolo_tpu_torch.experiments.figures import produce_report
+        from fce_yolo_tpu_torch.utils.plotting import plot_results
 
         runs = {}
         for name in args.models.split(","):
@@ -111,7 +112,8 @@ def main(argv=None):
             d = Path(args.project) / mc.get_result_path(args.scale)
             if (d / "results.csv").exists():
                 runs[name] = d
-        report = produce_report(runs, args.out, scale=args.scale)
+        report = produce_report(runs, args.out, scale=args.scale, verbose=False)
+        report["written"] += [f for f in map(plot_results, runs.values()) if f]
         print("\n".join(report["written"]))
         return report
 

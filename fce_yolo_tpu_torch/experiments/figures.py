@@ -2,49 +2,30 @@
 ``fce_yolo_tpu/experiments/figures.py``, a rebuild of script/paper_plots.py /
 paper_figs.py).
 
-The ablation and complexity tables are plain text and always written. The
-comparison figures across ablation variants (overlaid training curves in
-the registry's colors, the incremental-ablation bar chart, the metric
-panels) are drawn with matplotlib and composed with PIL where those import;
-without them the plotting functions raise ImportError naming the package,
-and ``produce_report`` lists each figure it did not draw and why. The
-JAX package's ``produce_all`` (its per-run results grids come from
-``utils/plotting.py``) is not ported.
+The ablation and complexity tables are plain text. The comparison figures
+across ablation variants (overlaid training curves in the registry's
+colors, the incremental-ablation bar chart, the metric panels, the per-run
+results grids of ``produce_all``) are drawn with ``utils/chart.py`` and
+composed with ``utils/patches.py`` and ``data/imread.py``: neither matplotlib
+nor PIL is needed. The glyph table has no CJK glyphs, so the ``cn`` figures
+carry English labels (with a warning), as the reference's do on a machine
+without a CJK font.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Callable
+
+import numpy as np
 
 from fce_yolo_tpu_torch.experiments.analysis import MAP_KEY, ablation_table, best_epoch, load_results
 from fce_yolo_tpu_torch.experiments.config import MODEL_CONFIGS
+from fce_yolo_tpu_torch.utils import chart as plt
 
 __all__ = [
-    "plot_training_curves", "plot_ablation_bars", "plot_metric_panels", "compose_panels",
+    "plot_training_curves", "plot_ablation_bars", "produce_all", "plot_metric_panels", "compose_panels",
     "model_complexity", "write_table", "produce_ablation_table", "produce_report",
 ]
-
-
-def _plotting_missing() -> str | None:
-    """Why the figures cannot be drawn here, or None when they can."""
-    try:
-        import matplotlib  # noqa: F401
-    except ImportError:
-        return "matplotlib cannot be imported here; the figures need it"
-    return None
-
-
-def _plt():
-    missing = _plotting_missing()
-    if missing:
-        raise ImportError(missing)
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
-
-    return plt
 
 
 def plot_training_curves(
@@ -54,7 +35,6 @@ def plot_training_curves(
     scale: str = "m",
 ) -> str:
     """Overlay each variant's val-mAP curve (reference paper_plots.produce_B:235)."""
-    plt = _plt()
     fig, ax = plt.subplots(figsize=(8, 5))
     for name, run_dir in runs.items():
         rows = load_results(run_dir)
@@ -80,7 +60,6 @@ def plot_ablation_bars(
     scale: str = "m",
 ) -> str:
     """Bar chart of best mAP50-95 per variant with incremental deltas."""
-    plt = _plt()
     fig, ax = plt.subplots(figsize=(7, 4.5))
     names = [r["model"] for r in table]
     vals = [r["mAP50-95"] for r in table]
@@ -102,6 +81,24 @@ def plot_ablation_bars(
     fig.savefig(save_path, dpi=150)
     plt.close(fig)
     return str(save_path)
+
+
+def produce_all(runs: dict[str, str | Path], out_dir: str | Path, scale: str = "m") -> list[str]:
+    """The full figure set of an ablation: training curves, ablation bars
+    and each run's results grid (``results.png`` in the run's directory)."""
+    from fce_yolo_tpu_torch.utils.plotting import plot_results
+
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    figs = [
+        plot_training_curves(runs, out_dir / "training_curves.png", scale=scale),
+        plot_ablation_bars(ablation_table(runs), out_dir / "ablation_bars.png", scale=scale),
+    ]
+    for run in runs.values():
+        f = plot_results(run)
+        if f:
+            figs.append(f)
+    return figs
 
 
 # Bilingual label sets (the fork ships CN + EN figure variants,
@@ -130,45 +127,17 @@ _PANEL_KEYS = (
 
 
 def _setup_font(lang: str) -> bool:
-    """Register a CJK-capable font when plotting CN labels (fork
-    setup_cn_font, paper_plots.py:99-134).
-
-    Returns True when CN glyphs can render. When NO CJK font exists (checks
-    $FY_CJK_FONT, then the usual system font paths), returns False and the
-    caller must fall back to EN labels — never ship missing-glyph boxes.
-    """
+    """Whether ``lang``'s labels can be drawn (fork setup_cn_font,
+    paper_plots.py:99-134). The renderer's glyph table holds DejaVu Sans
+    without CJK glyphs, so ``cn`` returns False with the reference's warning
+    and the caller falls back to English labels: never missing-glyph boxes."""
     if lang != "cn":
         return True
-    import glob as _glob
-    import os as _os
-    import warnings as _warnings
+    import warnings
 
-    import matplotlib
-
-    cands = []
-    env = _os.environ.get("FY_CJK_FONT")
-    if env and _os.path.exists(env):
-        cands.append(env)
-    for pat in (
-        "/usr/share/fonts/**/*CJK*.[ot]t?",
-        "/usr/share/fonts/**/wqy*.tt?",
-        "/usr/share/fonts/**/*Hei*.tt?",
-        _os.path.expanduser("~/.fonts/**/*CJK*.[ot]t?"),
-    ):
-        cands.extend(_glob.glob(pat, recursive=True))
-    for hit in cands:
-        try:
-            from matplotlib import font_manager
-
-            font_manager.fontManager.addfont(hit)
-            name = font_manager.FontProperties(fname=hit).get_name()
-            matplotlib.rcParams["font.family"] = [name]
-            return True
-        except Exception:
-            continue
-    _warnings.warn(
-        "no CJK font found (set FY_CJK_FONT=/path/to/font.otf to enable 中文"
-        " figures); falling back to English labels", stacklevel=2,
+    warnings.warn(
+        "no CJK font found (the chart renderer's glyph table has none); falling back to English labels",
+        stacklevel=2,
     )
     return False
 
@@ -181,7 +150,6 @@ def plot_metric_panels(
 ) -> str:
     """2x2 panel comparison of mAP50-95 / mAP50 / P / R across variants
     (fork produce_A / plot_comparison, paper_plots.py:155-233)."""
-    plt = _plt()
     # no CJK font -> EN labels (explicit warning in _setup_font; never tofu)
     lang = lang if _setup_font(lang) else "en"
     L = _L10N[lang]
@@ -211,40 +179,41 @@ def compose_panels(
     out_path: str | Path,
     fig_title: str = "",
     vertical: bool = False,
+    device="cuda",
 ) -> str:
     """Stack rendered figure images with per-panel subtitles (fork
-    produce_C/_hstack_with_titles, paper_plots.py:317-424). Pure-PIL."""
-    try:
-        from PIL import Image, ImageDraw
-    except ImportError as e:
-        raise ImportError("compose_panels needs PIL, which cannot be imported here") from e
+    produce_C/_hstack_with_titles, paper_plots.py:317-424): the images read
+    with ``data/imread.py``, the text drawn with ``utils/chart.py``, the
+    result written with ``utils/patches.py``. ``device`` decodes a JPEG
+    panel and encodes a ``.jpg`` output (PNG stays on the host)."""
+    from fce_yolo_tpu_torch.data.imread import imread
+    from fce_yolo_tpu_torch.utils.patches import imwrite
 
-    imgs = [Image.open(str(p)).convert("RGB") for _, p in panels]
+    imgs = [imread(p, device=device) for _, p in panels]  # BGR
     pad, title_h, sub_h = 12, (50 if fig_title else 0), 40
     if vertical:
-        w = max(im.width for im in imgs)
-        h = sum(im.height for im in imgs) + (sub_h + pad) * len(imgs) + title_h + pad
-        canvas = Image.new("RGB", (w + 2 * pad, h), "white")
-        draw = ImageDraw.Draw(canvas)
+        w = max(im.shape[1] for im in imgs)
+        h = sum(im.shape[0] for im in imgs) + (sub_h + pad) * len(imgs) + title_h + pad
+        canvas = np.full((h, w + 2 * pad, 3), 255, np.uint8)
         y = pad + title_h
         for (sub, _), im in zip(panels, imgs):
-            draw.text((pad, y), sub, fill="black")
+            plt.draw_text(canvas, (pad, y), sub)
             y += sub_h
-            canvas.paste(im, (pad, y))
-            y += im.height + pad
+            canvas[y:y + im.shape[0], pad:pad + im.shape[1]] = im
+            y += im.shape[0] + pad
     else:
-        h = max(im.height for im in imgs)
-        w = sum(im.width for im in imgs) + pad * (len(imgs) + 1)
-        canvas = Image.new("RGB", (w, h + title_h + sub_h + 2 * pad), "white")
-        draw = ImageDraw.Draw(canvas)
+        h = max(im.shape[0] for im in imgs)
+        w = sum(im.shape[1] for im in imgs) + pad * (len(imgs) + 1)
+        canvas = np.full((h + title_h + sub_h + 2 * pad, w, 3), 255, np.uint8)
         x = pad
         for (sub, _), im in zip(panels, imgs):
-            draw.text((x, title_h + pad), sub, fill="black")
-            canvas.paste(im, (x, title_h + sub_h + pad))
-            x += im.width + pad
+            plt.draw_text(canvas, (x, title_h + pad), sub)
+            top = title_h + sub_h + pad
+            canvas[top:top + im.shape[0], x:x + im.shape[1]] = im
+            x += im.shape[1] + pad
     if fig_title:
-        draw.text((pad, 8), fig_title, fill="black")
-    canvas.save(str(out_path))
+        plt.draw_text(canvas, (pad, 8), fig_title)
+    imwrite(str(out_path), canvas, device=device)
     return str(out_path)
 
 
@@ -399,29 +368,22 @@ def produce_report(
     when no CJK font is available — never tofu), ablation bars, training
     curves, and any per-run val figures already in a run's ``plots/``.
 
-    Returns {"written": [paths], "skipped": {figure path: reason}}: the
-    figures are skipped, each listed with the reason (and printed when
-    ``verbose``), where matplotlib cannot be imported."""
+    Returns {"written": [paths], "skipped": {}}: every figure is drawn
+    (``skipped`` stays for callers of the version that needed matplotlib)."""
     out = Path(out_dir)
     out.mkdir(parents=True, exist_ok=True)
     written: list[str] = []
-    figures: list[tuple[Path, Callable[[Path], str]]] = []
     for lang in langs:
         written.append(produce_ablation_table(
             runs, out, lang=lang, scale=scale, imgsz=imgsz,
             changes=changes, loss_types=loss_types,
         ))
-        figures.append((out / f"metric_panels_{lang}.png",
-                        lambda p, lang=lang: plot_metric_panels(runs, p, scale=scale, lang=lang)))
-    figures.append((out / "ablation_bars.png", lambda p: plot_ablation_bars(ablation_table(runs), p, scale=scale)))
-    figures.append((out / "training_curves.png", lambda p: plot_training_curves(runs, p, scale=scale)))
-    missing = _plotting_missing()
-    skipped = {str(p): missing for p, _ in figures} if missing else {}
-    if not missing:
-        written += [draw(p) for p, draw in figures]
+        fig_lang = lang if _setup_font(lang) else "en"
+        written.append(plot_metric_panels(runs, out / f"metric_panels_{lang}.png", scale=scale, lang=fig_lang))
+    written.append(plot_ablation_bars(ablation_table(runs), out / "ablation_bars.png", scale=scale))
+    written.append(plot_training_curves(runs, out / "training_curves.png", scale=scale))
     for run in runs.values():
         written += [str(f) for f in Path(run).glob("plots/*.png")]
     if verbose:
-        for p, why in skipped.items():
-            print(f"produce_report: did not draw {p}: {why}")
-    return {"written": written, "skipped": skipped}
+        print(f"produce_report: wrote {len(written)} files to {out}")
+    return {"written": written, "skipped": {}}

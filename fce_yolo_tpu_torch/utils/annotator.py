@@ -2,10 +2,8 @@
 mosaics of ``plot_images`` and ``save_one_box`` (reference
 ``fce_yolo_tpu/utils/annotator.py:21-216``), drawn with ``utils/draw.py``
 in place of cv2 and written with ``utils/patches.py``, whose JPEG writer
-runs its forward DCT on ``device``.
-
-The hyperparameter scatter of the reference (``plot_tune_results``) is a
-matplotlib figure and is not ported yet (ROADMAP queue 1, item 4).
+runs its forward DCT on ``device``; and the hyperparameter scatter grid
+(``plot_tune_results``), drawn with ``utils/chart.py``.
 """
 
 from __future__ import annotations
@@ -18,7 +16,7 @@ from fce_yolo_tpu_torch.data.augment import resize_linear_f32
 from fce_yolo_tpu_torch.utils import draw
 from fce_yolo_tpu_torch.utils.patches import imwrite
 
-__all__ = ["Colors", "colors", "Annotator", "plot_images", "save_one_box"]
+__all__ = ["Colors", "colors", "Annotator", "plot_images", "save_one_box", "plot_tune_results"]
 
 
 class Colors:
@@ -201,3 +199,38 @@ def save_one_box(xyxy, im: np.ndarray, file: str | Path = "im.jpg", gain: float 
         Path(file).parent.mkdir(parents=True, exist_ok=True)
         imwrite(str(file), crop, device=device)
     return crop
+
+
+def plot_tune_results(csv_file: str | Path = "tune_results.csv") -> str | None:
+    """Hyperparameter-evolution scatter grid beside the tuner's CSV
+    (``tune_scatter_plots.png``, dpi 150): fitness against each gene,
+    coloured by fitness, the best point marked (reference
+    ``fce_yolo_tpu/utils/annotator.py:219``)."""
+    import csv
+
+    from fce_yolo_tpu_torch.utils import chart as plt
+
+    with open(csv_file) as f:
+        rows = list(csv.DictReader(f))
+    if not rows:
+        return None
+    keys = [k for k in rows[0] if k != "fitness"]
+    fitness = np.array([float(r["fitness"]) for r in rows])
+    n = len(keys)
+    ncols = min(5, max(1, n))
+    nrows = (n + ncols - 1) // ncols
+    fig, axes = plt.subplots(nrows, ncols, figsize=(3 * ncols, 2.5 * nrows), squeeze=False)
+    for i, k in enumerate(keys):
+        ax = axes[i // ncols][i % ncols]
+        v = np.array([float(r[k]) for r in rows])
+        ax.scatter(v, fitness, c=fitness, cmap="viridis", alpha=0.8, edgecolors="none")
+        best = v[fitness.argmax()]
+        ax.plot(best, fitness.max(), "k+", markersize=12)
+        ax.set_title(f"{k} = {best:.3g}", fontsize=8)
+    for j in range(n, nrows * ncols):
+        axes[j // ncols][j % ncols].axis("off")
+    fig.tight_layout()
+    out = str(Path(csv_file).with_name("tune_scatter_plots.png"))
+    fig.savefig(out, dpi=150)
+    plt.close(fig)
+    return out

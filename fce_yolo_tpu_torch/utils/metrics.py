@@ -185,6 +185,7 @@ class DetMetrics:
         self.ap_class_index = np.zeros(0, int)
         self.nt_per_class = None
         self.nt_per_image = None
+        self.curves = None
 
     def update_stats(self, stat: dict) -> None:
         """Append one image's stats: tp (D,T), conf (D,), pred_cls (D,), target_cls (G,), target_img (unique G classes)."""
@@ -202,6 +203,11 @@ class DetMetrics:
             self.p, self.r, self.f1 = res["p"], res["r"], res["f1"]
             self.all_ap = res["ap"]
             self.ap_class_index = res["unique_classes"]
+            # the 1000-point confidence / recall-axis curves the validator's figures draw
+            self.curves = {
+                "x": res["x"], "p_curve": res["p_curve"], "r_curve": res["r_curve"],
+                "f1_curve": res["f1_curve"], "prec_values": res["prec_values"],
+            }
         return stats
 
     # --- scalar summaries (Ultralytics Metric properties) ---
