@@ -32,6 +32,19 @@ from a seed) and checks that each path went through its kernels:
   ``YOLO.predict`` on their directory (stem, NMS and both JPEG kernels; the
   detections equal to a predict on the plain decoder's arrays), and
   ``YOLO.train`` on them;
+- the still-image formats (phase formats): files this script writes (BMP
+  24-bit, palette and RLE8; TIFF LZW strips with horizontal differencing,
+  PackBits tiles, 16-bit and uncompressed; PNG 16-bit and Adam7; PFM; a
+  DNG's preview; progressive JPEG in libjpeg's simple progression over a
+  baseline file's coefficients) read through ``imread`` on the card, the
+  lossless ones equal to the array written and a progressive JPEG to the
+  baseline decode of the same coefficients (both JPEG kernels once a file),
+  the decodes timed; ``YOLO.val`` on phase val's 64 images written 16 each
+  as BMP, LZW TIFF, 16-bit PNG and Adam7 PNG (P, R and mAP equal to phase
+  val's, NMS bit-equal on every batch) and as progressive JPEG (equal to
+  phase jpeg's, both JPEG kernels once an image); ``YOLO.predict`` on a
+  directory of 16 files of every kind (stem and NMS once, the JPEG kernels
+  once a JPEG, detections equal to a predict on the arrays);
 - the task heads (phase tasks): yolo11s-seg, yolo11s-pose and yolo11s-obb
   at 640 px, ``YOLO.predict`` in bf16 at B=16 on arrays (the stem kernel
   held against its plain version on the fed batch, the kernel path's preds
@@ -485,29 +498,284 @@ def phase_e2e(yolo, spec, card: str) -> dict:
     return launches
 
 
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """An 8-bit RGB PNG of ``rgb`` (H, W, 3) written with zlib; row r takes
-    filter r % 5 (None, Sub, Up, Average, Paeth), so the reader meets all five."""
-    h, w, _ = rgb.shape
-    x = rgb.reshape(h, w * 3).astype(np.int16)
+def _png_filtered(x: np.ndarray, bpp: int) -> np.ndarray:
+    """Rows (H, stride) of samples as bytes -> (H, 1 + stride) filtered rows:
+    row r takes filter r % 5 (None, Sub, Up, Average, Paeth)."""
+    h = x.shape[0]
+    x = x.astype(np.int16)
     a = np.zeros_like(x)
-    a[:, 3:] = x[:, :-3]
+    a[:, bpp:] = x[:, :-bpp]
     b = np.zeros_like(x)
     b[1:] = x[:-1]
     c = np.zeros_like(x)
-    c[1:, 3:] = x[:-1, :-3]
+    c[1:, bpp:] = x[:-1, :-bpp]
     pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
     paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])  # (5, H, W*3)
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])  # (5, H, stride)
     kind = np.arange(h) % 5
     rows = (x - preds[kind, np.arange(h)]) & 255
-    raw = np.concatenate([kind[:, None], rows], 1).astype(np.uint8).tobytes()
+    return np.concatenate([kind[:, None], rows], 1).astype(np.uint8)
+
+
+def png_bytes(rgb: np.ndarray, depth: int = 8, interlace: bool = False) -> bytes:
+    """An RGB PNG of ``rgb`` (H, W, 3) uint8 written with zlib: 8 bits a
+    sample, or 16 (``depth=16``: the sample is the high byte, the low byte is
+    noise a reader drops); Adam7-interlaced with ``interlace``. Row r of
+    each pass takes filter r % 5 (None, Sub, Up, Average, Paeth), so the
+    reader meets all five."""
+    h, w, _ = rgb.shape
+    if depth == 16:
+        low = np.random.RandomState(h * w).randint(0, 256, rgb.shape)
+        rgb = ((rgb.astype(np.uint16) << 8) | low.astype(np.uint16)).astype(">u2")
+    bpp = 3 * depth // 8
+    passes = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1)) \
+        if interlace else ((0, 0, 1, 1),)
+    raw = b""
+    for y0, x0, dy, dx in passes:
+        sub = rgb[y0::dy, x0::dx]
+        if sub.size:  # an empty pass has no rows
+            raw += _png_filtered(sub.reshape(sub.shape[0], -1).view(np.uint8), bpp).tobytes()
 
     def chunk(tag: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
 
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 2, 0, 0, int(interlace)))
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def bmp_bytes(rgb: np.ndarray, kind: str = "24") -> bytes:
+    """A bottom-up BMP (BITMAPINFOHEADER) of ``rgb`` (H, W, 3) uint8:
+    ``kind`` "24" (BGR), "8" (a palette of the image's colours, at most 256)
+    or "rle8" (that palette, RLE8: runs of 3 or more as encoded runs, other
+    stretches as absolute runs, a run of 4 or more of palette entry 0 inside
+    a row as a delta, each row ended by an end of line, the last by end of
+    bitmap)."""
+    h, w, _ = rgb.shape
+    bgr = rgb[::-1, :, ::-1]  # file rows bottom-up
+    if kind == "24":
+        pitch = (3 * w + 3) & -4
+        rows = np.zeros((h, pitch), np.uint8)
+        rows[:, : 3 * w] = bgr.reshape(h, 3 * w)
+        pixels, palette, bpp, comp = rows.tobytes(), b"", 24, 0
+    else:
+        colours, idx = np.unique(bgr.reshape(-1, 3), axis=0, return_inverse=True)
+        idx = idx.reshape(h, w).astype(np.uint8)
+        palette = np.concatenate([colours, np.zeros((len(colours), 1), np.uint8)], 1).astype(np.uint8).tobytes()
+        bpp = 8
+        if kind == "8":
+            pitch = (w + 3) & -4
+            rows = np.zeros((h, pitch), np.uint8)
+            rows[:, :w] = idx
+            pixels, comp = rows.tobytes(), 0
+        else:
+            pixels, comp = _rle8(idx), 1
+    size = 40
+    offset = 14 + size + len(palette)
+    header = struct.pack("<IiiHHIIiiII", size, w, h, 1, bpp, comp, len(pixels), 2835, 2835,
+                         len(palette) // 4, 0)
+    return b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset) + header + palette + pixels
+
+
+def _rle8(idx: np.ndarray) -> bytes:
+    """RLE8 of palette indices (H, W), file rows in order (see ``bmp_bytes``)."""
+    out = bytearray()
+    h = idx.shape[0]
+    for r, row in enumerate(idx):
+        edges = np.flatnonzero(np.diff(row.astype(np.int16))) + 1
+        starts, ends = np.r_[0, edges], np.r_[edges, len(row)]
+        single = []  # a stretch of short runs waiting to go out as one absolute run
+
+        def flush():
+            while single:
+                part, single[:] = single[:255], single[255:]
+                if len(part) < 3:  # an absolute run takes 3 or more
+                    for v in part:
+                        out.extend((1, v))
+                else:
+                    out.extend((0, len(part), *part, *([0] * (len(part) & 1))))
+
+        for s, e in zip(starts.tolist(), ends.tolist()):
+            v, n = int(row[s]), e - s
+            if n >= 3:
+                flush()
+                if v == 0 and n >= 4 and e < len(row):  # a delta that reached the row's end would move to the next
+                    while n:                             # row, and the end of line after it would skip a row
+                        out.extend((0, 2, min(n, 255), 0))
+                        n -= min(n, 255)
+                while n:
+                    out.extend((min(n, 255), v))
+                    n -= min(n, 255)
+            else:
+                single.extend([v] * n)
+        flush()
+        out.extend((0, 1 if r == h - 1 else 0))
+    return bytes(out)
+
+
+TIFF_TYPES = {"B": 1, "H": 3, "I": 4, "Q": 16}  # struct code -> TIFF field type (BYTE, SHORT, LONG, LONG8)
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB first, code width raised one code early, a clear code
+    first and whenever the table fills, EOI last)."""
+    codes, table, nxt, w = [256], {}, 258, -1
+    for b in data:
+        if w < 0:
+            w = b
+            continue
+        k = (w << 8) | b
+        c = table.get(k)
+        if c is not None:
+            w = c
+            continue
+        codes.append(w)
+        table[k] = nxt
+        nxt += 1
+        w = b
+        if nxt == 4093:
+            codes.append(256)
+            table, nxt = {}, 258
+    if w >= 0:
+        codes.append(w)
+    codes.append(257)
+    codes = np.array(codes, np.int64)
+    # the decoder's width for each code: it adds an entry for every code after the first since a clear
+    i = np.arange(len(codes))
+    last_clear = np.r_[-1, np.maximum.accumulate(np.where(codes == 256, i, -1))[:-1]]
+    free = 258 + np.maximum(i - last_clear - 2, 0)
+    width = 9 + (free >= 511) + (free >= 1023) + (free >= 2047)
+    at = np.arange(int(width.sum())) - np.repeat(np.cumsum(width) - width, width)  # bit within its code
+    bits = (np.repeat(codes, width) >> (np.repeat(width, width) - 1 - at)) & 1
+    return np.packbits(bits.astype(np.uint8)).tobytes()
+
+
+def tiff_packbits(data: bytes) -> bytes:
+    """PackBits: runs of 3 or more equal bytes as repeat packets, the rest as literal packets (128 at most each)."""
+    a = np.frombuffer(data, np.uint8)
+    edges = np.flatnonzero(np.diff(a.astype(np.int16))) + 1
+    out, lit = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(lit), 128):
+            part = lit[i: i + 128]
+            out.append(len(part) - 1)
+            out.extend(part)
+        lit.clear()
+
+    for s, e in zip(np.r_[0, edges].tolist(), np.r_[edges, len(a)].tolist()):
+        if e - s >= 3:
+            flush()
+            for i in range(s, e, 128):
+                out.extend((257 - min(128, e - i), int(a[s])))
+        else:
+            lit.extend(a[s:e].tobytes())
+    flush()
+    return bytes(out)
+
+
+def tiff16(rgb: np.ndarray, rng: np.random.RandomState) -> np.ndarray:
+    """8-bit samples as 16-bit ones that libtiff rounds back to them: v * 257 + d, |d| <= 128."""
+    return np.clip(rgb.astype(np.int64) * 257 + rng.randint(-128, 129, rgb.shape), 0, 65535).astype(np.uint16)
+
+
+def tiff_bytes(img: np.ndarray, compression: int = 1, predictor: int = 1, tile: tuple[int, int] | None = None,
+               rows_per_strip: int | None = None, big_endian: bool = False, bigtiff: bool = False,
+               photometric: int | None = None, bits: int | None = None, palette: np.ndarray | None = None,
+               orientation: int | None = None, extra_samples: int | None = None, planar: int = 1,
+               tags: dict | None = None, pages: int = 1) -> bytes:
+    """A TIFF of ``img``: (H, W) or (H, W, C) uint8 or uint16 (C samples a
+    pixel, RGB order), in strips of ``rows_per_strip`` rows (default 16) or
+    tiles of ``tile`` (height, width), edge tiles padded; ``compression`` 1
+    (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits);
+    ``predictor`` 2: horizontal differencing. ``bits`` below 8 packs the
+    samples MSB first, each row to a byte. ``photometric`` defaults to 1
+    (BlackIsZero) for one sample, else 2 (RGB); ``palette`` (2^bits, 3)
+    uint16 makes it 3. ``planar`` 2 stores each sample in planes of its own.
+    ``tags`` adds {tag: (struct code, values)}; ``pages`` repeats the image
+    in a chain of IFDs (each later page inverted)."""
+    e = ">" if big_endian else "<"
+    img = img if img.ndim == 3 else img[..., None]
+    h, w, spp = img.shape
+    bits = bits or 8 * img.dtype.itemsize
+    photometric = photometric if photometric is not None else (3 if palette is not None else 1 if spp == 1 else 2)
+    th, tw = tile if tile else (rows_per_strip or 16, w)
+
+    def block(a: np.ndarray) -> bytes:  # one strip or tile: (rows, cols, samples) -> its stored bytes
+        rows, cols, n = a.shape
+        x = a.reshape(rows, cols * n)
+        if predictor == 2:
+            d = x.astype(np.int64)
+            d[:, n:] -= x[:, :-n].astype(np.int64)
+            x = (d & (0xFFFF if bits == 16 else 0xFF)).astype(x.dtype)
+        if bits < 8:
+            x = np.packbits(np.unpackbits(x.astype(np.uint8)[..., None], axis=2)[..., 8 - bits:].reshape(rows, -1), 1)
+        raw = x.astype(e + ("u2" if bits == 16 else "u1")).tobytes()
+        if compression == 5:
+            return tiff_lzw(raw)
+        if compression in (8, 32946):
+            return zlib.compress(raw)
+        if compression == 32773:
+            return tiff_packbits(raw)
+        return raw
+
+    def blocks(a: np.ndarray) -> list[bytes]:  # every strip or tile of every plane, in order
+        out = []
+        for p in ([a[..., i: i + 1] for i in range(spp)] if planar == 2 else [a]):
+            for y in range(0, h, th):
+                for x in range(0, w, tw):
+                    part = p[y: y + th, x: x + tw]
+                    if tile:
+                        part = np.pad(part, ((0, th - part.shape[0]), (0, tw - part.shape[1]), (0, 0)))
+                    out.append(block(part))
+        return out
+
+    off_code = "Q" if bigtiff else "I"
+    out = bytearray((b"MM" if big_endian else b"II") + (struct.pack(e + "HHHQ", 43, 8, 0, 16) if bigtiff
+                                                        else struct.pack(e + "HI", 42, 8)))
+    first_ifd_at = len(out) - (8 if bigtiff else 4)
+    prev_link = first_ifd_at
+    for page in range(pages):
+        a = img if page == 0 else (~img if img.dtype == np.uint16 else (255 - img).astype(img.dtype))
+        data = blocks(a)
+        offsets = []
+        for d in data:
+            offsets.append(len(out))
+            out += d + b"\0" * (len(d) & 1)
+        entries = {256: ("I", [w]), 257: ("I", [h]), 258: ("H", [bits] * spp), 259: ("H", [compression]),
+                   262: ("H", [photometric]), 277: ("H", [spp]), 284: ("H", [planar])}
+        entries.update({322: ("I", [tw]), 323: ("I", [th]), 324: (off_code, offsets),
+                        325: (off_code, [len(d) for d in data])} if tile else
+                       {273: (off_code, offsets), 278: ("I", [th]), 279: (off_code, [len(d) for d in data])})
+        if predictor != 1:
+            entries[317] = ("H", [predictor])
+        if palette is not None:
+            entries[320] = ("H", np.asarray(palette, np.int64).T.ravel().tolist())
+        if orientation is not None:
+            entries[274] = ("H", [orientation])
+        if extra_samples is not None:
+            entries[338] = ("H", [extra_samples])
+        entries.update(tags or {})
+        ifd_at = len(out)
+        struct.pack_into(e + off_code, out, prev_link, ifd_at)
+        slot = 8 if bigtiff else 4
+        body = struct.pack(e + ("Q" if bigtiff else "H"), len(entries))
+        extra = bytearray()
+        extra_at = ifd_at + len(body) + len(entries) * (20 if bigtiff else 12) + slot
+        for tag in sorted(entries):
+            code, values = entries[tag]
+            raw = struct.pack(e + code * len(values), *values)
+            count = len(values)
+            if code == "B":
+                count = len(raw)
+            if len(raw) <= slot:
+                field = raw + b"\0" * (slot - len(raw))
+            else:
+                field = struct.pack(e + off_code, extra_at + len(extra))
+                extra += raw + b"\0" * (len(raw) & 1)
+            body += struct.pack(e + ("HHQ" if bigtiff else "HHI"), tag, TIFF_TYPES[code], count) + field
+        prev_link = ifd_at + len(body)
+        out += body + b"\0" * slot + extra
+    return bytes(out)
 
 
 # Annex K tables, natural order
@@ -637,9 +905,153 @@ def _jpeg_scan(comps: list[tuple[np.ndarray, int]], restart: int) -> bytes:
     blk, slot, val, length = (np.concatenate(a).astype(np.int64) for a in (toks_blk, toks_slot, toks_val, toks_len))
     order = np.lexsort((slot, blk))
     blk, val, length = blk[order], val[order], length[order]
-    # pad each restart interval to a byte with 1 bits
-    tok_interval = interval[blk]
-    n_int = int(interval[-1]) + 1
+    return _jpeg_pack(val, length, interval[blk], int(interval[-1]) + 1, restart)
+
+
+def jpeg_progressive_scans(ncomp: int) -> list[tuple[tuple[int, ...], int, int, int, int]]:
+    """libjpeg's ``jpeg_simple_progression`` (jcparam.c): (components, Ss,
+    Se, Ah, Al) of each scan, for YCbCr and for gray."""
+    if ncomp == 3:
+        return [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((2,), 1, 63, 0, 1), ((1,), 1, 63, 0, 1),
+                ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), ((0, 1, 2), 0, 0, 1, 0), ((2,), 1, 63, 1, 0),
+                ((1,), 1, 63, 1, 0), ((0,), 1, 63, 1, 0)]
+    return [((0,), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 2), ((0,), 1, 63, 2, 1), ((0,), 0, 0, 1, 0),
+            ((0,), 1, 63, 1, 0)]
+
+
+# every AC symbol: 254 codes of 8 bits, 2 of 9 (no code is all ones)
+JPEG_AC_ALL = ([0] * 7 + [254, 2] + [0] * 7, bytes(range(256)))
+
+
+def _jpeg_progressive(comps: list, restart: int, segment) -> bytes:
+    """The scans of ``jpeg_progressive_scans`` as libjpeg's jcphuff codes
+    them (DC first and refinement, AC first with EOB runs, AC refinement
+    with correction bits buffered through EOB runs and ZRLs), each AC scan
+    after a DHT of ``JPEG_AC_ALL`` in slot 0; the DC scans use the Annex K
+    tables already defined. ``comps``: (MCU-padded plane (BH, BW, 64), table,
+    own grid (rows, cols) of blocks, (v, h) factors) each. A Python loop
+    over blocks: ~1 s a 480 x 640 image on one core."""
+    dc_codes = [_huffman_codes(*JPEG_HUFFMAN[f"dc{t}"]) for t in range(2)]
+    ac_code, ac_len = (a.tolist() for a in _huffman_codes(*JPEG_AC_ALL))
+    zigzag = [c[0][..., JPEG_ZIGZAG].tolist() for c in comps]  # (BH, BW, 64) nested lists, zig-zag order
+    out = b""
+    for sel, ss, se, ah, al in jpeg_progressive_scans(len(comps)):
+        vals: list[int] = []
+        lens: list[int] = []
+        ends: list[int] = []  # token count at the end of each restart interval
+
+        def put(v: int, n: int) -> None:
+            if n:
+                vals.append(v)
+                lens.append(n)
+
+        if len(sel) > 1:  # interleaved DC scan: MCUs of h x v blocks a component
+            (bh0, bw0), (v0, h0) = comps[sel[0]][0].shape[:2], comps[sel[0]][3]
+            my_n, mx_n = bh0 // v0, bw0 // h0
+            units = [[(j, my * comps[i][3][0] + by, mx * comps[i][3][1] + bx) for j, i in enumerate(sel)
+                      for by in range(comps[i][3][0]) for bx in range(comps[i][3][1])]
+                     for my in range(my_n) for mx in range(mx_n)]
+        else:
+            rows, cols = comps[sel[0]][2]
+            units = [[(0, by, bx)] for by in range(rows) for bx in range(cols)]
+        last = [0] * len(sel)
+        eobrun, be = 0, []  # the EOB run and its buffered correction bits
+
+        def emit_eobrun() -> None:
+            nonlocal eobrun
+            if eobrun:
+                nb = eobrun.bit_length() - 1
+                put(ac_code[nb << 4], ac_len[nb << 4])
+                put(eobrun & ((1 << nb) - 1), nb)
+                for bit in be:
+                    put(bit, 1)
+                eobrun = 0
+                be.clear()
+
+        for u, unit in enumerate(units):
+            if restart and u and u % restart == 0:
+                emit_eobrun()
+                ends.append(len(vals))
+                last = [0] * len(sel)
+            for j, by, bx in unit:
+                blk = zigzag[sel[j]][by][bx]
+                if ss == 0:
+                    v = blk[0] >> al
+                    if ah:
+                        put(v & 1, 1)
+                        continue
+                    d, last[j] = v - last[j], v
+                    nb = abs(d).bit_length()
+                    code, ln = dc_codes[comps[sel[j]][1]]
+                    put(int(code[nb]), int(ln[nb]))
+                    put(d if d >= 0 else d - 1 + (1 << nb), nb)
+                    continue
+                band = blk[ss: se + 1]
+                if not ah:  # AC first
+                    r = 0
+                    for c in band:
+                        a = abs(c) >> al
+                        if not a:
+                            r += 1
+                            continue
+                        emit_eobrun()
+                        while r > 15:
+                            put(ac_code[0xF0], ac_len[0xF0])
+                            r -= 16
+                        nb = a.bit_length()
+                        put(ac_code[(r << 4) + nb], ac_len[(r << 4) + nb])
+                        put(a if c >= 0 else (~a) & ((1 << nb) - 1), nb)
+                        r = 0
+                    if r:
+                        eobrun += 1
+                        if eobrun == 0x7FFF:
+                            emit_eobrun()
+                    continue
+                absv = [abs(c) >> al for c in band]  # AC refinement
+                eob = max((k for k, a in enumerate(absv) if a == 1), default=-1)
+                r, br = 0, []
+                for k, a in enumerate(absv):
+                    if not a:
+                        r += 1
+                        continue
+                    while r > 15 and k <= eob:
+                        emit_eobrun()
+                        put(ac_code[0xF0], ac_len[0xF0])
+                        r -= 16
+                        for bit in br:
+                            put(bit, 1)
+                        br = []
+                    if a > 1:
+                        br.append(a & 1)
+                        continue
+                    emit_eobrun()
+                    put(ac_code[(r << 4) + 1], ac_len[(r << 4) + 1])
+                    put(0 if band[k] < 0 else 1, 1)
+                    for bit in br:
+                        put(bit, 1)
+                    br, r = [], 0
+                if r or br:
+                    eobrun += 1
+                    be.extend(br)
+                    if eobrun == 0x7FFF or len(be) > 1000 - 64 + 1:
+                        emit_eobrun()
+        emit_eobrun()
+        ends.append(len(vals))
+        interval = np.repeat(np.arange(len(ends)), np.diff(np.r_[0, ends]))
+        data = _jpeg_pack(np.array(vals, np.int64), np.array(lens, np.int64), interval, len(ends), restart)
+        head = b""
+        if ss:
+            bits_, values = JPEG_AC_ALL
+            head = segment(0xC4, bytes([0x10]) + bytes(bits_) + values)
+        sos = bytes([len(sel)]) + b"".join(bytes([i + 1, (min(i, 1) if ss == 0 else 0) * 16]) for i in sel)
+        out += head + segment(0xDA, sos + bytes([ss, se, ah * 16 + al])) + data
+    return out
+
+
+def _jpeg_pack(val: np.ndarray, length: np.ndarray, tok_interval: np.ndarray, n_int: int, restart: int) -> bytes:
+    """Tokens (value, bit length) in stream order -> entropy-coded bytes:
+    each restart interval padded to a byte with 1 bits, FF stuffed, RSTn
+    between intervals."""
     bits_per = np.bincount(tok_interval, weights=length, minlength=n_int).astype(np.int64)
     pad = (-bits_per) % 8
     ends = np.searchsorted(tok_interval, np.arange(n_int), side="right")
@@ -662,7 +1074,7 @@ def _jpeg_scan(comps: list[tuple[np.ndarray, int]], restart: int) -> bytes:
 
 
 def jpeg_bytes(img: np.ndarray, quality: int = 95, sampling: str = "420", restart: int = 0,
-               orientation: int | None = None, interleave: bool = True) -> bytes:
+               orientation: int | None = None, interleave: bool = True, progressive: bool = False) -> bytes:
     """A baseline JPEG of ``img`` (RGB (H, W, 3) uint8, or gray (H, W)):
     libjpeg's quality scaling of the Annex K tables, the Annex K Huffman
     tables, ``sampling`` (444, 422, 420, 440 or 411: the luma's factors,
@@ -672,7 +1084,10 @@ def jpeg_bytes(img: np.ndarray, quality: int = 95, sampling: str = "420", restar
     all components, else one scan each. A scan of one component (a gray
     image's, or each of ``interleave=False``) is non-interleaved: one block
     an MCU over the component's own block grid, ceil(width / 8) x
-    ceil(height / 8). Vectorised: no Python loop over blocks."""
+    ceil(height / 8). Vectorised: no Python loop over blocks.
+    ``progressive``: the same quantised coefficients in a progressive file
+    (SOF2) instead, in the scans of libjpeg's ``jpeg_simple_progression``
+    (``jpeg_progressive_scans``), ``interleave`` ignored."""
     scale = 5000 // quality if quality < 50 else 200 - 2 * quality
     tables = [np.clip((t * scale + 50) // 100, 1, 255) for t in (JPEG_LUMA_Q, JPEG_CHROMA_Q)]
     h, w = img.shape[:2]
@@ -700,6 +1115,12 @@ def jpeg_bytes(img: np.ndarray, quality: int = 95, sampling: str = "420", restar
             coef = _jpeg_blocks(p, mcuy * fv, mcux * fh, tables[min(i, 1)])
             coef = coef.reshape(mcuy, fv, mcux, fh, 64).transpose(0, 2, 1, 3, 4).reshape(mcuy * mcux, fv * fh, 64)
         comps.append((coef, min(i, 1)))
+        if progressive:  # the component's MCU-padded plane; the blocks of its own grid are the baseline's
+            plane = _jpeg_blocks(p, mcuy * fv, mcux * fh, tables[min(i, 1)])
+            if alone:
+                bh, bw = -(-p.shape[0] // 8), -(-p.shape[1] // 8)
+                plane[bh:], plane[:, bw:] = 0, 0
+            comps[-1] = (plane, min(i, 1), (-(-p.shape[0] // 8), -(-p.shape[1] // 8)), (fv, fh))
 
     def segment(marker: int, body: bytes) -> bytes:
         return struct.pack(">BBH", 0xFF, marker, len(body) + 2) + body
@@ -714,13 +1135,15 @@ def jpeg_bytes(img: np.ndarray, quality: int = 95, sampling: str = "420", restar
     sof = struct.pack(">BHHB", 8, h, w, len(comps))
     for i, (fh, fv) in enumerate(factors):
         sof += bytes([i + 1, fh * 16 + fv, min(i, 1)])
-    out += segment(0xC0, sof)
+    out += segment(0xC2 if progressive else 0xC0, sof)
     for t in range(n_tables):
         for kind, cls in (("dc", 0), ("ac", 1)):
             bits_, values = JPEG_HUFFMAN[f"{kind}{t}"]
             out += segment(0xC4, bytes([cls * 16 + t]) + bytes(bits_) + bytes(values))
     if restart:
         out += segment(0xDD, struct.pack(">H", restart))
+    if progressive:
+        return out + _jpeg_progressive(comps, restart, segment) + b"\xff\xd9"
     for scan in ([[i] for i in range(len(comps))] if alone else [list(range(len(comps)))]):
         sos = bytes([len(scan)]) + b"".join(bytes([i + 1, min(i, 1) * 17]) for i in scan) + b"\x00\x3f\x00"
         out += segment(0xDA, sos) + _jpeg_scan([comps[i] for i in scan], restart)
@@ -965,7 +1388,8 @@ def phase_val(data: str, card: str) -> tuple[dict, dict, dict]:
           f"loader wait {speed['preprocess']:.2f} ms, inference {speed['inference']:.2f} ms, "
           f"metrics {speed['postprocess']:.2f} ms [{card}]", flush=True)
     record = {"val_ms": kernel_ms, "val_plain_ms": plain_ms, "val_bound_ms": bound_ms, "val_bound_by": bound_by}
-    png = {"img_s": VAL_IMAGES / wall, "loader_wait_ms": speed["preprocess"], "decode_ms": png_ms}
+    png = {"img_s": VAL_IMAGES / wall, "loader_wait_ms": speed["preprocess"], "decode_ms": png_ms,
+           "metrics": res["metrics"].mean_results()}
     return launches, record, {"yolo": yolo, "batches": [(b, im) for b, im, _ in kept_batches], "png": png}
 
 
@@ -1021,7 +1445,7 @@ def jpeg_bounds(info: np.ndarray) -> dict:
     return out
 
 
-def time_jpeg(buf: bytes, what: str, n: int, card: str) -> dict:
+def time_jpeg(buf: bytes, what: str, n: int, card: str, phase: str = "phase jpeg (c)") -> dict:
     """One image's decode on the card, split (host entropy decode, H2D, each
     kernel, D2H: CUDA events inside fce_jpeg_decode, mean of n); each kernel
     alone (CUDA graph) beside its plain version (numpy on the host, via the
@@ -1060,7 +1484,7 @@ def time_jpeg(buf: bytes, what: str, n: int, card: str) -> dict:
             list(pool.map(lambda b: J.decode_jpeg(b, what, "cuda"), [buf] * copies))
             out[f"img_s_{threads}"] = copies / (time.perf_counter() - t0)
     b = out["bounds"]
-    print(f"phase jpeg (c): {what} ({len(buf)} bytes): decode_jpeg {call_ms:.3f} ms a call (host clock); split "
+    print(f"{phase}: {what} ({len(buf)} bytes): decode_jpeg {call_ms:.3f} ms a call (host clock); split "
           f"(CUDA events, mean of {n}): host entropy decode {split[0]:.3f} ms, H2D {split[1]:.3f}, jpeg_idct "
           f"{split[2]:.4f}, jpeg_color {split[3]:.4f}, D2H {split[4]:.3f}; kernels alone (CUDA graph): jpeg_idct "
           f"{out['jpeg_idct_ms']:.4f} ms (bound {b['jpeg_idct'][0]:.4f}, {b['jpeg_idct'][1]}; plain "
@@ -1137,6 +1561,7 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
                            "jpeg_color": VAL_IMAGES}, f"val path on JPEG: launches {val_launches}")
     check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path on JPEG scored the wrong number of images")
     _, _, _, _, _, mk = val_batches_vs_plain(yolo, data)
+    jpeg_metrics = {"metrics": res["metrics"].mean_results(), "img_s": VAL_IMAGES / wall}
     speed = res["metrics"].speed
     print(f"phase jpeg (d): YOLO.val yolo11s-fce {IMGSZ} f32 B={VAL_BATCH} on {VAL_IMAGES} JPEG images (q95 4:2:0, "
           f"480-800 px), launches {val_launches}; NMS kernel idx/ok equal to the plain version on every batch; "
@@ -1216,7 +1641,279 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
                          "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
                          "ms_1080x1920": timed["1080x1920"][f"{name}_ms"],
                          "bound_ms_1080x1920": timed["1080x1920"]["bounds"][name][0]}
-    return {"val_jpeg": val_launches, "predict_jpeg": predict_launches, "train_jpeg": train_launches}, records
+    return ({"val_jpeg": val_launches, "predict_jpeg": predict_launches, "train_jpeg": train_launches}, records,
+            jpeg_metrics)
+
+
+FORMAT_KINDS = ("bmp24", "tif", "png16", "adam7")  # phase formats (b): val image i written as kind i % 4
+FORMAT_SUFFIX = {"bmp24": "bmp", "bmp8": "bmp", "rle8": "bmp", "tif": "tif", "tiles": "tiff", "tif16": "tif",
+                 "tifraw": "tiff", "png16": "png", "adam7": "png", "adam7-16": "png", "pfm": "pfm", "dng": "dng",
+                 "jpg": "jpg", "progressive": "jpg", "progressive-gray": "jpeg", "mpo": "mpo"}
+FORMAT_RESTART = 8  # the progressive files' restart interval (MCUs; blocks in a scan of one component)
+
+
+def pfm_bytes(rgb: np.ndarray) -> bytes:
+    """A little-endian RGB PFM of ``rgb`` (H, W, 3) uint8: the values as floats, rows bottom to top."""
+    h, w, _ = rgb.shape
+    return b"PF\n%d %d\n-1.0\n" % (w, h) + np.ascontiguousarray(rgb[::-1]).astype("<f4").tobytes()
+
+
+def format_bytes(rgb: np.ndarray, kind: str) -> bytes:
+    """``rgb`` (H, W, 3) uint8 written as ``kind``: bmp24, bmp8, rle8, tif (LZW strips with horizontal
+    differencing), tiles (PackBits, 32 x 32), tif16 (16-bit LZW), tifraw (uncompressed), png16, adam7,
+    adam7-16, pfm, dng (a TIFF with DNG's version tag), jpg (baseline 4:2:0 q95), jpg-gray (baseline, the green
+    channel), progressive and progressive-gray (their coefficients as a progressive file), mpo (two JPEGs back to
+    back)."""
+    rng = np.random.RandomState(rgb.shape[0] * rgb.shape[1])
+    writers = {
+        "bmp24": lambda: bmp_bytes(rgb, "24"), "bmp8": lambda: bmp_bytes(rgb, "8"),
+        "rle8": lambda: bmp_bytes(rgb, "rle8"), "tif": lambda: tiff_bytes(rgb, 5, 2),
+        "tiles": lambda: tiff_bytes(rgb, 32773, tile=(32, 32)), "tif16": lambda: tiff_bytes(tiff16(rgb, rng), 5, 2),
+        "tifraw": lambda: tiff_bytes(rgb), "png16": lambda: png_bytes(rgb, 16),
+        "adam7": lambda: png_bytes(rgb, 8, True), "adam7-16": lambda: png_bytes(rgb, 16, True),
+        "pfm": lambda: pfm_bytes(rgb),
+        "dng": lambda: tiff_bytes(rgb, 5, 2, tags={50706: ("B", [1, 4, 0, 0]), 254: ("I", [1])}),
+        "jpg": lambda: jpeg_bytes(rgb, 95, "420"), "jpg-gray": lambda: jpeg_bytes(rgb[..., 1], 95, "444"),
+        "progressive": lambda: jpeg_bytes(rgb, 95, "420", FORMAT_RESTART, progressive=True),
+        "progressive-gray": lambda: jpeg_bytes(rgb[..., 1], 95, "444", FORMAT_RESTART, progressive=True),
+        "mpo": lambda: jpeg_bytes(rgb, 90, "420") + jpeg_bytes(rgb[::2, ::2].copy(), 90, "420"),
+    }
+    return writers[kind]()
+
+
+def format_job(job: tuple[np.ndarray, tuple[str, ...]]) -> list[bytes]:
+    """A worker's job in phase formats: one image written in each of the kinds (``format_bytes``)."""
+    rgb, kinds = job
+    return [format_bytes(rgb, k) for k in kinds]
+
+
+def write_format_files(jobs: list) -> list[list[bytes]]:
+    """``format_job`` over ``jobs`` in spawned worker processes (the numpy
+    writers' progressive JPEG takes ~1 s a 480 x 640 image on one core)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        return list(pool.map(format_job, jobs))
+
+
+def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
+    """The still-image formats on the card (``data/imread.py``):
+    (a) every writer's file (BMP 24-bit, palette and RLE8; TIFF LZW strips
+    with differencing, PackBits tiles and 16-bit; PNG 16-bit and Adam7;
+    PFM; progressive JPEG) read through ``imread(..., "cuda")``: the lossless
+    ones give exactly the array written, a progressive JPEG exactly the
+    baseline decode of the same coefficients (the C decoder's coefficients
+    equal too) with ``jpeg_idct`` and ``jpeg_color`` once each; a 480x640
+    and a 1080x1920 progressive decode timed beside the baseline one, and
+    the host read of each other format at 480x640;
+    (b) ``YOLO.val`` (phase val's model, f32, B=16) on phase val's 64 images
+    written 16 each as BMP, LZW TIFF, 16-bit PNG and Adam7 PNG: P, R, mAP50
+    and mAP50-95 equal to phase val's, the NMS kernel once a batch and
+    bit-equal to the plain version on each; and on the same 64 as
+    progressive JPEGs: equal to phase jpeg (d)'s, both JPEG kernels once an
+    image;
+    (c) ``YOLO.predict`` (bf16, B=16) on a directory of 16 files, one of each
+    kind: the stem and NMS kernels once, both JPEG kernels once a JPEG, the
+    images and detections equal to a predict on the arrays.
+    Returns the launches by path."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data import jpeg as J
+    from fce_yolo_tpu_torch.data.imread import imread
+    from fce_yolo_tpu_torch.nn.model import init_weights
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 30)
+    vals = list(val_images())
+    small = jpeg_test_image(rng, 37, 53) // 32 * 32  # at most 512 colours: quantised for the palettes below
+    small_pal = np.full((37, 53, 3), 60, np.uint8)
+    small_pal[5:30, 9:40] = (80, 80, 255)
+    small_pal[::7, ::5] = (255, 80, 80)
+    vga = jpeg_test_image(rng, 480, 640)
+    vga_pal = np.full((480, 640, 3), 60, np.uint8)
+    vga_pal[100:300, 200:500] = (80, 255, 80)
+    vga_pal[::9, ::7] = (255, 80, 80)
+    big = jpeg_test_image(np.random.RandomState(SEED + 21), 1080, 1920)
+    lossless = ("bmp24", "bmp8", "rle8", "tif", "tiles", "tif16", "tifraw", "png16", "adam7", "adam7-16", "pfm")
+    palette_kinds = ("bmp8", "rle8")
+    jobs = [(vals[i][1], (FORMAT_KINDS[i % 4], "progressive")) for i in range(VAL_IMAGES)]
+    jobs += [(vga, ("jpg", "progressive") + tuple(k for k in lossless if k not in palette_kinds)),
+             (vga_pal, palette_kinds), (big, ("jpg", "progressive")),
+             (small, tuple(k for k in lossless if k not in palette_kinds)), (small_pal, palette_kinds)]
+    mixed = [vals[i][1] for i in range(E2E_BATCH)]
+    mixed_kinds = ("bmp24", "bmp8", "rle8", "tif", "tiles", "tif16", "tifraw", "png16", "adam7", "adam7-16", "pfm",
+                   "dng", "jpg", "progressive", "progressive-gray", "mpo")
+    twin = {"progressive": "jpg", "progressive-gray": "jpg-gray"}  # the baseline file of the same coefficients
+    jobs += [(img, (k, twin[k]) if k in twin else (k,)) for img, k in zip(mixed, mixed_kinds)]
+    t0 = time.perf_counter()
+    written = write_format_files(jobs)
+    write_s = time.perf_counter() - t0
+    data_files, (vga_files, vga_pal_files, big_files, small_files, small_pal_files) = written[:VAL_IMAGES], \
+        written[VAL_IMAGES: VAL_IMAGES + 5]
+    mixed_files = written[VAL_IMAGES + 5:]
+
+    # (a) every writer's file through imread on the card
+    folder = root / "formats_a"
+    folder.mkdir()
+    n_files = 0
+    for img, kinds, bufs in ((vga, [k for k in lossless if k not in palette_kinds], vga_files[2:]),
+                             (vga_pal, palette_kinds, vga_pal_files),
+                             (small, [k for k in lossless if k not in palette_kinds], small_files),
+                             (small_pal, palette_kinds, small_pal_files)):
+        for kind, buf in zip(kinds, bufs):
+            path = folder / f"{img.shape[0]}x{img.shape[1]}.{kind}"
+            path.write_bytes(buf)
+            out = imread(path, "cuda")
+            check(out.shape == img.shape and bool((out == img[..., ::-1]).all()),
+                  f"phase formats (a) {path.name}: not the array written")
+            n_files += 1
+    prog_cases = [(vga, "420", 95, FORMAT_RESTART, None)]
+    for i, (sampling, quality, restart, orientation, h, w) in enumerate(
+            [("420", 75, 0, None, 7, 9), ("422", 95, 1, 6, 17, 33), ("444", 50, 7, None, 33, 47),
+             ("440", 100, 3, 3, 40, 56), ("411", 90, 2, None, 64, 80), ("gray", 95, 5, 8, 61, 67)]):
+        prog_cases.append((jpeg_test_image(rng, h, w), sampling, quality, restart, orientation))
+    for img, sampling, quality, restart, orientation in prog_cases:
+        src = img[..., 0] if sampling == "gray" else img
+        args = (src, quality, "444" if sampling == "gray" else sampling, restart, orientation)
+        base = jpeg_bytes(*args) if img is not vga else vga_files[0]
+        prog = jpeg_bytes(*args, progressive=True) if img is not vga else vga_files[1]
+        what = f"progressive {sampling} q{quality} {img.shape[0]}x{img.shape[1]} restart {restart}"
+        path = folder / "p.jpg"
+        path.write_bytes(prog)
+        before = read_launches()
+        out = imread(path, "cuda")
+        after = read_launches()
+        check(after["jpeg_idct"] - before["jpeg_idct"] == 1 and after["jpeg_color"] - before["jpeg_color"] == 1,
+              f"phase formats (a) {what}: the JPEG kernels did not run once each")
+        ref = J.decode_jpeg(base, what, "cuda")
+        check(out.shape == ref.shape and bool((out == ref).all()),
+              f"phase formats (a) {what}: differs from the baseline decode of the same coefficients")
+        ib, cb, _ = J.jpeg_coefficients(base, what)
+        ip, cp, _ = J.jpeg_coefficients(prog, what)
+        for c, (a, b) in enumerate(zip(cb, cp)):
+            rows, cols = -(-int(ib[21 + 8 * c]) // 8), -(-int(ib[20 + 8 * c]) // 8)
+            check(bool((a[:rows, :cols] == b[:rows, :cols]).all()),
+                  f"phase formats (a) {what}: component {c}'s coefficients differ from the baseline file's")
+        n_files += 1
+    print(f"phase formats (a): {n_files} files read through imread on the card equal to what was written (BMP "
+          f"24-bit, palette and RLE8; TIFF LZW + differencing, PackBits tiles, 16-bit, uncompressed; PNG 16-bit, "
+          f"Adam7 8/16-bit; PFM; at 37x53 and 480x640) and {len(prog_cases)} progressive JPEGs equal to the "
+          f"baseline decode of the same coefficients (every sampling, gray, restarts, orientations), jpeg_idct and "
+          f"jpeg_color once each a file; {len(jobs)} writer jobs in {write_s:.1f} s [{card}]", flush=True)
+    timed = {}
+    for name, files in (("480x640", vga_files), ("1080x1920", big_files)):
+        n = 20 if name == "480x640" else 10
+        timed[name] = {"baseline": time_jpeg(files[0], f"{name} 4:2:0 q95 baseline", n, card, "phase formats (a)"),
+                       "progressive": time_jpeg(files[1], f"{name} 4:2:0 q95 progressive (restart {FORMAT_RESTART})",
+                                                n, card, "phase formats (a)")}
+    host = {}
+    for kind, buf in zip([k for k in lossless if k not in palette_kinds], vga_files[2:]):
+        host[kind] = buf
+    host.update(zip(palette_kinds, vga_pal_files))
+    read_ms = {}
+    for kind, buf in host.items():
+        path = folder / f"t.{kind}"
+        path.write_bytes(buf)
+        imread(path, "cuda")
+        t0 = time.perf_counter()
+        for _ in range(5):
+            imread(path, "cuda")
+        read_ms[kind] = (time.perf_counter() - t0) * 1e3 / 5
+    print("phase formats (a): host read at 480x640 through imread(..., 'cuda') (host clock, mean of 5, one thread): "
+          + ", ".join(f"{k} {v:.2f} ms ({len(host[k])} bytes)" for k, v in read_ms.items()) + f" [{card}]", flush=True)
+
+    # (b) YOLO.val on the lossless copy, then on the progressive one
+    n_batches = -(-VAL_IMAGES // VAL_BATCH)
+    yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))  # phase val's model, float32
+    with torch.inference_mode():
+        yolo.model.eval()(torch.zeros(VAL_BATCH, 3, IMGSZ, IMGSZ, device="cuda"))
+    out_b = {}
+    names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    for what, ext_of in (("lossless", lambda i: FORMAT_SUFFIX[FORMAT_KINDS[i % 4]]), ("progressive", lambda i: "jpg")):
+        base = root / f"formats_{what}"
+        (base / "images" / "val").mkdir(parents=True)
+        (base / "labels" / "val").mkdir(parents=True)
+        for (i, _, lines), bufs in zip(vals, data_files):
+            (base / "images" / "val" / f"{i:03d}.{ext_of(i)}").write_bytes(bufs[0] if what == "lossless" else bufs[1])
+            (base / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
+        (base / "data.yaml").write_text(f"path: {base}\nval: images/val\nnames:\n{names}")
+        data = str(base / "data.yaml")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        jpegs = VAL_IMAGES if what == "progressive" else 0
+        check(launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_fdct": 0, "jpeg_idct": jpegs,
+                           "jpeg_color": jpegs}, f"phase formats (b) val on {what} files: launches {launches}")
+        metrics = res["metrics"].mean_results()
+        want = png["metrics"] if what == "lossless" else jpeg_d["metrics"]
+        check(metrics == want, f"phase formats (b) val on {what} files: P/R/mAP {metrics} != {want} "
+                               f"({'phase val' if what == 'lossless' else 'phase jpeg (d)'})")
+        if what == "lossless":
+            _, _, calls, _, _, mk = val_batches_vs_plain(yolo, data)
+            check(len(calls) == n_batches, f"phase formats (b): NMS compared on {len(calls)} batches")
+        out_b[what] = (launches, metrics, VAL_IMAGES / wall, res["metrics"].speed["preprocess"])
+    del yolo
+    lw, pw = out_b["lossless"], out_b["progressive"]
+    print(f"phase formats (b): YOLO.val yolo11s-fce {IMGSZ} f32 B={VAL_BATCH} on the {VAL_IMAGES} val images as "
+          f"{VAL_IMAGES // 4} each BMP, LZW TIFF, 16-bit PNG and Adam7 PNG: launches {lw[0]}, P/R/mAP50/mAP50-95 "
+          f"{tuple(round(v, 6) for v in lw[1])} equal to phase val's, the NMS kernel bit-equal to the plain version "
+          f"on every batch; {lw[2]:.1f} img/s, loader wait {lw[3]:.2f} ms an image (PNG, phase val: "
+          f"{png['img_s']:.1f} img/s); as progressive JPEGs: launches {pw[0]}, P/R/mAP "
+          f"{tuple(round(v, 6) for v in pw[1])} equal to phase jpeg (d)'s; {pw[2]:.1f} img/s, loader wait "
+          f"{pw[3]:.2f} ms an image (baseline, phase jpeg "
+          f"(d): {jpeg_d['img_s']:.1f} img/s) [{card}]", flush=True)
+
+    # (c) YOLO.predict on a directory of every kind
+    folder = root / "formats_c"
+    folder.mkdir()
+    files, arrays = [], []
+    for i, (img, kind, bufs) in enumerate(zip(mixed, mixed_kinds, mixed_files)):
+        path = folder / f"{i:02d}_{kind}.{FORMAT_SUFFIX[kind]}"
+        path.write_bytes(bufs[0])
+        files.append(str(path))
+        if kind in ("jpg", "mpo"):  # the first JPEG, decoded on the card (phase jpeg (b): equal to the plain path)
+            arrays.append(J.decode_jpeg(bufs[0][: bufs[0].index(b"\xff\xd9") + 2], kind, "cuda"))
+        elif kind in twin:
+            arrays.append(J.decode_jpeg(bufs[1], kind, "cuda"))  # the baseline twin: (a) showed them equal
+        else:
+            arrays.append(np.ascontiguousarray(img[..., ::-1]))
+    yolo = YOLO("yolo11s-fce.yaml", device="cuda")
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    yolo.to(torch.bfloat16).fuse()
+    yolo.predict(arrays, imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = yolo.predict(str(folder), imgsz=IMGSZ, batch=E2E_BATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    predict_launches = read_launches()
+    n_jpeg = sum(k in ("jpg", "mpo") or k.startswith("progressive") for k in mixed_kinds)
+    check(predict_launches == {"fused_stem": 1, "pick_suppress": 1, "jpeg_fdct": 0, "jpeg_idct": n_jpeg,
+                               "jpeg_color": n_jpeg}, f"phase formats (c): launches {predict_launches}")
+    check([r.path for r in results] == files, "phase formats (c): paths or order differ from the sorted files")
+    again = yolo.predict(arrays, imgsz=IMGSZ, batch=E2E_BATCH)
+    dmax = 0.0
+    for r, a, img in zip(results, again, arrays):
+        check(r.orig_img.shape == img.shape and bool((r.orig_img == img).all()), f"{r.path}: not the expected image")
+        check(len(r) == len(a) and bool((r.boxes.cls == a.boxes.cls).all()), f"{r.path}: detections differ")
+        if len(r):
+            dmax = max(dmax, float(np.abs(r.boxes.data - a.boxes.data).max()))
+    check(dmax <= 1e-3, f"phase formats (c): detections differ by {dmax} from a predict on the arrays")
+    del yolo
+    print(f"phase formats (c): YOLO.predict yolo11s-fce {IMGSZ} bf16 B={E2E_BATCH} on a directory of {len(files)} "
+          f"files ({', '.join(mixed_kinds)}), launches {predict_launches}; images and "
+          f"{sum(len(r) for r in results)} detections equal to a predict on the arrays (max|d| {dmax:.1e}, limit "
+          f"1e-3); {len(files) / wall:.1f} img/s through YOLO.predict (host clock, reads and letterbox included); "
+          f"phase formats {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {"formats_val": out_b["lossless"][0], "formats_val_progressive": out_b["progressive"][0],
+            "formats_predict": predict_launches}
 
 
 def phase_loss(val_out: dict, card: str) -> None:
@@ -3032,7 +3729,8 @@ def main() -> None:
         phase_loss(val_out, card)
         png = val_out["png"]
         del val_out
-        jpeg_paths, jpeg = phase_jpeg(Path(tmp), png, card)
+        jpeg_paths, jpeg, jpeg_d = phase_jpeg(Path(tmp), png, card)
+        formats = phase_formats(Path(tmp), png, jpeg_d, card)
         train = phase_train(Path(tmp), card)
         experiments = phase_experiments(Path(tmp), card)
         tasks = phase_tasks(Path(tmp), card)
@@ -3044,8 +3742,8 @@ def main() -> None:
         classify = phase_classify(Path(tmp), short_avi, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **tasks,
-             **task_train, "track": track, **video, **classify, **draw}
+    paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
+             **tasks, **task_train, "track": track, **video, **classify, **draw}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

@@ -1,4 +1,4 @@
-// Baseline JPEG decode for Hopper (sm_90a): host entropy decode, then two kernels.
+// Baseline and progressive JPEG decode for Hopper (sm_90a): host entropy decode, then two kernels.
 //
 // Replaces what the JAX package reads every image with: cv2.imdecode(buf,
 // IMREAD_COLOR) in fce_yolo_tpu/utils/patches.py:18 (libjpeg-turbo). Not a
@@ -12,7 +12,12 @@
 //    Motion-JPEG frames need), DC prediction reset at each restart interval,
 //    interleaved and non-interleaved scans, libjpeg's zero fill when a marker
 //    cuts the data short. Out: int16 coefficient planes, one a component, natural order,
-//    MCU-padded block grids laid end to end.
+//    MCU-padded block grids laid end to end. A progressive file (SOF2) is
+//    parsed whole first; its scans (DC first and refinement, AC first with
+//    EOB runs, AC refinement with correction bits; progressive_block) fill
+//    the same planes one after another, so the kernels take them as they
+//    take a sequential file's. One whose scans leave coefficients 1-9
+//    unfinished is refused (libjpeg would smooth its blocks).
 // 2. jpeg_idct_kernel: dequantise + libjpeg's ISLOW IDCT (jidctint:
 //    CONST_BITS 13, PASS1_BITS 2; columns descaled by 11, rows by 18, with
 //    rounding; out clamp(v + 128, 0, 255), the saturation of the SIMD build
@@ -53,7 +58,10 @@ enum {
   kErrComponents = -6, kErrHierarchical = -7, kErrTruncated = -8, kErrFractional = -9, kErrTable = -10,
   kErrDnl = -11, kErrTooLarge = -12,
   kGrow = -13,  // fce_jpeg_decode / fce_jpeg_coefficients: the caller's buffers are too small (info holds the sizes)
+  kErrProgression = -14,  // a progressive scan's Ss, Se, Ah, Al break the rules
+  kErrBreaksOff = -15,    // a progressive file's entropy data ends before its scan does
 };
+// kErrProgressive (-2): a progressive file whose scans leave coefficients unfinished (libjpeg smooths its blocks)
 // cv2's CV_IO_MAX_IMAGE_PIXELS: imdecode refuses a larger frame
 constexpr long long kMaxPixels = 1LL << 30;
 enum { kGray = 0, kYcc = 1, kRgb = 2 };
@@ -123,9 +131,11 @@ struct Scan {
   const uint8_t* data;
   long long len;
   int restart;
+  int ss = 0, se = 63, ah = 0, al = 0;  // spectral selection and successive approximation (progressive)
 };
 
 struct Parsed {
+  bool progressive = false;
   int width = 0, height = 0, ncomp = 0, color = kYcc, orientation = 1, hmax = 1, vmax = 1;
   long long total = 0;
   Comp comp[3];
@@ -185,7 +195,6 @@ int parse(const uint8_t* buf, long long n, Parsed& P) {
     if (marker == 0xD9) break;
     if ((marker >= 0xD0 && marker <= 0xD7) || marker == 0x01) continue;
     switch (marker) {
-      case 0xC2: return kErrProgressive;
       case 0xC3: return kErrLossless;
       case 0xC5: case 0xC6: case 0xC7: case 0xDE: case 0xDF: return kErrHierarchical;
       case 0xC9: case 0xCA: case 0xCB: case 0xCC: case 0xCD: case 0xCE: case 0xCF: return kErrArith;
@@ -223,9 +232,10 @@ int parse(const uint8_t* buf, long long n, Parsed& P) {
     } else if (marker == 0xDD) {  // DRI
       if (blen < 2) return kErrFormat;
       restart = be16(body);
-    } else if (marker == 0xC0 || marker == 0xC1) {  // SOF0 / SOF1
+    } else if (marker == 0xC0 || marker == 0xC1 || marker == 0xC2) {  // SOF0 / SOF1 / SOF2
       if (frame || blen < 6) return kErrFormat;
       frame = true;
+      P.progressive = marker == 0xC2;
       if (body[0] != 8) return kErrPrecision;
       P.height = be16(body + 1);
       P.width = be16(body + 3);
@@ -245,7 +255,13 @@ int parse(const uint8_t* buf, long long n, Parsed& P) {
       if (!frame || blen < 1) return kErrFormat;
       Scan s;
       s.ns = body[0];
-      if (s.ns < 1 || s.ns > P.ncomp || blen < 1 + 2 * s.ns) return kErrFormat;
+      if (s.ns < 1 || s.ns > P.ncomp || blen < 4 + 2 * s.ns) return kErrFormat;
+      if (P.progressive) {
+        s.ss = body[1 + 2 * s.ns];
+        s.se = body[2 + 2 * s.ns];
+        s.ah = body[3 + 2 * s.ns] >> 4;
+        s.al = body[3 + 2 * s.ns] & 15;
+      }
       for (int i = 0; i < s.ns; ++i) {
         int j = -1;
         for (int c = 0; c < P.ncomp; ++c)
@@ -256,11 +272,16 @@ int parse(const uint8_t* buf, long long n, Parsed& P) {
         if (td > 3 || ta > 3) return kErrTable;
         s.dc[i] = table_in_slot(huff, 0, td);
         s.ac[i] = table_in_slot(huff, 1, ta);
-        if (!s.dc[i].defined || !s.ac[i].defined) return kErrTable;
+        // a scan needs the tables it codes with: both for a sequential one, DC for a first DC scan, AC for an AC one
+        const bool dc_used = !P.progressive || (s.ss == 0 && s.ah == 0), ac_used = !P.progressive || s.ss > 0;
+        if ((dc_used && !s.dc[i].defined) || (ac_used && !s.ac[i].defined)) return kErrTable;
       }
       int mcu_blocks = 0;
       for (int i = 0; i < s.ns; ++i) mcu_blocks += P.comp[s.comp[i]].h * P.comp[s.comp[i]].v;
       if (s.ns > 1 && mcu_blocks > 10) return kErrFormat;  // the standard's limit for an interleaved MCU
+      if (P.progressive && (s.se > 63 || s.ss > s.se || (s.ss == 0) != (s.se == 0) || (s.ss && s.ns != 1) ||
+                            s.al > 13 || (s.ah && s.al != s.ah - 1)))
+        return kErrProgression;
       // the entropy data runs to the first marker that is not RSTn (FF 00 is a stuffed FF, FF FF a fill byte)
       long long end = pos;
       while (end < n && !(buf[end] == 0xFF && end + 1 < n && buf[end + 1] != 0x00 && buf[end + 1] != 0xFF &&
@@ -309,6 +330,22 @@ int parse(const uint8_t* buf, long long n, Parsed& P) {
   // the record, the planes' offsets and the kernels' indices are 32-bit
   if ((long long)P.width * P.height > kMaxPixels || P.total > INT_MAX || 3LL * P.width * P.height > INT_MAX)
     return kErrTooLarge;
+  if (P.progressive) {
+    // libjpeg-turbo's test for block smoothing (jdcoefct.c smoothing_ok): every component's DC coded, and some
+    // component's zig-zag positions 1-9 left with bits to come (its last scan's Al > 0) or never coded
+    int bits[3][64];
+    for (int c = 0; c < P.ncomp; ++c)
+      for (int k = 0; k < 64; ++k) bits[c][k] = -1;
+    for (const Scan& s : P.scans)
+      for (int i = 0; i < s.ns; ++i)
+        for (int k = s.ss; k <= s.se; ++k) bits[s.comp[i]][k] = s.al;
+    bool dc_known = true, unfinished = false;
+    for (int c = 0; c < P.ncomp; ++c) {
+      dc_known = dc_known && bits[c][0] >= 0;
+      for (int k = 1; k < 10; ++k) unfinished = unfinished || bits[c][k] != 0;
+    }
+    if (dc_known && unfinished) return kErrProgressive;
+  }
   if (P.ncomp == 1) {
     P.color = kGray;
   } else if (jfif) {
@@ -418,8 +455,82 @@ struct BitReader {
 
 inline int extend(int v, int t) { return v < (1 << (t - 1)) ? v - (1 << t) + 1 : v; }
 
-// Huffman data of every scan -> coef (P.total int16, zeroed here); returns whether a marker cut the data short
-bool decode_coefficients(const Parsed& P, int16_t* coef) {
+// One block of a progressive scan, as libjpeg's jdphuff decodes it: DC first (the difference added to the
+// prediction, shifted left by Al) and refinement (one bit OR-ed in at Al); AC first (runs, values shifted left by Al,
+// EOB runs of 2^r + r bits blocks) and refinement (a new +-2^Al after its run of still-zero positions, a
+// correction bit for each already non-zero coefficient passed, also through an EOB run)
+inline void progressive_block(const Scan& s, BitReader& br, const uint16_t* dc_lut, const uint16_t* ac_lut, int& pred,
+                              int& eobrun, int16_t* out) {
+  const int p1 = 1 << s.al, m1 = -p1;
+  if (s.ss == 0) {
+    if (s.ah) {
+      if (br.get(1)) out[0] = static_cast<int16_t>(out[0] | p1);
+      return;
+    }
+    const uint16_t e = dc_lut[br.peek16()];
+    br.skip(e >> 8);
+    int t = e & 255;
+    if (t) t = t > 16 ? 0 : extend(br.get(t), t);
+    pred += t;
+    out[0] = static_cast<int16_t>(pred * p1);
+    return;
+  }
+  int k = s.ss;
+  if (!s.ah) {  // AC first
+    if (eobrun) {
+      --eobrun;
+      return;
+    }
+    for (; k <= s.se; ++k) {
+      const uint16_t e = ac_lut[br.peek16()];
+      br.skip(e >> 8);
+      const int r = (e >> 4) & 15, z = e & 15;
+      if (z) {
+        k += r;
+        out[kNatural[k]] = static_cast<int16_t>(extend(br.get(z), z) * p1);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) + (r ? br.get(r) : 0) - 1;
+        break;
+      }
+    }
+    return;
+  }
+  if (!eobrun) {  // AC refinement
+    for (; k <= s.se; ++k) {
+      const uint16_t e = ac_lut[br.peek16()];
+      br.skip(e >> 8);
+      int r = (e >> 4) & 15, t = e & 15;
+      if (t) {
+        t = br.get(1) ? p1 : m1;
+      } else if (r != 15) {
+        eobrun = (1 << r) + (r ? br.get(r) : 0);
+        break;
+      }
+      for (; k <= s.se; ++k) {
+        int16_t& c = out[kNatural[k]];
+        if (c) {
+          if (br.get(1) && !(c & p1)) c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+        } else if (--r < 0) {
+          break;
+        }
+      }
+      if (t) out[kNatural[k]] = static_cast<int16_t>(t);
+    }
+  }
+  if (eobrun) {
+    for (; k <= s.se; ++k) {
+      int16_t& c = out[kNatural[k]];
+      if (c && br.get(1) && !(c & p1)) c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+    }
+    --eobrun;
+  }
+}
+
+// Huffman data of every scan -> coef (P.total int16, zeroed here); returns 1 when a marker cut a sequential file's
+// data short (zero fill), kErrBreaksOff when it cut a progressive one's, else 0
+int decode_coefficients(const Parsed& P, int16_t* coef) {
   memset(coef, 0, (size_t)P.total * sizeof(int16_t));
   bool cut = false;
   std::vector<uint16_t> dc_lut[4], ac_lut[4];
@@ -447,8 +558,8 @@ bool decode_coefficients(const Parsed& P, int16_t* coef) {
       }
     }
     for (int j = 0; j < s.ns; ++j) {
-      build_lookup(s.dc[j], dc_lut[j]);
-      build_lookup(s.ac[j], ac_lut[j]);
+      if (s.dc[j].defined) build_lookup(s.dc[j], dc_lut[j]);
+      if (s.ac[j].defined) build_lookup(s.ac[j], ac_lut[j]);
     }
     const long long total = (long long)gw * gh;
     const long long per = s.restart ? s.restart : total;
@@ -467,12 +578,13 @@ bool decode_coefficients(const Parsed& P, int16_t* coef) {
           p += p[0] == 0xFF && p[1] == 0x00 ? 2 : 1;
         }
         if (!at_data) {
+          if (P.progressive) return kErrBreaksOff;
           cut = true;
           break;
         }
       }
       BitReader br{p, end};
-      int pred[4] = {0, 0, 0, 0};
+      int pred[4] = {0, 0, 0, 0}, eobrun = 0;
       const long long m1 = m0 + per < total ? m0 + per : total;
       for (long long m = m0; m < m1; ++m) {
         const int my = (int)(m / gw), mx = (int)(m % gw);
@@ -481,6 +593,10 @@ bool decode_coefficients(const Parsed& P, int16_t* coef) {
           const Comp& c = P.comp[s.comp[j]];
           const long long blk = alone ? (long long)my * c.bw + mx : (long long)(my * c.v + bby[b]) * c.bw + mx * c.h + bbx[b];
           int16_t* out = coef + c.off + 64 * blk;
+          if (P.progressive) {
+            progressive_block(s, br, dc_lut[j].data(), ac_lut[j].data(), pred[j], eobrun, out);
+            continue;
+          }
           uint16_t e = dc_lut[j][br.peek16()];
           br.skip(e >> 8);
           int t = e & 255;
@@ -503,6 +619,7 @@ bool decode_coefficients(const Parsed& P, int16_t* coef) {
           }
         }
         if (br.overrun()) {  // this MCU took zero bits past the data: the rest of the interval stays zero
+          if (P.progressive) return kErrBreaksOff;
           cut = true;
           break;
         }
@@ -511,7 +628,7 @@ bool decode_coefficients(const Parsed& P, int16_t* coef) {
       p = br.p;
     }
   }
-  return cut;
+  return cut ? 1 : 0;
 }
 
 // The kernels' parameter from a record of fill_info and each component's table (3 x 64, or null)
@@ -1046,7 +1163,9 @@ extern "C" int fce_jpeg_coefficients(const void* buf, long long len, void* coef,
   if (err) return err;
   fill_info(P, info);
   if (P.total > cap) return kGrow;
-  info[8] = decode_coefficients(P, static_cast<int16_t*>(coef)) ? 1 : 0;
+  const int cut = decode_coefficients(P, static_cast<int16_t*>(coef));
+  if (cut < 0) return cut;
+  info[8] = cut;
   component_tables(P, static_cast<int*>(qt));
   return 0;
 }
@@ -1082,7 +1201,9 @@ extern "C" int fce_jpeg_decode(const void* buf, long long len, int* info, void* 
   if (P.total > coef_cap || 3LL * P.width * P.height > out_cap) return kGrow;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto t0 = std::chrono::steady_clock::now();
-  info[8] = decode_coefficients(P, static_cast<int16_t*>(h_coef)) ? 1 : 0;
+  const int cut = decode_coefficients(P, static_cast<int16_t*>(h_coef));
+  if (cut < 0) return cut;
+  info[8] = cut;
   const auto t1 = std::chrono::steady_clock::now();
   int qt[3 * 64];
   component_tables(P, qt);

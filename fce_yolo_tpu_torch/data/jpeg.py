@@ -1,4 +1,4 @@
-"""Baseline JPEG decoding without cv2 or PIL, bit-equal to the JAX package's
+"""Baseline and progressive JPEG decoding without cv2 or PIL, bit-equal to the JAX package's
 ``imread`` (``fce_yolo_tpu/utils/patches.py:18``: ``cv2.imdecode(...,
 IMREAD_COLOR)``, libjpeg-turbo with its defaults).
 
@@ -13,15 +13,23 @@ Two paths give the same bytes:
   (Python, over bit windows; for small images) + ``jpeg_idct_reference`` +
   ``jpeg_color_reference`` (numpy int32).
 
-What is read: SOF0/SOF1 (8-bit Huffman sequential), 1 or 3 components with
-sampling factors 1-4, 8- or 16-bit quantisation tables, Huffman slots 0 and
-1 that no DHT defined (Motion-JPEG frames) read as the Annex K.3 tables,
-restart intervals, interleaved and non-interleaved scans (a non-interleaved scan covers
-ceil(comp_w / 8) x ceil(comp_h / 8) blocks, not the MCU-padded grid), the
-JFIF/Adobe colour rules of libjpeg (``default_decompress_parms``) and the
-EXIF orientation as ``cv2.imdecode`` applies it. Progressive, arithmetic,
-lossless, hierarchical, 12-bit and 4-component (CMYK/YCCK) files raise
-``ValueError`` naming the file; there is no fallback.
+What is read: SOF0/SOF1 (8-bit Huffman sequential) and SOF2 (8-bit Huffman
+progressive), 1 or 3 components with sampling factors 1-4, 8- or 16-bit
+quantisation tables, Huffman slots 0 and 1 that no DHT defined (Motion-JPEG
+frames) read as the Annex K.3 tables, restart intervals, interleaved and
+non-interleaved scans (a non-interleaved scan covers ceil(comp_w / 8) x
+ceil(comp_h / 8) blocks, not the MCU-padded grid), the JFIF/Adobe colour
+rules of libjpeg (``default_decompress_parms``) and the EXIF orientation as
+``cv2.imdecode`` applies it. A progressive file's scans (spectral selection,
+successive approximation, EOB runs, each with the Huffman tables in force
+at its SOS) fill the same coefficient planes a sequential one does; the
+IDCT and colour stages take them unchanged. Arithmetic, lossless,
+hierarchical, 12-bit and 4-component (CMYK/YCCK) files raise ``ValueError``
+naming the file; so does a progressive file whose scans leave any of
+zig-zag positions 1-9 unfinished (libjpeg-turbo smooths such a file's
+blocks, ``jdcoefct.c::decompress_smooth_data``, which the port does not
+do), one whose data breaks off, and one whose scan breaks the progression
+rules (cv2 reads none). There is no fallback.
 
 libjpeg-turbo's arithmetic, reproduced by both paths:
 
@@ -59,7 +67,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 __all__ = ["JpegHeader", "parse_jpeg", "entropy_decode", "jpeg_idct_reference", "jpeg_color_reference",
-           "apply_orientation", "decode_jpeg_reference", "decode_jpeg", "jpeg_idct", "jpeg_color",
+           "apply_orientation", "exif_orientation", "decode_jpeg_reference", "decode_jpeg", "jpeg_idct", "jpeg_color",
            "jpeg_coefficients", "header_from_info", "JPEG_SIGNATURE", "STD_HUFFMAN"]
 
 JPEG_SIGNATURE = b"\xff\xd8\xff"
@@ -71,7 +79,7 @@ ZIGZAG = np.array([
 _NATURAL = ZIGZAG.tolist()
 COLOR_GRAY, COLOR_YCC, COLOR_RGB = 0, 1, 2
 # marker -> what it starts, for the files this reader refuses
-_REFUSED = {0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)", 0xC5: "hierarchical JPEG (SOF5)",
+_REFUSED = {0xC3: "lossless JPEG (SOF3)", 0xC5: "hierarchical JPEG (SOF5)",
             0xC6: "hierarchical JPEG (SOF6)", 0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
             0xCA: "arithmetic-coded JPEG (SOF10)", 0xCB: "arithmetic-coded JPEG (SOF11)",
             0xCC: "arithmetic-coded JPEG (DAC)", 0xCD: "arithmetic-coded JPEG (SOF13)",
@@ -118,6 +126,10 @@ class Scan:
     data: bytes  # the entropy-coded bytes, RST markers included
     restart: int
     tables: dict  # ("dc" | "ac", component index) -> (counts, symbols) as defined when the scan starts
+    ss: int = 0  # spectral selection: first and last zig-zag position the scan codes
+    se: int = 63
+    ah: int = 0  # successive approximation: the bit position before (0: a first scan) and after the scan
+    al: int = 0
 
 
 @dataclass
@@ -131,18 +143,23 @@ class JpegHeader:
     orientation: int
     qt: dict[int, np.ndarray]  # table id -> (64,) natural order
     scans: list[Scan] = field(default_factory=list)
+    progressive: bool = False
 
 
-BASELINE_ONLY = "the port reads baseline (sequential Huffman, 8-bit, 1 or 3 component) JPEG only"
+BASELINE_ONLY = "the port reads baseline and progressive (Huffman, 8-bit, 1 or 3 component) JPEG only"
+UNFINISHED = ("a progressive JPEG whose scans leave coefficients unfinished (libjpeg smooths its blocks; the port "
+              "does not)")
+BREAKS_OFF = "a progressive JPEG whose data breaks off"
 
 
 def _refuse(name: str, what: str) -> ValueError:
     return ValueError(f"{name}: {what}; {BASELINE_ONLY}")
 
 
-def _exif_orientation(body: bytes) -> int:
-    """Orientation (tag 0x0112 of IFD0) of an APP1 ``Exif`` body, else 1."""
-    tiff = body[6:]
+def exif_orientation(tiff: bytes) -> int:
+    """Orientation (tag 0x0112 of IFD0) of Exif data (a TIFF header and its
+    IFDs: an APP1 ``Exif`` body after its 6-byte name, a PNG ``eXIf``
+    chunk), else 1."""
     if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
         return 1
     order = "little" if tiff[:2] == b"II" else "big"
@@ -167,7 +184,7 @@ def parse_jpeg(buf: bytes, name: str = "<jpeg>") -> JpegHeader:
     pos, n = 2, len(buf)
     qt: dict[int, np.ndarray] = {}
     huffman: dict = {}
-    restart, frame, orientation = 0, None, None
+    restart, frame, orientation, progressive = 0, None, None, False
     jfif = adobe = False
     transform = 1
     scans: list[Scan] = []
@@ -216,7 +233,8 @@ def parse_jpeg(buf: bytes, name: str = "<jpeg>") -> JpegHeader:
                 p += 17 + sum(counts)
         elif marker == 0xDD:  # DRI
             restart = int.from_bytes(body[:2], "big")
-        elif marker in (0xC0, 0xC1):  # SOF0 / SOF1
+        elif marker in (0xC0, 0xC1, 0xC2):  # SOF0 / SOF1 / SOF2
+            progressive = marker == 0xC2
             if frame is not None:
                 raise ValueError(f"{name}: two SOF markers")
             precision, height, width, nc = body[0], int.from_bytes(body[1:3], "big"), \
@@ -239,7 +257,9 @@ def parse_jpeg(buf: bytes, name: str = "<jpeg>") -> JpegHeader:
         elif marker == 0xDA:  # SOS
             if frame is None:
                 raise ValueError(f"{name}: SOS before SOF")
-            ns = body[0]
+            ns = body[0] if body else 0
+            if ns == 0 or len(body) < 4 + 2 * ns:
+                raise ValueError(f"{name}: bad SOS segment")
             ids = [c.id for c in frame[2]]
             sel, td, ta = [], [], []
             for i in range(ns):
@@ -251,19 +271,26 @@ def parse_jpeg(buf: bytes, name: str = "<jpeg>") -> JpegHeader:
                 ta.append(t & 15)
             if ns > 1 and sum(frame[2][i].h * frame[2][i].v for i in sel) > 10:
                 raise ValueError(f"{name}: an interleaved MCU of more than 10 blocks")
+            ss, se, ah, al = body[1 + 2 * ns], body[2 + 2 * ns], body[3 + 2 * ns] >> 4, body[3 + 2 * ns] & 15
+            if not progressive:
+                ss, se, ah, al = 0, 63, 0, 0
+            elif (se > 63 or ss > se or (ss == 0) != (se == 0) or (ss and ns != 1) or al > 13
+                  or (ah and al != ah - 1)):
+                raise _refuse(name, f"a progressive JPEG with a bad scan (its Ss, Se, Ah or Al: {ss}, {se}, {ah}, "
+                                    f"{al})")
             m = _SEGMENT_END.search(buf, pos)
             end = m.start() if m else n
             if m is None or end + 1 >= n:
                 raise ValueError(f"{name}: JPEG data ends or breaks off before the EOI marker")
             tables = {("dc", j): huffman.get((0, t), STD_HUFFMAN.get((0, t))) for j, t in zip(sel, td)}
             tables.update({("ac", j): huffman.get((1, t), STD_HUFFMAN.get((1, t))) for j, t in zip(sel, ta)})
-            scans.append(Scan(sel, buf[pos:end], restart, tables))
+            scans.append(Scan(sel, buf[pos:end], restart, tables, ss, se, ah, al))
             pos = end
         elif marker == 0xE0:  # APP0
             jfif = jfif or (len(body) >= 14 and body[:5] == b"JFIF\x00")
         elif marker == 0xE1:  # APP1
             if orientation is None and body[:6] == b"Exif\x00\x00":
-                orientation = _exif_orientation(body)
+                orientation = exif_orientation(body[6:])
         elif marker == 0xEE:  # APP14
             if len(body) >= 12 and body[:5] == b"Adobe":
                 adobe, transform = True, body[11]
@@ -293,7 +320,22 @@ def parse_jpeg(buf: bytes, name: str = "<jpeg>") -> JpegHeader:
         color = COLOR_RGB if transform == 0 else COLOR_YCC
     else:
         color = COLOR_RGB if [c.id for c in comps] == [82, 71, 66] else COLOR_YCC
-    return JpegHeader(width, height, comps, hmax, vmax, color, orientation or 1, qt, scans)
+    hdr = JpegHeader(width, height, comps, hmax, vmax, color, orientation or 1, qt, scans, progressive)
+    if progressive and _unfinished(hdr):
+        raise _refuse(name, UNFINISHED)
+    return hdr
+
+
+def _unfinished(hdr: JpegHeader) -> bool:
+    """libjpeg-turbo's test for block smoothing (jdcoefct.c smoothing_ok):
+    every component's DC has been coded, and some component's zig-zag
+    positions 0-9 hold a coefficient whose last scan left bits to come
+    (Al > 0) or that no scan coded."""
+    bits = [[-1] * 64 for _ in hdr.comps]
+    for scan in hdr.scans:
+        for c in scan.comps:
+            bits[c][scan.ss: scan.se + 1] = [scan.al] * (scan.se + 1 - scan.ss)
+    return all(b[0] >= 0 for b in bits) and any(v != 0 for b in bits for v in b[1:10])
 
 
 def _lookup(table, name: str) -> list[int]:
@@ -326,7 +368,8 @@ def _windows(seg: bytes) -> tuple[list[int], int]:
 def entropy_decode(hdr: JpegHeader, name: str = "<jpeg>") -> list[np.ndarray]:
     """The scans' Huffman data -> one int16 plane (bh, bw, 64) of quantised
     coefficients a component, natural order (plain version of the host
-    decoder in ``csrc/jpeg.cu``)."""
+    decoder in ``csrc/jpeg.cu``). A progressive file's scans fill the planes
+    one after another (``_progressive_scan``)."""
     flat = [[0] * (c.bh * c.bw * 64) for c in hdr.comps]
     warned = False
     for scan in hdr.scans:
@@ -338,6 +381,9 @@ def entropy_decode(hdr: JpegHeader, name: str = "<jpeg>") -> list[np.ndarray]:
         else:
             gw, gh = -(-hdr.width // (8 * hdr.hmax)), -(-hdr.height // (8 * hdr.vmax))
             blocks = [(j, by, bx) for j, c in enumerate(comps) for by in range(c.v) for bx in range(c.h)]
+        if hdr.progressive:
+            _progressive_scan(scan, comps, [flat[i] for i in scan.comps], alone, gw, gh, blocks, name)
+            continue
         dc = [_lookup(scan.tables[("dc", i)], name) for i in scan.comps]
         ac = [_lookup(scan.tables[("ac", i)], name) for i in scan.comps]
         total = gw * gh
@@ -389,6 +435,113 @@ def entropy_decode(hdr: JpegHeader, name: str = "<jpeg>") -> list[np.ndarray]:
             warnings.warn(f"{name}: JPEG entropy data is cut short; the missing part decodes as zeros")
             warned = True
     return [np.array(f, np.int64).astype(np.int16).reshape(c.bh, c.bw, 64) for f, c in zip(flat, hdr.comps)]
+
+
+def _progressive_scan(scan: Scan, comps: list[Component], out: list[list[int]], alone: bool, gw: int, gh: int,
+                      blocks: list[tuple[int, int, int]], name: str) -> None:
+    """One scan of a progressive file into the components' flat planes, as
+    libjpeg's jdphuff decodes it: DC first (the difference added to the
+    prediction, shifted left by Al) and DC refinement (one bit, OR-ed in at
+    Al), AC first (runs, values shifted left by Al, EOB runs of 2^r + r bits
+    blocks) and AC refinement (a new coefficient of +-2^Al after its run of
+    still-zero positions, one correction bit for every already non-zero
+    coefficient passed, also through an EOB run). Restart intervals reset
+    the prediction and the EOB run. Data cut short raises."""
+    ss, se, ah, al = scan.ss, scan.se, scan.ah, scan.al
+    p1, m1 = 1 << al, -1 << al
+    if ss == 0 and ah == 0:
+        dc = [_lookup(scan.tables[("dc", i)], name) for i in scan.comps]
+    elif ss:
+        ac = _lookup(scan.tables[("ac", scan.comps[0])], name)
+    total = gw * gh
+    per = scan.restart or total
+    segments = _RST.split(scan.data)
+    for s in range(-(-total // per)):
+        if s >= len(segments):
+            raise _refuse(name, BREAKS_OFF)
+        win, nbits = _windows(segments[s].rstrip(b"\xff"))
+        p, pred, eobrun = 0, [0] * len(comps), 0
+
+        def bits(n: int) -> int:
+            nonlocal p
+            v = ((win[p >> 3] >> (8 - (p & 7))) & 0xFFFF) >> (16 - n)
+            p += n
+            return v
+
+        def huff(tab) -> int:
+            nonlocal p
+            e = tab[(win[p >> 3] >> (8 - (p & 7))) & 0xFFFF]
+            p += e >> 8
+            return e & 255
+
+        for m in range(s * per, min(total, (s + 1) * per)):
+            my, mx = divmod(m, gw)
+            for j, by, bx in blocks:
+                c = comps[j]
+                f = out[j]
+                base = 64 * (my * c.bw + mx if alone else (my * c.v + by) * c.bw + mx * c.h + bx)
+                if ss == 0:
+                    if ah:
+                        if bits(1):
+                            f[base] |= p1
+                        continue
+                    t = huff(dc[j])
+                    if t:
+                        r = bits(t)
+                        t = r - (1 << t) + 1 if r < (1 << (t - 1)) else r
+                    pred[j] += t
+                    f[base] = pred[j] << al
+                    continue
+                k = ss
+                if not ah:  # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    while k <= se:
+                        rs = huff(ac)
+                        r, t = rs >> 4, rs & 15
+                        if t:
+                            k += r
+                            v = bits(t)
+                            f[base + _NATURAL[k]] = (v - (1 << t) + 1 if v < (1 << (t - 1)) else v) << al
+                            k += 1
+                        elif r == 15:
+                            k += 16
+                        else:
+                            eobrun = (1 << r) + (bits(r) if r else 0) - 1
+                            break
+                    continue
+                if not eobrun:  # AC refinement
+                    while k <= se:
+                        rs = huff(ac)
+                        r, t = rs >> 4, rs & 15
+                        if t:
+                            t = p1 if bits(1) else m1
+                        elif r != 15:
+                            eobrun = (1 << r) + (bits(r) if r else 0)
+                            break
+                        while k <= se:
+                            i = base + _NATURAL[k]
+                            if f[i]:
+                                if bits(1) and not f[i] & p1:
+                                    f[i] += p1 if f[i] >= 0 else m1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if t:
+                            f[base + _NATURAL[k]] = t
+                        k += 1
+                if eobrun:
+                    while k <= se:
+                        i = base + _NATURAL[k]
+                        if f[i] and bits(1) and not f[i] & p1:
+                            f[i] += p1 if f[i] >= 0 else m1
+                        k += 1
+                    eobrun -= 1
+            if p > nbits:
+                raise _refuse(name, BREAKS_OFF)
 
 
 # ISLOW constants (jidctint.c), FIX(x) = round(x * 2^13)
@@ -521,13 +674,14 @@ _TLS = threading.local()
 INFO_LEN = 48
 _GROW = -13  # the caller's buffers are too small for the record just filled in
 # fce_jpeg_* return codes below 0 -> what the file is
-_ERRORS = {-1: "not a JPEG file or a corrupt one", -2: "a progressive JPEG (SOF2) file",
+_ERRORS = {-1: "not a JPEG file or a corrupt one", -2: UNFINISHED,
            -3: "an arithmetic-coded JPEG file", -4: "a JPEG of another precision than 8 bits",
            -5: "a lossless JPEG (SOF3) file", -6: "a 4-component JPEG (CMYK/YCCK) file",
            -7: "a hierarchical JPEG file", -8: "JPEG data that ends or breaks off before the EOI marker",
            -9: "a JPEG with fractional sampling ratios", -10: "a JPEG that uses an undefined table",
            -11: "a JPEG sized by DNL (height 0)",
-           -12: "a JPEG over 2^30 pixels (cv2's limit) or over 2^31 - 1 bytes of coefficients or BGR"}
+           -12: "a JPEG over 2^30 pixels (cv2's limit) or over 2^31 - 1 bytes of coefficients or BGR",
+           -14: "a progressive JPEG with a bad scan (its Ss, Se, Ah or Al)", -15: BREAKS_OFF}
 
 
 def _check(code: int, name: str, what: str) -> None:

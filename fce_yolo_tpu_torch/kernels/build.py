@@ -56,6 +56,9 @@ SIGNATURES = {
     # mask (host uint8), H, W, row stride, points (host int32 pairs), their capacity, counts (host int32), their
     # capacity, sizes (host int64 [2]); host code only (csrc/contours.cu)
     "fce_find_contours": [_P, _I, _I, _L, _P, _L, _P, _L, _P],
+    # compression (5 LZW, 32773 PackBits), src (host), its length, dst (host), the bytes to decode; host code
+    # only (csrc/imgcodecs.cu)
+    "fce_tiff_decode": [_I, _P, _L, _P, _L],
 }
 
 

@@ -586,8 +586,9 @@ def test_jpeg_decode_from_eight_threads(cuda):
 
 @pytest.mark.cuda
 def test_jpeg_on_the_card_refuses_and_reads_through_imread(cuda, tmp_path):
-    """imread on the card: a JPEG file equals the plain path; a file cut off
-    before EOI and a progressive header raise ValueError naming the file."""
+    """imread on the card: a JPEG file and a progressive one equal the plain
+    path; a file cut off before EOI and a progressive one whose scans leave
+    coefficients unfinished raise ValueError naming the file."""
     from fce_yolo_tpu_torch.data import jpeg as J
     from fce_yolo_tpu_torch.data.imread import imread
 
@@ -598,12 +599,36 @@ def test_jpeg_on_the_card_refuses_and_reads_through_imread(cuda, tmp_path):
     with pytest.raises(ValueError, match="cut.jpg: JPEG data that ends"):
         imread(tmp_path / "cut.jpg", cuda)
     sof = buf.index(b"\xff\xc0")
-    (tmp_path / "p.jpg").write_bytes(buf[:sof] + b"\xff\xc2" + buf[sof + 2:])
-    with pytest.raises(ValueError, match="p.jpg: a progressive JPEG"):
-        imread(tmp_path / "p.jpg", cuda)
+    prog = _jpeg_writer()(_jpeg_image(np.random.RandomState(3), 50, 70), 90, "420", 2, progressive=True)
+    (tmp_path / "p.jpg").write_bytes(prog)  # a progressive file decodes on the card as the plain path decodes it
+    np.testing.assert_array_equal(imread(tmp_path / "p.jpg", cuda), J.decode_jpeg_reference(prog))
+    cut = prog[: [i for i in range(len(prog)) if prog.startswith(b"\xff\xda", i)][2]] + b"\xff\xd9"
+    (tmp_path / "u.jpg").write_bytes(cut)
+    with pytest.raises(ValueError, match="u.jpg: a progressive JPEG whose scans leave coefficients unfinished"):
+        imread(tmp_path / "u.jpg", cuda)
     (tmp_path / "big.jpg").write_bytes(buf[:sof + 5] + b"\xff\xff\xff\xff" + buf[sof + 9:])  # 65535 x 65535
     with pytest.raises(ValueError, match="big.jpg: a JPEG over 2.30 pixels"):
         imread(tmp_path / "big.jpg", cuda)
+
+
+@pytest.mark.cuda
+def test_still_formats_on_the_card_read_as_on_the_cpu(cuda, tmp_path):
+    """imread with the card's device: TIFF's LZW and PackBits through the
+    host C++ of the kernel libraries, BMP, 16-bit and Adam7 PNG: the same
+    pixels as the plain readers (``device="cpu"``) and as written."""
+    from fce_yolo_tpu_torch.data.imread import imread
+
+    _jpeg_writer()  # puts the repository's root, and chip_smoke.py's writers, on the path
+    import chip_smoke
+
+    rgb = np.random.RandomState(4).randint(0, 256, (67, 91, 3)).astype(np.uint8)
+    files = {"a.tif": chip_smoke.tiff_bytes(rgb, 5, 2), "b.tif": chip_smoke.tiff_bytes(rgb, 32773, tile=(32, 32)),
+             "c.bmp": chip_smoke.bmp_bytes(rgb), "d.png": chip_smoke.png_bytes(rgb, 16, True)}
+    for name, data in files.items():
+        (tmp_path / name).write_bytes(data)
+        out = imread(tmp_path / name, cuda)
+        np.testing.assert_array_equal(out, imread(tmp_path / name, "cpu"))
+        np.testing.assert_array_equal(out, rgb[..., ::-1])
 
 
 # ------------------------------------------------------------ task heads

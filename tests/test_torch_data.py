@@ -10,6 +10,7 @@ one); metrics within 1e-12 (the same numpy code on the same inputs).
 """
 
 import shutil
+import sys
 import struct
 import zlib
 from pathlib import Path
@@ -122,13 +123,17 @@ def test_imread_npy_and_unsupported(tmp_path):
     img = np.random.RandomState(0).randint(0, 256, (12, 10, 3)).astype(np.uint8)
     np.save(tmp_path / "a.npy", img)
     np.testing.assert_array_equal(imread(tmp_path / "a.npy"), img)
-    cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])  # baseline JPEG reads; progressive not
+    cv2.imwrite(str(tmp_path / "a.jpg"), img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     cv2.imwrite(str(tmp_path / "deep.png"), img.astype(np.uint16) * 257)  # 16-bit PNG
-    write_png(tmp_path / "laced.png", img, 2, [0] * 12, interlace=1)
+    sys.path.insert(0, str(REPO))
+    import chip_smoke
+
+    (tmp_path / "laced.png").write_bytes(chip_smoke.png_bytes(img[..., ::-1].copy(), interlace=True))  # Adam7
     np.save(tmp_path / "f.npy", img.astype(np.float32))
-    for name in ("a.jpg", "deep.png", "laced.png", "f.npy"):
-        with pytest.raises(ValueError, match="only.*baseline|baseline.*only"):
-            imread(tmp_path / name, device="cpu")
+    for name in ("a.jpg", "deep.png", "laced.png"):  # progressive JPEG, 16-bit and Adam7 PNG: read as cv2 reads them
+        np.testing.assert_array_equal(imread(tmp_path / name, device="cpu"), cv2.imread(str(tmp_path / name)))
+    with pytest.raises(ValueError, match="only.*baseline|baseline.*only"):
+        imread(tmp_path / "f.npy", device="cpu")
     with pytest.raises(FileNotFoundError):
         imread(tmp_path / "missing.png")
 

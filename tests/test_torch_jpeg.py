@@ -5,11 +5,16 @@ them (Adobe RGB, EXIF orientation, data cut short, refused formats).
 
 Tolerance: none. Every image equals the JAX package's byte for byte.
 
+Progressive files (SOF2) decode bit-equal too: cv2's and PIL's (optimised
+Huffman tables redefined between scans), and chip_smoke.py's writer's
+(libjpeg's simple progression over a baseline file's coefficients).
+
 Where the port departs from the JAX package on purpose, a test says so:
-a file cut short with no EOI marker, and a progressive, arithmetic, 12-bit,
-lossless or CMYK file, raise ``ValueError`` naming the file (cv2 returns
-None for the first and decodes the others). A frame over cv2's 2^30 pixels
-raises where cv2 returns None.
+a file cut short with no EOI marker, a progressive file whose scans leave
+coefficients unfinished (libjpeg smooths its blocks), and an arithmetic,
+12-bit, lossless or CMYK file, raise ``ValueError`` naming the file (cv2
+returns None for the first and decodes the others). A frame over cv2's
+2^30 pixels raises where cv2 returns None.
 """
 
 import struct
@@ -175,9 +180,10 @@ def test_jpeg_without_eoi_raises_where_cv2_gives_none(tmp_path):
 
 def _refused(tmp_path, kind) -> Path:
     img = _image(np.random.RandomState(5), 16, 24)
-    if kind == "progressive":
+    if kind == "progressive":  # cv2's progressive file cut after its second scan: the coefficients stay unfinished
         ok, buf = cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
         buf = buf.tobytes()
+        buf = buf[: [i for i in range(len(buf)) if buf.startswith(b"\xff\xda", i)][2]] + b"\xff\xd9"
     else:
         buf = _write(tmp_path / "src.jpg", img).read_bytes()
         sof = buf.index(b"\xff\xc0")
@@ -201,6 +207,9 @@ def _refused(tmp_path, kind) -> Path:
 
 @pytest.mark.parametrize("kind", ["progressive", "arithmetic", "lossless", "12-bit", "cmyk", "too-large"])
 def test_jpeg_outside_baseline_raises_naming_the_file(tmp_path, kind):
+    """The files the port refuses; "progressive" is a progressive file whose
+    scan script stops before its coefficients are finished, which cv2 reads
+    with libjpeg's block smoothing and the port does not."""
     path = _refused(tmp_path, kind)
     with pytest.raises(ValueError, match=f"{kind}.jpg: .*the port reads baseline"):
         imread(path, device="cpu")
@@ -348,3 +357,89 @@ def test_jpeg_slot_2_without_a_table_still_raises(tmp_path):
     assert jax_imread(path) is None
     with pytest.raises(ValueError, match="slot2.jpg: a scan uses a Huffman table"):
         imread(path, device="cpu")
+
+
+def _progressive(img, sampling="420", quality=95, restart=0, optimize=False):
+    params = [cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL,
+              restart, cv2.IMWRITE_JPEG_OPTIMIZE, int(optimize)]
+    if sampling == "gray":
+        img = img[..., 0]
+    else:
+        params += [cv2.IMWRITE_JPEG_SAMPLING_FACTOR, SAMPLING[sampling]]
+    ok, buf = cv2.imencode(".jpg", img, params)
+    assert ok
+    return buf.tobytes()
+
+
+@pytest.mark.parametrize("restart", [0, 1, 5])
+@pytest.mark.parametrize("quality", [30, 75, 95, 100])
+@pytest.mark.parametrize("sampling", ["411", "420", "422", "440", "444", "gray"])
+def test_progressive_jpeg_matches_jax_imread(tmp_path, sampling, quality, restart):
+    """cv2's progressive files (libjpeg's simple progression: DC and AC
+    successive approximation, EOB runs; a Huffman table per scan), every
+    sampling, gray, restart intervals, sizes that are not whole MCUs."""
+    rng = np.random.RandomState(quality + restart + len(sampling))
+    for h, w in SIZES[:5] + [(64, 64)]:
+        path = tmp_path / f"{h}x{w}.jpg"
+        path.write_bytes(_progressive(_image(rng, h, w), sampling, quality, restart))
+        assert J.parse_jpeg(path.read_bytes()).progressive
+        _assert_equal_to_jax(path)
+
+
+@pytest.mark.parametrize("optimize", [False, True])
+@pytest.mark.parametrize("orientation", [1, 6, 8])
+def test_progressive_jpeg_from_pil_with_exif_matches_jax_imread(tmp_path, orientation, optimize):
+    """PIL's progressive files (optimised tables or not) with an EXIF
+    orientation."""
+    from PIL import Image
+
+    img = Image.fromarray(_image(np.random.RandomState(orientation), 37, 52))
+    ex = Image.Exif()
+    ex[0x0112] = orientation
+    img.save(tmp_path / "a.jpg", quality=90, progressive=True, optimize=optimize, exif=ex)
+    _assert_equal_to_jax(tmp_path / "a.jpg")
+
+
+@pytest.mark.parametrize("sampling", ["444", "422", "420", "440", "411", "gray"])
+def test_chip_smoke_progressive_writer_gives_cv2s_baseline_pixels(sampling):
+    """chip_smoke.py's progressive writer codes its baseline output's
+    quantised coefficients: cv2 decodes the two files to the same pixels,
+    the port's plain path gives cv2's bytes and the same coefficients."""
+    chip_smoke = _chip_smoke()
+    rng = np.random.RandomState(12)
+    for (h, w), quality, restart in [((1, 1), 50, 0), ((7, 9), 75, 1), ((17, 33), 100, 7), ((40, 56), 95, 0),
+                                     ((64, 80), 90, 3)]:
+        rgb = _image(rng, h, w)
+        src = rgb[..., 0] if sampling == "gray" else rgb
+        args = (src, quality, "444" if sampling == "gray" else sampling, restart)
+        base, prog = chip_smoke.jpeg_bytes(*args), chip_smoke.jpeg_bytes(*args, progressive=True)
+        ref = cv2.imdecode(np.frombuffer(base, np.uint8), cv2.IMREAD_COLOR)
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(prog, np.uint8), cv2.IMREAD_COLOR), ref)
+        np.testing.assert_array_equal(J.decode_jpeg_reference(prog), ref)
+        hb, hp = J.parse_jpeg(base), J.parse_jpeg(prog)
+        assert hp.progressive and len(hp.scans) == (10 if sampling != "gray" else 6)
+        for cb, cp, c in zip(J.entropy_decode(hb), J.entropy_decode(hp), hb.comps):
+            rows, cols = -(-c.height // 8), -(-c.width // 8)
+            np.testing.assert_array_equal(cb[:rows, :cols], cp[:rows, :cols])
+
+
+@pytest.mark.parametrize("kind", ["breaks-off", "bad-scan"])
+def test_progressive_jpeg_refusals(tmp_path, kind):
+    """A progressive file whose data breaks off inside a scan before EOI
+    (cv2 reads what is there; the port raises, naming it), and one whose
+    scan header breaks the progression rules (cv2 reads none)."""
+    buf = _progressive(_image(np.random.RandomState(13), 48, 64), "420", 90)
+    sos = [i for i in range(len(buf)) if buf.startswith(b"\xff\xda", i)]
+    if kind == "breaks-off":
+        buf = buf[: sos[-1] + (len(buf) - sos[-1]) // 2] + b"\xff\xd9"
+        match, cv2_reads = "breaks off", True
+    else:
+        ns = buf[sos[1] + 4]
+        at = sos[1] + 5 + 2 * ns  # Ss of the second scan (an AC scan): 0 with Se > 0
+        buf = buf[:at] + b"\x00" + buf[at + 1:]
+        match, cv2_reads = "bad scan", False
+    path = tmp_path / "p.jpg"
+    path.write_bytes(buf)
+    with pytest.raises(ValueError, match=f"p.jpg: .*{match}"):
+        imread(path, device="cpu")
+    assert (jax_imread(path) is not None) == cv2_reads

@@ -28,7 +28,7 @@ import torch
 
 from cuda_emu.emulate import CSRC, build, emulated
 from fce_yolo_tpu_torch.data import jpeg as J
-from test_torch_jpeg import _chip_smoke, _exif, _image, _refused, _segment, _without_app0, _write
+from test_torch_jpeg import _chip_smoke, _exif, _image, _progressive, _refused, _segment, _without_app0, _write
 
 
 def _emulated_source() -> str:
@@ -133,11 +133,21 @@ def test_emulated_decoder_headers_and_cut_data(emulator, tmp_path, kind):
 
 
 @pytest.mark.parametrize("kind,code", [("progressive", -2), ("arithmetic", -3), ("lossless", -5), ("12-bit", -4),
-                                       ("cmyk", -6), ("no-eoi", -8), ("too-large", -12)])
+                                       ("cmyk", -6), ("no-eoi", -8), ("too-large", -12), ("breaks-off", -15),
+                                       ("bad-scan", -14)])
 def test_emulated_decoder_refuses(emulator, tmp_path, kind, code):
     """The C parser's codes for the files the port refuses (data/jpeg.py
-    ``_ERRORS`` turns each into a ValueError naming the file)."""
-    if kind == "no-eoi":
+    ``_ERRORS`` turns each into a ValueError naming the file); "progressive"
+    is one whose scans leave coefficients unfinished."""
+    if kind in ("breaks-off", "bad-scan"):
+        buf = _progressive(_image(np.random.RandomState(13), 48, 64), "420", 90)
+        sos = [i for i in range(len(buf)) if buf.startswith(b"\xff\xda", i)]
+        if kind == "breaks-off":
+            buf = buf[: sos[-1] + (len(buf) - sos[-1]) // 2] + b"\xff\xd9"
+        else:
+            at = sos[1] + 5 + 2 * buf[sos[1] + 4]
+            buf = buf[:at] + b"\x00" + buf[at + 1:]
+    elif kind == "no-eoi":
         buf = _write(tmp_path / "a.jpg", _image(np.random.RandomState(3), 16, 16)).read_bytes()[:-2]
     else:
         buf = _refused(tmp_path, kind).read_bytes()
@@ -190,3 +200,38 @@ def test_emulated_writer_matches_plain(encoder, tmp_path, h, w, c, quality):
     buf = (tmp_path / "out.jpg").read_bytes()
     assert buf == JW.encode_jpeg_reference(img, quality)
     assert buf == cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_QUALITY, quality])[1].tobytes()
+
+
+@pytest.mark.parametrize("sampling", ["411", "420", "422", "440", "444", "gray"])
+@pytest.mark.parametrize("h,w,quality,restart", [(1, 1, 30, 0), (1, 17, 75, 1), (15, 1, 100, 5), (33, 47, 95, 5),
+                                                 (33, 47, 50, 0), (64, 64, 90, 0)])
+def test_emulated_decoder_progressive_matches_plain(emulator, tmp_path, sampling, h, w, quality, restart):
+    """Progressive files (cv2's: DC and AC successive approximation, EOB
+    runs, a Huffman table per scan) through the C host decoder: the same
+    coefficients as the Python decoder, no tolerance, and the kernels' pixels
+    as the plain path's."""
+    img = _image(np.random.RandomState(h * w + quality), h, w)
+    _assert_matches_plain(emulator, _progressive(img, sampling, quality, restart))
+
+
+@pytest.mark.parametrize("kind", ["chip-smoke-420", "chip-smoke-gray", "pil-optimised-exif"])
+def test_emulated_decoder_progressive_writers(emulator, tmp_path, kind):
+    """chip_smoke.py's progressive writer (restart interval 3, Annex K DC
+    tables and one AC table redefined before every AC scan) and PIL's with
+    optimised tables and an EXIF orientation."""
+    rng = np.random.RandomState(len(kind))
+    img = _image(rng, 41, 67)
+    if kind.startswith("chip-smoke"):
+        buf = _chip_smoke().jpeg_bytes(img[..., 0] if kind.endswith("gray") else img, 90, "420", 3, progressive=True)
+    else:
+        import io
+
+        from PIL import Image
+
+        b = io.BytesIO()
+        ex = Image.Exif()
+        ex[0x0112] = 6
+        Image.fromarray(img).save(b, "JPEG", quality=85, progressive=True, optimize=True, exif=ex)
+        buf = b.getvalue()
+    info = _assert_matches_plain(emulator, buf)
+    assert info[4] == (6 if kind.startswith("pil") else 1)

@@ -271,10 +271,48 @@ def test_predict_on_image_files_matches_jax_facade(jpeg_dir, predict_pair, form)
         np.testing.assert_allclose(o.boxes.conf, r.boxes.conf, rtol=0, atol=1e-5)
 
 
+def test_predict_on_every_still_format_matches_jax_facade(predict_pair, tmp_path):
+    """``YOLO.predict`` over a directory holding one file of each format the
+    port reads (BMP, a DNG's preview, progressive JPEG, MPO, 16-bit Adam7
+    PNG, PFM, LZW TIFF and PackBits-tiled TIFF): the JAX facade's paths, in
+    its order, and detections within this file's tolerance."""
+    from PIL import Image
+
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as C
+
+    jy, port = predict_pair
+    rng = np.random.RandomState(14)
+    rgb = [rng.randint(0, 256, (int(rng.randint(64, 128)), int(rng.randint(64, 128)), 3)).astype(np.uint8)
+           for _ in range(8)]
+    files = {"a.bmp": C.bmp_bytes(rgb[0]), "c.jpg": C.jpeg_bytes(rgb[2], 90, "420", 2, progressive=True),
+             "e.png": C.png_bytes(rgb[4], 16, True), "g.tif": C.tiff_bytes(rgb[6], 5, 2),
+             "h.tiff": C.tiff_bytes(rgb[7], 32773, tile=(32, 32)),
+             "b.dng": C.tiff_bytes(rgb[1], tags={50706: ("B", [1, 4, 0, 0]), 254: ("I", [1])}),
+             "f.pfm": b"PF\n%d %d\n-1.0\n" % (rgb[5].shape[1], rgb[5].shape[0])
+             + rgb[5][::-1].astype("<f4").tobytes()}
+    for name, buf in files.items():
+        (tmp_path / name).write_bytes(buf)
+    frames = [Image.fromarray(rgb[3]), Image.fromarray(rgb[0])]
+    frames[0].save(tmp_path / "d.mpo", save_all=True, append_images=frames[1:])
+    ref = jy.predict(str(tmp_path), imgsz=128, batch=3)
+    out = port.predict(str(tmp_path), imgsz=128, batch=3)
+    assert [Path(r.path).name for r in out] == [Path(r.path).name for r in ref] == sorted(files)[:3] + ["d.mpo"] + \
+        sorted(files)[3:]
+    for r, o in zip(ref, out):
+        np.testing.assert_array_equal(o.orig_img, r.orig_img)
+        assert len(o) == len(r) > 0
+        np.testing.assert_array_equal(o.boxes.cls, r.boxes.cls)
+        np.testing.assert_allclose(o.boxes.xyxy, r.boxes.xyxy, rtol=0, atol=1e-3)
+        np.testing.assert_allclose(o.boxes.conf, r.boxes.conf, rtol=0, atol=1e-5)
+
+
 def test_predict_sources_the_port_refuses(jpeg_dir, tmp_path):
     """A file the port cannot read raises, where the JAX facade skips it in
-    a directory (a progressive JPEG, which cv2 reads but the port does not;
-    a corrupt one, which neither reads); network streams, webcams,
+    a directory (a progressive JPEG whose scans leave coefficients
+    unfinished, which cv2 reads with block smoothing and the port does not;
+    a corrupt one, which neither reads; a complete progressive JPEG reads as
+    cv2 reads it); network streams, webcams,
     screenshots and video containers other than AVI raise
     NotImplementedError, a missing ``.streams`` file FileNotFoundError; a
     PIL image is read as the reference reads it."""
@@ -290,9 +328,14 @@ def test_predict_sources_the_port_refuses(jpeg_dir, tmp_path):
     assert list(jax_load_source(str(bad))) == []  # the reference skips what cv2 cannot read
     with pytest.raises(ValueError, match="broken.jpg"):
         list(load_source(str(bad), "cpu"))
-    cv2.imwrite(str(tmp_path / "p.jpg"), _images()[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    with pytest.raises(ValueError, match="p.jpg: a progressive JPEG"):
-        list(load_source(str(tmp_path / "p.jpg"), "cpu"))
+    cv2.imwrite(str(tmp_path / "p.jpg"), _images()[0], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])  # reads, as cv2 reads it
+    (img, _), = list(load_source(str(tmp_path / "p.jpg"), "cpu"))
+    np.testing.assert_array_equal(img, cv2.imread(str(tmp_path / "p.jpg")))
+    buf = (tmp_path / "p.jpg").read_bytes()  # cut after its second scan: unfinished, which libjpeg smooths
+    (tmp_path / "u.jpg").write_bytes(buf[: [i for i in range(len(buf)) if buf.startswith(b"\xff\xda", i)][2]]
+                                     + b"\xff\xd9")
+    with pytest.raises(ValueError, match="u.jpg: a progressive JPEG whose scans leave coefficients unfinished"):
+        list(load_source(str(tmp_path / "u.jpg"), "cpu"))
     for src, what in (("rtsp://localhost:8554/cam", "network streams"), ("0", "webcam 0"),
                       ("screen 0", "screen capture"), (str(tmp_path / "clip.mp4"), "the mp4 video container")):
         with pytest.raises(NotImplementedError, match=what):
