@@ -432,9 +432,7 @@ def phase_e2e(yolo, spec, card: str) -> dict:
     from fce_yolo_tpu_torch.ops.nms import batched_nms
     from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_weights
 
-    rng = np.random.RandomState(SEED + 1)
-    imgs = [rng.randint(0, 256, (IMGSZ, IMGSZ, 3), np.uint8) for _ in range(E2E_BATCHES * E2E_BATCH)]
-    imgs.append(rng.randint(0, 256, (IMGSZ * 3 // 4, IMGSZ, 3), np.uint8))  # letterboxed
+    imgs = e2e_images(SEED + 1, E2E_BATCHES)
     yolo.predict(imgs[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up: cuDNN plans, allocator
     torch.cuda.synchronize()
 
@@ -2062,12 +2060,12 @@ def step_delta_check(data: dict, card: str) -> float:
     return du
 
 
-def train_step_times(bdev: dict, nc: int) -> dict:
+def train_step_times(bdev: dict, nc: int, name: str = "yolo11s-fce.yaml", bf16s: tuple = (True, False)) -> dict:
     """The train step (forward + loss + backward + clip + AdamW + EMA, with
-    its one host sync) of yolo11s-fce on a batch already on the card: CUDA
-    events over 5 steps after 2, in bf16 autocast and in float32 (TF32 off),
-    with the peak memory of each; then AdamW + EMA alone on the float32
-    model (10 calls after 2)."""
+    its one host sync) of ``name`` on a batch already on the card: CUDA
+    events over 5 steps after 2 (and the first step alone, on the host
+    clock), in bf16 autocast and in float32 (TF32 off), with the peak memory
+    of each; then AdamW + EMA alone on the float32 model (10 calls after 2)."""
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
     from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
@@ -2075,15 +2073,17 @@ def train_step_times(bdev: dict, nc: int) -> dict:
 
     batch = int(bdev["img"].shape[0])
     out = {}
-    for bf16 in (True, False):
-        yolo = YOLO("yolo11s-fce.yaml", device="cuda")
+    for bf16 in bf16s:
+        yolo = YOLO(name, device="cuda")
         opt = Optimizer(OptimCfg(optimizer="AdamW", batch_size=batch, nbs=batch, nc=nc), yolo.model)
         state = create_train_state(yolo.model, opt)
         step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=nc, strides=tuple(yolo.strides)), bf16=bf16)
+        tag = "bf16" if bf16 else "f32"
+        t0 = time.perf_counter()
         step(state, bdev)
         torch.cuda.synchronize()
+        out[f"first_step_ms_{tag}"] = (time.perf_counter() - t0) * 1e3
         torch.cuda.reset_peak_memory_stats()
-        tag = "bf16" if bf16 else "f32"
         out[f"step_ms_{tag}"] = cuda_ms(lambda: step(state, bdev), iters=5, warmup=2)
         out[f"peak_gib_{tag}"] = torch.cuda.max_memory_allocated() / 2**30
         if not bf16:
@@ -2095,16 +2095,22 @@ def train_step_times(bdev: dict, nc: int) -> dict:
     return out
 
 
-def time_train_step(data: dict, card: str) -> dict:
-    """Phase train (c): ``train_step_times`` on a mosaic batch, and one
-    mosaic item's host time on one thread."""
+def step_batch(data: dict):
+    """The first mosaic batch of ``data``'s train split on the card, and its dataset."""
     from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
     from fce_yolo_tpu_torch.data.loader import DataLoader
 
     d = check_det_dataset(data)
     ds = YOLODataset(d["train"], imgsz=IMGSZ, mode="train", nc=VAL_NC)
     batch = next(iter(DataLoader(ds, batch_size=VAL_BATCH, workers=8)))
-    out = train_step_times({k: torch.from_numpy(batch[k]).cuda() for k in ("img", "cls", "bboxes", "mask")}, VAL_NC)
+    return {k: torch.from_numpy(batch[k]).cuda() for k in ("img", "cls", "bboxes", "mask")}, ds
+
+
+def time_train_step(data: dict, card: str) -> dict:
+    """Phase train (c): ``train_step_times`` on a mosaic batch, and one
+    mosaic item's host time on one thread."""
+    bdev, ds = step_batch(data)
+    out = train_step_times(bdev, VAL_NC)
     rng = np.random.default_rng(SEED)
     t0 = time.perf_counter()
     for i in range(4):
@@ -2492,13 +2498,24 @@ def task_matching_model(yolo, task: str):
     return yolo
 
 
-def task_predict(task: str, card: str) -> dict:
-    """(a) ``YOLO.predict`` of the task's yolo11s model (bf16, folded, seed
-    weights without the class prior) on 33 random arrays at B=16: the stem
-    kernel launched once a batch, and the NMS kernel too but for OBB; finite
-    results of the task's kind. On the first batch as the predictor fed it:
-    the stem kernel against its plain version, the kernel path's preds
-    against the plain-stem path's, and (segment, pose) the NMS kernel's
+def e2e_images(seed: int, batches: int) -> list[np.ndarray]:
+    """``batches`` batches of random 640x640 arrays and one letterboxed 480x640 one."""
+    rng = np.random.RandomState(seed)
+    imgs = [rng.randint(0, 256, (IMGSZ, IMGSZ, 3), np.uint8) for _ in range(batches * E2E_BATCH)]
+    imgs.append(rng.randint(0, 256, (IMGSZ * 3 // 4, IMGSZ, 3), np.uint8))
+    return imgs
+
+
+def task_predict(task: str, card: str, name: str | None = None, imgs: list | None = None,
+                 stem: bool = True) -> dict:
+    """(a) ``YOLO.predict`` of the task's model (the yolo11s one unless
+    ``name`` is given; bf16, folded, seed weights without the class prior) on
+    33 random arrays (or ``imgs``) at B=16: the stem kernel launched once a
+    batch when ``stem`` (the model must take it, else it must not), the NMS
+    kernel once a batch but for OBB; finite results of the task's kind. On
+    the first batch as the predictor fed it: the stem kernel against its
+    plain version and the kernel path's preds against the plain-stem path's
+    (when it takes the stem), and (detect, segment, pose) the NMS kernel's
     idx/ok, boxes, keypoints and masks equal to the plain version's on the
     same preds. Returns the launches and the numbers."""
     from fce_yolo_tpu_torch import YOLO
@@ -2507,14 +2524,14 @@ def task_predict(task: str, card: str) -> dict:
     from fce_yolo_tpu_torch.nn.model import init_weights
     from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
 
-    yolo = YOLO(TASK_MODELS[task], device="cuda")
+    name = name or TASK_MODELS[task]
+    yolo = YOLO(name, device="cuda")
     init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
     yolo.to(torch.bfloat16).fuse()
+    check(yolo.task == task, f"{name}: task {yolo.task}, expected {task}")
     spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
-    check(spec is not None, f"{TASK_MODELS[task]} must take the fused stem")
-    rng = np.random.RandomState(SEED + 6)
-    imgs = [rng.randint(0, 256, (IMGSZ, IMGSZ, 3), np.uint8) for _ in range(2 * E2E_BATCH)]
-    imgs.append(rng.randint(0, 256, (IMGSZ * 3 // 4, IMGSZ, 3), np.uint8))  # letterboxed
+    check((spec is not None) == stem, f"{name} {'must' if stem else 'must not'} take the fused stem")
+    imgs = imgs if imgs is not None else e2e_images(SEED + 6, 2)
     yolo.predict(imgs[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
     torch.cuda.synchronize()
 
@@ -2537,24 +2554,30 @@ def task_predict(task: str, card: str) -> dict:
     launches = read_launches()
     n_batches = -(-len(imgs) // E2E_BATCH)
     want_nms = 0 if task == "obb" else n_batches  # OBB suppresses with probiou (torch ops)
-    check(launches == no_jpeg(fused_stem=n_batches, pick_suppress=want_nms),
-          f"{task} predict: launches {launches}, expected the stem and {want_nms} NMS for {n_batches} batches")
+    want_stem = n_batches if stem else 0
+    check(launches == no_jpeg(fused_stem=want_stem, pick_suppress=want_nms),
+          f"{name} predict: launches {launches}, expected {want_stem} stem and {want_nms} NMS for {n_batches} batches")
 
     model = yolo.model
     batch = torch.from_numpy(np.stack([np.ascontiguousarray(letterbox(im, IMGSZ, scaleup=False)[0][..., ::-1])
                                        for im in imgs[:E2E_BATCH]])).cuda()
-    weights = stem_weights(fold_stem_params(model, spec), spec)
-    _, stem_rel, stem_spread = check_stem(batch, weights, spec, f"phase tasks {task}")
     x = (batch.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
     predictor = DetectionPredictor(model, yolo.names, imgsz=IMGSZ, batch_size=E2E_BATCH)
+    stem_rel = stem_spread = dmax = bound = corr = None
     with torch.inference_mode():
-        out = apply_with_fused_stem(model, batch, spec, weights)
         plain_out = model(x)
-    fused, plain = out["preds"].float().cpu().numpy(), plain_out["preds"].float().cpu().numpy()
-    dmax = float(np.abs(fused - plain).max())
-    bound = 0.02 * max(float(np.abs(plain).max()), 1.0)
-    corr = float(np.corrcoef(fused.ravel(), plain.ravel())[0, 1])
-    check(dmax <= bound and corr > 0.9999, f"{task}: kernel path preds differ: max|d|={dmax} (<= {bound}), corr={corr}")
+    out = plain_out
+    if stem:
+        weights = stem_weights(fold_stem_params(model, spec), spec)
+        _, stem_rel, stem_spread = check_stem(batch, weights, spec, f"{name} predict")
+        with torch.inference_mode():
+            out = apply_with_fused_stem(model, batch, spec, weights)
+        fused, plain = out["preds"].float().cpu().numpy(), plain_out["preds"].float().cpu().numpy()
+        dmax = float(np.abs(fused - plain).max())
+        bound = 0.02 * max(float(np.abs(plain).max()), 1.0)
+        corr = float(np.corrcoef(fused.ravel(), plain.ravel())[0, 1])
+        check(dmax <= bound and corr > 0.9999, f"{name}: kernel path preds differ: max|d|={dmax} (<= {bound}), "
+              f"corr={corr}")
 
     def host(run_masks: bool):
         nms = predictor.postprocess(out)
@@ -2567,7 +2590,7 @@ def task_predict(task: str, card: str) -> dict:
     if task != "obb":
         calls: list = []
         outs = kernel_vs_plain(lambda: host(task == "segment"), calls, min(NMS_K, out["preds"].shape[1]),
-                               predictor.iou, predictor.max_det, f"{task} predict")
+                               predictor.iou, predictor.max_det, f"{name} predict")
         kept = int(outs["kernel"]["valid"].sum())
 
     def device_path():
@@ -3465,6 +3488,179 @@ def phase_classify(root: Path, short_avi: Path, card: str) -> dict:
             "classify_train": train_launches}
 
 
+# ------------------------------------------------------------ phase families
+FAMILIES = (  # every v3/v5/v6/v8/v9/yolo12 YAML the port ships (fce_yolo_tpu_torch/cfg/models/)
+    "yolov3", "yolov3-spp", "yolov3-tiny", "yolov5", "yolov5-p6", "yolov6",
+    "yolov8", "yolov8-p2", "yolov8-p6", "yolov8-ghost", "yolov8-ghost-p2", "yolov8-ghost-p6",
+    "yolov8-seg", "yolov8-seg-p6", "yolov8-pose", "yolov8-pose-p6", "yolov8-obb",
+    "yolov8-cls", "yolov8-cls-resnet50", "yolov8-cls-resnet101",
+    "yolov9t", "yolov9s", "yolov9m", "yolov9c", "yolov9e", "yolov9c-seg", "yolov9e-seg",
+    "yolo12", "yolo12-seg", "yolo12-pose", "yolo12-obb", "yolo12-cls",
+)
+FAMILY_BATCH = 2  # phase families (a): one forward of each YAML
+
+
+def shapes_of(out) -> object:
+    """The nested shapes of a forward's output dict."""
+    if isinstance(out, dict):
+        return {k: shapes_of(v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return [shapes_of(v) for v in out]
+    return tuple(out.shape)
+
+
+def finite(out) -> bool:
+    if isinstance(out, dict):
+        return all(finite(v) for v in out.values())
+    if isinstance(out, (list, tuple)):
+        return all(finite(v) for v in out)
+    return bool(torch.isfinite(out).all())
+
+
+def family_forwards(card: str) -> dict:
+    """(a) Every YAML of FAMILIES at its first scale (full width where it has
+    none) built on the card, one forward at B=2, 640 px (224 for classify),
+    float32 then bf16: output shapes equal to the same graph's on the meta
+    device (the host's parse; no memory, no arithmetic), finite, and
+    ``param_count`` equal to the meta build's. Returns {name: ms}."""
+    from fce_yolo_tpu_torch.cfg.models import load_model_dict
+    from fce_yolo_tpu_torch.nn.model import build_model, param_count
+
+    times = {}
+    for name in FAMILIES:
+        d, _ = load_model_dict(f"{name}.yaml")
+        scale = next(iter(d["scales"])) if d.get("scales") else None
+        ref, spec, strides = build_model(d, scale=scale, device="meta")
+        size = 224 if spec.task == "classify" else IMGSZ
+        with torch.inference_mode():
+            want = shapes_of(ref(torch.empty(FAMILY_BATCH, 3, size, size, device="meta")))
+        x = torch.from_numpy(np.random.RandomState(SEED + 20).rand(FAMILY_BATCH, 3, size, size).astype(np.float32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model, _, _ = build_model(d, scale=scale, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        row = {"build_ms": (t1 - t0) * 1e3}
+        for dtype in (torch.float32, torch.bfloat16):
+            model.to(dtype)
+            with torch.inference_mode():
+                t0 = time.perf_counter()
+                out = model(x.cuda().to(dtype, memory_format=torch.channels_last))
+                torch.cuda.synchronize()
+                row[f"{str(dtype)[6:]}_ms"] = (time.perf_counter() - t0) * 1e3
+            check(shapes_of(out) == want, f"phase families (a) {name} {dtype}: shapes {shapes_of(out)} != {want}")
+            check(finite(out), f"phase families (a) {name} {dtype}: output not finite")
+        check(param_count(model) == param_count(ref), f"phase families (a) {name}: {param_count(model)} parameters "
+              f"on the card, {param_count(ref)} on the host")
+        times[name] = row
+        print(f"phase families (a): {name}{scale or ''} {spec.task} {param_count(model):,} params, strides {strides}, "
+              f"B={FAMILY_BATCH} {size} px: build {row['build_ms']:.1f} ms, first forward float32 "
+              f"{row['float32_ms']:.1f} ms, bfloat16 {row['bfloat16_ms']:.1f} ms (host clock, cuDNN's set-up "
+              f"included) [{card}]", flush=True)
+        del model, out
+    torch.cuda.empty_cache()
+    return times
+
+
+def family_val(name: str, data: str, card: str) -> tuple[dict, tuple]:
+    """(d) ``YOLO.val`` of ``name`` in float32 on phase val's 64 PNG images:
+    the NMS kernel once a batch and no stem; then every batch again with the
+    kernel and with its plain version (``val_batches_vs_plain``: idx/ok equal,
+    P, R, mAP equal from both and above zero), equal to ``YOLO.val``'s."""
+    from fce_yolo_tpu_torch import YOLO
+
+    yolo = matching_model(YOLO(name, device="cuda"))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    img_s = VAL_IMAGES / (time.perf_counter() - t0)
+    launches = read_launches()
+    n_batches = -(-VAL_IMAGES // VAL_BATCH)
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_batches), f"{name} val: launches {launches}")
+    mk = val_batches_vs_plain(yolo, data)[-1]
+    got = tuple(res["metrics"].mean_results())
+    check(np.allclose(got, mk, rtol=0, atol=1e-9), f"{name} val: YOLO.val's {got} != the per-batch {mk}")
+    print(f"phase families (d): {name} val {IMGSZ} f32 B={VAL_BATCH} on {VAL_IMAGES} PNG images, launches {launches}; "
+          f"NMS kernel idx/ok equal to the plain version on every batch; P/R/mAP50/mAP50-95 "
+          f"{tuple(round(v, 6) for v in mk)} equal from both and to YOLO.val's; {img_s:.1f} img/s through YOLO.val "
+          f"(host clock, incl. PNG decode) [{card}]", flush=True)
+    return launches, mk
+
+
+def family_train(name: str, root: Path, card: str) -> dict:
+    """(e) One ``YOLO.train`` epoch (bf16, AdamW, B=16, no plots) of ``name``
+    on phase train's data: finite losses, the epoch's val with the NMS kernel
+    once a batch, no stem."""
+    from fce_yolo_tpu_torch import YOLO
+
+    yolo = matching_model(YOLO(name, device="cuda"))
+    n_val = -(-VAL_IMAGES // VAL_BATCH)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.train(train_data(root), epochs=1, batch=VAL_BATCH, imgsz=IMGSZ, project=str(root / "runs_families"),
+                     plots=False, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val), f"{name} train: launches {launches}")
+    r, sp = res["results"][0], res["speed"][0]
+    check(res["epochs_run"] == 1 and all(np.isfinite(r[k]) for k in ("train/box_loss", "train/cls_loss",
+                                                                     "train/dfl_loss")), f"{name} train: {r}")
+    times = train_step_times(step_batch(train_data(root))[0], VAL_NC, name, bf16s=(True,))
+    print(f"phase families (e): {name} YOLO.train {IMGSZ} bf16 B={VAL_BATCH} AdamW, 1 epoch of "
+          f"{VAL_IMAGES // VAL_BATCH} steps, launches {launches}; loss box/cls/dfl {r['train/box_loss']:.4f}/"
+          f"{r['train/cls_loss']:.4f}/{r['train/dfl_loss']:.4f}, val mAP50 {r['metrics/mAP50(B)']:.6f}; "
+          f"{sp['img_per_s']:.2f} img/s, step {sp['step_ms']:.1f} ms (the epoch's mean, its first step's set-up "
+          f"included), loader wait {sp['loader_wait_ms']:.1f} ms, val {sp['val_s']:.2f} s; {wall:.1f} s in all; "
+          f"the step on a batch on the card: first {times['first_step_ms_bf16']:.1f} ms (host clock), then "
+          f"{times['step_ms_bf16']:.1f} ms (CUDA events, 5 after 2), peak {times['peak_gib_bf16']:.2f} GiB "
+          f"[{card}]", flush=True)
+    return launches
+
+
+def phase_families(root: Path, data: str, card: str) -> dict:
+    """The v3, v5, v6, v8, v9 and yolo12 families: (a) every YAML built and
+    run once in float32 and bf16; (b) ``YOLO.predict`` of yolov8s and yolo12s
+    at B=16, 640 px, bf16 on phase e2e's images (yolo12s takes the stem,
+    held against its plain version on the fed batch; yolov8s does not; NMS
+    once a batch, idx/ok equal to the plain version's); (c) yolov8s-seg,
+    -pose and -obb predict likewise; (d) ``YOLO.val`` of yolov8s and yolo12s
+    on phase val's images; (e) one ``YOLO.train`` epoch of each on phase
+    train's data. Returns each path's launches."""
+    t_phase = time.perf_counter()
+    paths = {}
+    times = family_forwards(card)
+    imgs = e2e_images(SEED + 1, E2E_BATCHES)
+    for task, name, stem in (("detect", "yolov8s.yaml", False), ("detect", "yolo12s.yaml", True),
+                             ("segment", "yolov8s-seg.yaml", False), ("pose", "yolov8s-pose.yaml", False),
+                             ("obb", "yolov8s-obb.yaml", False)):
+        p = task_predict(task, card, name=name, imgs=imgs if task == "detect" else None, stem=stem)
+        torch.cuda.empty_cache()
+        paths[f"families_predict_{name.removesuffix('.yaml')}"] = p["launches"]
+        stem_note = (f"stem on the fed batch max|d|/max|ref|={p['stem_rel']:.3e} (limit 0.02), per-row max/median="
+                     f"{p['stem_spread']:.2f} (limit 3); preds kernel vs plain path max|d|={p['dmax']:.3e} (limit "
+                     f"{p['bound']:.3e}) corr={p['corr']:.6f}; " if stem else "no stem (layer 2 is not C3k2 e=0.25); ")
+        nms_note = (f"NMS kernel idx/ok and outputs equal to the plain version on the fed batch ({p['kept']} kept)"
+                    if task != "obb" else "rotated NMS in torch ops (no kernel)")
+        print(f"phase families ({'b' if task == 'detect' else 'c'}): {name} predict {IMGSZ} bf16 B={E2E_BATCH}, "
+              f"{p['n_images']} images, {p['n_det']} detections, launches {p['launches']}; {stem_note}{nms_note}; "
+              f"{p['img_s']:.1f} img/s through YOLO.predict (host clock, incl. letterbox); {p['ms']:.2f} ms/batch "
+              f"device path vs {p['ms_plain']:.2f} {'plain stem' if stem else 'from a float batch'} (CUDA events) "
+              f"[{card}]", flush=True)
+    for name in ("yolov8s.yaml", "yolo12s.yaml"):
+        paths[f"families_val_{name.removesuffix('.yaml')}"] = family_val(name, data, card)[0]
+        torch.cuda.empty_cache()
+    for name in ("yolov8s.yaml", "yolo12s.yaml"):
+        paths[f"families_train_{name.removesuffix('.yaml')}"] = family_train(name, root, card)
+        torch.cuda.empty_cache()
+    slowest = max(times, key=lambda k: sum(times[k].values()))
+    print(f"phase families: {len(times)} YAMLs built and run (slowest {slowest}: "
+          f"{sum(times[slowest].values()):.0f} ms); phase families {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return paths
+
+
 DRAW_FRAMES = 16  # phase draw (b): phase track's first frames, 720x1280
 DRAW_SIZES = ((37, 53), (480, 640), (720, 1280), (1080, 1920))  # phase draw (a), and a 720x1280 gray image
 DRAW_TRAIN_BATCH = 21  # phase draw (c): the 64 images in 3 steps (the train loader drops the rest)
@@ -3725,7 +3921,8 @@ def main() -> None:
     predict = phase_e2e(yolo, spec, card)
     del yolo
     with tempfile.TemporaryDirectory() as tmp:
-        val, nms_val, val_out = phase_val(write_val_dataset(Path(tmp)), card)
+        val_data = write_val_dataset(Path(tmp))
+        val, nms_val, val_out = phase_val(val_data, card)
         phase_loss(val_out, card)
         png = val_out["png"]
         del val_out
@@ -3740,10 +3937,11 @@ def main() -> None:
         draw, fdct = phase_draw(Path(tmp), frames, card)
         del frames
         classify = phase_classify(Path(tmp), short_avi, card)
+        families = phase_families(Path(tmp), val_data, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **families}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

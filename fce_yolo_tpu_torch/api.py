@@ -111,7 +111,7 @@ class YOLO:
         The bridge (``nn/weights.py``) must fill every tensor of this model;
         fold before loading if the variables are folded.
         """
-        sd = variables_to_state_dict(variables)
+        sd = variables_to_state_dict(variables, self.model)
         self.model.load_state_dict(sd, strict=True)
         return self
 

@@ -1,12 +1,14 @@
-"""Packaged model configs as Python dicts.
+"""Packaged model configs: the yolo11 family as Python dicts, the other
+families as YAML files.
 
-Equal to ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml``,
+``MODELS`` equals ``yaml.safe_load`` of ``fce_yolo_tpu/cfg/models/yolo11.yaml``,
 ``yolo11-fce.yaml``, ``yolo11-bifpn.yaml`` and the task heads'
 ``yolo11-seg.yaml``, ``yolo11-pose.yaml``, ``yolo11-obb.yaml`` and
 ``yolo11-cls.yaml`` (YAML's unquoted ``None`` is the string "None",
-resolved by the parser like the reference's literal_eval pass). A user-given model
-YAML file is read by the port's own reader (``utils/yaml_read.py``): the
-port needs no pyyaml.
+resolved by the parser like the reference's literal_eval pass).
+``cfg/models/*.yaml`` are byte-equal copies of the JAX package's v3, v5, v6,
+v8, v9 and yolo12 YAMLs. These files and a user-given model YAML are read by
+the port's own reader (``utils/yaml_read.py``): the port needs no pyyaml.
 """
 
 from __future__ import annotations
@@ -147,6 +149,22 @@ MODELS["yolo11-cls"] = {  # yolo11's backbone without SPPF, then the Classify he
 }
 
 
+MODELS_DIR = Path(__file__).resolve().parent / "models"
+
+
+def packaged_models() -> list[str]:
+    """Every packaged model name: the dicts and the YAML files."""
+    return sorted({*MODELS, *(p.stem for p in MODELS_DIR.glob("*.yaml"))})
+
+
+def _packaged(stem: str) -> dict | None:
+    """The packaged config named ``stem``, or None."""
+    if stem in MODELS:
+        return copy.deepcopy(MODELS[stem])
+    path = MODELS_DIR / f"{stem}.yaml"
+    return read_yaml(path.read_text()) if path.is_file() else None
+
+
 def guess_scale(model_name: str) -> str | None:
     """Extract the scale letter from names like ``yolo11s-fce``."""
     m = re.search(r"yolov?\d+([nslmx])", model_name)
@@ -157,18 +175,21 @@ def load_model_dict(name: str | Path) -> tuple[dict, str | None]:
     """Resolve a model name or YAML path to (config dict, scale or None).
 
     ``yolo11s-fce.yaml`` -> the packaged ``yolo11-fce`` dict with scale 's'
-    (the reference's ``yaml_model_load``/``guess_model_scale`` rule). An
-    existing file path is read as it is.
+    (the reference's ``yaml_model_load``/``guess_model_scale`` rule). A
+    packaged name is taken as it is first (``yolov9c``, ``yolov3-tiny``: no
+    scale letter to strip), as the JAX ``load_model_yaml`` does. An existing
+    file path is read as it is.
     """
     path = Path(name)
     if path.is_file():
         return read_yaml(path.read_text()), guess_scale(path.stem)
     stem = path.stem if path.suffix in (".yaml", ".yml") else path.name
-    if stem in MODELS:
-        return copy.deepcopy(MODELS[stem]), None
+    d = _packaged(stem)
+    if d is not None:
+        return d, None
     m = re.fullmatch(r"(yolov?\d+)([nslmx])(-[\w-]+)?", stem)
     if m:
-        base = m.group(1) + (m.group(3) or "")
-        if base in MODELS:
-            return copy.deepcopy(MODELS[base]), m.group(2)
-    raise FileNotFoundError(f"model config not found: {name} (packaged: {sorted(MODELS)})")
+        d = _packaged(m.group(1) + (m.group(3) or ""))
+        if d is not None:
+            return d, m.group(2)
+    raise FileNotFoundError(f"model config not found: {name} (packaged: {', '.join(packaged_models())})")

@@ -139,7 +139,7 @@ class DetectionPredictor:
         if not is_folded(self.model):
             self.model = fold_conv_bn(copy.deepcopy(self.model))
         self.model.eval()
-        w = self.model.model[0].conv.weight
+        w = next(self.model.parameters())
         spec = stem_spec_from_model(self.model.spec, (self.imgsz, self.imgsz))
         if spec is not None and w.device.type == "cuda" and w.dtype == torch.bfloat16:
             self._stem = (spec, stem_weights(fold_stem_params(self.model, spec), spec))
@@ -153,7 +153,7 @@ class DetectionPredictor:
             self._setup()
         if self._stem is not None:
             return apply_with_fused_stem(self.model, batch_u8, *self._stem)
-        dtype = self.model.model[0].conv.weight.dtype
+        dtype = next(self.model.parameters()).dtype
         return self.model((batch_u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype))
 
     @torch.inference_mode()
@@ -195,7 +195,7 @@ class DetectionPredictor:
 
     def stream(self, source) -> Iterator[Results]:
         """Generator over Results, batching the source internally."""
-        device = self.model.model[0].conv.weight.device
+        device = next(self.model.parameters()).device
         pending: list[tuple[np.ndarray, str, float, tuple[int, int]]] = []
         imgs: list[np.ndarray] = []
 

@@ -1,7 +1,8 @@
 """Task heads beyond detect: Segment, Pose and OBB, the mask prototypes, and
 Classify (reference ``fce_yolo_tpu/nn/heads.py:31-211``).
 
-Each head is the port's ``Detect`` with one more branch per level (``cv4``:
+Each head is the port's ``Detect`` (``legacy`` passed through: the v8-era
+cls branch) with one more branch per level (``cv4``:
 Conv3x3 -> Conv3x3 -> bare 1x1), so its ``state_dict`` keys are
 Ultralytics' flat names (``model.23.cv2.0.0.conv.weight``,
 ``model.23.cv4.1.2.weight``, ``model.23.proto.upsample.weight``); the JAX
@@ -63,8 +64,8 @@ class Segment(Detect):
     """Detect + per-anchor mask coefficients + prototypes (reference head.py:215-263)."""
 
     def __init__(self, nc: int, nm: int = 32, npr: int = 256, ch: Sequence[int] = (),
-                 strides: Sequence[int] | None = None):
-        super().__init__(nc, ch, strides=strides)
+                 strides: Sequence[int] | None = None, legacy: bool = False):
+        super().__init__(nc, ch, strides=strides, legacy=legacy)
         self.nm, self.npr = nm, npr
         self.proto = Proto(ch[0], npr, nm)
         self.cv4 = _branches4(ch, max(ch[0] // 4, nm), nm)
@@ -82,8 +83,8 @@ class Pose(Detect):
     """Detect + decoded keypoints (reference head.py:319-386)."""
 
     def __init__(self, nc: int, kpt_shape: Sequence[int] = (17, 3), ch: Sequence[int] = (),
-                 strides: Sequence[int] | None = None):
-        super().__init__(nc, ch, strides=strides)
+                 strides: Sequence[int] | None = None, legacy: bool = False):
+        super().__init__(nc, ch, strides=strides, legacy=legacy)
         self.kpt_shape = tuple(kpt_shape)
         self.nk = self.kpt_shape[0] * self.kpt_shape[1]
         self.cv4 = _branches4(ch, max(ch[0] // 4, self.nk), self.nk)
@@ -112,8 +113,9 @@ class Pose(Detect):
 class OBB(Detect):
     """Detect + a per-anchor angle; eval boxes are rotated (reference head.py:265-318)."""
 
-    def __init__(self, nc: int, ne: int = 1, ch: Sequence[int] = (), strides: Sequence[int] | None = None):
-        super().__init__(nc, ch, strides=strides)
+    def __init__(self, nc: int, ne: int = 1, ch: Sequence[int] = (), strides: Sequence[int] | None = None,
+                 legacy: bool = False):
+        super().__init__(nc, ch, strides=strides, legacy=legacy)
         self.ne = ne
         self.cv4 = _branches4(ch, max(ch[0] // 4, ne), ne)
 

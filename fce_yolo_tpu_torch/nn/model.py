@@ -21,14 +21,41 @@ from fce_yolo_tpu_torch.nn import modules as M
 from fce_yolo_tpu_torch.nn.parser import LayerSpec, ModelSpec, load_model_yaml, parse_model_yaml
 
 
+# layers built positionally from the parsed args (the JAX ``_POSITIONAL`` table, nn/model.py:29-65)
+_POSITIONAL: dict[str, Any] = {
+    "Bottleneck": M.Bottleneck, "C2": M.C2, "GhostConv": M.GhostConv, "GhostBottleneck": M.GhostBottleneck,
+    "C3Ghost": M.C3Ghost, "SPP": M.SPP, "ResNetLayer": M.ResNetLayer, "RepNCSPELAN4": M.RepNCSPELAN4,
+    "ELAN1": M.ELAN1, "AConv": M.AConv, "ADown": M.ADown, "SPPELAN": M.SPPELAN, "CBLinear": M.CBLinear,
+    "CBFuse": M.CBFuse, "A2C2f": M.A2C2f, "nn.MaxPool2d": M.MaxPool2d, "nn.ZeroPad2d": M.ZeroPad2d,
+    "nn.Identity": nn.Identity, "nn.ConvTranspose2d": M.ConvTranspose2d,
+}
+# layers the port refuses, by the item of ROADMAP queue 1 that ports them
+_LATER: dict[str, str] = {
+    **dict.fromkeys(("v10Detect", "RepVGGDW", "CIB", "C2fCIB", "PSA", "SCDown"), "7.4"),
+    **dict.fromkeys(("TorchVision", "CoordAtt", "CoordCrossAtt"), "7.5"),
+    **dict.fromkeys(("HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder", "C2fAttn", "ImagePoolingAttn",
+                     "WorldDetect", "YOLOEDetect", "YOLOESegment"), "12"),
+    **dict.fromkeys(("C1", "C3x", "Focus", "Conv2", "ConvTranspose", "BottleneckCSP", "C3TR", "CBAM",
+                     "ChannelAttention", "SpatialAttention", "LightConv", "Index", "C2fPSA", "AGLU",
+                     "DWConvTranspose2d"), "7.2"),
+}
+
+
 def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = False) -> nn.Module:
-    """Instantiate the module for one LayerSpec (reference-arg convention)."""
+    """Instantiate the module for one LayerSpec (reference-arg convention);
+    ``legacy`` builds the v8-era heads."""
     a, n = ls.args, ls.name
     if n == "Conv":  # (c1, c2, k=1, s=1, p=None, g=1, d=1, act=True)
         return M.ConvBNAct(a[0], a[1], *a[2:8])
+    if n == "DWConv":  # (c1, c2, k=1, s=1)
+        return M.DWConvBNAct(a[0], a[1], *a[2:4])
     if n == "C3k2":
         return M.C3k2(a[0], a[1], n=a[2], c3k=a[3] if len(a) > 3 else False,
                       e=a[4] if len(a) > 4 else 0.5)
+    if n == "C3":
+        return M.C3(a[0], a[1], a[2], shortcut=a[3] if len(a) > 3 else True)
+    if n == "C2f":
+        return M.C2f(a[0], a[1], n=a[2], shortcut=a[3] if len(a) > 3 else False)
     if n == "SPPF":
         return M.SPPF(a[0], a[1], k=a[2] if len(a) > 2 else 5)
     if n == "C2PSA":
@@ -38,25 +65,24 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
     if n == "Concat":
         return M.Concat()
     if n == "Detect":
-        if legacy:
-            raise KeyError(f"the v8-era Detect head (layer {ls.i}) is not ported yet")
-        return M.Detect(nc=a[0], ch=tuple(a[-1]), strides=strides)
-    if n in ("Segment", "Pose", "OBB") and legacy:
-        raise KeyError(f"the v8-era {n} head (layer {ls.i}) is not ported yet")
+        return M.Detect(nc=a[0], ch=tuple(a[-1]), strides=strides, legacy=legacy)
     if n == "Segment":  # [nc, nm, npr, ch]
         return H.Segment(nc=a[0], nm=a[1] if len(a) > 2 else 32, npr=a[2] if len(a) > 3 else 256,
-                         ch=tuple(a[-1]), strides=strides)
+                         ch=tuple(a[-1]), strides=strides, legacy=legacy)
     if n == "Pose":  # [nc, kpt_shape, ch]
-        return H.Pose(nc=a[0], kpt_shape=tuple(a[1]), ch=tuple(a[-1]), strides=strides)
+        return H.Pose(nc=a[0], kpt_shape=tuple(a[1]), ch=tuple(a[-1]), strides=strides, legacy=legacy)
     if n == "OBB":  # [nc, ne, ch]
-        return H.OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=tuple(a[-1]), strides=strides)
+        return H.OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=tuple(a[-1]), strides=strides, legacy=legacy)
     if n == "BiFPN_Concat":
         return fce.BiFPN_Concat(c1=tuple(a[0]), c2=a[1])
     if n == "BiCoordCrossAtt":
         return fce.BiCoordCrossAtt(inp=a[0], oup=a[1], reduction=a[2], num_heads=a[3])
     if n == "Classify":  # [c1, c2, k, s]
         return H.Classify(a[0], a[1], k=a[2] if len(a) > 2 else 1, s=a[3] if len(a) > 3 else 1)
-    raise KeyError(f"module {n!r} at layer {ls.i} is not ported yet")
+    if n in _POSITIONAL:
+        return _POSITIONAL[n](*(tuple(x) if isinstance(x, list) else x for x in a))
+    where = f" (ROADMAP queue 1, item {_LATER[n]})" if n in _LATER else ""
+    raise KeyError(f"module {n!r} at layer {ls.i} is not ported yet{where}")
 
 
 class DetectionModel(nn.Module):
@@ -108,12 +134,15 @@ class DetectionModel(nn.Module):
 
 
 def resolve_strides(spec: ModelSpec, probe: int = 256) -> tuple[int, ...]:
-    """Per-level strides from a training-mode forward on the ``meta`` device;
-    none for a classifier (reference ``resolve_strides``, nn/model.py:318-321)."""
+    """Per-level strides from a forward on the ``meta`` device, the head in
+    training mode (raw maps, no decode) and the rest in eval mode (the meta
+    device runs a training BatchNorm several times slower); none for a
+    classifier (reference ``resolve_strides``, nn/model.py:318-321)."""
     if spec.task == "classify":
         return ()
     with torch.device("meta"):
-        model = DetectionModel(spec, strides=None)
+        model = DetectionModel(spec, strides=None).eval()
+        model.detect.train()
         feats = model(torch.empty(1, 3, probe, probe))["feats"]
     return tuple(probe // f.shape[2] for f in feats)
 
@@ -125,7 +154,8 @@ def build_model(
 ) -> tuple[DetectionModel, ModelSpec, tuple[int, ...]]:
     """Parse, probe strides, and build the decode-capable model on ``device``
     in eval mode, channels_last. Returns (model, spec, strides). Weights are
-    torch's defaults until ``init_weights`` or a weight load. The model goes
+    torch's defaults, drawn on ``device`` (nothing drawn on ``meta``), until
+    ``init_weights`` or a weight load. The model goes
     to the card unless the caller names another device; without CUDA that
     raises rather than falling back to the CPU."""
     device = torch.device(device)
@@ -136,8 +166,9 @@ def build_model(
     else:
         spec = load_model_yaml(cfg, scale=scale)
     strides = resolve_strides(spec)
-    model = DetectionModel(spec, strides).to(device=device, memory_format=torch.channels_last)
-    return model.eval(), spec, strides
+    with device:
+        model = DetectionModel(spec, strides)
+    return model.to(memory_format=torch.channels_last).eval(), spec, strides
 
 
 def _lecun_normal(shape: torch.Size, generator: torch.Generator) -> torch.Tensor:
@@ -152,7 +183,7 @@ def _lecun_normal(shape: torch.Size, generator: torch.Generator) -> torch.Tensor
 def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: bool = True) -> DetectionModel:
     """Initialize like the JAX ``init_variables`` (nn/model.py:366-388): conv
     and dense kernels lecun-normal, their biases 0, BN (1, 0, mean 0, var 1), BiFPN
-    weights 1, then the Detect bias priors when ``bias_prior`` (on a task
+    weights 1, A2C2f's ``gamma`` 0.01, then the Detect bias priors when ``bias_prior`` (on a task
     head's Detect trunk only, as the JAX package does). Values are
     drawn on the CPU from ``generator`` (a CPU generator) so one seed gives
     the same weights on every device."""
@@ -168,6 +199,8 @@ def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: 
             m.reset_parameters()
         elif isinstance(m, fce.BiFPN_Concat):
             m.w.fill_(1.0)
+        elif isinstance(m, M.A2C2f) and m.gamma is not None:
+            m.gamma.fill_(0.01)
     if bias_prior and isinstance(model.detect, M.Detect):
         model.detect.bias_init()
     return model
@@ -179,7 +212,9 @@ def fold_conv_bn(model: nn.Module) -> nn.Module:
     ``Model.fuse``): weight' = weight * g/std, bias' = beta - mean * g/std,
     bn -> Identity. The math runs in float32 and the results keep the conv
     weight's dtype (the JAX fold, nn/model.py:460-468, always emits f32).
-    Idempotent: folded modules are skipped."""
+    RepConv's two branches are ConvBNActs and fold each on its own, as in the
+    JAX fold; they are not merged into one conv. Idempotent: folded modules
+    are skipped."""
     for m in model.modules():
         if isinstance(m, M.ConvBNAct) and not m.folded:
             conv, bn = m.conv, m.bn

@@ -1,8 +1,12 @@
-"""YOLO11 modules of the inference slice (reference ``fce_yolo_tpu/nn/modules.py:87-593``).
+"""YOLO modules (reference ``fce_yolo_tpu/nn/modules.py``): the YOLO11 blocks
+and the Detect head (``:87-593``), and the v3/v5/v6/v8, v9, yolo12 and
+ResNet blocks of the legacy YAMLs (``:700-1379``).
 
 NCHW ``nn.Module``s; attribute names follow Ultralytics (``cv1``, ``m.0``,
 ``cv2.0.2``) so ``state_dict`` keys are ``model.{i}.<path>`` and the JAX
-weight bridge (``nn/weights.py``) is a name rewrite. Convolutions pad
+weight bridge (``nn/weights.py``) is a name rewrite. Where the JAX module
+names a child ``m_{i}_{j}`` or ``conv_0``, the port nests ``nn.Sequential``s
+(``m.{i}.{j}``, ``conv.0``). Convolutions pad
 symmetrically (``autopad``), as torch and the reference do. BatchNorm uses
 eps 1e-3 and momentum 0.03 (flax's 0.97), and flax's running variance.
 """
@@ -159,6 +163,105 @@ class C3k2(nn.Module):
         return self.cv2(torch.cat(ys, dim=1))
 
 
+class C2f(nn.Module):
+    """CSP bottleneck with 2 convs, the YOLOv8 block (reference block.py:283-316):
+    C3k2's form with plain (3, 3) Bottlenecks of expansion 1."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, 2 * c, 1, 1)
+        self.cv2 = ConvBNAct((2 + n) * c, c2, 1)
+        self.m = nn.ModuleList(Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).split((self.c, self.c), dim=1))
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        return self.cv2(torch.cat(ys, dim=1))
+
+
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs (reference block.py:256-282): the
+    Bottlenecks run on the first half only."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = c = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, 2 * c, 1, 1)
+        self.cv2 = ConvBNAct(2 * c, c2, 1)
+        self.m = nn.Sequential(*(Bottleneck(c, c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        return self.cv2(torch.cat([self.m(a), b], dim=1))
+
+
+class GhostConv(nn.Module):
+    """Ghost convolution (reference conv.py:311-352): a primary conv to c2/2
+    channels and a cheap depthwise 5x5 on its output, concatenated."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1, g: int = 1, act: Any = True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1 = ConvBNAct(c1, c_, k, s, None, g, act=act)
+        self.cv2 = ConvBNAct(c_, c_, 5, 1, None, c_, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return torch.cat([y, self.cv2(y)], dim=1)
+
+
+class GhostBottleneck(nn.Module):
+    """Ghost bottleneck (reference block.py:424-451): GhostConv, a depthwise
+    stride-2 conv when s == 2, GhostConv without activation, plus the
+    shortcut (a depthwise + pointwise pair when s == 2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1):
+        super().__init__()
+        c_ = c2 // 2
+        self.conv = nn.Sequential(
+            GhostConv(c1, c_, 1, 1),
+            ConvBNAct(c_, c_, k, s, g=c_, act=False) if s == 2 else nn.Identity(),
+            GhostConv(c_, c2, 1, 1, act=False),
+        )
+        self.shortcut = (nn.Sequential(ConvBNAct(c1, c1, k, s, g=c1, act=False), ConvBNAct(c1, c2, 1, 1, act=False))
+                         if s == 2 else nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(x) + self.shortcut(x)
+
+
+class C3Ghost(C3):
+    """C3 with GhostBottleneck inner blocks (reference block.py:405-423)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(GhostBottleneck(c_, c_) for _ in range(n)))
+
+
+def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
+    """k x k stride-1 max pool with symmetric k//2 padding (reference ``_max_pool_same``, modules.py:286)."""
+    return F.max_pool2d(x, k, 1, k // 2)
+
+
+class SPP(nn.Module):
+    """Classic spatial pyramid pooling: parallel max pools of kernels ``k``
+    (reference block.py:185-207)."""
+
+    def __init__(self, c1: int, c2: int, k: Sequence[int] = (5, 9, 13)):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = ConvBNAct(c1, c_, 1, 1)
+        self.cv2 = ConvBNAct(c_ * (len(k) + 1), c2, 1, 1)
+        self.k = tuple(k)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return self.cv2(torch.cat([y, *(max_pool_same(y, k) for k in self.k)], dim=1))
+
+
 class SPPF(nn.Module):
     """Spatial pyramid pooling, fast (reference block.py:208-233)."""
 
@@ -172,7 +275,7 @@ class SPPF(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         ys = [self.cv1(x)]
         for _ in range(3):
-            ys.append(F.max_pool2d(ys[-1], self.k, 1, self.k // 2))
+            ys.append(max_pool_same(ys[-1], self.k))
         return self.cv2(torch.cat(ys, dim=1))
 
 
@@ -236,6 +339,292 @@ class C2PSA(nn.Module):
         return self.cv2(torch.cat([a, self.m(b)], dim=1))
 
 
+class ResNetBlock(nn.Module):
+    """Bottleneck ResNet block (reference block.py:534-565): 1x1, 3x3 (stride
+    ``s``), 1x1 to e * c2, plus the shortcut, then ReLU."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, e: int = 4):
+        super().__init__()
+        c3 = e * c2
+        self.cv1 = ConvBNAct(c1, c2, 1, 1)
+        self.cv2 = ConvBNAct(c2, c2, 3, s, p=1)
+        self.cv3 = ConvBNAct(c2, c3, 1, act=False)
+        self.shortcut = (nn.Sequential(ConvBNAct(c1, c3, 1, s, act=False)) if s != 1 or c1 != c3
+                         else nn.Identity())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.relu(self.cv3(self.cv2(self.cv1(x))) + self.shortcut(x))
+
+
+class ResNetLayer(nn.Module):
+    """The ResNet stem (7x7 s2 conv, 3x3 s2 max pool) when ``is_first``, else
+    ``n`` ResNetBlocks (reference block.py:566-616)."""
+
+    def __init__(self, c1: int, c2: int, s: int = 1, is_first: bool = False, n: int = 1, e: int = 4):
+        super().__init__()
+        if is_first:
+            self.layer = nn.Sequential(ConvBNAct(c1, c2, 7, 2, p=3), nn.MaxPool2d(3, 2, 1))
+        else:
+            self.layer = nn.Sequential(ResNetBlock(c1, c2, s, e),
+                                       *(ResNetBlock(e * c2, c2, 1, e) for _ in range(n - 1)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.layer(x)
+
+
+class RepConv(nn.Module):
+    """RepVGG-style conv (reference conv.py:353-510): a 3x3 and a 1x1
+    Conv+BN, summed (3x3 first) before the activation. ``fold_conv_bn`` folds
+    each branch on its own, as the JAX fold does; the branches are not merged."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, g: int = 1, act: Any = True):
+        super().__init__()
+        self.conv1 = ConvBNAct(c1, c2, k, s, p=1, g=g, act=False)
+        self.conv2 = ConvBNAct(c1, c2, 1, s, p=0, g=g, act=False)
+        self.act = act
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_act(self.conv1(x) + self.conv2(x), self.act)
+
+
+class RepBottleneck(Bottleneck):
+    """Bottleneck whose first conv is a RepConv (reference block.py:823-842)."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k: tuple[int, int] = (3, 3), e: float = 0.5):
+        super().__init__(c1, c2, shortcut, g, k, e)
+        self.cv1 = RepConv(c1, int(c2 * e), k[0], 1)
+
+
+class RepCSP(C3):
+    """C3 with RepBottleneck inner blocks (reference block.py:844-861)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        c_ = int(c2 * e)
+        self.m = nn.Sequential(*(RepBottleneck(c_, c_, shortcut, g, e=1.0) for _ in range(n)))
+
+
+class RepNCSPELAN4(nn.Module):
+    """CSP-ELAN (reference block.py:863-893): cv1 splits in two halves, two
+    (RepCSP, 3x3 Conv) stages chain off the second, all four concat into cv4."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int, n: int = 1):
+        super().__init__()
+        self.c = c3 // 2
+        self.cv1 = ConvBNAct(c1, c3, 1, 1)
+        self.cv2 = nn.Sequential(RepCSP(c3 // 2, c4, n), ConvBNAct(c4, c4, 3, 1))
+        self.cv3 = nn.Sequential(RepCSP(c4, c4, n), ConvBNAct(c4, c4, 3, 1))
+        self.cv4 = ConvBNAct(c3 + 2 * c4, c2, 1, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = list(self.cv1(x).split((self.c, self.c), dim=1))
+        ys.append(self.cv2(ys[-1]))
+        ys.append(self.cv3(ys[-1]))
+        return self.cv4(torch.cat(ys, dim=1))
+
+
+class ELAN1(RepNCSPELAN4):
+    """ELAN with plain 3x3 convs in place of the (RepCSP, Conv) stages (reference block.py:896-914)."""
+
+    def __init__(self, c1: int, c2: int, c3: int, c4: int):
+        nn.Module.__init__(self)
+        self.c = c3 // 2
+        self.cv1 = ConvBNAct(c1, c3, 1, 1)
+        self.cv2 = ConvBNAct(c3 // 2, c4, 3, 1)
+        self.cv3 = ConvBNAct(c4, c4, 3, 1)
+        self.cv4 = ConvBNAct(c3 + 2 * c4, c2, 1, 1)
+
+
+def avg_pool2(x: torch.Tensor) -> torch.Tensor:
+    """2x2 stride-1 unpadded average pool, summed in float32 (reference ``_avg_pool2``, modules.py:1033)."""
+    return F.avg_pool2d(x.float(), 2, 1, 0).to(x.dtype)
+
+
+class AConv(nn.Module):
+    """Average pool, then a 3x3 stride-2 conv (reference block.py:916-933)."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c2, 3, 2, p=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv1(avg_pool2(x))
+
+
+class ADown(nn.Module):
+    """Dual-branch downsample (reference block.py:935-962): after an average
+    pool, the first c1/2 channels take a 3x3 stride-2 conv, the rest a 3x3
+    stride-2 max pool and a 1x1 conv."""
+
+    def __init__(self, c1: int, c2: int):
+        super().__init__()
+        self.half = c1 // 2
+        self.cv1 = ConvBNAct(self.half, c2 // 2, 3, 2, p=1)
+        self.cv2 = ConvBNAct(c1 - self.half, c2 // 2, 1, 1, p=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x1, x2 = avg_pool2(x).split((self.half, x.shape[1] - self.half), dim=1)
+        return torch.cat([self.cv1(x1), self.cv2(F.max_pool2d(x2, 3, 2, 1))], dim=1)
+
+
+class SPPELAN(nn.Module):
+    """SPP-ELAN (reference block.py:964-990): cv1, three chained k x k max
+    pools, all four concat into cv5."""
+
+    def __init__(self, c1: int, c2: int, c3: int, k: int = 5):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c3, 1, 1)
+        self.cv5 = ConvBNAct(4 * c3, c2, 1, 1)
+        self.k = k
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [self.cv1(x)]
+        for _ in range(3):
+            ys.append(max_pool_same(ys[-1], self.k))
+        return self.cv5(torch.cat(ys, dim=1))
+
+
+class CBLinear(nn.Module):
+    """A biased conv whose output channels split into a tuple of maps
+    (reference block.py:992-1011); a later CBFuse indexes the tuple."""
+
+    def __init__(self, c1: int, c2s: Sequence[int], k: int = 1, s: int = 1, p: int | None = None, g: int = 1):
+        super().__init__()
+        self.c2s = tuple(c2s)
+        self.conv = nn.Conv2d(c1, sum(self.c2s), k, s, autopad(k, p), groups=g, bias=True)
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        return tuple(self.conv(x).split(self.c2s, dim=1))
+
+
+def resize_nearest(x: torch.Tensor, size: tuple[int, int]) -> torch.Tensor:
+    """``jax.image.resize(method="nearest")`` on the last two axes: output
+    index i samples floor((i + 0.5) * in / out), in float32 (half-pixel
+    centres). ``F.interpolate(mode="nearest")`` samples floor(i * in / out),
+    which agrees for integer upscales only."""
+    for dim, n in zip((2, 3), size):
+        m = x.shape[dim]
+        if m != n:
+            idx = ((torch.arange(n, dtype=torch.float32, device=x.device) + 0.5) * m / n).floor().long()
+            x = x.index_select(dim, idx)
+    return x
+
+
+class CBFuse(nn.Module):
+    """Sum the selected map of each CBLinear tuple, resized (nearest, JAX's
+    rule) to the last input's size, onto the last input (reference
+    block.py:1013-1035); the sum runs in the JAX order, last input first."""
+
+    def __init__(self, idx: Sequence[int]):
+        super().__init__()
+        self.idx = tuple(idx)
+
+    def forward(self, xs: Sequence[Any]) -> torch.Tensor:
+        out = xs[-1]
+        for i, x in zip(self.idx, xs[:-1]):
+            out = out + resize_nearest(x[i], tuple(out.shape[2:]))
+        return out
+
+
+class AAttn(nn.Module):
+    """Area attention (reference block.py:1617-1697, JAX modules.py:1255-1279):
+    full attention within ``area`` slabs of the H*W grid flattened row-major.
+
+    The qkv map is taken to (B, H, W, 3 * dim) and split as the JAX NHWC one
+    is: (B * area, H * W / area, heads, 3 * head_dim), each head's q, k and v
+    adjacent. ``v`` goes back to (B, dim, H, W) for the 7x7 depthwise ``pe``.
+    H * W must divide by ``area`` (the JAX reshape fails otherwise)."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.dim, self.num_heads, self.area = dim, num_heads, area
+        self.head_dim = dim // num_heads
+        self.qkv = ConvBNAct(dim, dim * 3, 1, act=False)
+        self.proj = ConvBNAct(dim, dim, 1, act=False)
+        self.pe = ConvBNAct(dim, dim, 7, 1, p=3, g=dim, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        n, area, hd = h * w, self.area, self.head_dim
+        if n % area:
+            raise ValueError(f"AAttn: the {h}x{w} grid does not split into {area} areas")
+        qkv = self.qkv(x).permute(0, 2, 3, 1).reshape(b * area, n // area, self.num_heads, 3 * hd)
+        q, k, v = qkv.transpose(1, 2).split(hd, dim=-1)  # (B * area, heads, N / area, hd) each
+        attn = ((q @ k.transpose(-2, -1)) * hd**-0.5).softmax(dim=-1)
+        out = (attn @ v).transpose(1, 2).reshape(b, h, w, self.dim).permute(0, 3, 1, 2)
+        vmap = v.transpose(1, 2).reshape(b, h, w, self.dim).permute(0, 3, 1, 2)
+        return self.proj(out + self.pe(vmap))
+
+
+class ABlock(nn.Module):
+    """Area attention then a 1x1 conv MLP, each with a residual (reference block.py:1699-1745)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2, area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hid = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(ConvBNAct(dim, hid, 1), ConvBNAct(hid, dim, 1, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """Area-attention C2f (reference block.py:1747-1846): cv1, n blocks
+    chained (two ABlocks each when ``a2``, else a C3k), all concat into cv2.
+    With ``a2`` and ``residual`` (yolo12 l/x) the output is
+    x + gamma * cv2(...), gamma a per-channel parameter starting at 0.01."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True, area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0, e: float = 0.5, g: int = 1, shortcut: bool = True):
+        super().__init__()
+        c_ = int(c2 * e)
+        if c_ % 32:
+            raise ValueError("A2C2f hidden dim must be a multiple of 32")
+        self.cv1 = ConvBNAct(c1, c_, 1, 1)
+        self.cv2 = ConvBNAct((1 + n) * c_, c2, 1)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area) for _ in range(2))) if a2
+            else C3k(c_, c_, 2, shortcut, g)
+            for _ in range(n)
+        )
+        self.gamma = nn.Parameter(torch.full((c2,), 0.01)) if a2 and residual else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [self.cv1(x)]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        out = self.cv2(torch.cat(ys, dim=1))
+        if self.gamma is not None:
+            return x + self.gamma.view(1, -1, 1, 1) * out
+        return out
+
+
+class MaxPool2d(nn.MaxPool2d):
+    """The YAML's ``nn.MaxPool2d(k, s, p)``: stride ``k`` when ``s`` is None."""
+
+    def __init__(self, k: int, s: int | None = None, p: int = 0):
+        super().__init__(k, s if s is not None else k, p)
+
+
+class ZeroPad2d(nn.ZeroPad2d):
+    """The YAML's ``nn.ZeroPad2d``: an int, or (left, right, top, bottom)."""
+
+    def __init__(self, padding: int | Sequence[int] = 0):
+        super().__init__(padding if isinstance(padding, int) else tuple(padding))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """The YAML's ``nn.ConvTranspose2d(c1, c2, k, s, p)`` with a bias. Its
+    output is (H - 1) * s - 2p + k, which is what the JAX module's VALID
+    transpose cropped by p on each side gives."""
+
+    def __init__(self, c1: int, c2: int, k: int = 2, s: int = 2, p: int = 0):
+        super().__init__(c1, c2, k, s, p, bias=True)
+
+
 class Upsample(nn.Module):
     """Nearest-neighbour integer upsample (torch ``nn.Upsample(None, s, 'nearest')``)."""
 
@@ -259,16 +648,17 @@ class Detect(nn.Module):
     """YOLO detect head (reference head.py:26-212).
 
     Per level: the cv2 branch gives 4*reg_max DFL logits, the cv3 branch nc
-    class logits. In training mode it returns the raw per-level maps
+    class logits; ``legacy`` (the v8-era heads, JAX modules.py:552-568) makes
+    the cv3 branch two plain 3x3 convs in place of the depthwise pairs. In training mode it returns the raw per-level maps
     ``{"feats": [(B, no, H, W)]}``. In eval mode it also decodes in float32:
     DFL expectation -> dist2bbox around the anchors -> pixel xywh and sigmoid
     class scores, anchor-major ``preds`` (B, N, 4 + nc) as the JAX head gives.
     """
 
     def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16,
-                 strides: Sequence[int] | None = None):
+                 strides: Sequence[int] | None = None, legacy: bool = False):
         super().__init__()
-        self.nc, self.reg_max = nc, reg_max
+        self.nc, self.reg_max, self.legacy = nc, reg_max, legacy
         self.no = nc + reg_max * 4
         self.strides = tuple(strides) if strides is not None else None
         c2 = max(16, ch[0] // 4, reg_max * 4)
@@ -278,6 +668,8 @@ class Detect(nn.Module):
             for x in ch
         )
         self.cv3 = nn.ModuleList(nn.Sequential(
+            ConvBNAct(x, c3, 3), ConvBNAct(c3, c3, 3), Conv2d(c3, nc, 1),
+        ) if legacy else nn.Sequential(
             nn.Sequential(DWConvBNAct(x, x, 3), ConvBNAct(x, c3, 1)),
             nn.Sequential(DWConvBNAct(c3, c3, 3), ConvBNAct(c3, c3, 1)),
             Conv2d(c3, nc, 1),

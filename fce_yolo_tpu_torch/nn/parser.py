@@ -2,10 +2,12 @@
 
 Same semantics as the reference's ``parse_model_yaml`` for the modules the
 port builds: depth/width/max_channels compound scaling, per-module channel
-inference, the forced ``c3k`` at m/l/x, the FCE argument rewriting and the
-savelist. Branches for modules the port does not build yet are left out;
-their layers fall through to the generic channel rule and ``make_layer``
-refuses them by name.
+inference, the forced ``c3k`` at m/l/x, the ``legacy`` flips of C3k2, A2C2f
+and C2fCIB with A2C2f's residual form at l/x, the FCE argument rewriting,
+the v8-cls ResNet layers and v9's CBLinear, and the savelist. Branches for
+modules the port does not build yet (RT-DETR, World, YOLOE, TorchVision,
+Index) are left out; their layers fall through to the generic channel rule
+and ``make_layer`` refuses them by name.
 """
 
 from __future__ import annotations
@@ -126,6 +128,12 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                     while len(args) < 4:
                         args.append(False)
                     args[3] = True
+            if name == "A2C2f":
+                legacy = False
+                if scale in "lx":  # residual=True, mlp_ratio=1.2 (tasks.py:1611-1616)
+                    args.extend((True, 1.2))
+            if name == "C2fCIB":
+                legacy = False
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f)
         elif name == "BiFPN_Concat":
@@ -159,7 +167,12 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
             args = [c1, c2, *args[1:]]
         elif name in ("nn.Upsample", "Upsample"):
             c2 = ch_list[f]
-        else:
+        elif name == "ResNetLayer":  # (c1, c2, s, is_first, n): out c2, or 4 * c2 (tasks.py:1624)
+            c2 = args[1] if args[3] else args[1] * 4
+        elif name == "CBLinear":  # a tuple of maps; its channel entry is the split list (tasks.py:1721)
+            c2 = list(args[0])
+            args = [ch_list[f], args[0], *args[1:]]
+        else:  # CBFuse, the nn.* passthroughs: the (last) input's channels
             c2 = ch_list[f] if isinstance(f, int) else ch_list[f[-1]]
 
         layers.append(LayerSpec(i=i, f=f, name=name, args=args, c2=c2, n=n_rep,

@@ -9,15 +9,26 @@
   params/layers_14/w                       ->  model.14.w
   params/layers_23/detect/cv2_0_0/conv/kernel  ->  model.23.cv2.0.0.conv.weight  (a task head's trunk)
   params/layers_23/proto/upsample/kernel  ->  model.23.proto.upsample.weight  (ConvTranspose2d)
+  params/layers_17/conv_transpose2d/kernel  ->  model.17.weight  (a YAML ``nn.ConvTranspose2d`` layer)
+  params/layers_6/m_0_1/mlp_0/conv/kernel  ->  model.6.m.0.1.mlp.0.conv.weight
+  params/layers_6/gamma                    ->  model.6.gamma
   params/layers_10/linear/kernel   (in, out)  ->  model.10.linear.weight     (out, in)  (Classify's Linear)
 
 A task head (Segment, Pose, OBB) nests its Detect trunk under a ``detect``
 scope in flax; the port's keys are Ultralytics' flat names, so the scope is
-dropped here and put back by ``key_to_flax``. A flax ``ConvTranspose``
-kernel (kh, kw, in, out) becomes torch's (in, out, kh, kw) with both
-spatial axes flipped: flax's transposed convolution (``transpose_kernel``
-False) applies the kernel unflipped to the dilated input, torch's is the
-gradient of a convolution, which applies it flipped.
+dropped here and put back by ``key_to_flax``; so is the ``conv_transpose2d``
+scope of a YAML ``nn.ConvTranspose2d`` layer, whose weights are the layer's
+own in the port (``model.17.weight``, as Ultralytics names them). A flax
+``ConvTranspose`` kernel (kh, kw, in, out) becomes torch's (in, out, kh, kw)
+with both spatial axes flipped: flax's transposed convolution
+(``transpose_kernel`` False) applies the kernel unflipped to the dilated
+input, torch's is the gradient of a convolution, which applies it flipped.
+Whether a kernel is a transposed one follows the kind of the port module
+that owns its key (``nn.ConvTranspose2d``) when the model is given, as
+``YOLO.load_jax_variables`` and ``state_dict_to_variables`` (the way back)
+do; without a model, its flax scope tells: the JAX package builds its
+``nn.ConvTranspose`` modules under two names, Proto's ``upsample`` and the
+layer's ``conv_transpose2d`` (``_CONV_T``).
 
 Takes plain numpy trees, so it needs no JAX (``jax.device_get`` or
 ``np.asarray`` the variables first). ``key_to_flax`` is the inverse, for a
@@ -45,7 +56,8 @@ _LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
 _FLAX_LEAF = {v: k for k, v in _LEAF.items()}
 _BARE_CONV = "conv2d"  # the flax scope of a bare Conv2d (not a ConvBNAct's ``conv``)
 _TRUNK = "detect"  # the flax scope of a task head's Detect trunk
-_CONV_T = "upsample"  # the flax name of Proto's ConvTranspose (its only one)
+_LAYER_CONV_T = "conv_transpose2d"  # the flax scope of a YAML nn.ConvTranspose2d layer's weights
+_CONV_T = ("upsample", _LAYER_CONV_T)  # the scopes of the JAX package's flax ConvTranspose modules
 
 
 def _module_token(name: str) -> str:
@@ -68,7 +80,7 @@ def _walk(node: Mapping[str, Any], path: tuple[str, ...] = ()):
 def flax_path_to_key(collection: str, path: tuple[str, ...]) -> str:
     """One flax leaf path -> the port's state_dict key."""
     *mods, leaf = path
-    parts = [_module_token(p) for p in mods if p not in (_BARE_CONV, _TRUNK)]
+    parts = [_module_token(p) for p in mods if p not in (_BARE_CONV, _TRUNK, _LAYER_CONV_T)]
     parts.append(_LEAF.get((collection, leaf), (None, leaf))[1])
     return ".".join(parts)
 
@@ -95,15 +107,28 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
                 None)
     if kind is nn.Conv2d and tokens[-1] != "conv":
         mods.append(_BARE_CONV)
+    if kind is nn.ConvTranspose2d and len(tokens) == 2 and tokens[0] == "model":
+        mods.append(_LAYER_CONV_T)
     collection, flax_leaf = _FLAX_LEAF.get((nn.Conv2d if kind in (nn.ConvTranspose2d, nn.Linear) else kind, leaf),
                                            ("params", leaf))
     return collection, tuple(mods) + (flax_leaf,)
 
 
-def variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def _is_conv_t(model: nn.Module | None, key: str, path: tuple[str, ...]) -> bool:
+    """Whether the kernel at ``path`` (port key ``key``) is a transposed
+    convolution's: by the kind of ``model``'s module that owns the key, or
+    without a model by its flax scope (``_CONV_T``)."""
+    if model is None:
+        return path[-2] in _CONV_T
+    return isinstance(model.get_submodule(key.rpartition(".")[0]), nn.ConvTranspose2d)
+
+
+def variables_to_state_dict(variables: Mapping[str, Any], model: nn.Module | None = None) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` of numpy arrays -> port state_dict
     (float tensors keep their dtype; bf16 numpy leaves need jnp's ml_dtypes
-    and are converted through float32)."""
+    and are converted through float32). With ``model`` (the port model the
+    keys belong to), a kernel is read as a transposed one by the kind of the
+    module that owns it; without, by its flax scope."""
     out: dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, arr in _walk(variables.get(coll, {})):
@@ -112,14 +137,41 @@ def variables_to_state_dict(variables: Mapping[str, Any]) -> dict[str, torch.Ten
                 t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(a))  # a writable copy
-            if path[-1] == "kernel" and t.ndim == 4 and path[-2] == _CONV_T:
+            key = flax_path_to_key(coll, path)
+            if path[-1] == "kernel" and t.ndim == 4 and _is_conv_t(model, key, path):
                 t = t.flip(0, 1).permute(2, 3, 0, 1).contiguous()  # flax ConvTranspose -> torch (I, O, kH, kW)
             elif path[-1] == "kernel" and t.ndim == 4:
                 t = t.permute(3, 2, 0, 1).contiguous()  # HWIO -> OIHW
             elif path[-1] == "kernel" and t.ndim == 2:
                 t = t.t().contiguous()  # flax Dense (in, out) -> torch Linear (out, in)
-            key = flax_path_to_key(coll, path)
             if key in out:
                 raise ValueError(f"two flax leaves map to {key}")
             out[key] = t
+    return out
+
+
+def state_dict_to_variables(model: nn.Module, state_dict: Mapping[str, torch.Tensor] | None = None) -> dict:
+    """The inverse of ``variables_to_state_dict``: ``model``'s weights (or
+    ``state_dict``, keys of ``model``) as flax ``{"params", "batch_stats"}``
+    of numpy arrays. Paths come from ``key_to_flax``; each kernel's layout
+    from the kind of module that owns it: a conv's OIHW -> HWIO, a
+    ``nn.ConvTranspose2d``'s (in, out, kh, kw) -> (kh, kw, in, out) with both
+    spatial axes flipped back, a Linear's (out, in) -> (in, out)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, t in (model.state_dict() if state_dict is None else state_dict).items():
+        if key.endswith("num_batches_tracked"):
+            continue
+        coll, path = key_to_flax(model, key)
+        a = t.detach().float().cpu().numpy() if t.dtype == torch.bfloat16 else t.detach().cpu().numpy().copy()
+        owner = model.get_submodule(key.rpartition(".")[0])
+        if path[-1] == "kernel" and isinstance(owner, nn.ConvTranspose2d):
+            a = np.ascontiguousarray(a.transpose(2, 3, 0, 1)[::-1, ::-1])
+        elif path[-1] == "kernel" and a.ndim == 4:
+            a = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+        elif path[-1] == "kernel" and a.ndim == 2:
+            a = np.ascontiguousarray(a.T)
+        node = out[coll]
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a
     return out

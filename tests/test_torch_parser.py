@@ -72,7 +72,7 @@ def test_meta_stride_probe(name):
 
 
 def test_unported_module_raises():
-    d = {**MODELS["yolo11"], "backbone": [[-1, 1, "GhostConv", [64, 3, 2]]] + MODELS["yolo11"]["backbone"][1:]}
+    d = {**MODELS["yolo11"], "backbone": [[-1, 1, "Focus", [64, 3, 2]]] + MODELS["yolo11"]["backbone"][1:]}
     with pytest.raises(KeyError, match="not ported"):
         build_model(d, scale="n", device="cpu")
 
