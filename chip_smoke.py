@@ -96,7 +96,18 @@ from a seed) and checks that each path went through its kernels:
   batch) and ``YOLO.train(plots=True)`` its mosaics (every ``YOLO.train``
   above writes the first three batches' mosaics and ``results.png`` too);
   each figure, drawn on the host by ``utils/chart.py``, read back through
-  the port's PNG reader and timed.
+  the port's PNG reader and timed;
+- the model families (phase families): the 32 v3/v5/v6/v8/v9/yolo12 YAMLs
+  built and run, yolov8s and yolo12s predict, val and a train epoch, the
+  v8 task heads' predict;
+- YOLOv10 and the last packaged blocks (phase v10): the six v10 YAMLs built
+  and run; yolov10s's ``preds6`` on the card against the CPU (float32),
+  ``YOLO.predict`` at B=16 in bf16 (no stem, no NMS: the head's top-k is the
+  result), its end-to-end ``YOLO.val`` against the CPU's and a train epoch
+  with the dual-assignment loss; yolo11-cls-resnet18 predict, val and
+  train on phase classify's JPEGs; test-time augmentation of yolo11s-fce
+  (15,049 merged candidates an image at 640 px) through the NMS kernel,
+  bit-equal to the plain version; CoordAtt and CoordCrossAtt against the CPU.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -426,8 +437,15 @@ def phase_nms(card: str) -> dict:
     return record
 
 
-def phase_e2e(yolo, spec, card: str) -> dict:
+def letterboxed(imgs: list[np.ndarray]) -> torch.Tensor:
+    """The predictor's uint8 RGB NHWC batch of ``imgs`` (letterbox, BGR -> RGB) on the card."""
     from fce_yolo_tpu_torch.data.augment import letterbox
+
+    return torch.from_numpy(np.stack([np.ascontiguousarray(letterbox(im, IMGSZ, scaleup=False)[0][..., ::-1])
+                                      for im in imgs])).cuda()
+
+
+def phase_e2e(yolo, spec, card: str) -> dict:
     from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
     from fce_yolo_tpu_torch.ops.nms import batched_nms
     from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_weights
@@ -455,8 +473,7 @@ def phase_e2e(yolo, spec, card: str) -> dict:
 
     # the first batch as the predictor built it (letterbox, BGR -> RGB), on the same folded bf16 model
     model = yolo.model
-    batch = torch.from_numpy(np.stack([np.ascontiguousarray(letterbox(im, IMGSZ, scaleup=False)[0][..., ::-1])
-                                       for im in imgs[:E2E_BATCH]])).cuda()
+    batch = letterboxed(imgs[:E2E_BATCH])
     weights = stem_weights(fold_stem_params(model, spec), spec)
     _, stem_rel, stem_spread = check_stem(batch, weights, spec, "phase e2e")
     # kernel path vs plain path: a smoke check of the resumed graph (the decoded
@@ -1229,14 +1246,15 @@ def matching_model(yolo):
     """Seed-0 weights without the class prior, then so that some detections
     match the labels (mAP above zero): DFL bin 8 of every side up by 6 (boxes
     ~16 strides wide) and the labels' classes 0-2 up by 1 (scores ~0.73, the
-    rest ~0.5)."""
+    rest ~0.5), in both head sets of a v10 model."""
     from fce_yolo_tpu_torch.nn.model import init_weights
 
     init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    head = yolo.model.detect
     with torch.no_grad():
-        for branch in yolo.model.detect.cv2:
+        for branch in (*head.cv2, *getattr(head, "one2one_cv2", ())):
             branch[-1].bias[8::16] += 6.0
-        for branch in yolo.model.detect.cv3:
+        for branch in (*head.cv3, *getattr(head, "one2one_cv3", ())):
             branch[-1].bias[:3] += 1.0
     return yolo
 
@@ -2069,6 +2087,7 @@ def train_step_times(bdev: dict, nc: int, name: str = "yolo11s-fce.yaml", bf16s:
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
     from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.task_losses import task_loss_for
     from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
 
     batch = int(bdev["img"].shape[0])
@@ -2077,7 +2096,9 @@ def train_step_times(bdev: dict, nc: int, name: str = "yolo11s-fce.yaml", bf16s:
         yolo = YOLO(name, device="cuda")
         opt = Optimizer(OptimCfg(optimizer="AdamW", batch_size=batch, nbs=batch, nc=nc), yolo.model)
         state = create_train_state(yolo.model, opt)
-        step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=nc, strides=tuple(yolo.strides)), bf16=bf16)
+        cfg = DetectionLossCfg(nc=nc, strides=tuple(yolo.strides))
+        task_loss = task_loss_for("detect", cfg, end2end=yolo.spec.layers[-1].name == "v10Detect")[0]
+        step = make_train_step(yolo.model, opt, cfg, bf16=bf16, task_loss=task_loss)
         tag = "bf16" if bf16 else "f32"
         t0 = time.perf_counter()
         step(state, bdev)
@@ -2519,7 +2540,6 @@ def task_predict(task: str, card: str, name: str | None = None, imgs: list | Non
     idx/ok, boxes, keypoints and masks equal to the plain version's on the
     same preds. Returns the launches and the numbers."""
     from fce_yolo_tpu_torch import YOLO
-    from fce_yolo_tpu_torch.data.augment import letterbox
     from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
     from fce_yolo_tpu_torch.nn.model import init_weights
     from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
@@ -2559,8 +2579,7 @@ def task_predict(task: str, card: str, name: str | None = None, imgs: list | Non
           f"{name} predict: launches {launches}, expected {want_stem} stem and {want_nms} NMS for {n_batches} batches")
 
     model = yolo.model
-    batch = torch.from_numpy(np.stack([np.ascontiguousarray(letterbox(im, IMGSZ, scaleup=False)[0][..., ::-1])
-                                       for im in imgs[:E2E_BATCH]])).cuda()
+    batch = letterboxed(imgs[:E2E_BATCH])
     x = (batch.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
     predictor = DetectionPredictor(model, yolo.names, imgsz=IMGSZ, batch_size=E2E_BATCH)
     stem_rel = stem_spread = dmax = bound = corr = None
@@ -3517,8 +3536,8 @@ def finite(out) -> bool:
     return bool(torch.isfinite(out).all())
 
 
-def family_forwards(card: str) -> dict:
-    """(a) Every YAML of FAMILIES at its first scale (full width where it has
+def family_forwards(card: str, names: tuple = FAMILIES, phase: str = "families (a)") -> dict:
+    """(a) Every YAML of ``names`` at its first scale (full width where it has
     none) built on the card, one forward at B=2, 640 px (224 for classify),
     float32 then bf16: output shapes equal to the same graph's on the meta
     device (the host's parse; no memory, no arithmetic), finite, and
@@ -3527,7 +3546,7 @@ def family_forwards(card: str) -> dict:
     from fce_yolo_tpu_torch.nn.model import build_model, param_count
 
     times = {}
-    for name in FAMILIES:
+    for name in names:
         d, _ = load_model_dict(f"{name}.yaml")
         scale = next(iter(d["scales"])) if d.get("scales") else None
         ref, spec, strides = build_model(d, scale=scale, device="meta")
@@ -3548,12 +3567,13 @@ def family_forwards(card: str) -> dict:
                 out = model(x.cuda().to(dtype, memory_format=torch.channels_last))
                 torch.cuda.synchronize()
                 row[f"{str(dtype)[6:]}_ms"] = (time.perf_counter() - t0) * 1e3
-            check(shapes_of(out) == want, f"phase families (a) {name} {dtype}: shapes {shapes_of(out)} != {want}")
-            check(finite(out), f"phase families (a) {name} {dtype}: output not finite")
-        check(param_count(model) == param_count(ref), f"phase families (a) {name}: {param_count(model)} parameters "
+            check(shapes_of(out) == want, f"phase {phase} {name} {dtype}: shapes {shapes_of(out)} != {want}")
+            check(finite(out), f"phase {phase} {name} {dtype}: output not finite")
+        check(param_count(model) == param_count(ref), f"phase {phase} {name}: {param_count(model)} parameters "
               f"on the card, {param_count(ref)} on the host")
         times[name] = row
-        print(f"phase families (a): {name}{scale or ''} {spec.task} {param_count(model):,} params, strides {strides}, "
+        label = name if not scale or name.endswith(scale) else name + scale  # yolov8 -> yolov8n; yolov10n as it is
+        print(f"phase {phase}: {label} {spec.task} {param_count(model):,} params, strides {strides}, "
               f"B={FAMILY_BATCH} {size} px: build {row['build_ms']:.1f} ms, first forward float32 "
               f"{row['float32_ms']:.1f} ms, bfloat16 {row['bfloat16_ms']:.1f} ms (host clock, cuDNN's set-up "
               f"included) [{card}]", flush=True)
@@ -3588,10 +3608,11 @@ def family_val(name: str, data: str, card: str) -> tuple[dict, tuple]:
     return launches, mk
 
 
-def family_train(name: str, root: Path, card: str) -> dict:
+def family_train(name: str, root: Path, card: str, phase: str = "families (e)") -> dict:
     """(e) One ``YOLO.train`` epoch (bf16, AdamW, B=16, no plots) of ``name``
     on phase train's data: finite losses, the epoch's val with the NMS kernel
-    once a batch, no stem."""
+    once a batch (none for a v10 model: its val takes ``preds6`` as they
+    are), no stem."""
     from fce_yolo_tpu_torch import YOLO
 
     yolo = matching_model(YOLO(name, device="cuda"))
@@ -3603,12 +3624,14 @@ def family_train(name: str, root: Path, card: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
-    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val), f"{name} train: launches {launches}")
+    end2end = yolo.spec.layers[-1].name == "v10Detect"
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=0 if end2end else n_val),
+          f"{name} train: launches {launches}")
     r, sp = res["results"][0], res["speed"][0]
     check(res["epochs_run"] == 1 and all(np.isfinite(r[k]) for k in ("train/box_loss", "train/cls_loss",
                                                                      "train/dfl_loss")), f"{name} train: {r}")
     times = train_step_times(step_batch(train_data(root))[0], VAL_NC, name, bf16s=(True,))
-    print(f"phase families (e): {name} YOLO.train {IMGSZ} bf16 B={VAL_BATCH} AdamW, 1 epoch of "
+    print(f"phase {phase}: {name} YOLO.train {IMGSZ} bf16 B={VAL_BATCH} AdamW, 1 epoch of "
           f"{VAL_IMAGES // VAL_BATCH} steps, launches {launches}; loss box/cls/dfl {r['train/box_loss']:.4f}/"
           f"{r['train/cls_loss']:.4f}/{r['train/dfl_loss']:.4f}, val mAP50 {r['metrics/mAP50(B)']:.6f}; "
           f"{sp['img_per_s']:.2f} img/s, step {sp['step_ms']:.1f} ms (the epoch's mean, its first step's set-up "
@@ -3659,6 +3682,301 @@ def phase_families(root: Path, data: str, card: str) -> dict:
           f"{sum(times[slowest].values()):.0f} ms); phase families {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
     return paths
+
+
+# ------------------------------------------------------------ phase v10
+V10_FAMILY = ("yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x")
+V10_CHECK_IMAGES = 4  # (b) the card's float32 preds6 against the CPU's on the first images of phase e2e's
+V10_TOL = 1e-4  # (b) card vs CPU, float32 in both (TF32 off): scores absolute, boxes of the largest coordinate
+V10_TIE = 2e-5  # (b) scores this close may trade places between card and CPU (sums in another order)
+V10_VAL_TOL = 1e-3  # (c) P, R, mAP50, mAP50-95, card vs CPU
+COORD_TOL = 1e-5  # (g) CoordAtt and CoordCrossAtt outputs, card vs CPU, of the largest
+
+
+def preds6_agree(card6: np.ndarray, cpu6: np.ndarray, what: str) -> tuple[int, int]:
+    """V10Detect's ``preds6`` from the card and the CPU: scores equal position
+    by position within V10_TOL, and rows (class, box) in the same order,
+    except inside runs of CPU scores within V10_TIE of each other, which are
+    compared as sets of rows; the last run of an image is not compared (its
+    ties reach past the top-k cut, so either side may hold rows the other
+    left out). Returns (the rows compared, the rows in runs of ties)."""
+    check(card6.shape == cpu6.shape, f"{what}: preds6 {card6.shape} vs {cpu6.shape}")
+    dscore = float(np.abs(card6[..., 4] - cpu6[..., 4]).max())
+    check(dscore <= V10_TOL, f"{what}: scores differ by {dscore} (limit {V10_TOL})")
+    tol = V10_TOL * float(np.abs(cpu6[..., :4]).max())
+    compared = tied = 0
+    for a, b in zip(card6, cpu6):
+        cut = np.flatnonzero(np.diff(b[:, 4]) < -V10_TIE) + 1
+        for ra, rb in list(zip(np.split(a, cut), np.split(b, cut)))[:-1]:
+            compared += len(rb)
+            tied += len(rb) if len(rb) > 1 else 0
+            left = list(range(len(rb)))
+            for row in ra:
+                j = next((j for j in left if rb[j, 5] == row[5] and np.abs(rb[j, :4] - row[:4]).max() <= tol), None)
+                check(j is not None, f"{what}: the card's row {row} has no CPU row of its class within {tol:.3e}")
+                left.remove(j)
+    check(compared >= card6.shape[0] * card6.shape[1] // 2, f"{what}: only {compared} rows apart from the last ties")
+    return compared, tied
+
+
+def v10_predict(card: str) -> dict:
+    """(b) yolov10s (seed-0 weights): ``preds6`` of phase e2e's first images
+    in float32 on the card (TF32 off) against a CPU copy (``preds6_agree``);
+    then ``YOLO.predict`` in bf16 at B=16 on phase e2e's images: no stem
+    (layer 2 is C2f) and no NMS (the head's top-k is the result), finite
+    boxes inside each image. Returns the launches."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from fce_yolo_tpu_torch.nn.model import init_weights
+    from fce_yolo_tpu_torch.ops.stem import stem_spec_from_model
+
+    yolo = YOLO("yolov10s.yaml", device="cuda")
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED))
+    with torch.no_grad():  # the seed's class logits are ~1e-4: scaled to O(1), few of the top scores tie
+        for branch in yolo.model.detect.one2one_cv3:
+            branch[-1].weight.mul_(1e4)
+    check(stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ)) is None, "yolov10s must not take the fused stem")
+    imgs = e2e_images(SEED + 1, E2E_BATCHES)
+    first = letterboxed(imgs[:V10_CHECK_IMAGES])
+    x = first.permute(0, 3, 1, 2).float() / 255.0
+    cpu = YOLO("yolov10s.yaml", device="cpu")
+    cpu.model.load_state_dict(yolo.model.state_dict())
+    with torch.inference_mode():
+        card6 = yolo._inference_model()(x)["preds6"].cpu().numpy()
+        cpu6 = cpu._inference_model()(x.cpu())["preds6"].numpy()
+    compared, tied = preds6_agree(card6, cpu6, "v10 predict float32")
+    dscore = float(np.abs(card6[..., 4] - cpu6[..., 4]).max())
+
+    yolo.to(torch.bfloat16).fuse()
+    yolo.predict(imgs[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    n_det = 0
+    for r, img in zip(yolo.predict(imgs, imgsz=IMGSZ, batch=E2E_BATCH, stream=True), imgs):
+        h, w = img.shape[:2]
+        n_det += len(r)
+        check(0 < len(r) <= MAX_DET and bool(np.isfinite(r.boxes.data).all())
+              and bool(((r.boxes.xyxy >= 0) & (r.boxes.xyxy <= np.array([w, h, w, h]))).all()),
+              f"v10 predict: {len(r)} boxes, finite and inside the image")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=0), f"yolov10s predict: launches {launches}")
+    predictor = DetectionPredictor(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=E2E_BATCH)
+    batch = letterboxed(imgs[:E2E_BATCH])
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: predictor.infer(batch), iters=5)
+    print(f"phase v10 (b): yolov10s preds6 of {V10_CHECK_IMAGES} images float32 (TF32 off) card vs CPU: scores within "
+          f"{dscore:.2e} (limit {V10_TOL}); of {card6.shape[0] * card6.shape[1]} rows, {compared} above each image's "
+          f"last run of ties compared: classes and boxes (limit {V10_TOL} of the largest) in the same order, "
+          f"{tied} of them inside runs of scores within {V10_TIE} (compared as sets); YOLO.predict {IMGSZ} bf16 B={E2E_BATCH}, {len(imgs)} images, {n_det} "
+          f"detections, launches {launches} (no stem: layer 2 is C2f; no NMS: preds6 are the detections); "
+          f"{len(imgs) / wall:.1f} img/s through YOLO.predict (host clock, incl. letterbox); {ms:.2f} ms/batch model "
+          f"+ top-k on the device (CUDA events) [{card}]", flush=True)
+    return launches
+
+
+def v10_val(data: str, card: str) -> dict:
+    """(c) ``YOLO.val`` of yolov10s (float32, ``matching_model``: both head
+    sets raised) on phase val's 64 PNG images, end to end: no NMS, no stem;
+    P, R, mAP50 and mAP50-95 (mAP50 above zero) within V10_VAL_TOL of a CPU
+    copy's val of the same images. Returns the launches."""
+    from fce_yolo_tpu_torch import YOLO
+
+    yolo = matching_model(YOLO("yolov10s.yaml", device="cuda"))
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    img_s = VAL_IMAGES / (time.perf_counter() - t0)
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=0), f"yolov10s val: launches {launches}")
+    cpu = YOLO("yolov10s.yaml", device="cpu")
+    cpu.model.load_state_dict(yolo.model.state_dict())
+    t0 = time.perf_counter()
+    ref = cpu.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, workers=8, verbose=False)
+    cpu_s = time.perf_counter() - t0
+    got, want = tuple(res["metrics"].mean_results()), tuple(ref["metrics"].mean_results())
+    check(np.allclose(got, want, rtol=0, atol=V10_VAL_TOL) and got[2] > 0,
+          f"yolov10s val: P/R/mAP {got} on the card, {want} on the CPU (limit {V10_VAL_TOL}, mAP50 above 0)")
+    print(f"phase v10 (c): yolov10s val {IMGSZ} f32 B={VAL_BATCH} on {VAL_IMAGES} PNG images, end to end (preds6, "
+          f"no NMS), launches {launches}; P/R/mAP50/mAP50-95 {tuple(round(v, 6) for v in got)} on the card, "
+          f"{tuple(round(v, 6) for v in want)} on the CPU (limit {V10_VAL_TOL}); {img_s:.1f} img/s through YOLO.val "
+          f"(host clock, incl. PNG decode); the CPU val {cpu_s:.1f} s [{card}]", flush=True)
+    return launches
+
+
+def cls_resnet18(root: Path, card: str) -> dict:
+    """(e) yolo11-cls-resnet18 at 224 px (float32, seed-0 weights,
+    ``calibrated_classifier``) on phase classify's JPEG folders: ``YOLO.predict``
+    on the val directory (both JPEG kernels once an image; probabilities
+    within CLS_TOL of a CPU copy's, the same top-1), ``YOLO.val`` (top-1
+    equal to predict's hits), one ``YOLO.train`` epoch in bf16 (finite loss,
+    the trunk's BatchNorm statistics moved). Returns the launches by path."""
+    from fce_yolo_tpu_torch import YOLO
+
+    data = root / "cls"
+    n_val, n_train = CLS_NC * CLS_VAL, CLS_NC * CLS_TRAIN
+    yolo = calibrated_classifier(YOLO("yolo11-cls-resnet18.yaml", device="cuda", nc=CLS_NC), data)
+    val_dir = data / "val"
+    yolo.predict(str(val_dir / "class0"), batch=CLS_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.predict(str(val_dir), batch=CLS_BATCH)
+    torch.cuda.synchronize()
+    predict_ips = n_val / (time.perf_counter() - t0)
+    predict_launches = read_launches()
+    check(predict_launches == no_jpeg(fused_stem=0, pick_suppress=0) | {"jpeg_idct": n_val, "jpeg_color": n_val},
+          f"cls-resnet18 predict: launches {predict_launches}")
+    cpu = YOLO("yolo11-cls-resnet18.yaml", device="cpu", nc=CLS_NC)
+    cpu.model.load_state_dict(yolo.model.state_dict())
+    ref = cpu.predict(str(val_dir), batch=CLS_BATCH)
+    probs, ref_probs = np.stack([r.probs.data for r in res]), np.stack([r.probs.data for r in ref])
+    dmax = float(np.abs(probs - ref_probs).max())
+    top2 = np.sort(ref_probs, 1)[:, -2:]
+    margin = float((top2[:, 1] - top2[:, 0]).min())
+    check(bool(np.isfinite(probs).all()) and dmax <= CLS_TOL, f"cls-resnet18 predict: card vs CPU differ by {dmax}")
+    check(margin > 2 * CLS_TOL and [r.probs.top1 for r in res] == [r.probs.top1 for r in ref],
+          f"cls-resnet18 predict: top-1 differs from the CPU's (smallest margin {margin:.2e})")
+    hits = np.mean([r.probs.top1 == int(Path(r.path).parent.name.removeprefix("class")) for r in res])
+    reset_launches()
+    t0 = time.perf_counter()
+    val = yolo.val(str(data), batch=CLS_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    val_ips = n_val / (time.perf_counter() - t0)
+    val_launches = read_launches()
+    check(val_launches == predict_launches, f"cls-resnet18 val: launches {val_launches}")
+    check(abs(val["metrics/accuracy_top1"] - hits) < 1e-9, f"cls-resnet18 val: top-1 {val} against predict's {hits}")
+    bn = yolo.model.model[0].m.bn1.running_mean.clone()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = yolo.train(data=str(data), epochs=1, batch=CLS_BATCH, imgsz=224, project=str(root / "runs_resnet18"),
+                     verbose=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    train_launches = read_launches()
+    reads = n_train + n_val
+    check(train_launches == no_jpeg(fused_stem=0, pick_suppress=0) | {"jpeg_idct": reads, "jpeg_color": reads},
+          f"cls-resnet18 train: launches {train_launches}")
+    check(out["epochs_run"] == 1 and np.isfinite(out["results"][0]["train/loss"])
+          and not torch.equal(yolo.model.model[0].m.bn1.running_mean, bn), f"cls-resnet18 train: {out['results']}")
+    print(f"phase v10 (e): yolo11-cls-resnet18 224 f32 on phase classify's {n_train} + {n_val} JPEGs: predict launches "
+          f"{predict_launches}, probabilities within {dmax:.1e} of the CPU copy's (limit {CLS_TOL}; smallest top-1 "
+          f"margin {margin:.3f}), the same top-1, {predict_ips:.1f} img/s; val top-1 "
+          f"{val['metrics/accuracy_top1']:.3f} "
+          f"(= predict's hits), {val_ips:.1f} img/s; train bf16 B={CLS_BATCH} 1 epoch, loss "
+          f"{out['results'][0]['train/loss']:.4f}, launches {train_launches}, {train_s:.1f} s "
+          f"({out['speed'][0]['img_per_s']:.1f} img/s) [{card}]", flush=True)
+    return {"cls_resnet18_predict": predict_launches, "cls_resnet18_val": val_launches,
+            "cls_resnet18_train": train_launches}
+
+
+def v10_tta(card: str) -> tuple[dict, dict]:
+    """(f) ``predict_augment`` of yolo11s-fce (bf16, folded, seed-0 weights
+    without the class prior) on phase e2e's first 16 images: 15,049
+    merged candidates an image (8000 + 6069 + 980), then ``batched_nms``
+    (predict's settings; K = 1024 after the top-k): the NMS kernel once, no
+    stem (the augmented passes run the plain graph); the kernel's idx/ok
+    equal to the plain version's on the same candidates, timed there.
+    Returns the launches and the kernel's times on this path."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn.model import init_weights
+    from fce_yolo_tpu_torch.nn.tta import predict_augment
+    from fce_yolo_tpu_torch.ops.nms import batched_nms, pick_suppress, pick_suppress_reference
+
+    yolo = YOLO("yolo11s-fce.yaml", device="cuda")
+    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    yolo.to(torch.bfloat16).fuse()
+    batch = letterboxed(e2e_images(SEED + 1, 1)[:E2E_BATCH])
+    x = (batch.permute(0, 3, 1, 2).float() / 255.0).to(torch.bfloat16)
+    kw = dict(conf_thres=0.25, iou_thres=0.7, max_det=MAX_DET, multi_label=False)
+
+    def path():
+        return batched_nms(predict_augment(yolo.model, x), **kw)
+
+    with torch.inference_mode():
+        merged = predict_augment(yolo.model, x)  # warm-up: cuDNN's plans at the three sizes
+        check(tuple(merged.shape) == (E2E_BATCH, 8000 + 6069 + 980, 84), f"TTA: merged {tuple(merged.shape)}")
+        torch.cuda.synchronize()
+        reset_launches()
+        out = path()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(launches == no_jpeg(fused_stem=0, pick_suppress=1), f"TTA: launches {launches}")
+        calls: list = []
+        outs = kernel_vs_plain(lambda: {k: v.cpu().numpy() for k, v in batched_nms(merged, **kw).items()}, calls,
+                               NMS_K, 0.7, MAX_DET, "TTA")
+        kept = int(outs["kernel"]["valid"].sum())
+        check(kept > 0 and bool((out["valid"].cpu().numpy() == outs["kernel"]["valid"]).all()), "TTA: detections")
+        args = calls[-1][0]
+        ms = graph_ms(lambda: pick_suppress(*args, iou_thres=0.7, max_det=MAX_DET))
+        plain_ms = cuda_ms(lambda: pick_suppress_reference(*args, 0.7, MAX_DET), iters=3, warmup=1)
+        path_ms = cuda_ms(path, iters=3)
+        single_ms = cuda_ms(lambda: batched_nms(yolo.model(x)["preds"], **kw), iters=3)
+    bound_ms, bound_by = nms_bound(E2E_BATCH, NMS_K, kept)
+    print(f"phase v10 (f): TTA yolo11s-fce {IMGSZ} bf16 B={E2E_BATCH}: scales (1, 0.83, 0.67), flips (-, lr, -), "
+          f"{merged.shape[1]} merged candidates an image; batched_nms launches {launches}; NMS kernel idx/ok equal "
+          f"to the plain version on the top {NMS_K} candidates ({kept} kept); kernel {ms:.4f} ms on the device "
+          f"(CUDA graph), plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}); the TTA path "
+          f"{path_ms:.2f} ms/batch against {single_ms:.2f} single-scale (CUDA events) [{card}]", flush=True)
+    return launches, {"tta_ms": ms, "tta_plain_ms": plain_ms, "tta_bound_ms": bound_ms}
+
+
+def coord_blocks(card: str) -> None:
+    """(g) CoordAtt (reduction 32) and CoordCrossAtt (reduction 8, 4 heads) at
+    256 channels on a (16, 256, 80, 80) float32 map (P3 of a 640 px image at
+    B=16), seeded weights and random BatchNorm statistics: the card's output
+    within COORD_TOL of the largest of the CPU's (TF32 off), timed."""
+    from fce_yolo_tpu_torch.nn.fce import CoordAtt, CoordCrossAtt
+    from fce_yolo_tpu_torch.nn.model import init_weights
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    x = torch.rand(16, 256, 80, 80, generator=gen)
+    for name, module in (("CoordAtt", CoordAtt(256, 256, 32)), ("CoordCrossAtt", CoordCrossAtt(256, 256, 8, 4))):
+        init_weights(module, torch.Generator().manual_seed(SEED), bias_prior=False)
+        with torch.no_grad():
+            for m in module.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_var.uniform_(0.5, 1.5, generator=gen)
+                    m.running_mean.normal_(0.0, 0.1, generator=gen)
+        module.eval()
+        with torch.inference_mode():
+            ref = module(x)
+            card_module = module.cuda()
+            xc = x.cuda()
+            out = card_module(xc).cpu()
+            ms = cuda_ms(lambda: card_module(xc))
+        rel = float((out - ref).abs().max()) / float(ref.abs().max())
+        check(bool(torch.isfinite(out).all()) and rel <= COORD_TOL, f"{name}: card vs CPU {rel:.3e} of the largest")
+        print(f"phase v10 (g): {name} (16, 256, 80, 80) f32: card vs CPU max|d|/max|ref| {rel:.2e} (limit "
+              f"{COORD_TOL}); {ms:.3f} ms a forward (CUDA events) [{card}]", flush=True)
+
+
+def phase_v10(root: Path, data: str, card: str) -> tuple[dict, dict]:
+    """YOLOv10 and the last packaged blocks: (a) the six v10 YAMLs built and
+    run once in float32 and bf16; (b) yolov10s ``preds6`` card vs CPU and
+    ``YOLO.predict`` at B=16 bf16 (no stem, no NMS); (c) its end-to-end
+    ``YOLO.val``, card vs CPU; (d) one ``YOLO.train`` epoch with the dual
+    loss; (e) yolo11-cls-resnet18 predict, val and train; (f) TTA through
+    the NMS kernel; (g) CoordAtt and CoordCrossAtt, card vs CPU. Returns the
+    launches by path and the NMS kernel's times on the TTA path."""
+    t_phase = time.perf_counter()
+    times = family_forwards(card, V10_FAMILY, "v10 (a)")
+    paths = {"v10_predict": v10_predict(card)}
+    torch.cuda.empty_cache()
+    paths["v10_val"] = v10_val(data, card)
+    torch.cuda.empty_cache()
+    paths["v10_train"] = family_train("yolov10s.yaml", root, card, phase="v10 (d)")
+    torch.cuda.empty_cache()
+    paths.update(cls_resnet18(root, card))
+    torch.cuda.empty_cache()
+    paths["tta"], tta = v10_tta(card)
+    coord_blocks(card)
+    print(f"phase v10: {len(times)} YAMLs built and run; phase v10 {time.perf_counter() - t_phase:.1f} s [{card}]",
+          flush=True)
+    return paths, tta
 
 
 DRAW_FRAMES = 16  # phase draw (b): phase track's first frames, 720x1280
@@ -3938,10 +4256,11 @@ def main() -> None:
         del frames
         classify = phase_classify(Path(tmp), short_avi, card)
         families = phase_families(Path(tmp), val_data, card)
+        v10, tta = phase_v10(Path(tmp), val_data, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw, **families}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),
@@ -3953,7 +4272,7 @@ def main() -> None:
          **stem_b1},
         {"name": "pick_suppress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/nms.cu",
          "replaces": "fce_yolo_tpu/ops/pallas_nms.py:33", **launches("pick_suppress"), **{k: nms[k] for k in keys},
-         **nms_val, "video_b1_ms": video_times["nms_ms"]},
+         **nms_val, "video_b1_ms": video_times["nms_ms"], **tta},
     ] + [{"name": name, "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
           "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches(name), **jpeg[name],
           "video_frame_decode_ms": video_times["decode_ms"]}

@@ -173,6 +173,10 @@ class YOLO:
         self.device = next(self.model.parameters()).device
         return self
 
+    def __call__(self, source, **kw):
+        """``predict(source, **kw)``, as the JAX facade's call (api.py:329-330)."""
+        return self.predict(source, **kw)
+
     def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640, max_det: int = 300,
                 batch: int = 1, stream: bool = False, classes: list[int] | None = None, verbose: bool = False):
         """Predict on ``source``: an image file, a directory, an MJPEG
@@ -414,7 +418,8 @@ class YOLO:
                                    ema_dtype=torch.bfloat16 if hyp_overrides.get("bf16_ema") else None)
         if bf16 is None:  # the autocast analog is on for the accelerator
             bf16 = self.device.type == "cuda"
-        task_loss, extra_keys = task_loss_for(self.task, loss_cfg, kpt_shape)
+        task_loss, extra_keys = task_loss_for(self.task, loss_cfg, kpt_shape,
+                                              end2end=self.spec.layers[-1].name == "v10Detect")
         batch_keys = ("img", "cls", "bboxes", "mask", *extra_keys)
         step_fn = make_train_step(model, opt, loss_cfg, bf16=bf16, accumulate=accumulate, boundaries=bounds,
                                   task_loss=task_loss)

@@ -15,7 +15,8 @@ size for the rows that survived only, then ``scale_masks`` (cv2's
 INTER_LINEAR in integer torch ops) on the model's device; pose
 un-letterboxes the decoded keypoints; OBB suppresses with
 ``rotated_batched_nms`` (probiou) and only the centre leaves the
-letterbox, w and h scaled and never clipped.
+letterbox, w and h scaled and never clipped. A V10Detect model's
+``preds6`` are already its detections: no NMS (predictor.py:209-218).
 
 Stem gate (the port's form of the JAX gate at predictor.py:163-188): layers
 0..2 run in the fused stem kernel when the model matches
@@ -162,7 +163,13 @@ class DetectionPredictor:
         (reference nms.py:19 default): ``boxes``, ``scores``, ``classes``,
         ``valid``, and ``angle`` (OBB), ``keypoints`` (pose), or the mask
         coefficients ``extra`` and ``proto`` (segment; ``masks`` makes the
-        masks of the rows kept)."""
+        masks of the rows kept). V10Detect's ``preds6`` (B, max_det, 6) give
+        the boxes, scores and classes as they are, valid where the score is
+        above ``conf``."""
+        if "preds6" in out:
+            p6 = out["preds6"]
+            return {"boxes": p6[..., :4], "scores": p6[..., 4], "classes": p6[..., 5].to(torch.int32),
+                    "valid": p6[..., 4] > self.conf}
         if self.task == "obb":
             nms = rotated_batched_nms(out["preds"], conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
                                       multi_label=False, nc=self.nc)

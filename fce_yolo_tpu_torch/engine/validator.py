@@ -10,6 +10,12 @@ model has, the other class channels ride along as ``extra``. Predictions are
 matched to the labels in letterbox pixels; only the first ``n_valid`` images
 of a batch count. ``TaskValidator`` runs the same pass for the task heads'
 validators (``engine/seg_validator.py``, ``engine/task_validators.py``).
+
+A V10Detect model validates end to end, as Ultralytics does: its
+``preds6`` are taken as the detections (valid where the score is above
+``conf`` and the class is one the data names), with no NMS. The JAX
+validator reads ``preds``, which that head does not give, and raises
+(ROADMAP queue 3, item 26).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 
 from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
 from fce_yolo_tpu_torch.data.loader import DataLoader
+from fce_yolo_tpu_torch.nn.heads import V10Detect
 from fce_yolo_tpu_torch.nn.model import DetectionModel
 from fce_yolo_tpu_torch.ops.nms import batched_nms
 from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
@@ -60,6 +67,7 @@ class DetectionValidator:
         self.batch_size = batch_size
         self.workers = workers
         self.pre_nms_topk = pre_nms_topk
+        self.end2end = isinstance(getattr(model, "detect", None), V10Detect)  # preds6, no NMS
 
     def get_dataloader(self, data: str | Path | dict) -> DataLoader:
         """Fixed-shape batches of the ``val`` split of ``data``; JPEG images
@@ -72,14 +80,20 @@ class DetectionValidator:
 
     @torch.inference_mode()
     def forward(self, img_u8: torch.Tensor) -> torch.Tensor:
-        """uint8 RGB NHWC batch on the model's device -> decoded preds (B, N, 4 + nc)."""
+        """uint8 RGB NHWC batch on the model's device -> decoded preds (B, N, 4 + nc),
+        or V10Detect's ``preds6`` (B, max_det, 6)."""
         dtype = next(self.model.parameters()).dtype
         x = (img_u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
-        return self.model(x)["preds"]
+        return self.model(x)["preds6" if self.end2end else "preds"]
 
     @torch.inference_mode()
     def nms(self, preds: torch.Tensor) -> dict[str, torch.Tensor]:
-        """Multi-label NMS over the dataset's classes (fixed (B, max_det) outputs)."""
+        """Multi-label NMS over the dataset's classes (fixed (B, max_det)
+        outputs); ``preds6`` pass through as they are (end to end)."""
+        if self.end2end:
+            cls = preds[..., 5].to(torch.int32)
+            return {"boxes": preds[..., :4], "scores": preds[..., 4], "classes": cls,
+                    "valid": (preds[..., 4] > self.conf) & (cls < self.nc)}
         return batched_nms(preds, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
                            nc=self.nc, pre_nms_topk=self.pre_nms_topk)
 

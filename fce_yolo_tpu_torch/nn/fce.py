@@ -1,6 +1,6 @@
-"""FCE modules on the inference slice (reference ``fce_yolo_tpu/nn/fce.py:18-44, 122-166``).
-
-``CoordAtt``/``CoordCrossAtt`` are off the slice's path and not ported yet.
+"""FCE modules (reference ``fce_yolo_tpu/nn/fce.py``): ``BiFPN_Concat`` and
+``BiCoordCrossAtt`` on the paper's detector, and ``CoordAtt`` and
+``CoordCrossAtt``, which only a user's own model YAML reaches.
 """
 
 from __future__ import annotations
@@ -34,6 +34,62 @@ class BiFPN_Concat(nn.Module):
         for i in range(1, len(xs)):
             out = out + w[i] * self.realign_convs[i](xs[i])
         return out
+
+
+def _strips(x: torch.Tensor) -> torch.Tensor:
+    """The H strip (mean over W) and the W strip (mean over H) of (B, C, H, W),
+    stacked on the length axis: (B, C, H + W, 1)."""
+    return torch.cat([x.mean(dim=3, keepdim=True), x.mean(dim=2, keepdim=True).transpose(2, 3)], dim=2)
+
+
+class CoordAtt(nn.Module):
+    """Coordinate attention (reference fce_block.py:65-116, arXiv 2103.02907;
+    JAX ``fce.py:56-81``): both strips through one shared 1x1 Conv+BN+SiLU
+    to ``mip = max(8, inp // reduction)`` channels, split back, a 1x1 conv
+    and a sigmoid on each: ``identity(x) * a_h * a_w``."""
+
+    def __init__(self, inp: int, oup: int, reduction: int = 32):
+        super().__init__()
+        mip = max(8, inp // reduction)
+        self.cv1 = ConvBNAct(inp, mip, 1, 1, p=0)
+        self.cv_h = Conv2d(mip, oup)
+        self.cv_w = Conv2d(mip, oup)
+        self.identity = Conv2d(inp, oup) if inp != oup else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x.shape[2]
+        y_h, y_w = self.cv1(_strips(x)).split((h, x.shape[3]), dim=2)
+        a_h = torch.sigmoid(self.cv_h(y_h))  # (B, oup, H, 1)
+        a_w = torch.sigmoid(self.cv_w(y_w)).transpose(2, 3)  # (B, oup, 1, W)
+        return self.identity(x) * a_h * a_w
+
+
+class CoordCrossAtt(nn.Module):
+    """Coordinate cross attention (reference fce_block.py:119-180; JAX
+    ``fce.py:84-119``): the H strip's queries attend over the W strip's keys
+    and values, ``num_heads`` heads of ``mip / num_heads`` channels (channel
+    = head * dim_head + d); one sigmoid gate on the H axis: ``x * gate``.
+    Its ``cv1`` is a plain biased conv, unlike CoordAtt's."""
+
+    def __init__(self, inp: int, oup: int, reduction: int = 32, num_heads: int = 1):
+        super().__init__()
+        self.mip = mip = max(8, inp // reduction)
+        self.num_heads = num_heads
+        self.scale = (mip // num_heads) ** -0.5
+        self.cv1 = Conv2d(inp, mip)
+        self.q_conv, self.k_conv, self.v_conv = (Conv2d(mip, mip) for _ in range(3))
+        self.proj = Conv2d(mip, oup)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        nh, dh = self.num_heads, self.mip // self.num_heads
+        y_h, y_w = self.cv1(_strips(x)).split((h, w), dim=2)
+        q = self.q_conv(y_h).reshape(b, nh, dh, h)
+        k = self.k_conv(y_w).reshape(b, nh, dh, w)
+        v = self.v_conv(y_w).reshape(b, nh, dh, w)
+        attn = (torch.einsum("bndq,bndk->bnqk", q, k) * self.scale).softmax(dim=-1)
+        z = torch.einsum("bnqk,bndk->bndq", attn, v).reshape(b, self.mip, h, 1)
+        return x * torch.sigmoid(self.proj(z))
 
 
 class BiCoordCrossAtt(nn.Module):

@@ -1,5 +1,6 @@
-"""Task heads beyond detect: Segment, Pose and OBB, the mask prototypes, and
-Classify (reference ``fce_yolo_tpu/nn/heads.py:31-211``).
+"""Heads beyond detect: Segment, Pose and OBB, the mask prototypes,
+Classify, and YOLOv10's NMS-free ``V10Detect`` (reference
+``fce_yolo_tpu/nn/heads.py:31-211, 363-438``).
 
 Each head is the port's ``Detect`` (``legacy`` passed through: the v8-era
 cls branch) with one more branch per level (``cv4``:
@@ -22,6 +23,7 @@ In training mode they return the JAX package's keys: ``feats`` with
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import Any, Sequence
 
@@ -29,9 +31,9 @@ import torch
 from torch import nn
 
 from fce_yolo_tpu_torch.nn.modules import Conv2d, ConvBNAct, Detect
-from fce_yolo_tpu_torch.ops.anchors import dfl_expectation, dist2rbox, make_anchors
+from fce_yolo_tpu_torch.ops.anchors import dfl_expectation, dist2bbox, dist2rbox, make_anchors
 
-__all__ = ["Proto", "Segment", "Pose", "OBB", "Classify"]
+__all__ = ["Proto", "Segment", "Pose", "OBB", "Classify", "V10Detect", "stable_topk"]
 
 
 class Proto(nn.Module):
@@ -153,3 +155,60 @@ class Classify(nn.Module):
         if self.training:
             return {"logits": logits}
         return {"probs": logits.softmax(-1), "logits": logits}
+
+
+def stable_topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` largest of the last axis, descending, equal values in index
+    order: the tie rule of ``jax.lax.top_k``, which ``torch.topk`` does not
+    promise (a stable descending sort)."""
+    values, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return values[..., :k], idx[..., :k]
+
+
+class V10Detect(Detect):
+    """YOLOv10's NMS-free dual-assignment head (reference
+    ``fce_yolo_tpu/nn/heads.py:363-438``; Ultralytics head.py:1134-1183).
+
+    Two head sets of the Detect form with the v10 "light" cls branch:
+    ``cv2``/``cv3`` (one-to-many, trained with top-10 TAL) and
+    ``one2one_cv2``/``one2one_cv3`` (one-to-one, top-1 TAL), which run on
+    the inputs detached, so the one-to-one loss trains only its own head.
+    Training mode returns ``{"feats", "one2one_feats"}``. Eval mode decodes
+    the one-to-one maps in float32 as **xyxy** pixels and sigmoid scores,
+    takes the ``max_det`` anchors of highest best-class score, then the
+    ``max_det`` highest of their ``max_det * nc`` scores (anchor = idx //
+    nc, class = idx % nc; ties to the lower index at both steps, as
+    ``jax.lax.top_k``): ``preds6`` (B, max_det, 6) [x1, y1, x2, y2, score,
+    class], with ``feats`` and ``one2one_feats``. No NMS follows.
+    """
+
+    def __init__(self, nc: int, ch: Sequence[int], reg_max: int = 16, strides: Sequence[int] | None = None,
+                 max_det: int = 300):
+        super().__init__(nc, ch, reg_max, strides=strides, legacy=False)
+        self.max_det = max_det
+        self.one2one_cv2 = copy.deepcopy(self.cv2)
+        self.one2one_cv3 = copy.deepcopy(self.cv3)
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> dict[str, Any]:
+        one2many = self.level_maps(xs)
+        one2one = [torch.cat([b(x.detach()), c(x.detach())], dim=1)
+                   for x, b, c in zip(xs, self.one2one_cv2, self.one2one_cv3)]
+        if self.training:
+            return {"feats": one2many, "one2one_feats": one2one}
+        assert self.strides is not None, "V10Detect.strides unresolved; build via build_model()"
+        flat = _anchor_major(one2one)
+        box_logits, cls_logits = flat[..., : self.reg_max * 4], flat[..., self.reg_max * 4:]
+        anchors, stride_t = make_anchors([f.shape[2:] for f in one2one], list(self.strides), 0.5,
+                                         dtype=torch.float32, device=flat.device)
+        dist = dfl_expectation(box_logits.float(), self.reg_max)
+        dbox = dist2bbox(dist, anchors[None], xywh=False) * stride_t[None]
+        scores = cls_logits.float().sigmoid()
+        k = min(self.max_det, dbox.shape[1])
+        _, idx = stable_topk(scores.amax(-1), k)  # (B, k) anchors
+        boxes_k = torch.gather(dbox, 1, idx[..., None].expand(-1, -1, 4))
+        scores_k = torch.gather(scores, 1, idx[..., None].expand(-1, -1, self.nc))
+        top, flat_idx = stable_topk(scores_k.flatten(1), k)
+        anchor = flat_idx // self.nc
+        boxes = torch.gather(boxes_k, 1, anchor[..., None].expand(-1, -1, 4))
+        preds6 = torch.cat([boxes, top[..., None], (flat_idx % self.nc).float()[..., None]], dim=-1)
+        return {"preds6": preds6, "feats": one2many, "one2one_feats": one2one}

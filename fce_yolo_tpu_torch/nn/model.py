@@ -18,6 +18,7 @@ from torch import nn
 from fce_yolo_tpu_torch.nn import fce
 from fce_yolo_tpu_torch.nn import heads as H
 from fce_yolo_tpu_torch.nn import modules as M
+from fce_yolo_tpu_torch.nn import resnet
 from fce_yolo_tpu_torch.nn.parser import LayerSpec, ModelSpec, load_model_yaml, parse_model_yaml
 
 
@@ -27,12 +28,11 @@ _POSITIONAL: dict[str, Any] = {
     "C3Ghost": M.C3Ghost, "SPP": M.SPP, "ResNetLayer": M.ResNetLayer, "RepNCSPELAN4": M.RepNCSPELAN4,
     "ELAN1": M.ELAN1, "AConv": M.AConv, "ADown": M.ADown, "SPPELAN": M.SPPELAN, "CBLinear": M.CBLinear,
     "CBFuse": M.CBFuse, "A2C2f": M.A2C2f, "nn.MaxPool2d": M.MaxPool2d, "nn.ZeroPad2d": M.ZeroPad2d,
-    "nn.Identity": nn.Identity, "nn.ConvTranspose2d": M.ConvTranspose2d,
+    "nn.Identity": nn.Identity, "nn.ConvTranspose2d": M.ConvTranspose2d, "RepVGGDW": M.RepVGGDW, "CIB": M.CIB,
+    "C2fCIB": M.C2fCIB, "PSA": M.PSA, "SCDown": M.SCDown, "TorchVision": resnet.TorchVision,
 }
 # layers the port refuses, by the item of ROADMAP queue 1 that ports them
 _LATER: dict[str, str] = {
-    **dict.fromkeys(("v10Detect", "RepVGGDW", "CIB", "C2fCIB", "PSA", "SCDown"), "7.4"),
-    **dict.fromkeys(("TorchVision", "CoordAtt", "CoordCrossAtt"), "7.5"),
     **dict.fromkeys(("HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder", "C2fAttn", "ImagePoolingAttn",
                      "WorldDetect", "YOLOEDetect", "YOLOESegment"), "12"),
     **dict.fromkeys(("C1", "C3x", "Focus", "Conv2", "ConvTranspose", "BottleneckCSP", "C3TR", "CBAM",
@@ -75,8 +75,14 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
         return H.OBB(nc=a[0], ne=a[1] if len(a) > 2 else 1, ch=tuple(a[-1]), strides=strides, legacy=legacy)
     if n == "BiFPN_Concat":
         return fce.BiFPN_Concat(c1=tuple(a[0]), c2=a[1])
+    if n == "v10Detect":
+        return H.V10Detect(nc=a[0], ch=tuple(a[-1]), strides=strides)
     if n == "BiCoordCrossAtt":
         return fce.BiCoordCrossAtt(inp=a[0], oup=a[1], reduction=a[2], num_heads=a[3])
+    if n == "CoordAtt":
+        return fce.CoordAtt(inp=a[0], oup=a[1], reduction=a[2])
+    if n == "CoordCrossAtt":
+        return fce.CoordCrossAtt(inp=a[0], oup=a[1], reduction=a[2], num_heads=a[3])
     if n == "Classify":  # [c1, c2, k, s]
         return H.Classify(a[0], a[1], k=a[2] if len(a) > 2 else 1, s=a[3] if len(a) > 3 else 1)
     if n in _POSITIONAL:
@@ -91,7 +97,8 @@ class DetectionModel(nn.Module):
     ``forward`` returns the head's dict: for Detect ``{"feats"}`` in training
     mode, ``{"preds", "feats"}`` in eval mode (preds (B, N, 4 + nc), xywh
     pixels + class scores); a task head (``nn/heads.py``) adds its own keys,
-    and Classify gives ``{"logits"}`` / ``{"probs", "logits"}``.
+    V10Detect gives ``{"feats", "one2one_feats"}`` / ``{"preds6", "feats",
+    "one2one_feats"}``, and Classify ``{"logits"}`` / ``{"probs", "logits"}``.
     """
 
     def __init__(self, spec: ModelSpec, strides: tuple[int, ...] | None = None):
@@ -183,8 +190,8 @@ def _lecun_normal(shape: torch.Size, generator: torch.Generator) -> torch.Tensor
 def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: bool = True) -> DetectionModel:
     """Initialize like the JAX ``init_variables`` (nn/model.py:366-388): conv
     and dense kernels lecun-normal, their biases 0, BN (1, 0, mean 0, var 1), BiFPN
-    weights 1, A2C2f's ``gamma`` 0.01, then the Detect bias priors when ``bias_prior`` (on a task
-    head's Detect trunk only, as the JAX package does). Values are
+    weights 1, A2C2f's ``gamma`` 0.01, then the Detect bias priors when ``bias_prior`` (on a Detect
+    or a task head's Detect trunk only, not on V10Detect, as the JAX package does). Values are
     drawn on the CPU from ``generator`` (a CPU generator) so one seed gives
     the same weights on every device."""
     for m in model.modules():
@@ -201,7 +208,7 @@ def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: 
             m.w.fill_(1.0)
         elif isinstance(m, M.A2C2f) and m.gamma is not None:
             m.gamma.fill_(0.01)
-    if bias_prior and isinstance(model.detect, M.Detect):
+    if bias_prior and isinstance(model.detect, M.Detect) and not isinstance(model.detect, H.V10Detect):
         model.detect.bias_init()
     return model
 
@@ -213,8 +220,9 @@ def fold_conv_bn(model: nn.Module) -> nn.Module:
     bn -> Identity. The math runs in float32 and the results keep the conv
     weight's dtype (the JAX fold, nn/model.py:460-468, always emits f32).
     RepConv's two branches are ConvBNActs and fold each on its own, as in the
-    JAX fold; they are not merged into one conv. Idempotent: folded modules
-    are skipped."""
+    JAX fold; they are not merged into one conv; so are RepVGGDW's. The ResNet
+    trunk's BatchNorms (``nn/resnet.py``) stay, as in the JAX fold.
+    Idempotent: folded modules are skipped."""
     for m in model.modules():
         if isinstance(m, M.ConvBNAct) and not m.folded:
             conv, bn = m.conv, m.bn

@@ -1,6 +1,6 @@
 """YOLO modules (reference ``fce_yolo_tpu/nn/modules.py``): the YOLO11 blocks
-and the Detect head (``:87-593``), and the v3/v5/v6/v8, v9, yolo12 and
-ResNet blocks of the legacy YAMLs (``:700-1379``).
+and the Detect head (``:87-593``), and the v3/v5/v6/v8, v9, v10, yolo12 and
+ResNet blocks of the other YAMLs (``:700-1379``).
 
 NCHW ``nn.Module``s; attribute names follow Ultralytics (``cv1``, ``m.0``,
 ``cv2.0.2``) so ``state_dict`` keys are ``model.{i}.<path>`` and the JAX
@@ -600,6 +600,82 @@ class A2C2f(nn.Module):
         if self.gamma is not None:
             return x + self.gamma.view(1, -1, 1, 1) * out
         return out
+
+
+class RepVGGDW(nn.Module):
+    """7x7 and 3x3 depthwise Conv+BN without activation, summed, then SiLU
+    (reference block.py:1108-1170). ``fold_conv_bn`` folds each branch on
+    its own; the two are not merged into one 7x7."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = ConvBNAct(ed, ed, 7, 1, p=3, g=ed, act=False)
+        self.conv1 = ConvBNAct(ed, ed, 3, 1, p=1, g=ed, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Compact inverted block (reference block.py:1172-1214): depthwise 3x3,
+    1x1 to 2c_, a depthwise 3x3 (RepVGGDW when ``lk``), 1x1 to c2, depthwise
+    3x3, plus the shortcut when c1 == c2."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5, lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            ConvBNAct(c1, c1, 3, g=c1), ConvBNAct(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else ConvBNAct(2 * c_, 2 * c_, 3, g=2 * c_),
+            ConvBNAct(2 * c_, c2, 1), ConvBNAct(c2, c2, 3, g=c2))
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB inner blocks of expansion 1 (reference block.py:1216-1245)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False, lk: bool = False, g: int = 1,
+                 e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n))
+
+
+class PSA(nn.Module):
+    """Position-sensitive attention (reference block.py:1362-1411): cv1
+    splits in two halves, the second takes ``Attention`` (heads c // 64,
+    ratio 0.5) and a 1x1 FFN, each with a residual, and both concat into cv2."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        assert c1 == c2
+        self.c = c = int(c1 * e)
+        self.cv1 = ConvBNAct(c1, 2 * c, 1, 1)
+        self.cv2 = ConvBNAct(2 * c, c1, 1)
+        self.attn = Attention(c, num_heads=c // 64, attn_ratio=0.5)
+        self.ffn = nn.Sequential(ConvBNAct(c, c * 2, 1), ConvBNAct(c * 2, c, 1, act=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat([a, b], dim=1))
+
+
+class SCDown(nn.Module):
+    """Separable downsample (reference block.py:1506-1552): a 1x1 Conv to
+    c2, then a k x k stride-s depthwise Conv+BN without activation."""
+
+    def __init__(self, c1: int, c2: int, k: int, s: int):
+        super().__init__()
+        self.cv1 = ConvBNAct(c1, c2, 1, 1)
+        self.cv2 = ConvBNAct(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
 
 
 class MaxPool2d(nn.MaxPool2d):

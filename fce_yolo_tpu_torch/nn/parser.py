@@ -4,10 +4,10 @@ Same semantics as the reference's ``parse_model_yaml`` for the modules the
 port builds: depth/width/max_channels compound scaling, per-module channel
 inference, the forced ``c3k`` at m/l/x, the ``legacy`` flips of C3k2, A2C2f
 and C2fCIB with A2C2f's residual form at l/x, the FCE argument rewriting,
-the v8-cls ResNet layers and v9's CBLinear, and the savelist. Branches for
-modules the port does not build yet (RT-DETR, World, YOLOE, TorchVision,
-Index) are left out; their layers fall through to the generic channel rule
-and ``make_layer`` refuses them by name.
+the v8-cls ResNet layers, v9's CBLinear, v10's head and the ``TorchVision``
+trunk, and the savelist. Branches for modules the port does not build yet
+(RT-DETR, World, YOLOE, Index) are left out; their layers fall through to the
+generic channel rule and ``make_layer`` refuses them by name.
 """
 
 from __future__ import annotations
@@ -153,8 +153,8 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                 heads = args[2] if len(args) > 2 else _adaptive_heads(inp, reduction)
                 args = [inp, oup, reduction, heads]
             c2 = oup
-        elif name in ("Detect", "Segment", "Pose", "OBB"):
-            # Detect [nc]; Segment [nc, nm, npr] (npr width-scaled); Pose [nc, kpt_shape]; OBB [nc, ne]
+        elif name in ("Detect", "Segment", "Pose", "OBB", "v10Detect"):
+            # Detect, v10Detect [nc]; Segment [nc, nm, npr] (npr width-scaled); Pose [nc, kpt_shape]; OBB [nc, ne]
             if name == "Segment" and len(args) > 2:
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             if name == "Pose" and len(args) < 2:
@@ -169,6 +169,8 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
             c2 = ch_list[f]
         elif name == "ResNetLayer":  # (c1, c2, s, is_first, n): out c2, or 4 * c2 (tasks.py:1624)
             c2 = args[1] if args[3] else args[1] * 4
+        elif name == "TorchVision":  # (c2, model, weights, unwrap, truncate[, split]) as they are
+            c2 = args[0]
         elif name == "CBLinear":  # a tuple of maps; its channel entry is the split list (tasks.py:1721)
             c2 = list(args[0])
             args = [ch_list[f], args[0], *args[1:]]

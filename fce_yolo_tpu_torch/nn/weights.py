@@ -13,12 +13,19 @@
   params/layers_6/m_0_1/mlp_0/conv/kernel  ->  model.6.m.0.1.mlp.0.conv.weight
   params/layers_6/gamma                    ->  model.6.gamma
   params/layers_10/linear/kernel   (in, out)  ->  model.10.linear.weight     (out, in)  (Classify's Linear)
+  params/layers_23/one2one_cv3_0_1_0/conv/kernel  ->  model.23.one2one_cv3.0.1.0.conv.weight  (V10Detect)
+  params/layers_0/m/layer2_0/conv1/kernel  ->  model.0.m.layer2.0.conv1.weight  (a ResNet trunk's bare conv)
+  params/layers_0/m/layer2_0/down_conv/kernel  ->  model.0.m.layer2.0.downsample.0.weight
+  params/layers_0/m/layer2_0/down_bn/scale     ->  model.0.m.layer2.0.downsample.1.weight
 
 A task head (Segment, Pose, OBB) nests its Detect trunk under a ``detect``
 scope in flax; the port's keys are Ultralytics' flat names, so the scope is
 dropped here and put back by ``key_to_flax``; so is the ``conv_transpose2d``
 scope of a YAML ``nn.ConvTranspose2d`` layer, whose weights are the layer's
-own in the port (``model.17.weight``, as Ultralytics names them). A flax
+own in the port (``model.17.weight``, as Ultralytics names them). A ResNet
+trunk (``nn/resnet.py``) keeps torchvision's names: its convs are flax
+``nn.Conv``s without the ``conv2d`` scope, and the flax ``down_conv`` and
+``down_bn`` are torchvision's ``downsample.0`` and ``downsample.1``. A flax
 ``ConvTranspose`` kernel (kh, kw, in, out) becomes torch's (in, out, kh, kw)
 with both spatial axes flipped: flax's transposed convolution
 (``transpose_kernel`` False) applies the kernel unflipped to the dilated
@@ -46,6 +53,7 @@ import torch
 from torch import nn
 
 from fce_yolo_tpu_torch.nn.heads import OBB, Pose, Segment
+from fce_yolo_tpu_torch.nn.resnet import ResNetTrunk
 
 _LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
     ("params", "kernel"): (nn.Conv2d, "weight"),
@@ -58,6 +66,7 @@ _BARE_CONV = "conv2d"  # the flax scope of a bare Conv2d (not a ConvBNAct's ``co
 _TRUNK = "detect"  # the flax scope of a task head's Detect trunk
 _LAYER_CONV_T = "conv_transpose2d"  # the flax scope of a YAML nn.ConvTranspose2d layer's weights
 _CONV_T = ("upsample", _LAYER_CONV_T)  # the scopes of the JAX package's flax ConvTranspose modules
+_RESNET_DOWN = {"down_conv": "downsample.0", "down_bn": "downsample.1"}  # flax scope -> torchvision's name
 
 
 def _module_token(name: str) -> str:
@@ -80,7 +89,7 @@ def _walk(node: Mapping[str, Any], path: tuple[str, ...] = ()):
 def flax_path_to_key(collection: str, path: tuple[str, ...]) -> str:
     """One flax leaf path -> the port's state_dict key."""
     *mods, leaf = path
-    parts = [_module_token(p) for p in mods if p not in (_BARE_CONV, _TRUNK, _LAYER_CONV_T)]
+    parts = [_RESNET_DOWN.get(p, _module_token(p)) for p in mods if p not in (_BARE_CONV, _TRUNK, _LAYER_CONV_T)]
     parts.append(_LEAF.get((collection, leaf), (None, leaf))[1])
     return ".".join(parts)
 
@@ -105,7 +114,10 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
             mods.insert(1, _TRUNK)
     kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d, nn.ConvTranspose2d, nn.Linear) if isinstance(owner, k)),
                 None)
-    if kind is nn.Conv2d and tokens[-1] != "conv":
+    if any(isinstance(model.get_submodule(".".join(tokens[:i])), ResNetTrunk) for i in range(1, len(tokens))):
+        down = {v.replace(".", "_"): k for k, v in _RESNET_DOWN.items()}
+        mods = [down.get(m, m) for m in mods]
+    elif kind is nn.Conv2d and tokens[-1] != "conv":
         mods.append(_BARE_CONV)
     if kind is nn.ConvTranspose2d and len(tokens) == 2 and tokens[0] == "model":
         mods.append(_LAYER_CONV_T)

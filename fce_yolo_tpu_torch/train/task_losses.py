@@ -1,5 +1,5 @@
-"""Task losses beyond detect: segment, pose, OBB and classify (reference
-``fce_yolo_tpu/train/task_losses.py:36-293``).
+"""Task losses beyond detect: segment, pose, OBB, classify and YOLOv10's
+dual assignment (reference ``fce_yolo_tpu/train/task_losses.py:36-316``).
 
 - Segment and pose add their terms to ``detection_loss`` on a fixed subset
   of foreground anchors per image: the first ``max_fg`` by assignment
@@ -29,7 +29,7 @@ from fce_yolo_tpu_torch.train import tal
 from fce_yolo_tpu_torch.train.loss import DetectionLossCfg, LossState, _dfl_loss, bce_with_logits, detection_loss
 
 __all__ = ["OKS_SIGMA", "PoseLossCfg", "segmentation_loss", "pose_loss", "obb_loss", "classification_loss",
-           "task_loss_for"]
+           "e2e_detect_loss", "task_loss_for"]
 
 # COCO keypoint sigmas (reference task_losses.py:37-42)
 OKS_SIGMA = torch.tensor([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62, 1.07, 1.07, 0.87, 0.87,
@@ -226,11 +226,29 @@ def _classify_task_loss(out: dict, batch: dict, _cfg, state: LossState):
     return loss, parts, state
 
 
-def task_loss_for(task: str, cfg: DetectionLossCfg, kpt_shape: tuple[int, int] = (17, 3)):
+def e2e_detect_loss(out: dict, batch: dict[str, torch.Tensor], cfg: DetectionLossCfg,
+                    state: LossState) -> tuple[torch.Tensor, dict[str, torch.Tensor], LossState]:
+    """YOLOv10's dual-assignment loss (reference ``task_losses.py:296-316``,
+    Ultralytics ``E2EDetectLoss``): ``detection_loss`` on the one-to-many
+    ``feats`` with top-10 TAL, then on ``one2one_feats`` with top-1 TAL;
+    the totals and the box/cls/dfl parts summed, each branch's parts kept
+    as ``one2many_*`` and ``one2one_*``. The WIoU v3 running mean goes
+    through both calls, one-to-many first. The one-to-one maps come from
+    detached inputs (``V10Detect``), so that loss trains its own head only."""
+    many_total, many, state = detection_loss(out["feats"], batch, cfg._replace(tal_topk=10), state)
+    one_total, one, state = detection_loss(out["one2one_feats"], batch, cfg._replace(tal_topk=1), state)
+    parts = {**{f"one2many_{k}": v for k, v in many.items()}, **{f"one2one_{k}": v for k, v in one.items()}}
+    parts.update({k: many[k] + one[k] for k in ("box", "cls", "dfl")})
+    return many_total + one_total, parts, state
+
+
+def task_loss_for(task: str, cfg: DetectionLossCfg, kpt_shape: tuple[int, int] = (17, 3), end2end: bool = False):
     """The train step's ``task_loss`` of a task and the batch keys it reads
-    beyond the boxes (reference ``api.py:656-672``): (None, ()) for detect,
-    which takes ``detection_loss``; pose takes ``PoseLossCfg(det=cfg,
-    kpt_shape=kpt_shape)``; classify reads the labels as "cls"."""
+    beyond the boxes (reference ``api.py:656-677``): (None, ()) for detect,
+    which takes ``detection_loss``, and ``e2e_detect_loss`` for a detect
+    model whose head is V10Detect (``end2end``); pose takes
+    ``PoseLossCfg(det=cfg, kpt_shape=kpt_shape)``; classify reads the labels
+    as "cls"."""
     if task == "classify":
         return _classify_task_loss, ()
     if task == "segment":
@@ -240,4 +258,4 @@ def task_loss_for(task: str, cfg: DetectionLossCfg, kpt_shape: tuple[int, int] =
     if task == "pose":
         pose_cfg = PoseLossCfg(det=cfg, kpt_shape=tuple(kpt_shape))
         return (lambda out, batch, _cfg, state: pose_loss(out, batch, pose_cfg, state)), ("keypoints",)
-    return None, ()
+    return (e2e_detect_loss if end2end else None), ()

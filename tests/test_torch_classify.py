@@ -104,14 +104,15 @@ def test_classify_head_matches_flax(weights):
     jy, port = _pair(weights)
     assert param_count(port.model) == jax_param_count(weights)
     x = np.random.RandomState(2).rand(2, 128, 128, 3).astype(np.float32)
-    ref = jy.model.apply(weights, jnp.asarray(x), train=False)
+    ref = jax.jit(lambda v, x: jy.model.apply(v, x, train=False))(weights, jnp.asarray(x))
     with torch.no_grad():
         out = port.model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2))
     assert set(out) == {"probs", "logits"} and out["probs"].dtype == torch.float32
     for k in ("probs", "logits"):
         r = np.asarray(ref[k])
         np.testing.assert_allclose(out[k].numpy(), r, rtol=0, atol=1e-5 * np.abs(r).max())
-    ref_train, _ = jy.model.apply(weights, jnp.asarray(x), train=True, mutable=["batch_stats"])
+    ref_train, _ = jax.jit(lambda v, x: jy.model.apply(v, x, train=True, mutable=["batch_stats"]))(
+        weights, jnp.asarray(x))
     with torch.no_grad():
         out_train = port.model.train()(torch.from_numpy(x).permute(0, 3, 1, 2))
     port.model.eval()

@@ -25,7 +25,11 @@ plain path; yolo11n-cls on the card (float32, TF32 off) within 1e-3 of the
 largest CPU logit and its probabilities on an AVI within 1e-4; the JPEG
 writer's forward-DCT kernel's coefficients exactly equal to its plain
 version's and its files byte-equal to the plain writer's; the card
-library's contour walk equal to the plain walk.
+library's contour walk equal to the plain walk; yolov10n's ``preds6`` on
+the card within 1e-4 of the CPU's scores, classes in the same order where
+no two scores lie within 1e-5, with no NMS launched; the NMS kernel's
+detections on test-time augmentation's candidates equal to the plain
+version's; yolo11-cls-resnet18's logits within 1e-3 of the CPU's.
 """
 
 import struct
@@ -871,3 +875,67 @@ def test_outlines_and_save_on_the_card_match_the_plain_path(cuda, tmp_path):
     assert all(np.array_equal(a, b) for a, b in zip(r.masks.xy, ref.masks.xy)) and r.summary() == ref.summary()
     r.save(str(tmp_path / "a.jpg"))
     assert (tmp_path / "a.jpg").read_bytes() == encode_jpeg_reference(r.plot())
+
+
+@pytest.mark.cuda
+def test_v10_preds6_on_the_card_match_the_cpu(cuda):
+    """yolov10n (float32, TF32 off) on the card: ``preds6`` scores within
+    1e-4 of the CPU's and classes in the same order where no scores lie
+    within 1e-5 of each other; ``YOLO.predict`` and ``YOLO.val`` launch no
+    NMS kernel."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu = YOLO("yolov10n.yaml", device=cuda), YOLO("yolov10n.yaml", device="cpu")
+    init_weights(card.model, torch.Generator().manual_seed(0))
+    cpu.model.load_state_dict(card.model.state_dict())
+    x = torch.rand(2, 3, 160, 160, generator=torch.Generator().manual_seed(1))
+    with torch.inference_mode():
+        a = card.model.eval()(x.to(cuda))["preds6"].cpu().numpy()
+        b = cpu.model.eval()(x)["preds6"].numpy()
+    assert np.abs(a[..., 4] - b[..., 4]).max() <= 1e-4
+    apart = np.concatenate([np.diff(b[..., 4], axis=1) < -1e-5, np.ones((2, 1), bool)], axis=1)
+    apart &= np.concatenate([np.ones((2, 1), bool), apart[:, :-1]], axis=1)  # apart from both neighbours
+    np.testing.assert_array_equal(a[..., 5][apart], b[..., 5][apart])
+    pick_suppress.launches = 0
+    card.predict([np.full((96, 128, 3), 90, np.uint8)] * 2, imgsz=160, batch=2)
+    assert pick_suppress.launches == 0
+
+
+@pytest.mark.cuda
+def test_tta_nms_kernel_matches_the_plain_version(cuda):
+    """yolov8n's ``predict_augment`` candidates at 320 px (B=4) through
+    ``batched_nms``: the kernel's detections equal those of the plain NMS
+    on the same candidates."""
+    from fce_yolo_tpu_torch.nn.tta import predict_augment
+
+    yolo = YOLO("yolov8n.yaml", device=cuda)
+    init_weights(yolo.model, torch.Generator().manual_seed(0), bias_prior=False)
+    x = torch.rand(4, 3, 320, 320, generator=torch.Generator().manual_seed(2)).to(cuda)
+    with torch.inference_mode():
+        merged = predict_augment(yolo.model.eval(), x)
+        kw = dict(conf_thres=0.25, iou_thres=0.7, max_det=300, multi_label=False)
+        out = nms_ops.batched_nms(merged, **kw)
+        real = nms_ops.pick_suppress
+        try:
+            nms_ops.pick_suppress = lambda b, s, v, iou_thres, max_det: pick_suppress_reference(b, s, v, iou_thres,
+                                                                                             max_det)
+            ref = nms_ops.batched_nms(merged, **kw)
+        finally:
+            nms_ops.pick_suppress = real
+    assert int(out["valid"].sum()) > 0
+    for k in out:
+        assert torch.equal(out[k], ref[k]), k
+
+
+@pytest.mark.cuda
+def test_cls_resnet18_on_the_card_matches_the_cpu(cuda):
+    """yolo11-cls-resnet18 (float32, TF32 off): logits on the card within
+    1e-3 of the largest CPU logit."""
+    torch.backends.cudnn.allow_tf32 = False
+    card, cpu = YOLO("yolo11-cls-resnet18.yaml", device=cuda), YOLO("yolo11-cls-resnet18.yaml", device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    x = torch.rand(2, 3, 224, 224, generator=torch.Generator().manual_seed(3))
+    with torch.inference_mode():
+        a = card.model.eval()(x.to(cuda))["logits"].cpu()
+        b = cpu.model.eval()(x)["logits"]
+    assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())

@@ -31,7 +31,6 @@ from fce_yolo_tpu.experiments import config as jax_config
 from fce_yolo_tpu.experiments import inspect_weights as jax_inspect
 from fce_yolo_tpu.experiments.pack import pack_results as jax_pack_results
 from fce_yolo_tpu.nn.import_torch import state_dict_to_variables
-from fce_yolo_tpu.nn.model import build_model as jax_build_model
 from fce_yolo_tpu.nn.model import estimate_flops as jax_estimate_flops
 from fce_yolo_tpu.nn.model import init_variables
 from fce_yolo_tpu.nn.model import param_count as jax_param_count
@@ -48,6 +47,7 @@ from fce_yolo_tpu_torch.experiments.figures import model_complexity, produce_rep
 from fce_yolo_tpu_torch.experiments.pack import pack_results
 from fce_yolo_tpu_torch.nn.model import build_model, estimate_flops, init_weights, param_count
 from test_torch_data import png_copy
+from test_torch_modules import jax_detection_model
 
 REPO = Path(__file__).resolve().parent.parent
 JAX_DATASETS = REPO / "fce_yolo_tpu" / "cfg" / "datasets"
@@ -64,7 +64,7 @@ torch.set_num_threads(1)
 @pytest.mark.parametrize("scale", ["n", "s"])
 @pytest.mark.parametrize("name", FAMILIES + ["yolo11-seg", "yolo11-pose", "yolo11-obb"])
 def test_param_count_matches_jax(name, scale):
-    jmodel, _, _ = jax_build_model(str(REPO / "fce_yolo_tpu" / "cfg" / "models" / f"{name}.yaml"), scale=scale)
+    jmodel, _, _ = jax_detection_model(str(REPO / "fce_yolo_tpu" / "cfg" / "models" / f"{name}.yaml"), scale=scale)
     shapes = jax.eval_shape(lambda k: init_variables(jmodel, k, imgsz=64), jax.random.PRNGKey(0))
     model, _, _ = build_model(f"{name}.yaml", scale=scale, device="meta")
     assert param_count(model) == jax_param_count(shapes)
@@ -73,7 +73,7 @@ def test_param_count_matches_jax(name, scale):
 def test_estimate_flops_matches_jax():
     """yolo11n-fce at 640 px: FlopCounterMode on the meta device vs XLA's
     cost analysis (one compile); ``YOLO.info`` reports the same count."""
-    jmodel, _, _ = jax_build_model(str(REPO / "fce_yolo_tpu" / "cfg" / "models" / "yolo11-fce.yaml"), scale="n")
+    jmodel, _, _ = jax_detection_model(str(REPO / "fce_yolo_tpu" / "cfg" / "models" / "yolo11-fce.yaml"), scale="n")
     ref = jax_estimate_flops(jmodel, imgsz=640)
     info = YOLO("yolo11n-fce.yaml", device="cpu").info(flops=True, imgsz=640)
     model, _, _ = build_model("yolo11n-fce.yaml", device="meta")
@@ -394,6 +394,8 @@ def test_cli_without_jax_matplotlib_or_pil(ablation, tmp_path):
         import sys
         for m in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "matplotlib", "fce_yolo_tpu"):
             sys.modules[m] = None
+        import torch
+        torch.set_num_threads(1)  # one thread, as in the test workers
         from fce_yolo_tpu_torch.experiments.__main__ import main
         rep = main(["figures", "--project", sys.argv[1], "--scale", "n", "--out", sys.argv[2]])
         names = sorted(p.rsplit("/", 1)[1] for p in rep["written"])

@@ -77,8 +77,9 @@ def bridged(name: str):
     v = state_dict_to_variables(model)
     back = variables_to_state_dict(v, model)
     assert back.keys() == {k for k in model.state_dict() if not k.endswith("num_batches_tracked")}
+    sd = model.state_dict()
     for k, t in back.items():
-        assert torch.equal(t, model.state_dict()[k]), k
+        assert torch.equal(t, sd[k]), k
     return jmodel, v, model
 
 
@@ -127,7 +128,8 @@ def test_yolov6_conv_transpose_follows_the_module_type():
                                   v["params"][f"layers_{layers[0]}"]["conv_transpose2d"]["kernel"][::-1, ::-1]
                                   .transpose(2, 3, 0, 1))
     x = _x(3)
-    _, inter = jmodel.apply(v, jnp.asarray(x), train=False, capture_intermediates=True, mutable=["intermediates"])
+    _, inter = jax.jit(lambda v, x: jmodel.apply(v, x, train=False, capture_intermediates=True,
+                                                  mutable=["intermediates"]))(v, jnp.asarray(x))
     outs = {}
     hooks = [model.model[i].register_forward_hook(lambda m, a, o, i=i: outs.__setitem__(i, (a[0], o))) for i in layers]
     with torch.no_grad():

@@ -44,8 +44,11 @@ def _scales(name: str) -> list:
 
 
 def test_packaged_yaml_files_are_the_jax_files():
-    assert sorted(p.stem for p in MODELS_DIR.glob("*.yaml")) == sorted(FAMILIES)
-    for name in FAMILIES:
+    """The 32 family YAMLs above and the v10 and ResNet-classify ones
+    (``test_torch_v10.py``, ``test_torch_resnet.py``), byte-equal."""
+    others = ["yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x", "yolo11-cls-resnet18"]
+    assert sorted(p.stem for p in MODELS_DIR.glob("*.yaml")) == sorted(FAMILIES + others)
+    for name in FAMILIES + others:
         assert (MODELS_DIR / f"{name}.yaml").read_bytes() == (JAX_CFG / f"{name}.yaml").read_bytes(), name
 
 
@@ -127,8 +130,6 @@ def test_meta_stride_probe_with_two_to_four_levels(name, strides):
 
 
 @pytest.mark.parametrize("layer,item", [
-    ("v10Detect", "7.4"), ("C2fCIB", "7.4"), ("PSA", "7.4"), ("SCDown", "7.4"), ("RepVGGDW", "7.4"), ("CIB", "7.4"),
-    ("TorchVision", "7.5"), ("CoordAtt", "7.5"), ("CoordCrossAtt", "7.5"),
     ("HGStem", "12"), ("HGBlock", "12"), ("RepC3", "12"), ("AIFI", "12"), ("RTDETRDecoder", "12"),
     ("WorldDetect", "12"), ("C2fAttn", "12"), ("ImagePoolingAttn", "12"), ("YOLOEDetect", "12"),
     ("YOLOESegment", "12"),
@@ -142,9 +143,28 @@ def test_refused_layers_name_their_roadmap_item(layer, item):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("yolov10n.yaml", "7.4"), ("yolo11-cls-resnet18.yaml", "7.5"), ("rtdetr-l.yaml", "12"),
-    ("yolov8-worldv2.yaml", "12"), ("yoloe-11.yaml", "12"),
+    ("rtdetr-l.yaml", "12"), ("yolov8-worldv2.yaml", "12"), ("yoloe-11.yaml", "12"),
 ])
 def test_refused_families_name_their_roadmap_item(name, item):
     with pytest.raises(KeyError, match=rf"ROADMAP queue 1, item {item}\)"):
         build_model(JAX_CFG / name, device="cpu")
+
+
+@pytest.mark.parametrize("layer,args", [
+    ("v10Detect", [3, [16, 32]]), ("C2fCIB", [16, 32, 1, True, True]), ("PSA", [128, 128]), ("SCDown", [16, 32, 3, 2]),
+    ("RepVGGDW", [16]), ("CIB", [16, 16]), ("TorchVision", [512, "resnet18", "DEFAULT", True, 2]),
+    ("CoordAtt", [16, 16, 8]), ("CoordCrossAtt", [16, 16, 8, 2]),
+])
+def test_layers_of_items_7_4_and_7_5_build_by_name(layer, args):
+    """The layers ROADMAP items 7.4 and 7.5 ported are no longer refused:
+    ``make_layer`` builds each from its parsed arguments."""
+    built = make_layer(LayerSpec(i=3, f=-1, name=layer, args=args, c2=16), (8, 16))
+    assert isinstance(built, torch.nn.Module) and sum(p.numel() for p in built.parameters()) > 0
+
+
+@pytest.mark.parametrize("name", ["yolov10n.yaml", "yolo11-cls-resnet18.yaml"])
+def test_families_of_items_7_4_and_7_5_build(name):
+    """The JAX package's own YAML files of the families items 7.4 and 7.5
+    ported build in the port, with the packaged copies' layers."""
+    model, spec, _ = build_model(JAX_CFG / name, device="meta")
+    assert [ls.name for ls in spec.layers] == [ls.name for ls in load_model_yaml(name).layers]

@@ -212,7 +212,7 @@ def test_task_models_build_probe_and_init_like_jax(name):
     the dict outputs); the Detect bias prior lands
     on the head's trunk only, as ``init_variables`` puts it; ``fold_conv_bn``
     leaves the ConvTranspose and the bare 1x1 convs as they are."""
-    from fce_yolo_tpu.nn.model import build_model as jax_build_model
+    from test_torch_modules import jax_detection_model
     from fce_yolo_tpu.nn.model import init_variables
     from fce_yolo_tpu_torch.nn.model import build_model, estimate_flops, fold_conv_bn, init_weights
 
@@ -228,7 +228,7 @@ def test_task_models_build_probe_and_init_like_jax(name):
     assert strides == (8, 16, 32) and spec.task == model.task == name.split("-")[1].replace("seg", "segment")
     assert estimate_flops(model, imgsz=128) > estimate_flops(detect, imgsz=128)
     init_weights(model, torch.Generator().manual_seed(0))
-    jm, _, _ = jax_build_model(f"fce_yolo_tpu/cfg/models/{name}.yaml", scale="n")
+    jm, _, _ = jax_detection_model(f"fce_yolo_tpu/cfg/models/{name}.yaml", scale="n")
     v = jax.jit(lambda k: init_variables(jm, k, imgsz=64))(jax.random.PRNGKey(0))["params"]["layers_23"]
     head = model.detect
     for i in range(3):

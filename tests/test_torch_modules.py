@@ -14,9 +14,11 @@ import torch
 
 from fce_yolo_tpu.nn import fce as jfce
 from fce_yolo_tpu.nn import modules as JM
-from fce_yolo_tpu.nn.model import build_model as jax_build_model
+from fce_yolo_tpu.nn.model import DetectionModel as JaxDetectionModel
 from fce_yolo_tpu.nn.model import fold_conv_bn as jax_fold_conv_bn
 from fce_yolo_tpu.nn.import_torch import state_dict_to_variables
+from fce_yolo_tpu.nn.parser import load_model_yaml as jax_load_model_yaml
+from fce_yolo_tpu.nn.parser import parse_model_yaml
 from fce_yolo_tpu.ops import anchors as janchors
 from fce_yolo_tpu_torch.nn import fce as pfce
 from fce_yolo_tpu_torch.nn import modules as PM
@@ -25,6 +27,17 @@ from fce_yolo_tpu_torch.nn.weights import variables_to_state_dict
 from fce_yolo_tpu_torch.ops import anchors as panchors
 
 RTOL = 1e-5  # f32 vs f32, summation order only
+
+
+def jax_detection_model(cfg, scale: str | None = None, strides: tuple = (8, 16, 32)):
+    """(JAX ``DetectionModel``, spec, strides) of ``cfg`` (a YAML path or a
+    model dict) with ``strides`` given: ``jax_build_model`` without its
+    ``eval_shape`` stride probe, which traces the whole model twice (the
+    port's probe is held to these strides in ``test_torch_parser.py`` and
+    ``test_torch_families_parse.py``)."""
+    spec = parse_model_yaml(dict(cfg), ch=3, scale=scale) if isinstance(cfg, dict) else jax_load_model_yaml(cfg, scale)
+    strides = () if spec.task == "classify" else strides
+    return JaxDetectionModel(spec=spec, strides=strides), spec, strides
 
 torch.set_num_threads(1)
 
@@ -41,14 +54,17 @@ def _randomize(tree, rng):
 
 
 def _pair(jmod, pmod, inputs, seed=0, **apply_kw):
-    """Init the flax module, randomize, bridge to the torch module, run both
-    on the NHWC ``inputs`` (a list for multi-input modules)."""
+    """Randomize the flax module's variables (their shapes from an abstract
+    init), bridge them to the torch module, run both on the NHWC ``inputs``
+    (a list for multi-input modules); the flax side under one ``jax.jit``,
+    whose compile the persistent cache keeps (op-by-op dispatch compiles
+    each op again in every session)."""
     rng = np.random.RandomState(seed)
     xs = [jnp.asarray(x) for x in inputs]
     arg = xs if len(xs) > 1 or isinstance(jmod, (JM.Detect, jfce.BiFPN_Concat, JM.Concat)) else xs[0]
-    v = jmod.init(jax.random.PRNGKey(0), arg, train=False, **apply_kw)
-    v = _randomize(jax.tree_util.tree_map(np.asarray, dict(v)), rng)
-    ref = jmod.apply(v, arg, train=False, **apply_kw)
+    v = jax.eval_shape(lambda a: jmod.init(jax.random.PRNGKey(0), a, train=False, **apply_kw), arg)
+    v = _randomize(dict(v), rng)
+    ref = jax.jit(lambda v, a: jmod.apply(v, a, train=False, **apply_kw))(v, arg)
     sd = variables_to_state_dict({c: {"layers_0": t} for c, t in v.items()})
     pmod.load_state_dict({k.removeprefix("model.0."): t for k, t in sd.items()}, strict=True)
     pmod.eval()
@@ -137,7 +153,7 @@ def _bridged_model(name: str):
     """``name`` at n in both frameworks on the same seeded weights, random BN
     statistics included; the flax variables come from the port's state_dict
     through the JAX package's own importer (no flax init compile)."""
-    jmodel, _, _ = jax_build_model(f"fce_yolo_tpu/cfg/models/{name}.yaml", scale="n")
+    jmodel, _, _ = jax_detection_model(f"fce_yolo_tpu/cfg/models/{name}.yaml", scale="n")
     model, _, _ = build_model(f"{name}.yaml", scale="n", device="cpu")
     init_weights(model, torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
@@ -161,7 +177,7 @@ def fce_n():
 def _assert_forward_matches(jmodel, v, model):
     """Eval preds and train-mode-shaped per-level maps of the whole graph."""
     x = np.random.RandomState(2).rand(2, 64, 96, 3).astype(np.float32)
-    ref = jmodel.apply(v, jnp.asarray(x), train=False)
+    ref = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(v, jnp.asarray(x))
     with torch.no_grad():
         out = model(torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last))
     _close(ref["preds"], out["preds"])
@@ -182,7 +198,7 @@ def test_fold_conv_bn_matches_flax(fce_n):
     """The port's in-place fold gives the JAX folded model's outputs."""
     jmodel, v, model = fce_n
     x = np.random.RandomState(3).rand(1, 64, 64, 3).astype(np.float32)
-    ref = jmodel.apply(jax_fold_conv_bn(v), jnp.asarray(x), train=False)["preds"]
+    ref = jax.jit(lambda v, x: jmodel.apply(v, x, train=False))(jax_fold_conv_bn(v), jnp.asarray(x))["preds"]
     import copy
 
     folded = fold_conv_bn(copy.deepcopy(model))

@@ -397,6 +397,8 @@ def test_figures_need_neither_matplotlib_nor_pil(tmp_path, runs):
         from pathlib import Path
         for m in ("matplotlib", "PIL", "cv2", "jax", "jaxlib", "flax", "fce_yolo_tpu"):
             sys.modules[m] = None
+        import torch
+        torch.set_num_threads(1)  # one thread, as in the test workers
         import numpy as np
         import fce_yolo_tpu_torch.experiments.figures as F
         import fce_yolo_tpu_torch.utils.annotator as A

@@ -63,6 +63,8 @@ def test_import_and_predict_without_jax_cv2_pil(tmp_path):
         import sys
         for m in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
             sys.modules[m] = None
+        import torch
+        torch.set_num_threads(1)  # one thread, as in the test workers
         import importlib, pkgutil, struct, zlib
         from pathlib import Path
         import numpy as np
@@ -111,6 +113,8 @@ def test_import_and_track_without_jax_cv2_pil(tmp_path):
         import sys
         for m in ("jax", "jaxlib", "flax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
             sys.modules[m] = None
+        import torch
+        torch.set_num_threads(1)  # one thread, as in the test workers
         import numpy as np
         from fce_yolo_tpu_torch import YOLO
         from fce_yolo_tpu_torch.trackers import BOTSORT, TrackerArgs
@@ -378,10 +382,11 @@ def task_predicts():
     return run
 
 
-def _jax_mask_probabilities(jy, img: np.ndarray) -> np.ndarray:
+def _jax_mask_probabilities(jy, imgs: list[np.ndarray]) -> list[np.ndarray]:
     """The JAX predictor's mask probabilities before the 0.5 threshold for
-    one image no larger than 128 px (the predictor's folded model, NMS and
-    ``process_mask`` steps with the threshold left out), in letterbox pixels."""
+    images no larger than 128 px (the predictor's folded model, NMS and
+    ``process_mask`` steps with the threshold left out), in letterbox pixels;
+    one jitted forward for all of them."""
     import jax.numpy as jnp
 
     from fce_yolo_tpu.nn.model import fold_conv_bn as jax_fold
@@ -389,14 +394,18 @@ def _jax_mask_probabilities(jy, img: np.ndarray) -> np.ndarray:
     from fce_yolo_tpu.ops.masks import crop_mask
     from fce_yolo_tpu.ops.nms import batched_nms as jax_nms
 
-    lb = jax_letterbox(img, 128, scaleup=False)[0][..., ::-1]
-    with fused_bn_scope():
-        out = jy.model.apply(jax_fold(jy.variables), jnp.asarray(lb, jnp.float32)[None] / 255.0, train=False)
-    nms = jax_nms(out["preds"], conf_thres=0.25, iou_thres=0.7, max_det=300, multi_label=False, nc=80)
-    keep = np.asarray(nms["valid"][0])
-    m = jax.nn.sigmoid(jnp.einsum("nk,hwk->nhw", nms["extra"][0][keep], out["proto"][0]))
-    m = crop_mask(m, nms["boxes"][0][keep] * jnp.asarray([0.25, 0.25, 0.25, 0.25], jnp.float32))
-    return np.asarray(jax.image.resize(m, (m.shape[0], 128, 128), method="bilinear"))
+    fwd, folded = jax.jit(lambda v, x: jy.model.apply(v, x, train=False)), jax_fold(jy.variables)
+    probs = []
+    for img in imgs:
+        lb = jax_letterbox(img, 128, scaleup=False)[0][..., ::-1]
+        with fused_bn_scope():
+            out = fwd(folded, jnp.asarray(lb, jnp.float32)[None] / 255.0)
+        nms = jax_nms(out["preds"], conf_thres=0.25, iou_thres=0.7, max_det=300, multi_label=False, nc=80)
+        keep = np.asarray(nms["valid"][0])
+        m = jax.nn.sigmoid(jnp.einsum("nk,hwk->nhw", nms["extra"][0][keep], out["proto"][0]))
+        m = crop_mask(m, nms["boxes"][0][keep] * jnp.asarray([0.25, 0.25, 0.25, 0.25], jnp.float32))
+        probs.append(np.asarray(jax.image.resize(m, (m.shape[0], 128, 128), method="bilinear")))
+    return probs
 
 
 @pytest.mark.parametrize("task", sorted(TASK_MODELS))
@@ -407,6 +416,7 @@ def test_task_predict_matches_jax_facade(task_predicts, task):
     leave the letterbox by a crop alone)."""
     jy, port, ref, out = task_predicts(task)
     assert len(out) == len(ref) == 3
+    probs = _jax_mask_probabilities(jy, _images()) if task == "segment" else None
     for i, (r, o) in enumerate(zip(ref, out)):
         assert len(o) == len(r) > 0
         np.testing.assert_array_equal(o.boxes.cls, r.boxes.cls)
@@ -421,7 +431,7 @@ def test_task_predict_matches_jax_facade(task_predicts, task):
         if task == "segment":
             h, w = o.orig_shape
             top, left = (128 - h) // 2, (128 - w) // 2
-            p = _jax_mask_probabilities(jy, _images()[i])[:, top: top + h, left: left + w]
+            p = probs[i][:, top: top + h, left: left + w]
             assert o.masks.data.shape == r.masks.data.shape == (len(o), h, w) and r.masks.data.any()
             differ = o.masks.data != r.masks.data
             assert (differ <= (np.abs(p - 0.5) <= 1e-5)).all()

@@ -23,7 +23,6 @@ import numpy as np
 import pytest
 import torch
 
-from fce_yolo_tpu.nn.model import build_model as jax_build_model
 from fce_yolo_tpu.train import loss as jloss
 from fce_yolo_tpu.train import optim as jopt
 from fce_yolo_tpu.train import task_losses as jtask
@@ -35,6 +34,7 @@ from fce_yolo_tpu_torch.train import loss as ploss
 from fce_yolo_tpu_torch.train import optim as popt
 from fce_yolo_tpu_torch.train import task_losses as ptask
 from fce_yolo_tpu_torch.train import trainer as ptrainer
+from test_torch_modules import jax_detection_model
 
 torch.set_num_threads(1)
 IMGSZ, B, M, STEPS, NC = 128, 2, 6, 2, 2
@@ -99,7 +99,7 @@ def make_batches(task: str, n: int, seed: int = 0) -> list[dict]:
 
 def run_jax(task, variables, batches):
     name, over = TASKS[task]
-    model, _, strides = jax_build_model({**MODELS[name], "nc": NC, **over}, scale="n")
+    model, _, strides = jax_detection_model({**MODELS[name], "nc": NC, **over}, scale="n")
     cfg = jopt.OptimCfg(**OPT)
     bounds, ni_map = jopt.boundary_schedule(cfg)
     acc = jopt.accumulate_steps(cfg)

@@ -21,11 +21,11 @@ import pytest
 import torch
 
 from fce_yolo_tpu.api import YOLO as JaxYOLO
-from fce_yolo_tpu.nn.model import build_model as jax_build_model
 from fce_yolo_tpu.nn.model import init_variables
 from fce_yolo_tpu_torch import YOLO
 from fce_yolo_tpu_torch.cfg.models import MODELS
 from fce_yolo_tpu_torch.nn.model import build_model
+from test_torch_modules import jax_detection_model
 
 torch.set_num_threads(1)
 
@@ -42,7 +42,7 @@ def task_pair(task: str):
     _, name, over, _ = TASKS[task]
     cfg = {**MODELS[name], **over}
     jy = JaxYOLO(f"{name.replace('yolo11', 'yolo11n')}.yaml", nc=over["nc"])
-    jy.model, jy.spec, jy.strides = jax_build_model(cfg, scale="n")
+    jy.model, jy.spec, jy.strides = jax_detection_model(cfg, scale="n")
     v = jax.tree_util.tree_map(np.array, jax.jit(
         lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(jax.random.PRNGKey(1)))
     head = max((k for k in v["params"] if k.startswith("layers_")), key=lambda k: int(k.split("_")[1]))

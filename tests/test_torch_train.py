@@ -240,8 +240,9 @@ def test_checkpoint_round_trip_is_exact(tmp_path):
     yolo.save(tmp_path / "best", {"epoch": 1, "fitness": 0.5})
     again = YOLO(tmp_path / "best", device="cpu")
     assert again.names == yolo.names and again.scale == "n" and again.ckpt_meta["fitness"] == 0.5
+    sd = again.model.state_dict()
     for k, v in yolo.model.state_dict().items():
-        assert torch.equal(v, again.model.state_dict()[k]), k
+        assert torch.equal(v, sd[k]), k
     jax_meta_keys = {"cfg_yaml", "scale", "nc", "names", "epoch", "fitness"}  # the JAX facade's save + train meta
     assert jax_meta_keys <= set(again.ckpt_meta)
 
@@ -367,6 +368,8 @@ def test_train_modules_import_and_train_without_jax_cv2_pil(tmp_path):
         import sys
         for m in ("jax", "jaxlib", "flax", "optax", "orbax", "cv2", "PIL", "yaml", "fce_yolo_tpu"):
             sys.modules[m] = None
+        import torch
+        torch.set_num_threads(1)  # one thread, as in the test workers
         import importlib, pkgutil, struct, zlib
         from pathlib import Path
         import numpy as np

@@ -12,11 +12,11 @@ import pytest
 import torch
 
 from fce_yolo_tpu.nn.import_torch import torch_key_to_flax
-from fce_yolo_tpu.nn.model import build_model as jax_build_model
 from fce_yolo_tpu.nn.model import fold_conv_bn as jax_fold_conv_bn
 from fce_yolo_tpu.nn.model import init_variables
 from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn
 from fce_yolo_tpu_torch.nn.weights import flax_path_to_key, key_to_flax, variables_to_state_dict
+from test_torch_modules import jax_detection_model
 
 CFG_DIR = Path(__file__).resolve().parent.parent / "fce_yolo_tpu" / "cfg" / "models"
 CONFIGS = [("yolo11", "n"), ("yolo11-fce", "s"), ("yolo11-fce", "n"), ("yolo11-bifpn", "n"),
@@ -42,7 +42,7 @@ def _port_state(model) -> dict:
 
 @pytest.mark.parametrize("name,scale", CONFIGS)
 def test_bridge_is_a_bijection(name, scale):
-    jmodel, _, _ = jax_build_model(str(CFG_DIR / f"{name}.yaml"), scale=scale)
+    jmodel, _, _ = jax_detection_model(str(CFG_DIR / f"{name}.yaml"), scale=scale)
     leaves = _jax_leaves(jmodel)
     model, _, _ = build_model(f"{name}.yaml", scale=scale, device="cpu")
     port = _port_state(model)
@@ -74,7 +74,7 @@ def test_bridge_is_a_bijection(name, scale):
 def test_bridge_loads_values_and_folded_variables():
     """Values land transposed where they belong; a JAX-folded tree loads
     into a port-folded model."""
-    jmodel, _, _ = jax_build_model(str(CFG_DIR / "yolo11.yaml"), scale="n")
+    jmodel, _, _ = jax_detection_model(str(CFG_DIR / "yolo11.yaml"), scale="n")
     v = jax.jit(lambda k: init_variables(jmodel, k, imgsz=64))(jax.random.PRNGKey(0))
     v = jax.tree_util.tree_map(np.asarray, v)
     model, _, _ = build_model("yolo11n.yaml", device="cpu")
