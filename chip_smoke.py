@@ -107,7 +107,14 @@ from a seed) and checks that each path went through its kernels:
   with the dual-assignment loss; yolo11-cls-resnet18 predict, val and
   train on phase classify's JPEGs; test-time augmentation of yolo11s-fce
   (15,049 merged candidates an image at 640 px) through the NMS kernel,
-  bit-equal to the plain version; CoordAtt and CoordCrossAtt against the CPU.
+  bit-equal to the plain version; CoordAtt and CoordCrossAtt against the CPU;
+- weights in (phase weights): an Ultralytics-layout ``.pt`` of yolo11s-fce
+  (fp16 ``model``, fp32 ``ema``) opened by ``YOLO(path)`` on the card, its
+  weights equal to the ``ema``, predicting in bf16 through the stem and NMS
+  kernels; the committed JAX orbax checkpoint (``tests/fixtures``) read
+  without orbax, zstd through ``csrc/zstd.cu``'s host C++ byte-equal to the
+  Python decoder, predicting within a stated bound of JAX's stored
+  predictions; the C++ and Python decoders' MB/s.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -2528,9 +2535,10 @@ def e2e_images(seed: int, batches: int) -> list[np.ndarray]:
 
 
 def task_predict(task: str, card: str, name: str | None = None, imgs: list | None = None,
-                 stem: bool = True) -> dict:
+                 stem: bool = True, yolo=None) -> dict:
     """(a) ``YOLO.predict`` of the task's model (the yolo11s one unless
-    ``name`` is given; bf16, folded, seed weights without the class prior) on
+    ``name`` is given; bf16, folded, seed weights without the class prior;
+    or ``yolo``, a facade made so, with ``name`` for the messages) on
     33 random arrays (or ``imgs``) at B=16: the stem kernel launched once a
     batch when ``stem`` (the model must take it, else it must not), the NMS
     kernel once a batch but for OBB; finite results of the task's kind. On
@@ -2545,9 +2553,10 @@ def task_predict(task: str, card: str, name: str | None = None, imgs: list | Non
     from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
 
     name = name or TASK_MODELS[task]
-    yolo = YOLO(name, device="cuda")
-    init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
-    yolo.to(torch.bfloat16).fuse()
+    if yolo is None:
+        yolo = YOLO(name, device="cuda")
+        init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+        yolo.to(torch.bfloat16).fuse()
     check(yolo.task == task, f"{name}: task {yolo.task}, expected {task}")
     spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
     check((spec is not None) == stem, f"{name} {'must' if stem else 'must not'} take the fused stem")
@@ -3979,6 +3988,180 @@ def phase_v10(root: Path, data: str, card: str) -> tuple[dict, dict]:
     return paths, tta
 
 
+WEIGHTS_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_checkpoint"
+WEIGHTS_PREDICTIONS = WEIGHTS_FIXTURE.parent / "jax_checkpoint_predictions.npz"
+WEIGHTS_TOL = {"xyxy": 1e-2, "conf": 1e-4, "preds": 1e-4}  # card float32 (TF32 off) vs JAX's float32 on a CPU
+ZSTD_ITERS = 20  # phase weights (c): C++ decodes of the fixture's largest chunk, timed together
+
+
+def leaf_bytes(x) -> bytes:
+    """A checkpoint leaf's bytes (numpy, or a bfloat16 tensor)."""
+    return x.view(torch.int16).numpy().tobytes() if isinstance(x, torch.Tensor) else np.ascontiguousarray(x).tobytes()
+
+
+def weights_pt(root: Path, card: str) -> tuple[dict, float]:
+    """(a) An Ultralytics-layout ``.pt`` of yolo11s-fce (80 classes; seed
+    weights without the class prior): the trainer's ``{"model": fp16,
+    "ema": fp32, "epoch", "train_args"}``, the Detect head's
+    ``dfl.conv.weight`` and the ``num_batches_tracked`` buffers included;
+    ``YOLO(path)`` on the card, its weights equal to the ``ema`` tensors,
+    then ``task_predict`` of it in bf16 at B=16 (the stem and NMS kernels
+    launched once, each held against its plain version). Returns the
+    launches and the load ms."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn.model import init_weights
+
+    src = YOLO("yolo11s-fce.yaml", device="cpu")
+    init_weights(src.model, torch.Generator().manual_seed(SEED), bias_prior=False)
+    ema = {k: v.clone() for k, v in src.model.state_dict().items()}
+    ema[f"model.{len(src.model.model) - 1}.dfl.conv.weight"] = torch.arange(16, dtype=torch.float32).view(1, 16, 1, 1)
+    half = {k: v.half() if v.is_floating_point() else v for k, v in ema.items()}
+    path = root / "yolo11s-fce.pt"
+    torch.save({"model": half, "ema": ema, "epoch": 299, "train_args": {"model": "yolo11s-fce.yaml", "imgsz": IMGSZ}},
+               path)
+    del src
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    yolo = YOLO(str(path), device="cuda")
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    got = yolo.model.state_dict()
+    differ = [k for k in got if not k.endswith("num_batches_tracked") and not torch.equal(got[k].cpu(), ema[k])]
+    check(not differ, f"phase weights (a): {len(differ)} tensors differ from the .pt's ema, e.g. {differ[:3]}")
+    check(any(not torch.equal(half[k].float(), ema[k]) for k in got if ema[k].is_floating_point()),
+          "phase weights (a): the fp16 model entry should differ from the ema")
+    yolo.to(torch.bfloat16).fuse()
+    p = task_predict("detect", card, name="yolo11s-fce.pt", imgs=e2e_images(SEED + 9, 1)[:E2E_BATCH], yolo=yolo)
+    check(p["launches"] == no_jpeg(fused_stem=1, pick_suppress=1), f"phase weights (a): launches {p['launches']}")
+    print(f"phase weights (a): YOLO('yolo11s-fce.pt') on the card in {load_ms:.1f} ms ({path.stat().st_size} bytes, "
+          f"{len(got)} tensors equal to the ema's); bf16 predict of {p['n_images']} images at B={E2E_BATCH}: "
+          f"launches {p['launches']}, {p['n_det']} detections, stem on the fed batch max|d|/max|ref|="
+          f"{p['stem_rel']:.3e} (limit 0.02) per-row max/median={p['stem_spread']:.2f} (limit 3), kernel path preds "
+          f"vs plain max|d|={p['dmax']:.3e} (limit {p['bound']:.3e}) corr={p['corr']:.6f}, NMS idx/ok equal to "
+          f"the plain version's ({p['kept']} kept); device {p['ms']:.2f} ms a batch, plain stem {p['ms_plain']:.2f}; "
+          f"{p['img_s']:.1f} img/s [{card}]", flush=True)
+    del yolo
+    torch.cuda.empty_cache()
+    return p["launches"], load_ms
+
+
+def weights_fixture(card: str) -> tuple[dict, int, float]:
+    """(b) The committed JAX checkpoint (``tests/fixtures/jax_checkpoint``,
+    written by the JAX package's ``save_checkpoint``: a narrow yolo11-fce
+    user YAML, bfloat16 params) read by ``YOLO(path)`` on the card, zstd
+    through the C++ decoder; every leaf byte-equal to the Python decoder's
+    read; ``YOLO.predict`` in float32 through the NMS kernel (the stem is
+    not eligible at 16-128 channels) within ``WEIGHTS_TOL`` of the JAX
+    facade's stored predictions. Returns the predict's launches, the
+    decoder's calls in ``YOLO(path)`` and the load ms."""
+    import contextlib
+
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.augment import letterbox
+    from fce_yolo_tpu_torch.ops.stem import stem_spec_from_model
+    from fce_yolo_tpu_torch.utils import zstd
+    from fce_yolo_tpu_torch.utils.checkpoint import load_jax_checkpoint
+
+    ref = np.load(WEIGHTS_PREDICTIONS)
+    imgsz = int(ref["imgsz"])
+    zstd.decompress_host.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.chdir(WEIGHTS_FIXTURE.parents[2]):  # meta.json names its YAML relative to the repo
+        yolo = YOLO(str(WEIGHTS_FIXTURE), device="cuda")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    calls = zstd.decompress_host.launches
+    check(calls > 0, "phase weights (b): YOLO(fixture) ran no C++ zstd decode")
+    tree, _ = load_jax_checkpoint(WEIGHTS_FIXTURE, collections=None, device="cuda")
+    t0 = time.perf_counter()
+    plain, _ = load_jax_checkpoint(WEIGHTS_FIXTURE, collections=None, device="cpu")
+    plain_s = time.perf_counter() - t0
+
+    def leaves(t, prefix=""):
+        for k, v in t.items():
+            yield from leaves(v, f"{prefix}{k}/") if isinstance(v, dict) else [(prefix + k, v)]
+
+    a, b = dict(leaves(tree)), dict(leaves(plain))
+    differ = [k for k in a if leaf_bytes(a[k]) != leaf_bytes(b[k])]
+    check(a.keys() == b.keys() and not differ, f"phase weights (b): C++ and Python reads differ: {differ[:3]}")
+    check(stem_spec_from_model(yolo.spec, (imgsz, imgsz)) is None, "phase weights (b): the narrow model took the stem")
+
+    rng = np.random.RandomState(int(ref["seed"]))
+    imgs = [rng.randint(0, 256, tuple(sh), np.uint8) for sh in ref["shapes"]]
+    reset_launches()
+    res = yolo.predict(imgs, imgsz=imgsz, conf=float(ref["conf"]), batch=len(imgs))
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=1), f"phase weights (b): launches {launches}")
+    counts = [len(r) for r in res]
+    check(counts == ref["det_counts"].tolist(), f"phase weights (b): detections {counts}, JAX {ref['det_counts']}")
+    det = np.concatenate([np.concatenate([r.boxes.xyxy, r.boxes.conf[:, None], r.boxes.cls[:, None]], 1) for r in res])
+    d_xyxy = float(np.abs(det[:, :4] - ref["det"][:, :4]).max())
+    d_conf = float(np.abs(det[:, 4] - ref["det"][:, 4]).max())
+    check(np.array_equal(det[:, 5], ref["det"][:, 5]) and d_xyxy <= WEIGHTS_TOL["xyxy"]
+          and d_conf <= WEIGHTS_TOL["conf"], f"phase weights (b): predictions off JAX's: boxes {d_xyxy}, conf {d_conf}")
+    x = np.stack([letterbox(im, imgsz, scaleup=False)[0][..., ::-1] for im in imgs]).astype(np.float32) / 255.0
+    with torch.inference_mode():
+        preds = yolo.model.eval()(torch.from_numpy(x).permute(0, 3, 1, 2).cuda())["preds"].float().cpu().numpy()
+    d_preds = float(np.abs(preds - ref["preds"]).max()) / float(np.abs(ref["preds"]).max())
+    check(d_preds <= WEIGHTS_TOL["preds"], f"phase weights (b): raw preds off JAX's by {d_preds:.3e} of the largest")
+    print(f"phase weights (b): YOLO(jax_checkpoint) on the card in {load_ms:.1f} ms ({calls} C++ zstd decodes; "
+          f"{len(a)} leaves byte-equal to the Python decoder's read, which took {plain_s * 1e3:.1f} ms); the narrow "
+          f"model is not eligible for the stem (16-128 channels); float32 predict of {len(imgs)} images at {imgsz} px: "
+          f"launches {launches}, detections {counts} as JAX's, classes equal, boxes within {d_xyxy:.3e} px (limit "
+          f"{WEIGHTS_TOL['xyxy']}), scores within {d_conf:.3e} (limit {WEIGHTS_TOL['conf']}), raw preds within "
+          f"{d_preds:.3e} of the largest (limit {WEIGHTS_TOL['preds']}) [{card}]", flush=True)
+    return launches, calls, load_ms
+
+
+def weights_decode_speed(card: str) -> dict:
+    """(c) ``fce_zstd_decompress`` against the Python decoder on the
+    fixture's largest chunk (host clock), MB/s of decoded bytes, and the
+    time a yolo11s-fce checkpoint's float32 leaves would take at those
+    rates (an extrapolation: its chunks are not read here)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.utils import zstd
+    from fce_yolo_tpu_torch.utils.ocdbt import OcdbtStore
+
+    launches = zstd.decompress_host.launches
+    store = OcdbtStore(WEIGHTS_FIXTURE / "tree", "cuda")
+    key = max((k for k in store.list() if not k.endswith(".zarray")), key=lambda k: len(store.read(k)))
+    frame = store.read(key)
+    out = zstd.decompress_host(frame)
+    t0 = time.perf_counter()
+    for _ in range(ZSTD_ITERS):
+        zstd.decompress_host(frame, len(out))
+    ms = (time.perf_counter() - t0) * 1e3 / ZSTD_ITERS
+    zstd.decompress_host.launches = launches  # timing calls are not the path's
+    t0 = time.perf_counter()
+    plain = zstd.decompress_plain(frame)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(plain == out, f"phase weights (c): the decoders differ on {key}")
+    mb_s, plain_mb_s = len(out) / ms / 1e3, len(out) / plain_ms / 1e3
+    s_bytes = sum(v.numel() * 4 for k, v in YOLO("yolo11s-fce.yaml", device="cpu").model.state_dict().items()
+                  if not k.endswith("num_batches_tracked"))
+    bound_ms = 1e3 * (len(frame) + len(out)) / HBM_BYTES_PER_S
+    print(f"phase weights (c): zstd on {key} ({len(frame)} -> {len(out)} bytes): C++ {ms:.3f} ms ({mb_s:.1f} MB/s), "
+          f"Python {plain_ms:.1f} ms ({plain_mb_s:.2f} MB/s), bytes bound on the card {bound_ms:.5f} ms; extrapolated: "
+          f"a yolo11s-fce checkpoint ({s_bytes} bytes of float32 leaves) decodes in {s_bytes / mb_s / 1e6:.3f} s "
+          f"through C++, {s_bytes / plain_mb_s / 1e6:.1f} s through Python [{card}]", flush=True)
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "mb_s": mb_s, "plain_mb_s": plain_mb_s, "chunk": key, "chunk_bytes": len(out),
+            "yolo11s_fce_bytes": s_bytes, "yolo11s_fce_s_extrapolated": s_bytes / mb_s / 1e6}
+
+
+def phase_weights(root: Path, card: str) -> tuple[dict, dict]:
+    """Weights in: (a) a ``.pt`` at full width, (b) the JAX checkpoint
+    fixture, (c) the zstd decoders' speed. Returns the paths' launches and
+    the ``fce_zstd_decompress`` record."""
+    t_phase = time.perf_counter()
+    pt_launches, pt_ms = weights_pt(root, card)
+    fixture_launches, calls, fixture_ms = weights_fixture(card)
+    record = weights_decode_speed(card)
+    record.update(launches=calls, pt_load_ms=pt_ms, fixture_load_ms=fixture_ms)
+    print(f"phase weights: phase {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {"weights_pt": pt_launches, "weights_jax": fixture_launches}, record
+
+
 DRAW_FRAMES = 16  # phase draw (b): phase track's first frames, 720x1280
 DRAW_SIZES = ((37, 53), (480, 640), (720, 1280), (1080, 1920))  # phase draw (a), and a 720x1280 gray image
 DRAW_TRAIN_BATCH = 21  # phase draw (c): the 64 images in 3 steps (the train loader drops the rest)
@@ -4257,10 +4440,11 @@ def main() -> None:
         classify = phase_classify(Path(tmp), short_avi, card)
         families = phase_families(Path(tmp), val_data, card)
         v10, tta = phase_v10(Path(tmp), val_data, card)
+        weights, zstd_record = phase_weights(Path(tmp), card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **weights}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),
@@ -4278,7 +4462,9 @@ def main() -> None:
           "video_frame_decode_ms": video_times["decode_ms"]}
          for name in ("jpeg_idct", "jpeg_color")] + [
         {"name": "jpeg_fdct", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
-         "replaces": "fce_yolo_tpu/utils/patches.py:30", **launches("jpeg_fdct"), **fdct}]
+         "replaces": "fce_yolo_tpu/utils/patches.py:30", **launches("jpeg_fdct"), **fdct},
+        {"name": "fce_zstd_decompress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/zstd.cu",
+         "replaces": "fce_yolo_tpu/utils/checkpoint.py:53", **zstd_record}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,14 +14,39 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from fce_yolo_tpu_torch.cfg.models import load_model_dict
+from fce_yolo_tpu_torch.cfg.models import load_model_dict, packaged_model_dict
 from fce_yolo_tpu_torch.nn.model import (build_model, estimate_flops, fold_conv_bn, init_weights, is_folded,
                                          param_count, weights_version)
-from fce_yolo_tpu_torch.nn.weights import variables_to_state_dict
-from fce_yolo_tpu_torch.utils.checkpoint import is_checkpoint, load_checkpoint, save_checkpoint
+from fce_yolo_tpu_torch.nn.import_torch import import_torch_state_dict, load_pt_state_dict
+from fce_yolo_tpu_torch.nn.modules import ConvBNAct
+from fce_yolo_tpu_torch.nn.weights import key_to_flax, variables_to_state_dict
+from fce_yolo_tpu_torch.utils.checkpoint import (is_checkpoint, is_jax_checkpoint, load_checkpoint,
+                                                 load_jax_checkpoint, save_checkpoint)
 
 EMBED_BATCH = 64  # images a forward in ``embed``
 OPTIM_KEYS = ("momentum", "weight_decay", "warmup_epochs", "warmup_momentum", "warmup_bias_lr", "nbs")
+
+
+def _jax_cfg(cfg_yaml: str) -> str:
+    """The config of a JAX checkpoint's ``cfg_yaml`` (a path on the machine
+    that trained it): its file name when a packaged config has that name,
+    else the path as given (a user's own YAML)."""
+    name = Path(cfg_yaml).name
+    return name if packaged_model_dict(name) is not None else cfg_yaml
+
+
+def _is_folded_tree(model: torch.nn.Module, params: Mapping[str, Any]) -> bool:
+    """Whether flax ``params`` of ``model``'s architecture were folded by the
+    JAX ``fold_conv_bn`` (``fce_yolo_tpu/nn/model.py:419``): the scope of
+    the model's first ConvBNAct has no ``bn``."""
+    for name, m in model.named_modules():
+        if isinstance(m, ConvBNAct):
+            _, path = key_to_flax(model, f"{name}.conv.weight")
+            node = params
+            for p in path[:-2]:
+                node = node.get(p, {})
+            return "bn" not in node
+    return False
 
 
 def _git_describe() -> dict:
@@ -41,15 +66,21 @@ class YOLO:
     """Detection model facade: ``YOLO("yolo11s-fce.yaml", device="cuda")``.
 
     ``model`` is a model name or YAML (built with ``nc`` classes if given,
-    initialized from seed 0, as the JAX facade's lazy init), or a
-    checkpoint directory written by
-    ``save``/``train`` (built from its ``meta.json``, folded if it was saved
-    folded, weights loaded). The model lives on ``device``: the card unless
-    another is named; no CUDA raises. ``reset_weights`` re-seeds, ``load``
-    reads a checkpoint's weights, ``load_jax_variables`` loads weights
-    exported from the JAX package. ``predict`` runs a folded copy of the
-    model, made once per version of the weights; ``model`` keeps its
-    BatchNorm unless ``fuse`` folds it.
+    initialized from seed 0, as the JAX facade's lazy init); a checkpoint
+    directory written by ``save``/``train`` (built from its ``meta.json``,
+    folded if it was saved folded, weights loaded); a checkpoint directory
+    of the JAX package (``meta.json`` + orbax ``tree/``, read without orbax:
+    ``utils/checkpoint.py::load_jax_checkpoint``; its ``cfg_yaml`` resolved
+    by file name among the packaged configs, folded if its tree was saved
+    after the JAX ``fuse()``); or an Ultralytics ``.pt`` file (the
+    architecture from the file name, ``yolo11n.pt`` -> ``yolo11n.yaml``
+    with ``nc`` classes; ``nn/import_torch.py``). The model lives on
+    ``device``: the card unless another is named; no CUDA raises.
+    ``reset_weights`` re-seeds, ``load`` reads any of these weights into
+    this architecture, ``load_jax_variables`` loads weights exported from
+    the JAX package. ``predict`` runs a folded copy of the model, made once
+    per version of the weights; ``model`` keeps its BatchNorm unless
+    ``fuse`` folds it.
     """
 
     def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda", nc: int | None = None):
@@ -58,7 +89,13 @@ class YOLO:
         self._folded_copy: tuple[tuple | None, torch.nn.Module] | None = None  # (weights_version, folded copy)
         self._tracker: tuple[str, Any] | None = None  # (tracker config, tracker) that ``track(persist=True)`` keeps
         self.yaml_overrides: dict[str, Any] = {}
-        if is_checkpoint(model):
+        if is_jax_checkpoint(model):
+            tree, meta = load_jax_checkpoint(model, device=self.device)
+            self._build(_jax_cfg(meta["cfg_yaml"]), meta.get("scale"), meta.get("nc"), meta.get("yaml_overrides"))
+            self._load_jax_tree(tree)
+            self.names = {int(k): v for k, v in meta.get("names", {}).items()} or self.names
+            self.ckpt_meta = meta
+        elif is_checkpoint(model):
             tree, meta = load_checkpoint(model)
             self._build(meta["cfg_yaml"], meta.get("scale"), meta.get("nc"), meta.get("yaml_overrides"))
             if meta.get("folded"):
@@ -66,6 +103,9 @@ class YOLO:
             self.model.load_state_dict(tree["model"])
             self.names = {int(k): v for k, v in meta.get("names", {}).items()}
             self.ckpt_meta = meta
+        elif str(model).endswith(".pt"):
+            self._build(Path(model).with_suffix(".yaml").name, nc=nc)
+            import_torch_state_dict(load_pt_state_dict(str(model)), self.model)
         else:
             self._build(str(model), nc=nc)
             self.reset_weights(0)
@@ -115,12 +155,39 @@ class YOLO:
         self.model.load_state_dict(sd, strict=True)
         return self
 
+    def _load_jax_tree(self, tree: Mapping[str, Any]) -> None:
+        """Load a JAX checkpoint's ``params``/``batch_stats``, folding the
+        model first when the tree was saved after the JAX ``fuse()`` (its
+        ConvBNAct scopes hold a conv bias and no ``bn``), or building it
+        anew unfolded when the model is folded and the tree is not."""
+        params = tree["params"]
+        folded_tree = _is_folded_tree(self.model, params)
+        if folded_tree and not self.folded:
+            fold_conv_bn(self.model)
+        elif self.folded and not folded_tree:
+            self._build(self.cfg_yaml, self.scale, self.nc, self.yaml_overrides)
+        self.load_jax_variables({"params": params, "batch_stats": tree.get("batch_stats", {})})
+
     def load(self, weights: str | Path) -> "YOLO":
-        """Load a checkpoint directory's weights into this architecture
-        (reference Model.load); its class names too. The model is folded, or
-        built anew unfolded, as the checkpoint was saved."""
+        """Load weights into this architecture (reference Model.load,
+        ``fce_yolo_tpu/api.py:155-170``): a checkpoint directory of the port
+        or of the JAX package (its class names too), or an Ultralytics
+        ``.pt`` file. The model is folded, or built anew unfolded, as the
+        checkpoint was saved; a ``.pt`` loads unfolded."""
+        if is_jax_checkpoint(weights):
+            tree, meta = load_jax_checkpoint(weights, device=self.device)
+            self._load_jax_tree(tree)
+            if meta.get("names"):
+                self.names = {int(k): v for k, v in meta["names"].items()}
+            return self
         if not is_checkpoint(weights):
-            raise ValueError(f"cannot load weights from {weights!r}: not a checkpoint directory (meta.json)")
+            if not str(weights).endswith(".pt"):
+                raise ValueError(f"cannot load weights from {weights!r}: not a checkpoint directory (meta.json) or "
+                                 "a .pt file")
+            if self.folded:
+                self._build(self.cfg_yaml, self.scale, self.nc, self.yaml_overrides)
+            import_torch_state_dict(load_pt_state_dict(str(weights)), self.model)
+            return self
         tree, meta = load_checkpoint(weights)
         if bool(meta.get("folded")) != self.folded:
             if self.folded:

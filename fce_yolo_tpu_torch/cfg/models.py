@@ -171,18 +171,13 @@ def guess_scale(model_name: str) -> str | None:
     return m.group(1) if m else None
 
 
-def load_model_dict(name: str | Path) -> tuple[dict, str | None]:
-    """Resolve a model name or YAML path to (config dict, scale or None).
-
-    ``yolo11s-fce.yaml`` -> the packaged ``yolo11-fce`` dict with scale 's'
-    (the reference's ``yaml_model_load``/``guess_model_scale`` rule). A
+def packaged_model_dict(name: str | Path) -> tuple[dict, str | None] | None:
+    """The packaged config a model name or file name resolves to, as
+    (config dict, scale or None), or None when no packaged config has it:
+    ``yolo11s-fce.yaml`` -> the ``yolo11-fce`` dict with scale 's'. A
     packaged name is taken as it is first (``yolov9c``, ``yolov3-tiny``: no
-    scale letter to strip), as the JAX ``load_model_yaml`` does. An existing
-    file path is read as it is.
-    """
+    scale letter to strip), as the JAX ``load_model_yaml`` does."""
     path = Path(name)
-    if path.is_file():
-        return read_yaml(path.read_text()), guess_scale(path.stem)
     stem = path.stem if path.suffix in (".yaml", ".yml") else path.name
     d = _packaged(stem)
     if d is not None:
@@ -192,4 +187,18 @@ def load_model_dict(name: str | Path) -> tuple[dict, str | None]:
         d = _packaged(m.group(1) + (m.group(3) or ""))
         if d is not None:
             return d, m.group(2)
-    raise FileNotFoundError(f"model config not found: {name} (packaged: {', '.join(packaged_models())})")
+    return None
+
+
+def load_model_dict(name: str | Path) -> tuple[dict, str | None]:
+    """Resolve a model name or YAML path to (config dict, scale or None)
+    (the reference's ``yaml_model_load``/``guess_model_scale`` rule): an
+    existing file path is read as it is, any other name resolves among the
+    packaged configs (``packaged_model_dict``)."""
+    path = Path(name)
+    if path.is_file():
+        return read_yaml(path.read_text()), guess_scale(path.stem)
+    found = packaged_model_dict(name)
+    if found is None:
+        raise FileNotFoundError(f"model config not found: {name} (packaged: {', '.join(packaged_models())})")
+    return found

@@ -59,6 +59,9 @@ SIGNATURES = {
     # compression (5 LZW, 32773 PackBits), src (host), its length, dst (host), the bytes to decode; host code
     # only (csrc/imgcodecs.cu)
     "fce_tiff_decode": [_I, _P, _L, _P, _L],
+    # src (host), its length, dst (host), its room, info (host int64 [2]: size, error offset), message, its
+    # length; host code only (csrc/zstd.cu)
+    "fce_zstd_decompress": [_P, _L, _P, _L, _P, ctypes.c_char_p, _I],
 }
 
 

@@ -138,14 +138,18 @@ def _is_conv_t(model: nn.Module | None, key: str, path: tuple[str, ...]) -> bool
 def variables_to_state_dict(variables: Mapping[str, Any], model: nn.Module | None = None) -> dict[str, torch.Tensor]:
     """flax ``{"params", "batch_stats"}`` of numpy arrays -> port state_dict
     (float tensors keep their dtype; bf16 numpy leaves need jnp's ml_dtypes
-    and are converted through float32). With ``model`` (the port model the
-    keys belong to), a kernel is read as a transposed one by the kind of the
-    module that owns it; without, by its flax scope."""
+    and are converted through float32; torch tensor leaves, as
+    ``utils/zarr.py`` gives bfloat16 arrays, are taken as they are). With
+    ``model`` (the port model the keys belong to), a kernel is read as a
+    transposed one by the kind of the module that owns it; without, by its
+    flax scope."""
     out: dict[str, torch.Tensor] = {}
     for coll in ("params", "batch_stats"):
         for path, arr in _walk(variables.get(coll, {})):
-            a = np.asarray(arr)
-            if a.dtype.kind == "V" or a.dtype.name == "bfloat16":
+            a = arr if isinstance(arr, torch.Tensor) else np.asarray(arr)
+            if isinstance(a, torch.Tensor):
+                t = a.detach().clone()
+            elif a.dtype.kind == "V" or a.dtype.name == "bfloat16":
                 t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.array(a))  # a writable copy
