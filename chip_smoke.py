@@ -43,8 +43,16 @@ from a seed) and checks that each path went through its kernels:
   as BMP, LZW TIFF, 16-bit PNG and Adam7 PNG (P, R and mAP equal to phase
   val's, NMS bit-equal on every batch) and as progressive JPEG (equal to
   phase jpeg's, both JPEG kernels once an image); ``YOLO.predict`` on a
-  directory of 16 files of every kind (stem and NMS once, the JPEG kernels
-  once a JPEG, detections equal to a predict on the arrays);
+  directory of 16 files of every kind and 4 WebP files (stem and NMS once a
+  batch, the JPEG kernels once a JPEG, ``webp_color`` once a lossy WebP,
+  detections equal to a predict on the arrays); WebP (csrc/webp.cu: the
+  container, VP8L, VP8 and ALPH as host C++, then the ``webp_color``
+  kernel): every committed fixture (``tests/fixtures/webp``, written by
+  cv2's and PIL's libwebp) read on the card with the SHA-256 of cv2's
+  decode, the C++ decode equal to the plain decoders on the small ones, the
+  kernel equal to ``webp_color_reference``, reads timed at 480x640;
+  ``YOLO.val`` on 16 val images as lossy WebP equal to a val on the same
+  decoded arrays;
 - the task heads (phase tasks): yolo11s-seg, yolo11s-pose and yolo11s-obb
   at 640 px, ``YOLO.predict`` in bf16 at B=16 on arrays (the stem kernel
   held against its plain version on the fed batch, the kernel path's preds
@@ -87,7 +95,7 @@ from a seed) and checks that each path went through its kernels:
 - drawing and image writing (phase draw): the JPEG writer's ``jpeg_fdct``
   kernel against its plain version (coefficients equal, files byte-equal)
   from 37x53 to 1080x1920 and on a gray frame, timed beside its bound and
-  the host entropy stage; yolo11s-seg (bf16) ``YOLO.predict`` on 16 of
+  the host entropy stage; yolo11s-seg (bf16) ``YOLO.predict`` on 8 of
   phase track's frames, then ``Masks.xy``, ``plot``, ``save``,
   ``save_txt`` and ``save_crop``, the stem and NMS kernels once a batch and
   ``jpeg_fdct`` once a file, every file byte-equal to the plain writer's and
@@ -237,11 +245,11 @@ def read_figure(path: Path, size: tuple[int, int] | None = None) -> tuple[int, i
 
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port, by the kernel's name in the record."""
-    from fce_yolo_tpu_torch.data import jpeg, jpeg_write
+    from fce_yolo_tpu_torch.data import jpeg, jpeg_write, webp
     from fce_yolo_tpu_torch.ops import nms, stem
 
     return {"fused_stem": stem.fused_stem, "pick_suppress": nms.pick_suppress, "jpeg_idct": jpeg.jpeg_idct,
-            "jpeg_color": jpeg.jpeg_color, "jpeg_fdct": jpeg_write.jpeg_fdct}
+            "jpeg_color": jpeg.jpeg_color, "jpeg_fdct": jpeg_write.jpeg_fdct, "webp_color": webp.webp_color}
 
 
 def reset_launches() -> None:
@@ -254,9 +262,9 @@ def read_launches() -> dict:
 
 
 def no_jpeg(**launches) -> dict:
-    """The launches a path that reads no JPEG should show (and writes none
-    unless ``jpeg_fdct`` is given)."""
-    return {"jpeg_fdct": 0, **launches, "jpeg_idct": 0, "jpeg_color": 0}
+    """The launches a path that reads no JPEG and no lossy WebP should show
+    (and writes no JPEG unless ``jpeg_fdct`` is given)."""
+    return {"jpeg_fdct": 0, **launches, "jpeg_idct": 0, "jpeg_color": 0, "webp_color": 0}
 
 
 def train_plots(steps: int) -> int:
@@ -1580,7 +1588,8 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     val_launches = read_launches()
-    check(val_launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_fdct": 0, "jpeg_idct": VAL_IMAGES,
+    check(val_launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_fdct": 0, "webp_color": 0,
+                           "jpeg_idct": VAL_IMAGES,
                            "jpeg_color": VAL_IMAGES}, f"val path on JPEG: launches {val_launches}")
     check(len(res["metrics"].stats["conf"]) == VAL_IMAGES, "val path on JPEG scored the wrong number of images")
     _, _, _, _, _, mk = val_batches_vs_plain(yolo, data)
@@ -1608,7 +1617,8 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     wall = time.perf_counter() - t0
     predict_launches = read_launches()
     n_pred = -(-VAL_IMAGES // E2E_BATCH)
-    check(predict_launches == {"fused_stem": n_pred, "pick_suppress": n_pred, "jpeg_fdct": 0, "jpeg_idct": VAL_IMAGES,
+    check(predict_launches == {"fused_stem": n_pred, "pick_suppress": n_pred, "jpeg_fdct": 0, "webp_color": 0,
+                               "jpeg_idct": VAL_IMAGES,
                                "jpeg_color": VAL_IMAGES}, f"predict on JPEG files: launches {predict_launches}")
     check([r.path for r in results] == files, "predict on a directory: paths or order differ from the sorted files")
     arrays = [J.decode_jpeg_reference(Path(f).read_bytes(), f) for f in files]
@@ -1673,6 +1683,7 @@ FORMAT_SUFFIX = {"bmp24": "bmp", "bmp8": "bmp", "rle8": "bmp", "tif": "tif", "ti
                  "tifraw": "tiff", "png16": "png", "adam7": "png", "adam7-16": "png", "pfm": "pfm", "dng": "dng",
                  "jpg": "jpg", "progressive": "jpg", "progressive-gray": "jpeg", "mpo": "mpo"}
 FORMAT_RESTART = 8  # the progressive files' restart interval (MCUs; blocks in a scan of one component)
+VAL_WEBP = 16  # phase formats (e): the first val images, committed as WebP
 
 
 def pfm_bytes(rgb: np.ndarray) -> bytes:
@@ -1722,6 +1733,197 @@ def write_format_files(jobs: list) -> list[list[bytes]]:
         return list(pool.map(format_job, jobs))
 
 
+WEBP_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "webp"  # tests/fixtures/make_webp.py
+WEBP_PLAIN_MAX = 160 * 160  # phase formats (d): the plain decoders held to the C++ one on files of at most this
+WEBP_VGA = ("lossy_q75_m4_480x640.webp", "lossless_m2_q50_480x640.webp")  # (d) timed
+WEBP_HOST_FIXTURE = "lossy_q90_m6_97x131.webp"  # (d) the host decoders' speed, C++ against Python
+WEBP_READS = 20  # (d) reads a timing
+WEBP_THREADS = 8  # (d) img/s on this many threads too
+WEBP_PREDICT = ("lossy_q75_m4_480x640.webp", "lossless_m4_q75_96x128.webp", "alpha_q70_aq50_65x77.webp",
+                "exif6_lossy_40x60.webp")  # (c) the WebP files in the predict directory
+
+
+def sha256(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def webp_reads(card: str) -> tuple[dict, dict]:
+    """(d) WebP (``data/webp.py``, ``csrc/webp.cu``): every committed fixture
+    through ``imread(..., "cuda")`` with the SHA-256 of cv2's decode recorded
+    beside it (the card machine has no cv2), ``webp_color`` once a lossy file
+    and never for a lossless one; on the fixtures of at most WEBP_PLAIN_MAX
+    pixels the C++ decode's planes (Y, U, V, alpha) or ARGB equal to the plain
+    decoders', and on every lossy one the kernel's BGR equal to
+    ``webp_color_reference`` of the same planes; at 480x640 (lossy and
+    lossless) a read timed on the host clock and split by CUDA events, the
+    kernel alone from a CUDA graph beside its bytes bound and the plain
+    version, img/s on 1 and WEBP_THREADS threads; the host decoders on one
+    fixture, C++ against Python. Returns the ``webp_color`` and the
+    ``fce_webp_decode`` records (without launches)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fce_yolo_tpu_torch.data import webp as W
+    from fce_yolo_tpu_torch.data.imread import imread
+
+    recorded = json.loads((WEBP_FIXTURES / "decodes.json").read_text())
+    worst, n_plain, n_lossy = 0, 0, 0
+    for name, rec in sorted(recorded.items()):
+        path = WEBP_FIXTURES / name
+        buf = path.read_bytes()
+        before = W.webp_color.launches
+        out = imread(path, "cuda")
+        ran = W.webp_color.launches - before
+        check(list(out.shape) == rec["shape"] and sha256(out) == rec["sha256"],
+              f"phase formats (d) {name}: {out.shape}, not cv2's decode {rec['shape']}")
+        info, flat, planes = W.webp_decode_host(buf, name)
+        lossy = int(info[0]) == 1
+        check(ran == int(lossy), f"phase formats (d) {name}: webp_color ran {ran} times for a "
+                                 f"{'lossy' if lossy else 'lossless'} file")
+        if lossy:
+            n_lossy += 1
+            bgr = W.webp_color(torch.from_numpy(flat).cuda(), info).cpu().numpy()
+            ref = W.webp_color_reference(planes["y"], planes["u"], planes["v"])
+            worst = max(worst, int(np.abs(bgr.astype(np.int16) - ref).max()))
+            check(bgr.shape == ref.shape and bool((bgr == ref).all()),
+                  f"phase formats (d) {name}: webp_color differs from webp_color_reference")
+        if int(info[3]) * int(info[4]) <= WEBP_PLAIN_MAX:
+            plain = W.webp_planes_reference(buf, name)
+            check(plain.shape == flat.shape and bool((plain == flat).all()),
+                  f"phase formats (d) {name}: the C++ decode's planes differ from the plain decoders'")
+            n_plain += 1
+    print(f"phase formats (d): {len(recorded)} committed WebP files read through imread on the card with the "
+          f"SHA-256 of cv2's decode, webp_color once each of the {n_lossy} lossy ones and never for the others; the "
+          f"C++ decode's planes equal to the plain decoders' on {n_plain} (up to {WEBP_PLAIN_MAX} px), the kernel's "
+          f"BGR equal to webp_color_reference on every lossy one (max|d| {worst}) [{card}]", flush=True)
+
+    timed = {}
+    for name in WEBP_VGA:
+        buf = (WEBP_FIXTURES / name).read_bytes()
+        W.decode_webp(buf, name, "cuda")
+        t0 = time.perf_counter()
+        for _ in range(WEBP_READS):
+            W.decode_webp(buf, name, "cuda")
+        ms = (time.perf_counter() - t0) * 1e3 / WEBP_READS
+        split = np.zeros(4, np.float64)
+        times = np.zeros(4, np.float32)
+        for _ in range(WEBP_READS):
+            W.decode_webp(buf, name, "cuda", times)
+            split += times
+        split /= WEBP_READS
+        with ThreadPoolExecutor(WEBP_THREADS) as pool:
+            list(pool.map(lambda _: W.decode_webp(buf, name, "cuda"), range(WEBP_THREADS)))  # each thread's buffers
+            t0 = time.perf_counter()
+            list(pool.map(lambda _: W.decode_webp(buf, name, "cuda"), range(WEBP_THREADS * WEBP_READS)))
+            img_s_n = WEBP_THREADS * WEBP_READS / (time.perf_counter() - t0)
+        timed[name] = {"ms": ms, "split": split.tolist(), "img_s_1": 1e3 / ms, "img_s_n": img_s_n, "bytes": len(buf)}
+        print(f"phase formats (d): {name} ({len(buf)} bytes): decode_webp {ms:.3f} ms a read (host clock, mean of "
+              f"{WEBP_READS}); split (CUDA events): host decode {split[0]:.3f} ms, H2D {split[1]:.4f}, webp_color "
+              f"{split[2]:.4f}, D2H {split[3]:.4f}; {1e3 / ms:.1f} img/s on 1 thread, {img_s_n:.1f} on "
+              f"{WEBP_THREADS} [{card}]", flush=True)
+
+    name = WEBP_VGA[0]
+    info, flat, planes = W.webp_decode_host((WEBP_FIXTURES / name).read_bytes(), name)
+    h, w = int(info[4]), int(info[3])
+    d_planes = torch.from_numpy(flat).cuda()
+    kernel_ms = graph_ms(lambda: W.webp_color(d_planes, info))
+    t0 = time.perf_counter()
+    for _ in range(3):
+        W.webp_color_reference(planes["y"], planes["u"], planes["v"])
+    plain_ms = (time.perf_counter() - t0) * 1e3 / 3
+    yuv = w * h + 2 * ((w + 1) // 2) * ((h + 1) // 2)
+    bound_ms = (yuv + 3 * w * h) / HBM_BYTES_PER_S * 1e3
+    print(f"phase formats (d): webp_color alone at {h}x{w}: {kernel_ms:.4f} ms (CUDA graph of 20; bound "
+          f"{bound_ms:.5f} ms, bytes: Y+U+V in, BGR out at 3.35 TB/s), plain {plain_ms:.1f} ms (numpy) [{card}]",
+          flush=True)
+    color_rec = {"max_abs_err": float(worst), "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                 "bound_by": "bytes", "library_ms": None, "read_ms_480x640": timed[WEBP_VGA[0]]["ms"],
+                 "split_ms_480x640": timed[WEBP_VGA[0]]["split"], "img_s_1_480x640": timed[WEBP_VGA[0]]["img_s_1"],
+                 f"img_s_{WEBP_THREADS}_480x640": timed[WEBP_VGA[0]]["img_s_n"]}
+
+    buf = (WEBP_FIXTURES / WEBP_HOST_FIXTURE).read_bytes()
+    info, flat, _ = W.webp_decode_host(buf, WEBP_HOST_FIXTURE)
+    t0 = time.perf_counter()
+    for _ in range(WEBP_READS):
+        W.webp_decode_host(buf, WEBP_HOST_FIXTURE)
+    ms = (time.perf_counter() - t0) * 1e3 / WEBP_READS
+    t0 = time.perf_counter()
+    plain = W.webp_planes_reference(buf, WEBP_HOST_FIXTURE)
+    host_plain_ms = (time.perf_counter() - t0) * 1e3
+    check(plain.shape == flat.shape and bool((plain == flat).all()), "phase formats (d): the host decoders differ")
+    out_bytes = 3 * int(info[3]) * int(info[4])
+    mb_s, plain_mb_s = out_bytes / ms / 1e3, out_bytes / host_plain_ms / 1e3
+    lossless = timed[WEBP_VGA[1]]
+    print(f"phase formats (d): host decode of {WEBP_HOST_FIXTURE} ({len(buf)} bytes -> {out_bytes} bytes of BGR): "
+          f"C++ {ms:.3f} ms ({mb_s:.1f} MB/s of BGR), Python {host_plain_ms:.1f} ms ({plain_mb_s:.3f} MB/s) (host "
+          f"clock) [{card}]", flush=True)
+    decode_rec = {"max_abs_err": 0.0, "ms": ms, "plain_ms": host_plain_ms,
+                  "bound_ms": (len(buf) + out_bytes) / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "library_ms": None,
+                  "mb_s": mb_s, "plain_mb_s": plain_mb_s, "fixture": WEBP_HOST_FIXTURE,
+                  "lossless_read_ms_480x640": lossless["ms"], "lossless_split_ms_480x640": lossless["split"],
+                  "lossless_img_s_1_480x640": lossless["img_s_1"],
+                  f"lossless_img_s_{WEBP_THREADS}_480x640": lossless["img_s_n"]}
+    return color_rec, decode_rec
+
+
+def webp_val(root: Path, yolo, card: str) -> tuple[dict, dict, int]:
+    """(e) ``YOLO.val`` (phase val's model, f32, B=16) on the first VAL_WEBP
+    of phase val's images as the committed lossy WebP fixtures, with their
+    labels, and on the same decoded images saved as arrays (``np.save``
+    under an image suffix: the dataset collects image suffixes, ``imread``
+    reads by leading bytes): P, R, mAP50 and mAP50-95 equal, the NMS kernel
+    once a batch and bit-equal to the plain version, ``webp_color`` once a
+    WebP image. Returns both paths' launches and the host decodes counted."""
+    from fce_yolo_tpu_torch.data import webp as W
+    from fce_yolo_tpu_torch.data.imread import imread
+
+    names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    n_batches = -(-VAL_WEBP // VAL_BATCH)
+    out, decodes = {}, 0
+    for what in ("webp", "arrays"):
+        base = root / f"formats_{what}"
+        (base / "images" / "val").mkdir(parents=True)
+        (base / "labels" / "val").mkdir(parents=True)
+        for i, _, lines in val_images():
+            if i >= VAL_WEBP:
+                break
+            src = WEBP_FIXTURES / f"val_{i:03d}.webp"
+            dst = base / "images" / "val" / f"{i:03d}.{'webp' if what == 'webp' else 'png'}"
+            if what == "webp":
+                dst.write_bytes(src.read_bytes())
+            else:
+                with open(dst, "wb") as f:
+                    np.save(f, imread(src, "cuda"))
+            (base / "labels" / "val" / f"{i:03d}.txt").write_text("\n".join(lines) + "\n")
+        (base / "data.yaml").write_text(f"path: {base}\nval: images/val\nnames:\n{names}")
+        data = str(base / "data.yaml")
+        torch.cuda.synchronize()
+        reset_launches()
+        before = W.decode_webp.launches
+        res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        if what == "webp":
+            decodes = W.decode_webp.launches - before
+        want = VAL_WEBP if what == "webp" else 0
+        check(launches == no_jpeg(fused_stem=0, pick_suppress=n_batches) | {"webp_color": want},
+              f"phase formats (e) val on {what}: launches {launches}")
+        _, _, calls, _, _, mk = val_batches_vs_plain(yolo, data)
+        check(len(calls) == n_batches, f"phase formats (e): NMS compared on {len(calls)} batches")
+        got = tuple(res["metrics"].mean_results())
+        check(np.allclose(got, mk, rtol=0, atol=1e-9),
+              f"phase formats (e) {what}: YOLO.val's {got} != the per-batch {mk}")
+        out[what] = (launches, got)
+    check(out["webp"][1] == out["arrays"][1],
+          f"phase formats (e): P/R/mAP on WebP {out['webp'][1]} != on the arrays {out['arrays'][1]}")
+    print(f"phase formats (e): YOLO.val yolo11s-fce {IMGSZ} f32 B={VAL_BATCH} on {VAL_WEBP} val images as lossy WebP, "
+          f"launches {out['webp'][0]}, and as the decoded arrays, launches {out['arrays'][0]}: P/R/mAP50/mAP50-95 "
+          f"{tuple(round(v, 6) for v in out['webp'][1])} equal from both, the NMS kernel bit-equal to the plain "
+          f"version on every batch [{card}]", flush=True)
+    return {"formats_val_webp": out["webp"][0], "formats_val_webp_arrays": out["arrays"][0]}, decodes
+
+
 def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
     """The still-image formats on the card (``data/imread.py``):
     (a) every writer's file (BMP 24-bit, palette and RLE8; TIFF LZW strips
@@ -1739,15 +1941,21 @@ def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
     progressive JPEGs: equal to phase jpeg (d)'s, both JPEG kernels once an
     image;
     (c) ``YOLO.predict`` (bf16, B=16) on a directory of 16 files, one of each
-    kind: the stem and NMS kernels once, both JPEG kernels once a JPEG, the
-    images and detections equal to a predict on the arrays.
-    Returns the launches by path."""
+    kind, and 4 WebP fixtures (lossy, lossless, with alpha, EXIF-rotated):
+    the stem and NMS kernels once a batch, both JPEG kernels once a JPEG,
+    ``webp_color`` once a lossy WebP, the images and detections equal to a
+    predict on the arrays;
+    (d) ``webp_reads`` (run first); (e) ``webp_val`` (inside (b)).
+    Returns the launches by path, the ``webp_color`` record and the
+    ``fce_webp_decode`` record."""
     from fce_yolo_tpu_torch import YOLO
     from fce_yolo_tpu_torch.data import jpeg as J
+    from fce_yolo_tpu_torch.data import webp as W
     from fce_yolo_tpu_torch.data.imread import imread
     from fce_yolo_tpu_torch.nn.model import init_weights
 
     t_phase = time.perf_counter()
+    color_rec, decode_rec = webp_reads(card)
     rng = np.random.RandomState(SEED + 30)
     vals = list(val_images())
     small = jpeg_test_image(rng, 37, 53) // 32 * 32  # at most 512 colours: quantised for the palettes below
@@ -1871,7 +2079,8 @@ def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
         wall = time.perf_counter() - t0
         launches = read_launches()
         jpegs = VAL_IMAGES if what == "progressive" else 0
-        check(launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_fdct": 0, "jpeg_idct": jpegs,
+        check(launches == {"fused_stem": 0, "pick_suppress": n_batches, "jpeg_fdct": 0, "webp_color": 0,
+                           "jpeg_idct": jpegs,
                            "jpeg_color": jpegs}, f"phase formats (b) val on {what} files: launches {launches}")
         metrics = res["metrics"].mean_results()
         want = png["metrics"] if what == "lossless" else jpeg_d["metrics"]
@@ -1881,6 +2090,7 @@ def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
             _, _, calls, _, _, mk = val_batches_vs_plain(yolo, data)
             check(len(calls) == n_batches, f"phase formats (b): NMS compared on {len(calls)} batches")
         out_b[what] = (launches, metrics, VAL_IMAGES / wall, res["metrics"].speed["preprocess"])
+    webp_paths, val_decodes = webp_val(root, yolo, card)
     del yolo
     lw, pw = out_b["lossless"], out_b["progressive"]
     print(f"phase formats (b): YOLO.val yolo11s-fce {IMGSZ} f32 B={VAL_BATCH} on the {VAL_IMAGES} val images as "
@@ -1906,20 +2116,30 @@ def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
             arrays.append(J.decode_jpeg(bufs[1], kind, "cuda"))  # the baseline twin: (a) showed them equal
         else:
             arrays.append(np.ascontiguousarray(img[..., ::-1]))
+    for j, name in enumerate(WEBP_PREDICT):  # (d) showed their reads equal to cv2's
+        path = folder / f"{len(mixed) + j:02d}_webp-{name}"
+        path.write_bytes((WEBP_FIXTURES / name).read_bytes())
+        files.append(str(path))
+        arrays.append(imread(path, "cuda"))
+    n_webp_lossy = sum(not n.startswith("lossless") for n in WEBP_PREDICT)
     yolo = YOLO("yolo11s-fce.yaml", device="cuda")
     init_weights(yolo.model, torch.Generator().manual_seed(SEED), bias_prior=False)
     yolo.to(torch.bfloat16).fuse()
     yolo.predict(arrays, imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
     torch.cuda.synchronize()
     reset_launches()
+    decodes = W.decode_webp.launches
     t0 = time.perf_counter()
     results = yolo.predict(str(folder), imgsz=IMGSZ, batch=E2E_BATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     predict_launches = read_launches()
+    decodes = W.decode_webp.launches - decodes + val_decodes
     n_jpeg = sum(k in ("jpg", "mpo") or k.startswith("progressive") for k in mixed_kinds)
-    check(predict_launches == {"fused_stem": 1, "pick_suppress": 1, "jpeg_fdct": 0, "jpeg_idct": n_jpeg,
-                               "jpeg_color": n_jpeg}, f"phase formats (c): launches {predict_launches}")
+    n_pred = -(-len(files) // E2E_BATCH)
+    check(predict_launches == {"fused_stem": n_pred, "pick_suppress": n_pred, "jpeg_fdct": 0, "jpeg_idct": n_jpeg,
+                               "jpeg_color": n_jpeg, "webp_color": n_webp_lossy},
+          f"phase formats (c): launches {predict_launches}")
     check([r.path for r in results] == files, "phase formats (c): paths or order differ from the sorted files")
     again = yolo.predict(arrays, imgsz=IMGSZ, batch=E2E_BATCH)
     dmax = 0.0
@@ -1931,12 +2151,14 @@ def phase_formats(root: Path, png: dict, jpeg_d: dict, card: str) -> dict:
     check(dmax <= 1e-3, f"phase formats (c): detections differ by {dmax} from a predict on the arrays")
     del yolo
     print(f"phase formats (c): YOLO.predict yolo11s-fce {IMGSZ} bf16 B={E2E_BATCH} on a directory of {len(files)} "
-          f"files ({', '.join(mixed_kinds)}), launches {predict_launches}; images and "
-          f"{sum(len(r) for r in results)} detections equal to a predict on the arrays (max|d| {dmax:.1e}, limit "
+          f"files ({', '.join(mixed_kinds)}, and WebP {', '.join(WEBP_PREDICT)}), launches {predict_launches}; "
+          f"images and {sum(len(r) for r in results)} detections equal to a predict on the arrays (max|d| "
+          f"{dmax:.1e}, limit "
           f"1e-3); {len(files) / wall:.1f} img/s through YOLO.predict (host clock, reads and letterbox included); "
           f"phase formats {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    decode_rec["launches"] = decodes
     return {"formats_val": out_b["lossless"][0], "formats_val_progressive": out_b["progressive"][0],
-            "formats_predict": predict_launches}
+            "formats_predict": predict_launches, **webp_paths}, color_rec, decode_rec
 
 
 def phase_loss(val_out: dict, card: str) -> None:
@@ -4162,7 +4384,7 @@ def phase_weights(root: Path, card: str) -> tuple[dict, dict]:
     return {"weights_pt": pt_launches, "weights_jax": fixture_launches}, record
 
 
-DRAW_FRAMES = 16  # phase draw (b): phase track's first frames, 720x1280
+DRAW_FRAMES = 8  # phase draw (b): phase track's first frames, 720x1280 (one predict batch)
 DRAW_SIZES = ((37, 53), (480, 640), (720, 1280), (1080, 1920))  # phase draw (a), and a 720x1280 gray image
 DRAW_TRAIN_BATCH = 21  # phase draw (c): the 64 images in 3 steps (the train loader drops the rest)
 
@@ -4342,7 +4564,8 @@ def phase_draw(root: Path, frames: list, card: str) -> tuple[dict, dict]:
             val_launches = read_launches()
     finally:
         DetectionValidator.nms = real_nms
-    check(val_launches == {"fused_stem": 0, "pick_suppress": n_val, "jpeg_fdct": 2, "jpeg_idct": VAL_IMAGES,
+    check(val_launches == {"fused_stem": 0, "pick_suppress": n_val, "jpeg_fdct": 2, "webp_color": 0,
+                           "jpeg_idct": VAL_IMAGES,
                            "jpeg_color": VAL_IMAGES},
           f"phase draw (c) val: launches {val_launches}, expected NMS once a batch (K={NMS_K_VAL}), a decode an "
           "image and two mosaics written")
@@ -4428,7 +4651,7 @@ def main() -> None:
         png = val_out["png"]
         del val_out
         jpeg_paths, jpeg, jpeg_d = phase_jpeg(Path(tmp), png, card)
-        formats = phase_formats(Path(tmp), png, jpeg_d, card)
+        formats, webp_color, webp_decode = phase_formats(Path(tmp), png, jpeg_d, card)
         train = phase_train(Path(tmp), card)
         experiments = phase_experiments(Path(tmp), card)
         tasks = phase_tasks(Path(tmp), card)
@@ -4464,7 +4687,11 @@ def main() -> None:
         {"name": "jpeg_fdct", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/jpeg.cu",
          "replaces": "fce_yolo_tpu/utils/patches.py:30", **launches("jpeg_fdct"), **fdct},
         {"name": "fce_zstd_decompress", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/zstd.cu",
-         "replaces": "fce_yolo_tpu/utils/checkpoint.py:53", **zstd_record}]
+         "replaces": "fce_yolo_tpu/utils/checkpoint.py:53", **zstd_record},
+        {"name": "webp_color", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/webp.cu",
+         "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches("webp_color"), **webp_color},
+        {"name": "fce_webp_decode", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/webp.cu",
+         "replaces": "fce_yolo_tpu/utils/patches.py:18", **webp_decode}]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

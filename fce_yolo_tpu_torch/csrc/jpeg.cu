@@ -158,9 +158,9 @@ int exif_orientation(const uint8_t* body, long long len) {
   if (len < 14) return 1;
   const uint8_t* t = body + 6;
   const long long n = len - 6;
-  const bool le = t[0] == 'I' && t[1] == 'I';
-  if (!le && !(t[0] == 'M' && t[1] == 'M')) return 1;
+  const bool le = t[0] == 'I' && t[1] == 'I';  // cv2's Exif reader: any other pair is big-endian
   auto u16 = [&](long long o) { return le ? t[o] | (t[o + 1] << 8) : (t[o] << 8) | t[o + 1]; };
+  if (u16(2) != 42) return 1;
   auto u32 = [&](long long o) {
     return le ? (uint32_t)t[o] | ((uint32_t)t[o + 1] << 8) | ((uint32_t)t[o + 2] << 16) | ((uint32_t)t[o + 3] << 24)
               : ((uint32_t)t[o] << 24) | ((uint32_t)t[o + 1] << 16) | ((uint32_t)t[o + 2] << 8) | (uint32_t)t[o + 3];

@@ -159,10 +159,11 @@ def _refuse(name: str, what: str) -> ValueError:
 def exif_orientation(tiff: bytes) -> int:
     """Orientation (tag 0x0112 of IFD0) of Exif data (a TIFF header and its
     IFDs: an APP1 ``Exif`` body after its 6-byte name, a PNG ``eXIf``
-    chunk), else 1."""
-    if len(tiff) < 8 or tiff[:2] not in (b"II", b"MM"):
-        return 1
+    chunk, a WebP ``EXIF`` chunk), else 1. As cv2's Exif reader: ``II`` is
+    little-endian and any other pair big-endian, and the magic must be 42."""
     order = "little" if tiff[:2] == b"II" else "big"
+    if len(tiff) < 8 or int.from_bytes(tiff[2:4], order) != 42:
+        return 1
     off = int.from_bytes(tiff[4:8], order)
     if off + 2 > len(tiff):
         return 1

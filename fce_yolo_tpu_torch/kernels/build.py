@@ -62,6 +62,14 @@ SIGNATURES = {
     # src (host), its length, dst (host), its room, info (host int64 [2]: size, error offset), message, its
     # length; host code only (csrc/zstd.cu)
     "fce_zstd_decompress": [_P, _L, _P, _L, _P, ctypes.c_char_p, _I],
+    # WebP (csrc/webp.cu); the int32 info record's layout: data/webp.py INFO_LEN
+    # buf, len, info, planes (host), their room; host code only
+    "fce_webp_planes": [_P, _L, _P, _P, _L],
+    # planes (device Y, U, V), out (device BGR), w, h, out row width, x0, y0, stream
+    "fce_webp_color": [_P, _P] + [_I] * 5 + [_P],
+    # buf, len, info, h_planes (pinned), d_planes, their room, d_out, h_out (pinned), its room,
+    # times (host float[4] or null), stream
+    "fce_webp_decode": [_P, _L, _P, _P, _P, _L, _P, _P, _L, _P, _P],
 }
 
 

@@ -29,7 +29,9 @@ library's contour walk equal to the plain walk; yolov10n's ``preds6`` on
 the card within 1e-4 of the CPU's scores, classes in the same order where
 no two scores lie within 1e-5, with no NMS launched; the NMS kernel's
 detections on test-time augmentation's candidates equal to the plain
-version's; yolo11-cls-resnet18's logits within 1e-3 of the CPU's.
+version's; yolo11-cls-resnet18's logits within 1e-3 of the CPU's; every
+committed WebP fixture decoded on the card with the SHA-256 of cv2's decode,
+and the WebP colour kernel exactly equal to its plain version.
 """
 
 import struct
@@ -939,3 +941,31 @@ def test_cls_resnet18_on_the_card_matches_the_cpu(cuda):
         a = card.model.eval()(x.to(cuda))["logits"].cpu()
         b = cpu.model.eval()(x)["logits"]
     assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+def test_webp_decode_on_the_card_matches_the_recorded_cv2_decodes(cuda):
+    """Every committed WebP fixture (``tests/fixtures/make_webp.py``) read on
+    the card (host C++ and, for a lossy one, ``webp_color_kernel`` once)
+    gives the SHA-256 of cv2's decode recorded beside it; on each lossy one
+    the kernel alone equals ``webp_color_reference`` of the same planes."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    from fce_yolo_tpu_torch.data import webp as W
+
+    folder = Path(__file__).resolve().parent / "fixtures" / "webp"
+    recorded = json.loads((folder / "decodes.json").read_text())
+    assert len(recorded) >= 30
+    for name, rec in sorted(recorded.items()):
+        buf = (folder / name).read_bytes()
+        before = W.webp_color.launches
+        out = W.decode_webp(buf, name, "cuda")
+        info, flat, planes = W.webp_decode_host(buf, name)
+        assert W.webp_color.launches - before == int(info[0] == 1), name
+        assert list(out.shape) == rec["shape"], name
+        assert hashlib.sha256(np.ascontiguousarray(out).tobytes()).hexdigest() == rec["sha256"], name
+        if info[0] == 1:
+            bgr = W.webp_color(torch.from_numpy(flat).cuda(), info).cpu().numpy()
+            np.testing.assert_array_equal(bgr, W.webp_color_reference(planes["y"], planes["u"], planes["v"]))

@@ -9,8 +9,9 @@ cv2 and by PIL.
 Tolerance: none. Every image equals the JAX package's byte for byte, with
 one stated difference: cv2 gives a gray PFM as a 2-D array, the port as
 three equal channels. Where cv2 returns None the port raises, and where cv2
-reads a file the port does not (JPEG-in-TIFF, CCITT, YCbCr, CMYK, Lab,
-WebP) it raises ``ValueError`` naming the file and the format.
+reads a file the port does not (JPEG-in-TIFF, CCITT, YCbCr, CMYK, Lab) it
+raises ``ValueError`` naming the file and the format. WebP reads, and has
+its own tests (``tests/test_torch_webp.py``).
 
 TIFF's LZW and PackBits run twice: in Python (``device="cpu"``) and as
 the host C++ the card's library holds (``csrc/imgcodecs.cu``, built here
@@ -159,11 +160,12 @@ def test_png_exif_orientation_matches_jax_imread(tmp_path, orientation):
 
 @pytest.mark.parametrize("kind", ["exif-header", "duplicate", "invalid-then-valid", "bad-crc-then-valid",
                                   "short-then-valid", "orientation-9", "long-type", "ancillary-bad-crc",
-                                  "unknown-ancillary"])
+                                  "unknown-ancillary", "magic-40"])
 def test_png_exif_edge_cases_match_jax_imread(tmp_path, kind):
     """What libpng keeps when an ``eXIf`` chunk is malformed or repeated:
     the first chunk that starts ``MM`` or ``II`` and passes its CRC, valid
-    orientation or not; an ancillary chunk that fails its CRC is skipped."""
+    orientation or not; an ancillary chunk that fails its CRC is skipped.
+    cv2's Exif reader then wants the TIFF magic 42."""
     arr = np.random.RandomState(3).randint(0, 256, (12, 20, 3)).astype(np.uint8)
     bad = bytearray(_chunk(b"eXIf", _exif(6)))
     bad[-1] ^= 1
@@ -176,7 +178,8 @@ def test_png_exif_edge_cases_match_jax_imread(tmp_path, kind):
              "long-type": _chunk(b"eXIf", b"MM" + struct.pack(">HIH", 42, 8, 1) + struct.pack(">HHII", 0x112, 4, 1, 6)
                                  + b"\0" * 4),
              "ancillary-bad-crc": _chunk(b"tEXt", b"a\0b")[:-1] + b"\0",
-             "unknown-ancillary": _chunk(b"abCD", b"x")}[kind]
+             "unknown-ancillary": _chunk(b"abCD", b"x"),
+             "magic-40": _chunk(b"eXIf", _exif(6)[:3] + b"(" + _exif(6)[4:])}[kind]
     (tmp_path / "a.png").write_bytes(_png(arr, 2, 8, extra=extra))
     _same(tmp_path / "a.png")
 
@@ -433,18 +436,6 @@ def test_dispatch_is_by_leading_bytes_not_suffix(tmp_path):
     for name, buf in files.items():
         (tmp_path / name).write_bytes(buf)
         _same(tmp_path / name)
-
-
-@pytest.mark.parametrize("lossless", [True, False])
-def test_webp_raises_naming_its_kind(tmp_path, lossless):
-    rgb = np.random.RandomState(9).randint(0, 256, (9, 13, 3)).astype(np.uint8)
-    Image.fromarray(rgb).save(tmp_path / "a.webp", lossless=lossless)
-    what = "lossless \\(VP8L\\)" if lossless else "lossy \\(VP8\\)"
-    _refused(tmp_path / "a.webp", f"a.webp: a {what} WebP file", cv2_reads=True)
-    ex = Image.Exif()
-    ex[0x0112] = 1
-    Image.fromarray(rgb).save(tmp_path / "x.webp", lossless=lossless, exif=ex)
-    _refused(tmp_path / "x.webp", "x.webp: a extended \\(VP8X\\) WebP file", cv2_reads=True)
 
 
 # ------------------------------------------------------------------ TIFF
