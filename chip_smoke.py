@@ -64,7 +64,7 @@ from a seed) and checks that each path went through its kernels:
   the same P/R/mAP of every family from both, box mAP50 above zero);
 - their training (phase task_train), on those images as both splits: one
   float32 SGD step of each on the card against the CPU, then ``YOLO.train``
-  (bf16, AdamW, B=16, 2 epochs of 2 steps; mosaic on segment and pose,
+  (bf16, AdamW, B=16, 1 epoch of 2 steps; mosaic on segment and pose,
   ``copy_paste`` on segment): finite losses, the task validator on the EMA
   model each epoch, the NMS kernel (segment, pose) bit-equal to its plain
   version on every val batch, ``best`` reloaded with its task and keypoint
@@ -122,7 +122,16 @@ from a seed) and checks that each path went through its kernels:
   kernels; the committed JAX orbax checkpoint (``tests/fixtures``) read
   without orbax, zstd through ``csrc/zstd.cu``'s host C++ byte-equal to the
   Python decoder, predicting within a stated bound of JAX's stored
-  predictions; the C++ and Python decoders' MB/s.
+  predictions; the C++ and Python decoders' MB/s;
+- the command line (phase cli): ``python -m fce_yolo_tpu_torch checks`` in
+  a process of its own naming the card; ``entrypoint`` with no ``device=``
+  (so the card) for ``detect train`` (1 epoch on the 64 JPEGs), ``val`` and
+  ``predict`` with every save of its ``best`` (the NMS kernel held against
+  its plain version on a val batch), ``benchmark`` (the native bf16 row:
+  the stem and NMS kernels once a batch, the stem held on its first batch;
+  the export rows FAILED, naming ROADMAP item 10) and ``track ... save=True``
+  on the short AVI; ``YOLO.tune`` of 2 one-epoch runs, each watched to its
+  end; every mode's launches exact.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -460,7 +469,10 @@ def letterboxed(imgs: list[np.ndarray]) -> torch.Tensor:
                                       for im in imgs])).cuda()
 
 
-def phase_e2e(yolo, spec, card: str) -> dict:
+def phase_e2e(yolo, spec, card: str) -> tuple[dict, float]:
+    """``YOLO.predict`` of the bf16 model at B=16 on arrays, the stem held
+    on the fed batch, the kernel path against the plain path; the device
+    path timed at B=16 and B=64. Returns (launches, img/s through predict)."""
     from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
     from fce_yolo_tpu_torch.ops.nms import batched_nms
     from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_weights
@@ -525,7 +537,7 @@ def phase_e2e(yolo, spec, card: str) -> dict:
           f"letterbox); {ms_kernel:.2f} ms/batch stem kernel+model+NMS vs {ms_plain:.2f} ms/batch "
           f"plain stem (CUDA events); B={BIG_BATCH}: {big_kernel:.2f} ms/batch stem kernel+model+NMS vs "
           f"{big_plain:.2f} ms/batch plain stem [{card}]", flush=True)
-    return launches
+    return launches, len(imgs) / wall
 
 
 def _png_filtered(x: np.ndarray, bpp: int) -> np.ndarray:
@@ -2374,7 +2386,7 @@ def time_train_step(data: dict, card: str) -> dict:
     return out
 
 
-def phase_train(root: Path, card: str) -> dict:
+def phase_train(root: Path, card: str) -> tuple[dict, list[float]]:
     """(b) ``YOLO.train`` for TRAIN_EPOCHS epochs
     with the defaults (bf16, AdamW from "auto") on 64 PNG images as both
     splits, starting from phase val's matching weights: finite losses, one
@@ -2383,7 +2395,7 @@ def phase_train(root: Path, card: str) -> dict:
     last epoch's batches, ``results.png`` drawn (timed) and read back at its
     size, and ``best`` reloaded in a fresh YOLO giving the
     run's best mAP50-95 within 1e-6; (c) times; (a) one step card vs CPU.
-    Returns the train path's launches."""
+    Returns (the train path's launches, each epoch's img/s)."""
     import csv as _csv
 
     from fce_yolo_tpu_torch import YOLO
@@ -2458,7 +2470,7 @@ def phase_train(root: Path, card: str) -> dict:
           f"{again['metrics/mAP50-95(B)']:.6f} vs {best['metrics/mAP50-95(B)']:.6f} (|d| {d_map:.1e}, limit 1e-6); "
           f"{wall:.1f} s in all; step {times['step_ms_bf16']:.1f} ms bf16 / {times['step_ms_f32']:.1f} ms f32 "
           f"[{card}]", flush=True)
-    return launches
+    return launches, [sp["img_per_s"] for sp in res["speed"]]
 
 
 def phase_repair(root: Path, card: str) -> None:
@@ -2950,7 +2962,8 @@ def phase_tasks(root: Path, card: str) -> dict:
 
 
 # ------------------------------------------------------------ phase task_train
-TASK_TRAIN_BATCH, TASK_STEP_BATCH = 16, 4  # (b) YOLO.train: 2 epochs of TASK_IMAGES // 16 steps; (a) the card vs CPU step
+TASK_TRAIN_BATCH, TASK_STEP_BATCH = 16, 4  # (b) YOLO.train: TASK_TRAIN_EPOCHS of TASK_IMAGES // 16 steps; (a) the card vs CPU step
+TASK_TRAIN_EPOCHS = 1  # (b): each epoch waits 4-7 s a step on the PNG loader, and the script has a time limit
 COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 
 
@@ -3072,13 +3085,13 @@ def task_step_ms(task: str, batch: dict) -> float:
 
 def task_train_run(root: Path, task: str, card: str, step_batch: dict) -> dict:
     """(b) ``YOLO.train`` of the task's yolo11s from phase tasks' matching
-    weights for 2 epochs of TASK_IMAGES // TASK_TRAIN_BATCH steps (bf16,
+    weights for TASK_TRAIN_EPOCHS of TASK_IMAGES // TASK_TRAIN_BATCH steps (bf16,
     AdamW from "auto", B=TASK_TRAIN_BATCH;
     mosaic on for segment and pose, off for OBB; ``copy_paste=0.5`` on
     segment), counts at 0: finite losses, one results.csv row an epoch with
     the task validator's metrics (run on the EMA model), last and best
     written; the NMS kernel once a val batch (segment, pose; OBB none) and
-    equal to its plain version on every val batch of both epochs (the preds
+    equal to its plain version on every val batch of every epoch (the preds
     kept through a wrapper of the validator's ``nms``); ``best`` reloaded
     keeps the task and the keypoint shape and gives the run's fitness; (c)
     ``task_step_ms`` on (a)'s batch. Returns the launches and the numbers."""
@@ -3099,7 +3112,7 @@ def task_train_run(root: Path, task: str, card: str, step_batch: dict) -> dict:
                         if isinstance(preds, dict) else preds.detach().clone())
         return real_nms(self, preds)
 
-    epochs, n_val = 2, -(-TASK_IMAGES // TASK_TRAIN_BATCH)
+    epochs, n_val = TASK_TRAIN_EPOCHS, -(-TASK_IMAGES // TASK_TRAIN_BATCH)
     extra = {"copy_paste": 0.5} if task == "segment" else {}
     cls.nms = capturing_nms
     try:
@@ -3171,15 +3184,15 @@ def phase_task_train(root: Path, card: str) -> dict:
         for e, (row, sp) in enumerate(zip(r["rows"], r["speed"])):
             fam = " ".join(f"mAP50({t}) {row[f'metrics/mAP50({t})']:.6f}" for t in ("B", "M", "P")
                            if f"metrics/mAP50({t})" in row)
-            print(f"phase task_train: {TASK_MODELS[task]} (b) epoch {e + 1}/2: loss box/cls/dfl "
+            print(f"phase task_train: {TASK_MODELS[task]} (b) epoch {e + 1}/{TASK_TRAIN_EPOCHS}: loss box/cls/dfl "
                   f"{row['train/box_loss']:.4f}/{row['train/cls_loss']:.4f}/{row['train/dfl_loss']:.4f}, {fam}, "
                   f"fitness {row['fitness']:.6f}; {sp['img_per_s']:.2f} img/s; per step: loader wait "
                   f"{sp['loader_wait_ms']:.1f} ms, step call {sp['step_ms']:.1f} ms (host clock); val {sp['val_s']:.2f} s "
                   f"[{card}]", flush=True)
         nms_note = (f"NMS kernel idx/ok and outputs equal to the plain version on all {r['n_nms_checked']} val batches"
                     if task != "obb" else "rotated NMS in torch ops (no kernel)")
-        print(f"phase task_train: {TASK_MODELS[task]} (b) YOLO.train {IMGSZ} bf16 B={TASK_TRAIN_BATCH} AdamW, 2 epochs "
-              f"of {TASK_IMAGES // TASK_TRAIN_BATCH} steps{', copy_paste 0.5' if task == 'segment' else ''}"
+        print(f"phase task_train: {TASK_MODELS[task]} (b) YOLO.train {IMGSZ} bf16 B={TASK_TRAIN_BATCH} AdamW, "
+              f"{TASK_TRAIN_EPOCHS} epoch(s) of {TASK_IMAGES // TASK_TRAIN_BATCH} steps{', copy_paste 0.5' if task == 'segment' else ''}"
               f"{', no mosaic' if task == 'obb' else ''}, launches {r['launches']}; {nms_note}; best reloaded: fitness "
               f"{r['refit']:.6f} vs {r['best_fit']:.6f}; {r['wall']:.1f} s in all; (c) step on the card bf16 "
               f"B={TASK_TRAIN_BATCH} {r['step_ms']:.1f} ms (CUDA events) [{card}]", flush=True)
@@ -4384,6 +4397,294 @@ def phase_weights(root: Path, card: str) -> tuple[dict, dict]:
     return {"weights_pt": pt_launches, "weights_jax": fixture_launches}, record
 
 
+# ------------------------------------------------------------ phase cli
+CLI_PREDICT_IMAGES = 16  # (c) predict reads the first JPEGs of phase jpeg's 64, one a batch as the CLI does
+CLI_MAX_DET = 5  # (c) at most this many detections (so crops) an image
+CLI_TUNE_ITERATIONS = 2  # (f) YOLO.tune: iterations of one epoch each
+PROFILE_CALLS = 3 + 20  # (d) profile_inference: warmup and timed batches, one stem and one NMS launch each
+
+
+class call_count:
+    """Within the block, count the calls of ``module``'s function ``name``
+    (not a kernel wrapper: a wrapper's own count must stay its launches)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.real = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.real(*a, **kw)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+
+def cli_data(root: Path) -> str:
+    """Phase jpeg's 64 JPEGs as both splits, as a data YAML file (what the CLI takes)."""
+    names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    path = root / "jpeg" / "cli.yaml"
+    path.write_text(f"path: {root / 'jpeg'}\ntrain: images/val\nval: images/val\nnames:\n{names}")
+    return str(path)
+
+
+def cli_run(argv: list[str]):
+    """``entrypoint(argv)`` with the counts at 0 and the JPEG reads counted;
+    returns (its result, launches, JPEG decodes, seconds)."""
+    from fce_yolo_tpu_torch.cfg import entrypoint
+    from fce_yolo_tpu_torch.data import avi, imread
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with call_count(imread, "decode_jpeg") as files, call_count(avi, "decode_jpeg") as frames:
+        out = entrypoint(argv)
+    torch.cuda.synchronize()
+    return out, read_launches(), files.n + frames.n, time.perf_counter() - t0
+
+
+def phase_cli(root: Path, short_avi: Path, e2e_img_s: float, train_img_s: list[float], card: str) -> dict:
+    """The command line (``python -m fce_yolo_tpu_torch``, ``cfg/__init__.py::entrypoint``)
+    with no ``device=`` (the card), each mode with the counts at 0:
+    (a) ``checks`` in a subprocess names the card;
+    (b) ``detect train`` of yolo11s-fce from phase val's matching weights
+    (saved as a checkpoint, so that boxes score ~0.73 and mAP is above
+    zero), 640 px, B=16, 1 epoch with val, on phase jpeg's 64 JPEGs as both
+    splits: NMS once a val batch, both JPEG kernels once a read (64 train
+    items without mosaic in a 1-epoch run, 64 val images), ``jpeg_fdct``
+    once a train mosaic written, the epoch's fitness above zero;
+    (c) ``val`` and ``predict ... save=True save_txt=True save_crop=True``
+    of its ``best``: val's metrics equal to the run's, NMS once a val batch,
+    held against its plain version on the val's first batch
+    (``nms_kernel_vs_plain``); predict at the default conf on 16 JPEGs one
+    a batch: NMS and both JPEG kernels once an image, ``jpeg_fdct`` once a
+    written plot or crop;
+    (d) ``benchmark model=yolo11s-fce.yaml batch=16``: the native row
+    (``profile_inference``, bf16) with the stem and NMS kernels once a batch
+    over the warmup and timed batches, the stem held against its plain
+    version on the benchmark's first batch; every export row FAILED, naming
+    ROADMAP item 10;
+    (e) ``track ... save=True`` of (b)'s matching checkpoint on phase
+    video's short AVI: NMS, both JPEG kernels and ``jpeg_fdct`` once a
+    frame, tracks drawn;
+    (f) ``YOLO.tune`` of 2 iterations of 1 epoch: both runs finished (the
+    tuner scores a failed run 0 and goes on, so each run is watched), the
+    CSV's rows, NMS once a val batch of each run and ``jpeg_fdct`` once a
+    train mosaic written; both JPEG kernels once a decode counted (the
+    mixup and cutmix donors a run reads depend on its mutated
+    hyperparameters, so the decodes are counted, not predicted).
+    Returns each mode's launches, keyed "cli_<mode>"."""
+    import os
+
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data import imread as reader
+    from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+
+    t_phase = time.perf_counter()
+    paths, secs = {}, {}
+    repo = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "fce_yolo_tpu_torch", "checks"], cwd=repo, capture_output=True,
+                         text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(repo)})
+    secs["checks"] = time.perf_counter() - t0
+    kind = torch.cuda.get_device_name(0)
+    check(res.returncode == 0 and f"cuda:0 {kind}" in res.stdout,
+          f"phase cli (a): `checks` did not name the card: rc {res.returncode}\n{res.stdout}\n{res.stderr[-2000:]}")
+    devices = next(line for line in res.stdout.splitlines() if line.startswith("devices"))
+    print(f"phase cli (a): python -m fce_yolo_tpu_torch checks: {' '.join(devices.split())} ({secs['checks']:.1f} s, "
+          f"a process of its own) [{card}]", flush=True)
+
+    data = cli_data(root)
+    project = root / "cli_runs"
+    n_val = -(-VAL_IMAGES // VAL_BATCH)
+    matching = matching_model(YOLO("yolo11s-fce.yaml", device="cuda")).save(root / "cli_matching")
+    out, launches, reads, secs["train"] = cli_run(
+        ["detect", "train", f"data={data}", f"model={matching}", f"imgsz={IMGSZ}", "epochs=1",
+         f"batch={VAL_BATCH}", "val=True", f"project={project}", "name=train", "verbose=False"])
+    paths["cli_train"] = launches
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val, jpeg_fdct=train_plots(n_val))
+          | {"jpeg_idct": reads, "jpeg_color": reads} and reads == 2 * VAL_IMAGES,
+          f"phase cli (b) train: launches {launches}, {reads} JPEG reads")
+    rows = out["results"]
+    check(out["epochs_run"] == len(rows) == 1 and rows[0]["fitness"] > 0 and all(
+        np.isfinite(rows[0][k]) for k in ("train/box_loss", "train/cls_loss", "train/dfl_loss")),
+        f"phase cli (b) train: {rows}")
+    best = Path(out["save_dir"]) / "weights" / "best"
+    check((best / "meta.json").exists() and (best.parent / "last" / "meta.json").exists(), "phase cli (b): weights")
+    sp = out["speed"][0]
+    print(f"phase cli (b): detect train yolo11s-fce from the matching weights {IMGSZ} B={VAL_BATCH}, 1 epoch on the {VAL_IMAGES} JPEGs as both "
+          f"splits, launches {launches}; {sp['img_per_s']:.2f} img/s in the epoch (phase train on PNG: "
+          f"{', '.join(f'{v:.2f}' for v in train_img_s)}), loader wait {sp['loader_wait_ms']:.1f} ms, step "
+          f"{sp['step_ms']:.1f} ms a step, val {sp['val_s']:.2f} s; fitness {rows[0]['fitness']:.6f}; "
+          f"{secs['train']:.1f} s [{card}]", flush=True)
+
+    captured: list[torch.Tensor] = []
+    real_nms = DetectionValidator.nms
+
+    def capturing_nms(self, preds):  # keeps each val batch's preds for the check after the run
+        captured.append(preds.detach().clone())
+        return real_nms(self, preds)
+
+    DetectionValidator.nms = capturing_nms
+    try:
+        metrics, launches, reads, secs["val"] = cli_run(
+            ["detect", "val", f"model={best}", f"data={data}", f"imgsz={IMGSZ}", f"batch={VAL_BATCH}",
+             "verbose=False"])
+    finally:
+        DetectionValidator.nms = real_nms
+    paths["cli_val"] = launches
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val) | {"jpeg_idct": VAL_IMAGES, "jpeg_color": VAL_IMAGES}
+          and reads == VAL_IMAGES, f"phase cli (c) val: launches {launches}, {reads} reads")
+    check(all(abs(metrics[k] - rows[0][k]) <= 1e-6 for k in metrics),
+          f"phase cli (c): val of best {metrics} vs {rows}")
+    again = YOLO(str(best), device="cuda")
+    val = DetectionValidator(again.model, again.names, imgsz=IMGSZ, batch_size=VAL_BATCH)  # the CLI's NMS settings
+    calls: list = []
+    check(len(captured) == n_val, f"phase cli (c): {len(captured)} val batches seen")
+    nms_kernel_vs_plain(val, captured[0], calls)
+    del captured, again, val
+    print(f"phase cli (c): detect val of best, launches {launches}; NMS kernel idx/ok equal to the plain version on "
+          f"the first val batch; metrics {({k: round(v, 6) for k, v in metrics.items()})} equal to the run's; "
+          f"{VAL_IMAGES / secs['val']:.1f} img/s, {secs['val']:.1f} s [{card}]", flush=True)
+
+    src = root / "cli_predict"
+    src.mkdir()
+    for f in sorted((root / "jpeg" / "images" / "val").iterdir())[:CLI_PREDICT_IMAGES]:
+        (src / f.name).write_bytes(f.read_bytes())
+    results, launches, reads, secs["predict"] = cli_run(
+        ["detect", "predict", f"model={best}", f"source={src}", f"imgsz={IMGSZ}",
+         f"max_det={CLI_MAX_DET}", "save=True", "save_txt=True", "save_crop=True", f"project={project}",
+         "name=predict", "verbose=False"])
+    paths["cli_predict"] = launches
+    n_det = sum(len(r) for r in results)
+    out_dir = project / "predict"
+    crops = list((out_dir / "crops").rglob("*.jpg"))
+    labels = sorted((out_dir / "labels").glob("*.txt"))
+    check(launches == {"fused_stem": 0, "pick_suppress": CLI_PREDICT_IMAGES, "jpeg_idct": CLI_PREDICT_IMAGES,
+                       "jpeg_color": CLI_PREDICT_IMAGES, "jpeg_fdct": CLI_PREDICT_IMAGES + n_det, "webp_color": 0}
+          and reads == CLI_PREDICT_IMAGES, f"phase cli (c) predict: launches {launches}, {n_det} detections")
+    check(len(results) == CLI_PREDICT_IMAGES and 0 < n_det <= CLI_PREDICT_IMAGES * CLI_MAX_DET
+          and len(crops) == n_det and len(labels) == CLI_PREDICT_IMAGES
+          and sum(len(p.read_text().splitlines()) for p in labels) == n_det
+          and len(list(out_dir.glob("*.jpg"))) == CLI_PREDICT_IMAGES,
+          f"phase cli (c) predict: {n_det} detections, {len(crops)} crops, {len(labels)} label files")
+    first = reader.imread(out_dir / f"{Path(results[0].path).stem}.jpg", device="cuda")
+    check(first.shape == results[0].orig_img.shape, f"phase cli (c): saved plot {first.shape}")
+    print(f"phase cli (c): detect predict of best on {CLI_PREDICT_IMAGES} JPEGs (conf 0.25, max_det {CLI_MAX_DET}, "
+          f"save, save_txt, save_crop), launches {launches}; {n_det} detections, {len(crops)} crops, "
+          f"{len(labels)} label files; {CLI_PREDICT_IMAGES / secs['predict']:.1f} img/s with the writes, "
+          f"{secs['predict']:.1f} s [{card}]", flush=True)
+
+    fed: list = []
+    real_infer = DetectionPredictor.infer
+
+    def keeping_infer(self, batch_u8):  # keeps the benchmark's first batch and its predictor's stem
+        if not fed:
+            fed.append((self, batch_u8.clone()))
+        return real_infer(self, batch_u8)
+
+    DetectionPredictor.infer = keeping_infer
+    try:
+        rows, launches, reads, secs["benchmark"] = cli_run(
+            ["detect", "benchmark", "model=yolo11s-fce.yaml", f"imgsz={IMGSZ}", f"batch={E2E_BATCH}"])
+    finally:
+        DetectionPredictor.infer = real_infer
+    paths["cli_benchmark"] = launches
+    check(launches == no_jpeg(fused_stem=PROFILE_CALLS, pick_suppress=PROFILE_CALLS) and reads == 0,
+          f"phase cli (d) benchmark: launches {launches}, expected the stem and NMS {PROFILE_CALLS} times each")
+    native = rows[0]
+    check(native["format"] == "torch (native)" and native["status"] == "OK" and native["batch"] == E2E_BATCH
+          and native["images/sec"] > 0, f"phase cli (d): native row {native}")
+    check(len(rows) == 4 and all(r["status"].startswith("FAILED: NotImplementedError: item 10") for r in rows[1:]),
+          f"phase cli (d): export rows {rows[1:]}")
+    pred, batch = fed[0]
+    check(pred._stem is not None and tuple(batch.shape) == (E2E_BATCH, IMGSZ, IMGSZ, 3),
+          "phase cli (d): the benchmark's predictor did not take the stem")
+    _, stem_rel, stem_spread = check_stem(batch, pred._stem[1], pred._stem[0], "phase cli (d)")
+    del fed, pred, batch
+    print(f"phase cli (d): detect benchmark yolo11s-fce {IMGSZ} B={E2E_BATCH} bf16, launches {launches}; native row "
+          f"{native['images/sec']} images/sec, {native['ms/img']} ms/img (phase e2e's YOLO.predict on arrays: "
+          f"{e2e_img_s:.1f} img/s); export rows {[r['format'] for r in rows[1:]]} FAILED naming item 10; stem on the "
+          f"benchmark's first batch max|d|/max|ref|={stem_rel:.3e} (limit 0.02), per-row max/median={stem_spread:.2f} "
+          f"(limit 3); {secs['benchmark']:.1f} s [{card}]", flush=True)
+
+    n_frames = VIDEO_OBB_FRAMES
+    out, launches, reads, secs["track"] = cli_run(
+        ["detect", "track", f"model={matching}", f"source={short_avi}", f"imgsz={IMGSZ}", "save=True",
+         f"project={project}", "name=track"])
+    paths["cli_track"] = launches
+    check(launches == {"fused_stem": 0, "pick_suppress": n_frames, "jpeg_idct": n_frames, "jpeg_color": n_frames,
+                       "jpeg_fdct": n_frames, "webp_color": 0} and reads == n_frames,
+          f"phase cli (e) track: launches {launches}, {reads} frames read")
+    saved = sorted((project / "track").glob("*.jpg"))
+    check(len(out) == n_frames and [p.name for p in saved] == [f"{i:06d}.jpg" for i in range(n_frames)]
+          and all(np.isfinite(t).all() for _, t in out) and sum(len(t) for _, t in out) > 0,
+          f"phase cli (e): {len(out)} frames, {len(saved)} saved, {sum(len(t) for _, t in out)} track rows")
+    frame = reader.imread(saved[0], device="cuda")
+    check(frame.shape == out[0][0].orig_img.shape, f"phase cli (e): saved frame {frame.shape}")
+    print(f"phase cli (e): detect track (ByteTrack, conf 0.25) of the matching checkpoint on the {n_frames}-frame "
+          f"AVI, save=True, "
+          f"launches {launches}; {sum(len(t) for _, t in out)} track rows, {n_frames} annotated frames of "
+          f"{frame.shape[1]}x{frame.shape[0]}; {n_frames / secs['track']:.2f} frames/s with the writes, "
+          f"{secs['track']:.1f} s [{card}]", flush=True)
+
+    runs: list = []
+    real_train = YOLO.train
+
+    def watched_train(self, *a, **kw):  # the tuner scores a failed run 0 and goes on: record each run's end
+        try:
+            r = real_train(self, *a, **kw)
+        except Exception as e:
+            runs.append(e)
+            raise
+        runs.append(r)
+        return r
+
+    cwd = os.getcwd()
+    YOLO.train = watched_train
+    tuner = root / "cli_tune"
+    tuner.mkdir()
+    os.chdir(tuner)  # the tuner writes runs/tune under the working directory
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with call_count(reader, "decode_jpeg") as files:
+            tuned = YOLO("yolo11s-fce.yaml", device="cuda").tune(data=data, iterations=CLI_TUNE_ITERATIONS, epochs=1,
+                                                                 imgsz=IMGSZ, batch=VAL_BATCH)
+        torch.cuda.synchronize()
+        secs["tune"] = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        YOLO.train = real_train
+        os.chdir(cwd)
+    paths["cli_tune"] = launches
+    failed = [r for r in runs if isinstance(r, Exception)]
+    check(len(runs) == CLI_TUNE_ITERATIONS and not failed, f"phase cli (f): tuner runs {runs}")
+    csv_rows = (tuner / "runs" / "tune" / "tune_results.csv").read_text().splitlines()
+    check(len(csv_rows) == 1 + CLI_TUNE_ITERATIONS and all(
+        float(line.split(",")[0]) == round(max(r["best_fitness"], 0.0), 5) for line, r in zip(csv_rows[1:], runs)),
+        f"phase cli (f): tune_results.csv {csv_rows} vs the runs' fitness {[r['best_fitness'] for r in runs]}")
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_val * CLI_TUNE_ITERATIONS,
+                              jpeg_fdct=train_plots(n_val) * CLI_TUNE_ITERATIONS)
+          | {"jpeg_idct": files.n, "jpeg_color": files.n} and files.n >= 2 * VAL_IMAGES * CLI_TUNE_ITERATIONS,
+          f"phase cli (f) tune: launches {launches}, {files.n} JPEG reads")
+    check(sorted(Path(p).name for p in tuned["plots"]) == ["tune_fitness.png", "tune_scatter_plots.png"]
+          and (tuner / "runs" / "tune" / "best_hyperparameters.yaml").exists(), f"phase cli (f): {tuned['plots']}")
+    print(f"phase cli (f): YOLO.tune yolo11s-fce {IMGSZ} B={VAL_BATCH}, {CLI_TUNE_ITERATIONS} iterations of 1 epoch, "
+          f"launches {launches}; both runs finished, fitness {[round(r['best_fitness'], 6) for r in runs]}, best "
+          f"{tuned['best_fitness']:.6f}; {files.n} JPEG reads (mixup and cutmix donors); {secs['tune']:.1f} s [{card}]",
+          flush=True)
+    print(f"phase cli: seconds a mode {({k: round(v, 1) for k, v in secs.items()})}; phase cli "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return paths
+
+
 DRAW_FRAMES = 8  # phase draw (b): phase track's first frames, 720x1280 (one predict batch)
 DRAW_SIZES = ((37, 53), (480, 640), (720, 1280), (1080, 1920))  # phase draw (a), and a 720x1280 gray image
 DRAW_TRAIN_BATCH = 21  # phase draw (c): the 64 images in 3 steps (the train loader drops the rest)
@@ -4642,7 +4943,7 @@ def main() -> None:
     stem = phase_stem(yolo.model, spec, yolo_m.model, spec_m, card)
     del yolo_m
     nms = phase_nms(card)
-    predict = phase_e2e(yolo, spec, card)
+    predict, e2e_img_s = phase_e2e(yolo, spec, card)
     del yolo
     with tempfile.TemporaryDirectory() as tmp:
         val_data = write_val_dataset(Path(tmp))
@@ -4652,7 +4953,7 @@ def main() -> None:
         del val_out
         jpeg_paths, jpeg, jpeg_d = phase_jpeg(Path(tmp), png, card)
         formats, webp_color, webp_decode = phase_formats(Path(tmp), png, jpeg_d, card)
-        train = phase_train(Path(tmp), card)
+        train, train_img_s = phase_train(Path(tmp), card)
         experiments = phase_experiments(Path(tmp), card)
         tasks = phase_tasks(Path(tmp), card)
         task_train = phase_task_train(Path(tmp), card)
@@ -4664,10 +4965,11 @@ def main() -> None:
         families = phase_families(Path(tmp), val_data, card)
         v10, tta = phase_v10(Path(tmp), val_data, card)
         weights, zstd_record = phase_weights(Path(tmp), card)
+        cli = phase_cli(Path(tmp), short_avi, e2e_img_s, train_img_s, card)
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **weights}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **weights, **cli}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

@@ -10,7 +10,9 @@ bound with ctypes (``kernels/build.py``); on CPU tensors their plain PyTorch
 versions run.
 """
 
-__all__ = ["YOLO"]
+__version__ = "0.1.0"
+
+__all__ = ["YOLO", "__version__"]
 
 
 def __getattr__(name: str):

@@ -1,6 +1,7 @@
-"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-297, 312-329, 365-397, 400-490, 495-995``):
+"""``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-995``):
 predict, embed, track, val and train for detect, segment, pose and OBB,
-predict, val and train for classify, checkpoints and the model summary."""
+predict, val and train for classify, checkpoints, the model summary,
+``benchmark`` and ``tune`` (``export`` raises: ROADMAP queue 1, item 10)."""
 
 from __future__ import annotations
 
@@ -243,6 +244,38 @@ class YOLO:
     def __call__(self, source, **kw):
         """``predict(source, **kw)``, as the JAX facade's call (api.py:329-330)."""
         return self.predict(source, **kw)
+
+    def export(self, format: str = "tflite", imgsz: int = 640, **kw) -> str:
+        """Export to a deployable artifact (reference ``YOLO.export``,
+        api.py:333): not ported; raises, naming ROADMAP queue 1, item 10."""
+        raise NotImplementedError(f"item 10 (deployment) is not ported: YOLO.export(format={format!r}) has no "
+                                  "torch-native artifact yet (ROADMAP queue 1, item 10)")
+
+    def benchmark(self, data=None, imgsz: int = 640, **kw) -> list[dict]:
+        """The benchmark table (reference ``YOLO.benchmark``, api.py:341;
+        ``utils/benchmarks.py::benchmark``): the ``torch (native)`` row (a
+        bfloat16 copy of the model through the predictor path; mAP50-95 of
+        ``val`` on ``data`` when given), then a ``FAILED`` row per export
+        format until export is ported (ROADMAP queue 1, item 10)."""
+        from fce_yolo_tpu_torch.utils.benchmarks import benchmark as _benchmark
+
+        return _benchmark(self, data=data, imgsz=imgsz, **kw)
+
+    def tune(self, data, space: dict | None = None, iterations: int = 10, use_ray: bool = False,
+             **train_kw) -> dict:
+        """Evolutionary hyperparameter search over short trainings of this
+        model's config on its device (reference ``YOLO.tune``, api.py:349;
+        ``engine/tuner.py``); ``use_ray`` routes to the Ray Tune bridge,
+        which raises without ``ray``."""
+        from fce_yolo_tpu_torch.engine.tuner import DEFAULT_SPACE, Tuner
+
+        if use_ray:
+            from fce_yolo_tpu_torch.engine.tuner import run_ray_tune
+
+            return run_ray_tune(self, space=space, max_samples=iterations, data=data, **train_kw)
+        base = {"model": self.cfg_yaml, "data": data, "device": self.device, **train_kw}
+        t = Tuner(space=space or DEFAULT_SPACE, base_args=base)
+        return t(iterations=iterations)
 
     def predict(self, source, conf: float = 0.25, iou: float = 0.7, imgsz: int = 640, max_det: int = 300,
                 batch: int = 1, stream: bool = False, classes: list[int] | None = None, verbose: bool = False):
