@@ -19,7 +19,7 @@ from a seed) and checks that each path went through its kernels:
   BatchNorm; ``fuse`` saves and reloads folded), then ``run_ablation`` of
   the four variants (baseline, bifpn, fce, fce_wiou) at s, 640 px, B=16,
   stage 1 and stage 2 of one epoch each with the recipe's lr0 and cos_lr,
-  on those 64 images as both splits: stage 2 starting bit-equal from stage
+  on the first 32 of those images as both splits: stage 2 starting bit-equal from stage
   1's best, ``validate_run`` clean, the NMS kernel once per val batch of
   every stage and bit-equal to the plain version on each, ``inspect``,
   ``YOLO.info`` and the report's tables;
@@ -129,9 +129,18 @@ from a seed) and checks that each path went through its kernels:
   ``predict`` with every save of its ``best`` (the NMS kernel held against
   its plain version on a val batch), ``benchmark`` (the native bf16 row:
   the stem and NMS kernels once a batch, the stem held on its first batch;
-  the export rows FAILED, naming ROADMAP item 10) and ``track ... save=True``
-  on the short AVI; ``YOLO.tune`` of 2 one-epoch runs, each watched to its
-  end; every mode's launches exact.
+  the ``torch_export`` row timed, the TensorFlow rows FAILED) and ``track
+  ... save=True`` on the short AVI; ``YOLO.tune`` of 2 one-epoch runs, each
+  watched to its end; every mode's launches exact;
+- deployment (phase deploy): ``InferenceServer`` of the bf16 model answering
+  16 JPEG images over ``RemoteModel`` and a raw socket at once (rows equal
+  to ``YOLO.predict``'s, the stem and NMS kernels once a request);
+  ``YOLO.export`` as a ``torch_export`` program at B=16 without and with
+  NMS, read back by ``AutoBackend`` on the card (preds against the eager
+  model, the NMS kernel launched from inside the program through its
+  custom op and bit-equal to the plain version), as the ``native`` artifact
+  run by ``fy_infer`` (built by g++; raw preds against the card's, image
+  mode's rows against ``YOLO.predict``'s) and from the command line.
 
 The stem is also timed at B=16 and B=64 and on the m form (yolo11m-fce)
 beside cuDNN's unfused bf16 layers 0-2; the NMS kernels at B=1, 16 and 64
@@ -172,6 +181,7 @@ LOSS_TOL = 1e-3  # card vs CPU loss parts, relative: float32 in both, sums in an
 TRAIN_EPOCHS = 2  # phase train: YOLO.train on the 64 val images as both splits
 TRAIN_TOL = 1e-3  # phase train (a), card vs CPU: loss parts, relative; updates, of the largest update
 ABLATION_SCALE = "s"  # phase experiments: every variant at full width and depth
+ABLATION_IMAGES = 32  # phase experiments: the first val images as both splits, 2 steps and 2 val batches a stage
 # one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
@@ -250,6 +260,18 @@ def read_figure(path: Path, size: tuple[int, int] | None = None) -> tuple[int, i
     check(img.ndim == 3 and img.dtype == np.uint8 and (size is None or got == size),
           f"{path.name}: read back as {img.dtype} {img.shape}, expected {size}")
     return got
+
+
+class PhaseClock:
+    """Seconds between calls, by the name given at each call: ``main``'s phases."""
+
+    def __init__(self):
+        self.t, self.secs = time.perf_counter(), {}
+
+    def __call__(self, name: str) -> None:
+        now = time.perf_counter()
+        self.secs[name] = round(now - self.t, 1)
+        self.t = now
 
 
 def kernel_wrappers() -> dict:
@@ -2525,8 +2547,8 @@ def phase_repair(root: Path, card: str) -> None:
 def phase_experiments(root: Path, card: str) -> dict:
     """``run_ablation`` of the four variants at ABLATION_SCALE, IMGSZ,
     VAL_BATCH, stage 1 and stage 2 of one epoch each (the registry's recipe
-    otherwise: lr0, cos_lr, close_mosaic), on the 64 val images as both
-    splits through a data YAML, with the counts at 0. Checks: each stage 2
+    otherwise: lr0, cos_lr, close_mosaic), on the first ABLATION_IMAGES val
+    images as both splits through a data YAML, with the counts at 0. Checks: each stage 2
     starts bit-equal to its stage 1's ``weights/best``; ``validate_run``
     reports no problem and fce_wiou's best says WIoU; ``ablation_s.json``
     holds four rows; the NMS kernel launched once per val batch of every
@@ -2554,11 +2576,16 @@ def phase_experiments(root: Path, card: str) -> dict:
 
     phase_repair(root, card)
     names = "".join(f"  - class{i}\n" for i in range(VAL_NC))
+    sub = root / "ablation_data"
+    for kind, ext in (("images", "png"), ("labels", "txt")):
+        (sub / kind / "val").mkdir(parents=True)
+        for i in range(ABLATION_IMAGES):
+            (sub / kind / "val" / f"{i:03d}.{ext}").symlink_to(root / kind / "val" / f"{i:03d}.{ext}")
     data = root / "ablation.yaml"
-    data.write_text(f"path: {root}\ntrain: images/val\nval: images/val\nnames:\n{names}")
+    data.write_text(f"path: {sub}\ntrain: images/val\nval: images/val\nnames:\n{names}")
     project = root / "ablation"
     cfg = TrainConfig(data=str(data), batch=VAL_BATCH, imgsz=IMGSZ, workers=8, project=str(project))
-    scale, n_val, stages = ABLATION_SCALE, -(-VAL_IMAGES // VAL_BATCH), 2 * len(ABLATION_ORDER)
+    scale, n_val, stages = ABLATION_SCALE, -(-ABLATION_IMAGES // VAL_BATCH), 2 * len(ABLATION_ORDER)
 
     starts: dict[str, dict] = {}  # stage-2 run -> the model's state_dict as YOLO.train begins
     captured: dict[str, list] = {}  # run -> its val batches' preds
@@ -2671,7 +2698,7 @@ def phase_experiments(root: Path, card: str) -> dict:
             f"epoch {sp['epoch'] + 1}: {sp['img_per_s']:.2f} img/s, val {sp['val_s']:.2f} s" for sp in speed)
               + f" [{card}]", flush=True)
     print(f"phase experiments: run_ablation yolo11{scale} x {len(ABLATION_ORDER)} variants {IMGSZ} bf16 B={VAL_BATCH}, "
-          f"{stages} stages of 1 epoch ({VAL_IMAGES // VAL_BATCH} steps), launches {launches}; stage 2 bit-equal to "
+          f"{stages} stages of 1 epoch ({ABLATION_IMAGES // VAL_BATCH} steps on {ABLATION_IMAGES} images), launches {launches}; stage 2 bit-equal to "
           f"stage 1's best for every variant; validate_run clean; NMS kernel idx/ok equal to the plain version on "
           f"all {n_val * stages} val batches; fusion weights {fusion}; report {len(out['written'])} written, "
           f"none skipped; produce_all {len(every)} figures; {wall:.1f} s in all [{card}]", flush=True)
@@ -4466,8 +4493,9 @@ def phase_cli(root: Path, short_avi: Path, e2e_img_s: float, train_img_s: list[f
     (d) ``benchmark model=yolo11s-fce.yaml batch=16``: the native row
     (``profile_inference``, bf16) with the stem and NMS kernels once a batch
     over the warmup and timed batches, the stem held against its plain
-    version on the benchmark's first batch; every export row FAILED, naming
-    ROADMAP item 10;
+    version on the benchmark's first batch; the ``stablehlo`` row as the
+    port's ``torch_export`` (exported, read back, timed: no kernel), the
+    ``saved_model`` and ``tflite`` rows FAILED, naming TensorFlow;
     (e) ``track ... save=True`` of (b)'s matching checkpoint on phase
     video's short AVI: NMS, both JPEG kernels and ``jpeg_fdct`` once a
     frame, tracks drawn;
@@ -4600,7 +4628,10 @@ def phase_cli(root: Path, short_avi: Path, e2e_img_s: float, train_img_s: list[f
     native = rows[0]
     check(native["format"] == "torch (native)" and native["status"] == "OK" and native["batch"] == E2E_BATCH
           and native["images/sec"] > 0, f"phase cli (d): native row {native}")
-    check(len(rows) == 4 and all(r["status"].startswith("FAILED: NotImplementedError: item 10") for r in rows[1:]),
+    exported = rows[1]
+    check(len(rows) == 4 and exported["format"] == "torch_export" and exported["status"] == "OK"
+          and exported["ms/img"] > 0 and all(
+              r["status"].startswith(f"FAILED: NotImplementedError: '{r['format']}' needs TensorFlow") for r in rows[2:]),
           f"phase cli (d): export rows {rows[1:]}")
     pred, batch = fed[0]
     check(pred._stem is not None and tuple(batch.shape) == (E2E_BATCH, IMGSZ, IMGSZ, 3),
@@ -4609,7 +4640,9 @@ def phase_cli(root: Path, short_avi: Path, e2e_img_s: float, train_img_s: list[f
     del fed, pred, batch
     print(f"phase cli (d): detect benchmark yolo11s-fce {IMGSZ} B={E2E_BATCH} bf16, launches {launches}; native row "
           f"{native['images/sec']} images/sec, {native['ms/img']} ms/img (phase e2e's YOLO.predict on arrays: "
-          f"{e2e_img_s:.1f} img/s); export rows {[r['format'] for r in rows[1:]]} FAILED naming item 10; stem on the "
+          f"{e2e_img_s:.1f} img/s); export rows: torch_export (stablehlo's) {exported['images/sec']} images/sec, "
+          f"{exported['ms/img']} ms/img (the f32 program at B=1 through AutoBackend), "
+          f"{[r['format'] for r in rows[2:]]} FAILED naming TensorFlow; stem on the "
           f"benchmark's first batch max|d|/max|ref|={stem_rel:.3e} (limit 0.02), per-row max/median={stem_spread:.2f} "
           f"(limit 3); {secs['benchmark']:.1f} s [{card}]", flush=True)
 
@@ -4681,6 +4714,320 @@ def phase_cli(root: Path, short_avi: Path, e2e_img_s: float, train_img_s: list[f
           f"{tuned['best_fitness']:.6f}; {files.n} JPEG reads (mixup and cutmix donors); {secs['tune']:.1f} s [{card}]",
           flush=True)
     print(f"phase cli: seconds a mode {({k: round(v, 1) for k, v in secs.items()})}; phase cli "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return paths
+
+
+DEPLOY_REQUESTS = 16  # (a) phase jpeg's first JPEGs, decoded on the card, one request each over two connections
+DEPLOY_BATCH = 16  # (b) the torch_export programs' static batch
+DEPLOY_TOL = 1e-4  # (b) a program's preds against the eager f32 model, of max|ref|
+NATIVE_IMGSZ = 320  # (c) fy_infer is a CPU interpreter (~5 s a 320 px forward of yolo11s-fce); 320 px keeps the phase short
+NATIVE_RTOL, NATIVE_ATOL = 1e-3, 2e-3  # (c) --raw against the card's f32 preds (tests/test_native_infer.py:72)
+NATIVE_CONF = 0.8  # (c) image mode: ~20 detections of the calibrated head, well inside the predictor's 1024 candidates
+NATIVE_BOX_TOL, NATIVE_SCORE_TOL = 1e-2, 1e-4  # (c) image mode's rows against YOLO.predict's in keep order: px, score
+
+
+def recv_exact(sock, n: int) -> bytes:
+    buf = b""
+    while len(buf) < n:
+        chunk = sock.recv(n - len(buf))
+        if not chunk:
+            raise ConnectionError("the server closed the connection")
+        buf += chunk
+    return buf
+
+
+def serve_requests(port: int, imgs: list[np.ndarray]) -> tuple[dict, dict]:
+    """The images as requests over two connections at once: the even ones
+    through ``RemoteModel``, the odd ones over a raw socket (which then
+    sends a zero header, on which the server closes). Returns each image's
+    rows and the ms of its round trip."""
+    import socket
+    import threading
+
+    from fce_yolo_tpu_torch.utils.remote import RemoteModel
+
+    rows, ms, errors = {}, {}, []
+
+    def remote(idx):
+        try:
+            with RemoteModel(f"tcp://127.0.0.1:{port}") as client:
+                for i in idx:
+                    t0 = time.perf_counter()
+                    rows[i] = client(imgs[i])
+                    ms[i] = (time.perf_counter() - t0) * 1e3
+        except Exception as e:  # raised below, in the main thread
+            errors.append(e)
+
+    def raw(idx):
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=300) as s:
+                for i in idx:
+                    h, w = imgs[i].shape[:2]
+                    t0 = time.perf_counter()
+                    s.sendall(struct.pack("<II", h, w) + imgs[i].tobytes())
+                    (n,) = struct.unpack("<I", recv_exact(s, 4))
+                    rows[i] = np.frombuffer(recv_exact(s, 24 * n), "<f4").reshape(n, 6)
+                    ms[i] = (time.perf_counter() - t0) * 1e3
+                s.sendall(struct.pack("<II", 0, 0))
+                check(s.recv(1) == b"", "phase deploy (a): the server kept a connection open after h=0")
+        except Exception as e:
+            errors.append(e)
+
+    threads = [threading.Thread(target=remote, args=(range(0, len(imgs), 2),)),
+               threading.Thread(target=raw, args=(range(1, len(imgs), 2),))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    check(not errors and not any(t.is_alive() for t in threads), f"phase deploy (a): clients failed: {errors}")
+    return rows, ms
+
+
+class capture_nms:
+    """Within the block, keep each call of the custom op
+    ``fce_yolo_tpu_torch::pick_suppress`` that runs (its candidates, IoU
+    threshold, max_det and idx/ok), from a dispatch mode: the op runs as it
+    would, so a loaded program's own call is seen."""
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        calls = self.calls = []
+        op = torch.ops.fce_yolo_tpu_torch.pick_suppress.default
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                if func is op:
+                    calls.append(([a.clone() for a in args[:3]], args[3], args[4], [o.clone() for o in out]))
+                return out
+
+        self.mode = Mode()
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.mode.__exit__(*exc)
+
+
+def spread_head(yolo, img: np.ndarray) -> None:
+    """Class convs whose logits spread on ``img`` (uint8 RGB): each of
+    classes 0-2 a whitened random projection of its conv's input over the
+    image's anchors (scores ~0.5-0.9), the other classes off (bias -20).
+    With seed-0 weights every anchor scores within ~1e-5 of the others, and
+    two float paths then keep different boxes; on a noise image without flat
+    regions the scores are distinct."""
+    head = yolo.model.detect
+    feats: list = []
+    hooks = [b[-1].register_forward_hook(lambda m, i, o: feats.append(i[0].detach().float())) for b in head.cv3]
+    try:
+        with torch.inference_mode():
+            yolo.model.eval()(torch.from_numpy(img).to(yolo.device).permute(2, 0, 1)[None].float() / 255.0)
+    finally:
+        for h in hooks:
+            h.remove()
+    gen = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for branch, f in zip(head.cv3, feats):
+            conv = branch[-1]
+            c = f.shape[1]
+            mu, sd = f.mean((0, 2, 3)).cpu(), f.std((0, 2, 3)).cpu() + 1e-12
+            w = torch.randn(conv.out_channels, c, generator=gen) * 0.5 / c ** 0.5 / sd
+            bias = -(w * mu).sum(1)
+            w[3:], bias[3:] = 0.0, -20.0
+            conv.weight.copy_(w[:, :, None, None])
+            conv.bias.copy_(bias)
+
+
+def phase_deploy(root: Path, card: str) -> dict:
+    """Deployment (``serve.py``, ``engine/exporter.py``, ``engine/export_native.py``,
+    ``nn/autobackend.py``), each part with the counts at 0:
+    (a) ``InferenceServer`` of a bf16 yolo11s-fce (phase val's matching
+    weights) on 127.0.0.1, port 0: 16 of phase jpeg's JPEGs decoded on the
+    card sent at once over ``RemoteModel`` and a raw socket; each response's
+    rows equal to ``YOLO.predict`` on the same array, the stem kernel (at
+    B=1) and the NMS kernel once a request;
+    (b) ``YOLO.export(format="torch_export")`` of the f32 model at 640 px,
+    B=16, without and with NMS, loaded by ``AutoBackend`` on the card: preds
+    within 1e-4 of max|ref| of the eager model; with NMS the kernel launched
+    once a call from inside the program, through the custom op, its idx/ok
+    equal to ``pick_suppress_reference`` on the candidates the program gave
+    it; device ms a batch by CUDA events beside the eager model's;
+    (c) ``format="native"`` at full width and 320 px, ``fy_infer`` built by
+    g++ here: ``--raw`` within rtol 1e-3, atol 2e-3 of the card's f32 preds;
+    image mode's rows on a 320x320 noise image equal in count and class to
+    ``YOLO.predict(imgsz=320)``'s in keep order, boxes within 0.01 px and
+    scores within 1e-4 (the head spread by ``spread_head``);
+    (d) ``entrypoint("detect export ... format=torch_export")`` with no
+    ``device=``, the artifact read back by ``YOLO(path)`` on the card and
+    predicting. (``benchmark``'s export rows ran in phase cli (d).)
+    Returns each part's launches, keyed "deploy_<part>"."""
+    import os
+    import subprocess as sp
+
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.cfg import entrypoint
+    from fce_yolo_tpu_torch.data.imread import imread
+    from fce_yolo_tpu_torch.nn.autobackend import AutoBackend, fy_infer_binary
+    from fce_yolo_tpu_torch.ops.nms import batched_nms, pick_suppress_reference
+    from fce_yolo_tpu_torch.serve import InferenceServer
+
+    t_phase = time.perf_counter()
+    paths, secs = {}, {}
+    out_dir = root / "deploy"
+    files = sorted((root / "jpeg" / "images" / "val").iterdir())[:DEPLOY_REQUESTS]
+    imgs = [imread(f, device="cuda") for f in files]
+
+    t0 = time.perf_counter()
+    served = matching_model(YOLO("yolo11s-fce.yaml", device="cuda")).to(torch.bfloat16)
+    srv = InferenceServer(served, host="127.0.0.1", port=0, imgsz=IMGSZ).start()
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        rows, ms = serve_requests(srv.port, imgs)
+        torch.cuda.synchronize()
+        launches = read_launches()
+    finally:
+        srv.stop()
+    secs["serve"] = time.perf_counter() - t0
+    paths["deploy_serve"] = launches
+    check(launches == no_jpeg(fused_stem=DEPLOY_REQUESTS, pick_suppress=DEPLOY_REQUESTS),
+          f"phase deploy (a): launches {launches}, expected the stem and NMS once a request")
+    for i, img in enumerate(imgs):
+        ref = served.predict(img, imgsz=IMGSZ)[0].boxes.data.astype("<f4")
+        check(np.array_equal(rows[i], ref), f"phase deploy (a): request {i}: {len(rows[i])} rows, YOLO.predict "
+                                            f"{len(ref)}, max|d| {np.abs(rows[i] - ref).max() if len(ref) == len(rows[i]) and len(ref) else '-'}")
+    t = np.array([ms[i] for i in range(len(imgs))])
+    print(f"phase deploy (a): InferenceServer bf16 yolo11s-fce {IMGSZ} px, {len(imgs)} requests (phase jpeg's JPEGs, "
+          f"{imgs[0].shape[1]}x{imgs[0].shape[0]} and up) at once over RemoteModel and a raw socket, launches "
+          f"{launches}; every response's rows equal to YOLO.predict on the same array "
+          f"({sum(len(r) for r in rows.values())} rows); ms a request median {np.median(t):.2f}, min {t.min():.2f}, "
+          f"max {t.max():.2f}, spread (p90 - p10) {np.percentile(t, 90) - np.percentile(t, 10):.2f}; "
+          f"{secs['serve']:.1f} s [{card}]", flush=True)
+    del served
+
+    t0 = time.perf_counter()
+    f32 = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
+    x = letterboxed(imgs[:DEPLOY_BATCH])
+    t1 = time.perf_counter()
+    p_raw = f32.export(format="torch_export", imgsz=IMGSZ, batch=DEPLOY_BATCH, out_dir=out_dir / "raw")
+    p_nms = f32.export(format="torch_export", imgsz=IMGSZ, batch=DEPLOY_BATCH, nms=True, out_dir=out_dir / "nms")
+    secs["export_s"] = (time.perf_counter() - t1) / 2
+    b_raw, b_nms = AutoBackend(p_raw, device="cuda"), AutoBackend(p_nms, device="cuda")
+    eager = f32._inference_model()
+
+    def eager_preds():
+        with torch.inference_mode():
+            return eager(x.permute(0, 3, 1, 2).float() / 255.0)["preds"]
+
+    ref = eager_preds()
+    got = b_raw(x)
+    err = float((got - ref).abs().max() / ref.abs().max())
+    check(got.shape == ref.shape and err <= DEPLOY_TOL, f"phase deploy (b): program preds {tuple(got.shape)}, "
+                                                         f"max|d|/max|ref| {err:.3e} (limit {DEPLOY_TOL})")
+    torch.cuda.synchronize()
+    reset_launches()
+    with capture_nms() as cap:
+        dets = b_nms(x)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    paths["deploy_export"] = launches
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=1) and len(cap.calls) == 1,
+          f"phase deploy (b): launches {launches}, {len(cap.calls)} custom-op calls; expected the NMS kernel once")
+    (cb, cs, cv), iou, max_det, (idx, ok) = cap.calls[0]
+    ridx, rok = pick_suppress_reference(cb, cs, cv, iou, max_det)
+    check(torch.equal(idx, ridx) and torch.equal(ok, rok),
+          f"phase deploy (b): the program's NMS kernel differs from the plain version ({int((idx != ridx).sum())} idx)")
+    check(set(dets) == {"boxes", "scores", "classes", "valid"} and tuple(dets["boxes"].shape) == (DEPLOY_BATCH, 300, 4)
+          and int(dets["valid"].sum()) > 0, f"phase deploy (b): the NMS program gave {({k: tuple(v.shape) for k, v in dets.items()})}")
+    with torch.inference_mode():
+        t_eager = cuda_ms(eager_preds)
+        t_eager_nms = cuda_ms(lambda: batched_nms(eager_preds(), conf_thres=0.25, iou_thres=0.7, max_det=300))
+    t_raw, t_nms = cuda_ms(lambda: b_raw(x)), cuda_ms(lambda: b_nms(x))
+    secs["export"] = time.perf_counter() - t0
+    print(f"phase deploy (b): YOLO.export torch_export f32 yolo11s-fce {IMGSZ} px B={DEPLOY_BATCH} "
+          f"({secs['export_s']:.1f} s an export), loaded by AutoBackend on the card: preds max|d|/max|ref|={err:.3e} "
+          f"(limit {DEPLOY_TOL}); with nms=True launches {launches}, the kernel through the custom op, idx/ok equal to "
+          f"the plain version on the program's candidates (K={cb.shape[1]}, {int(ok.sum())} kept); device ms a batch "
+          f"by CUDA events: program {t_raw:.3f} vs eager {t_eager:.3f}, with NMS {t_nms:.3f} vs eager + batched_nms "
+          f"{t_eager_nms:.3f}; {secs['export']:.1f} s [{card}]", flush=True)
+    del b_raw, b_nms, got, ref, dets, x
+
+    t0 = time.perf_counter()
+    noise = np.random.RandomState(SEED + 7).randint(0, 256, (NATIVE_IMGSZ, NATIVE_IMGSZ, 3), np.uint8)  # RGB
+    spread_head(f32, noise)
+    t1 = time.perf_counter()
+    ir = Path(f32.export(format="native", imgsz=NATIVE_IMGSZ, out_dir=out_dir / "native"))
+    secs["native_export"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    exe = fy_infer_binary()
+    secs["g++"] = time.perf_counter() - t1
+    xr = np.random.RandomState(SEED).rand(1, NATIVE_IMGSZ, NATIVE_IMGSZ, 3).astype(np.float32)
+    xr.tofile(out_dir / "in.f32")
+    reset_launches()
+    t1 = time.perf_counter()
+    sp.run([str(exe), str(ir), str(ir.with_suffix(".fybin")), "--raw", str(out_dir / "in.f32"), str(out_dir / "out.f32")],
+           check=True, capture_output=True, timeout=300)
+    secs["fy_infer_raw"] = time.perf_counter() - t1
+    with torch.inference_mode():
+        card_preds = f32._inference_model()(torch.from_numpy(xr).cuda().permute(0, 3, 1, 2))["preds"].cpu().numpy()
+    raw = np.fromfile(out_dir / "out.f32", np.float32).reshape(card_preds.shape)
+    worst = float((np.abs(raw - card_preds) - NATIVE_RTOL * np.abs(card_preds)).max())
+    check(np.allclose(raw, card_preds, rtol=NATIVE_RTOL, atol=NATIVE_ATOL),
+          f"phase deploy (c): fy_infer --raw vs the card, max(|d| - rtol|ref|) {worst:.3e} (atol {NATIVE_ATOL})")
+    ppm = out_dir / "noise.ppm"
+    ppm.write_bytes(f"P6\n{NATIVE_IMGSZ} {NATIVE_IMGSZ}\n255\n".encode() + noise.tobytes())
+    t1 = time.perf_counter()
+    res = sp.run([str(exe), str(ir), str(ir.with_suffix(".fybin")), str(ppm), str(NATIVE_CONF), "0.7"], check=True,
+                 capture_output=True, text=True, timeout=300)
+    secs["fy_infer_image"] = time.perf_counter() - t1
+    cpp = np.array([[float(v) for v in line.split()[:6]] for line in res.stdout.splitlines()], np.float32).reshape(-1, 6)
+    py = f32.predict(np.ascontiguousarray(noise[..., ::-1]), imgsz=NATIVE_IMGSZ, conf=NATIVE_CONF, iou=0.7)[0].boxes.data
+    torch.cuda.synchronize()
+    launches = read_launches()
+    paths["deploy_native"] = launches
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=1), f"phase deploy (c): launches {launches}")
+    check(len(cpp) == len(py) > 0 and np.array_equal(cpp[:, 5], py[:, 5])
+          and np.abs(cpp[:, :4] - py[:, :4]).max() <= NATIVE_BOX_TOL
+          and np.abs(cpp[:, 4] - py[:, 4]).max() <= NATIVE_SCORE_TOL,
+          f"phase deploy (c): fy_infer image mode {len(cpp)} rows vs YOLO.predict {len(py)}:\n{cpp[:5]}\n{py[:5]}")
+    secs["native"] = time.perf_counter() - t0
+    print(f"phase deploy (c): YOLO.export native yolo11s-fce full width at {NATIVE_IMGSZ} px (fy_infer is a CPU "
+          f"interpreter: 320 px keeps the phase short; {ir.stat().st_size} + {ir.with_suffix('.fybin').stat().st_size} "
+          f"bytes, {secs['native_export']:.1f} s), fy_infer built by g++ in {secs['g++']:.1f} s: --raw within rtol "
+          f"{NATIVE_RTOL}, atol {NATIVE_ATOL} of the card's f32 preds (max(|d| - rtol|ref|) {worst:.2e}), "
+          f"{secs['fy_infer_raw']:.2f} s a forward on the host; image mode on a {NATIVE_IMGSZ}x{NATIVE_IMGSZ} noise "
+          f"image: {len(cpp)} rows equal in class to YOLO.predict's in keep order, boxes max|d| "
+          f"{np.abs(cpp[:, :4] - py[:, :4]).max():.2e} px (limit {NATIVE_BOX_TOL}), scores "
+          f"{np.abs(cpp[:, 4] - py[:, 4]).max():.2e} (limit {NATIVE_SCORE_TOL}); {secs['native']:.1f} s [{card}]",
+          flush=True)
+    del f32, eager
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_launches()
+    cwd = os.getcwd()
+    os.chdir(out_dir)  # the command line writes the artifact in the working directory
+    try:
+        path = str(Path(entrypoint(["detect", "export", "model=yolo11s-fce.yaml", f"imgsz={IMGSZ}",
+                                    "format=torch_export"])).resolve())
+    finally:
+        os.chdir(cwd)
+    back = YOLO(path)
+    results = back.predict(imgs[0])
+    torch.cuda.synchronize()
+    launches = read_launches()
+    paths["deploy_cli"] = launches
+    check(Path(path).suffix == ".pt2" and back.backend.device.type == "cuda" and back.backend.imgsz == IMGSZ
+          and len(results) == 1 and np.isfinite(results[0].boxes.data).all(),
+          f"phase deploy (d): export wrote {path}, backend on {back.backend.device}")
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=1), f"phase deploy (d): launches {launches}")
+    secs["cli"] = time.perf_counter() - t0
+    print(f"phase deploy (d): detect export model=yolo11s-fce.yaml format=torch_export (no device=) -> {Path(path).name}, "
+          f"read back by YOLO(path) on the card and predicting ({len(results[0].boxes)} rows), launches {launches}; "
+          f"{secs['cli']:.1f} s [{card}]", flush=True)
+    print(f"phase deploy: seconds a part {({k: round(v, 1) for k, v in secs.items()})}; phase deploy "
           f"{time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
     return paths
 
@@ -4921,6 +5268,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 references in full float32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    clock = PhaseClock()
     _, build_s, report = kbuild.build()
     kbuild.library()
     print(f"phase env: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
@@ -4939,37 +5287,60 @@ def main() -> None:
 
     yolo, spec = model("yolo11s-fce.yaml")
     yolo_m, spec_m = model("yolo11m-fce.yaml")
+    clock("build")
 
     stem = phase_stem(yolo.model, spec, yolo_m.model, spec_m, card)
+    clock("stem")
     del yolo_m
     nms = phase_nms(card)
+    clock("nms")
     predict, e2e_img_s = phase_e2e(yolo, spec, card)
+    clock("e2e")
     del yolo
     with tempfile.TemporaryDirectory() as tmp:
         val_data = write_val_dataset(Path(tmp))
         val, nms_val, val_out = phase_val(val_data, card)
+        clock("val")
         phase_loss(val_out, card)
+        clock("loss")
         png = val_out["png"]
         del val_out
         jpeg_paths, jpeg, jpeg_d = phase_jpeg(Path(tmp), png, card)
+        clock("jpeg")
         formats, webp_color, webp_decode = phase_formats(Path(tmp), png, jpeg_d, card)
+        clock("formats")
         train, train_img_s = phase_train(Path(tmp), card)
+        clock("train")
         experiments = phase_experiments(Path(tmp), card)
+        clock("experiments")
         tasks = phase_tasks(Path(tmp), card)
+        clock("tasks")
         task_train = phase_task_train(Path(tmp), card)
+        clock("task_train")
         track, stem_b1, frames = phase_track(Path(tmp), card)
+        clock("track")
         video, video_times, short_avi = phase_video(Path(tmp), frames, card)
+        clock("video")
         draw, fdct = phase_draw(Path(tmp), frames, card)
+        clock("draw")
         del frames
         classify = phase_classify(Path(tmp), short_avi, card)
+        clock("classify")
         families = phase_families(Path(tmp), val_data, card)
+        clock("families")
         v10, tta = phase_v10(Path(tmp), val_data, card)
+        clock("v10")
         weights, zstd_record = phase_weights(Path(tmp), card)
+        clock("weights")
         cli = phase_cli(Path(tmp), short_avi, e2e_img_s, train_img_s, card)
+        clock("cli")
+        deploy = phase_deploy(Path(tmp), card)
+        clock("deploy")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **weights, **cli}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **weights, **cli,
+             **deploy}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),
@@ -4994,6 +5365,7 @@ def main() -> None:
          "replaces": "fce_yolo_tpu/utils/patches.py:18", **launches("webp_color"), **webp_color},
         {"name": "fce_webp_decode", "route": "cuda", "source": "fce_yolo_tpu_torch/csrc/webp.cu",
          "replaces": "fce_yolo_tpu/utils/patches.py:18", **webp_decode}]
+    print(f"phase seconds: {clock.secs}; the whole script {sum(clock.secs.values()):.1f} s [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,9 @@
 """``YOLO`` facade of the port (reference ``fce_yolo_tpu/api.py:77-995``):
 predict, embed, track, val and train for detect, segment, pose and OBB,
 predict, val and train for classify, checkpoints, the model summary,
-``benchmark`` and ``tune`` (``export`` raises: ROADMAP queue 1, item 10)."""
+``export``, ``benchmark`` and ``tune``; ``YOLO(artifact)`` predicts and
+validates through ``nn/autobackend.py``, ``YOLO("tcp://host:port")``
+predicts through a remote ``serve.InferenceServer``."""
 
 from __future__ import annotations
 
@@ -82,6 +84,13 @@ class YOLO:
     the JAX package. ``predict`` runs a folded copy of the model, made once
     per version of the weights; ``model`` keeps its BatchNorm unless
     ``fuse`` folds it.
+
+    ``model`` may also be an exported artifact (``.pt2`` or ``.fyir``,
+    read by ``AutoBackend`` on ``device``: predict and val at the
+    artifact's size, detect boxes only) or a ``tcp://host:port`` URL of an
+    inference server (``utils/remote.py``: predict only, detect, rows in
+    each image's pixels; ``device`` is where files are decoded), as in the
+    JAX facade (api.py:85-112).
     """
 
     def __init__(self, model: str | Path = "yolo11n.yaml", device: torch.device | str = "cuda", nc: int | None = None):
@@ -90,6 +99,20 @@ class YOLO:
         self._folded_copy: tuple[tuple | None, torch.nn.Module] | None = None  # (weights_version, folded copy)
         self._tracker: tuple[str, Any] | None = None  # (tracker config, tracker) that ``track(persist=True)`` keeps
         self.yaml_overrides: dict[str, Any] = {}
+        self.backend = None  # AutoBackend when built from an exported artifact
+        self.remote = None  # RemoteModel when built from a tcp:// URL
+        if isinstance(model, str) and model.startswith("tcp://"):
+            from fce_yolo_tpu_torch.utils.remote import RemoteModel
+
+            self.remote = RemoteModel(model)
+            self._no_model(model, {i: f"class_{i}" for i in range(80)}, (8, 16, 32))
+            return
+        from fce_yolo_tpu_torch.nn.autobackend import AutoBackend, is_exported_artifact
+
+        if is_exported_artifact(model):
+            self.backend = AutoBackend(model, device=self.device)
+            self._no_model(str(model), self.backend.names, self.backend.strides)
+            return
         if is_jax_checkpoint(model):
             tree, meta = load_jax_checkpoint(model, device=self.device)
             self._build(_jax_cfg(meta["cfg_yaml"]), meta.get("scale"), meta.get("nc"), meta.get("yaml_overrides"))
@@ -111,6 +134,11 @@ class YOLO:
             self._build(str(model), nc=nc)
             self.reset_weights(0)
 
+    def _no_model(self, source: str, names: dict[int, str], strides: tuple) -> None:
+        """A facade without a model of its own (an artifact, a server)."""
+        self.model, self.spec, self.strides = None, None, tuple(strides)
+        self.cfg_yaml, self.scale, self.names = source, None, dict(names)
+
     def _build(self, cfg: str, scale: str | None = None, nc: int | None = None,
                overrides: Mapping[str, Any] | None = None) -> None:
         """Build the model of ``cfg`` with ``nc`` classes and the model-dict
@@ -128,11 +156,16 @@ class YOLO:
 
     @property
     def nc(self) -> int:
-        return self.spec.nc
+        return self.spec.nc if self.spec is not None else len(self.names)
 
     @property
     def task(self) -> str:
-        """"detect", "segment", "pose" or "obb", from the model's head."""
+        """"detect", "segment", "pose", "obb" or "classify", from the model's
+        head; an artifact's from its metadata, a server's "detect"."""
+        if self.remote is not None:
+            return "detect"
+        if self.backend is not None:
+            return self.backend.meta.get("task", "detect")
         return self.spec.task
 
 
@@ -229,6 +262,9 @@ class YOLO:
         """A copy of the model with Conv+BN folded, for ``predict``; folded
         again only when ``weights_version`` shows the weights changed (the
         reference's ``_maybe_fold``, engine/predictor.py:247-268)."""
+        if self.model is None:
+            raise NotImplementedError(f"{self.cfg_yaml} is an exported artifact or a server: it predicts and "
+                                      "validates detect boxes only")
         key = weights_version(self.model)
         if key is None or self._folded_copy is None or self._folded_copy[0] != key:
             self._folded_copy = None  # free the old copy first
@@ -245,18 +281,25 @@ class YOLO:
         """``predict(source, **kw)``, as the JAX facade's call (api.py:329-330)."""
         return self.predict(source, **kw)
 
-    def export(self, format: str = "tflite", imgsz: int = 640, **kw) -> str:
-        """Export to a deployable artifact (reference ``YOLO.export``,
-        api.py:333): not ported; raises, naming ROADMAP queue 1, item 10."""
-        raise NotImplementedError(f"item 10 (deployment) is not ported: YOLO.export(format={format!r}) has no "
-                                  "torch-native artifact yet (ROADMAP queue 1, item 10)")
+    def export(self, format: str = "torch_export", imgsz: int = 640, **kw) -> str:
+        """Export to a deployable artifact; returns its path (reference
+        ``YOLO.export``, api.py:333; ``engine/exporter.py``). Formats:
+        ``torch_export`` (a ``.pt2`` program, ``batch``, ``nms``, ``conf``,
+        ``iou``, ``max_det``, ``out_dir``) and ``native`` (``.fyir`` +
+        ``.fybin`` for ``native/infer/fy_infer.cpp``); ``stablehlo``,
+        ``saved_model`` and ``tflite`` need JAX or TensorFlow and raise."""
+        from fce_yolo_tpu_torch.engine.exporter import export_model
+
+        if self.model is None:
+            raise NotImplementedError(f"{self.cfg_yaml} has no model to export: it is an artifact or a server")
+        return export_model(self, fmt=format, imgsz=imgsz, **kw)
 
     def benchmark(self, data=None, imgsz: int = 640, **kw) -> list[dict]:
         """The benchmark table (reference ``YOLO.benchmark``, api.py:341;
         ``utils/benchmarks.py::benchmark``): the ``torch (native)`` row (a
         bfloat16 copy of the model through the predictor path; mAP50-95 of
-        ``val`` on ``data`` when given), then a ``FAILED`` row per export
-        format until export is ported (ROADMAP queue 1, item 10)."""
+        ``val`` on ``data`` when given), then a row per JAX export format
+        (``stablehlo`` as ``torch_export``; the TensorFlow ones ``FAILED``)."""
         from fce_yolo_tpu_torch.utils.benchmarks import benchmark as _benchmark
 
         return _benchmark(self, data=data, imgsz=imgsz, **kw)
@@ -292,14 +335,38 @@ class YOLO:
         ``imgsz`` 640 means its 224)."""
         from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
 
-        if self.task == "classify":
-            gen = _postfilter(self._predict_classify(source, imgsz=imgsz if imgsz != 640 else 224, batch=batch),
-                              None, verbose)
-            return gen if stream else list(gen)
-        predictor = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
-                                       max_det=max_det, batch_size=batch)
-        gen = _postfilter(predictor.stream(source), classes, verbose)
+        if self.remote is not None:
+            gen = self._predict_remote(source)
+        elif self.backend is not None:
+            self._detect_artifact("predict")
+            gen = DetectionPredictor(None, self.names, imgsz=self.backend.imgsz, conf=conf, iou=iou, max_det=max_det,
+                                     batch_size=batch, infer_fn=self.backend).stream(source)
+        elif self.task == "classify":
+            gen, classes = self._predict_classify(source, imgsz=imgsz if imgsz != 640 else 224, batch=batch), None
+        else:
+            gen = DetectionPredictor(self._inference_model(), self.names, imgsz=imgsz, conf=conf, iou=iou,
+                                     max_det=max_det, batch_size=batch).stream(source)
+        gen = _postfilter(gen, classes, verbose)
         return gen if stream else list(gen)
+
+    def _detect_artifact(self, what: str) -> None:
+        if self.task != "detect":
+            raise NotImplementedError(f"{what} of an exported {self.task} artifact: an artifact gives detect boxes "
+                                      "only (fy_infer's image mode runs the task's post-processing)")
+
+    def _predict_remote(self, source):
+        """Remote predict (reference ``_predict_remote``, api.py:299-310):
+        each frame to the server; its rows, already in the frame's pixels,
+        wrapped as ``Results``."""
+        from fce_yolo_tpu_torch.engine.predictor import load_source
+        from fce_yolo_tpu_torch.engine.results import Results
+
+        for img, path in load_source(source, self.device):
+            t0 = time.perf_counter()
+            rows = self.remote(img)
+            ms = (time.perf_counter() - t0) * 1000.0
+            yield Results(img, path, self.names, boxes=rows,
+                          speed={"preprocess": 0.0, "inference": ms, "postprocess": 0.0}, device=self.device)
 
     def _predict_classify(self, source, imgsz: int = 224, batch: int = 1):
         """Classification predict (reference ``_predict_classify``,
@@ -391,11 +458,20 @@ class YOLO:
         there; the task heads draw nothing, as the JAX package's."""
         from fce_yolo_tpu_torch.data.dataset import check_det_dataset
 
+        if self.remote is not None:
+            raise NotImplementedError("a server predicts only: validate the model it serves")
         if self.task == "classify":
             return self._val_classify(data, imgsz=imgsz if imgsz != 640 else 224, batch=batch, verbose=verbose)
         d = check_det_dataset(data)
         if not self.names or all(v.startswith("class_") for v in self.names.values()):
             self.names = d["names"]
+        if self.backend is not None:  # the artifact's size (reference api.py:411-417)
+            from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+
+            self._detect_artifact("val")
+            validator = DetectionValidator(None, self.names, imgsz=self.backend.imgsz, conf=conf, iou=iou,
+                                           max_det=max_det, batch_size=batch, workers=workers, infer_fn=self.backend)
+            return validator(data=d, verbose=verbose, save_json=save_json, plots_dir=plots_dir)
         validator = self._validator(imgsz=imgsz, conf=conf, iou=iou, max_det=max_det, batch_size=batch,
                                     workers=workers)
         return validator(data=d, verbose=verbose, save_json=save_json, plots_dir=plots_dir)

@@ -125,8 +125,9 @@ HELP_MSG = """FCE-YOLO-TPU CLI (PyTorch + CUDA port) — usage:  yolo-tpu-torch 
   (or python -m fce_yolo_tpu_torch TASK MODE [k=v ...])
 
   TASK: detect (default) | segment | classify | pose | obb
-  MODE: train | val | predict | track | benchmark
-        (export: not ported, ROADMAP queue 1, item 10)
+  MODE: train | val | predict | export | track | benchmark
+        (export: format=torch_export (.pt2, nms=True bakes in NMS) | native (.fyir);
+         stablehlo, saved_model and tflite need JAX or TensorFlow)
   or:   yolo-tpu-torch version | checks | settings [reset] [k=v ...] | cfg | copy-cfg
         (solutions: not ported, ROADMAP queue 1, item 6)
 
@@ -138,6 +139,7 @@ examples:
   yolo-tpu-torch classify val model=runs/classify/train/weights/best data=imagenet10/
   yolo-tpu-torch pose predict model=yolo11n-pose.yaml source=images/
   yolo-tpu-torch obb val model=yolo11n-obb.yaml data=dota8.yaml
+  yolo-tpu-torch detect export model=runs/detect/train/weights/best format=torch_export nms=True
 """
 
 # reference cfg/__init__.py:134 TASK2MODEL (model YAMLs: nothing downloads)

@@ -22,6 +22,11 @@ Stem gate (the port's form of the JAX gate at predictor.py:163-188): layers
 0..2 run in the fused stem kernel when the model matches
 ``stem_spec_from_model``, the model is on a CUDA device and its conv weights
 are bf16. Otherwise the plain graph runs from layer 0.
+
+Exported artifacts (reference predictor.py:135-153): with ``infer_fn`` (an
+``nn/autobackend.py::AutoBackend``) and no model, the uint8 batch goes to
+the artifact; raw preds get single-label ``batched_nms`` here, a dict means
+that NMS ran inside the artifact. Boxes only: the detect path.
 """
 
 from __future__ import annotations
@@ -120,14 +125,17 @@ class DetectionPredictor:
     """Fixed-shape batched predictor for detect and the task heads (the
     model's ``task``). On first use it runs ``model`` as it is when folded
     (``YOLO`` hands it its memoized folded copy), else a folded copy of it;
-    ``model`` itself is left as it was."""
+    ``model`` itself is left as it was. With ``infer_fn`` (an exported
+    artifact's ``AutoBackend``) ``model`` is None."""
 
-    def __init__(self, model: DetectionModel, names: dict[int, str], imgsz: int = 640,
-                 conf: float = 0.25, iou: float = 0.7, max_det: int = 300, batch_size: int = 1):
+    def __init__(self, model: DetectionModel | None, names: dict[int, str], imgsz: int = 640,
+                 conf: float = 0.25, iou: float = 0.7, max_det: int = 300, batch_size: int = 1,
+                 infer_fn=None):
         self.model = model
         self.names = names
         self.nc = len(names)
-        self.task = model.task
+        self.infer_fn = infer_fn  # AutoBackend: uint8 images -> raw preds, or the NMS dict
+        self.task = model.task if model is not None else "detect"
         self.imgsz = imgsz
         self.conf = conf
         self.iou = iou
@@ -135,6 +143,11 @@ class DetectionPredictor:
         self.batch_size = batch_size
         self._stem = None  # (StemSpec, StemWeights) once set up
         self._ready = False
+
+    @property
+    def device(self) -> torch.device:
+        """The model's device, or the artifact backend's."""
+        return self.infer_fn.device if self.model is None else next(self.model.parameters()).device
 
     def _setup(self) -> None:
         if not is_folded(self.model):
@@ -186,6 +199,12 @@ class DetectionPredictor:
     @torch.inference_mode()
     def infer(self, batch_u8: torch.Tensor) -> dict[str, torch.Tensor]:
         """uint8 RGB NHWC batch on the model's device -> fixed-shape NMS dict."""
+        if self.infer_fn is not None:
+            out = self.infer_fn(batch_u8)
+            if isinstance(out, dict):  # NMS inside the artifact
+                return out
+            return batched_nms(out, conf_thres=self.conf, iou_thres=self.iou, max_det=self.max_det,
+                               multi_label=False, nc=self.nc)
         return self.postprocess(self.forward(batch_u8))
 
     @torch.inference_mode()
@@ -202,7 +221,7 @@ class DetectionPredictor:
 
     def stream(self, source) -> Iterator[Results]:
         """Generator over Results, batching the source internally."""
-        device = next(self.model.parameters()).device
+        device = self.device
         pending: list[tuple[np.ndarray, str, float, tuple[int, int]]] = []
         imgs: list[np.ndarray] = []
 

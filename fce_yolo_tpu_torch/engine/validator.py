@@ -16,6 +16,11 @@ A V10Detect model validates end to end, as Ultralytics does: its
 ``conf`` and the class is one the data names), with no NMS. The JAX
 validator reads ``preds``, which that head does not give, and raises
 (ROADMAP queue 3, item 26).
+
+Exported artifacts (reference validator.py:77-94): with ``infer_fn`` (an
+``nn/autobackend.py::AutoBackend``) and no model, the batch goes to the
+artifact and its raw preds to the same multi-label NMS; a dict means that
+NMS ran inside the artifact.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ class DetectionValidator:
         imgsz: square letterbox size.
         conf, iou, max_det, pre_nms_topk: NMS settings (the val defaults).
         batch_size, workers: loader batch and reader threads.
+        infer_fn: an exported artifact's ``AutoBackend`` (``model`` None).
     """
 
     task = "detect"  # the label format its loader reads
@@ -56,8 +62,9 @@ class DetectionValidator:
 
     def __init__(self, model: DetectionModel, names: dict[int, str], imgsz: int = 640, conf: float = 0.001,
                  iou: float = 0.7, max_det: int = 300, batch_size: int = 16, workers: int = 8,
-                 pre_nms_topk: int = 4096):
+                 pre_nms_topk: int = 4096, infer_fn=None):
         self.model = model
+        self.infer_fn = infer_fn  # AutoBackend: uint8 images -> raw preds, or the NMS dict
         self.names = names
         self.nc = len(names)
         self.imgsz = imgsz
@@ -69,19 +76,25 @@ class DetectionValidator:
         self.pre_nms_topk = pre_nms_topk
         self.end2end = isinstance(getattr(model, "detect", None), V10Detect)  # preds6, no NMS
 
+    @property
+    def device(self) -> torch.device:
+        """The model's device, or the artifact backend's."""
+        return self.infer_fn.device if self.model is None else next(self.model.parameters()).device
+
     def get_dataloader(self, data: str | Path | dict) -> DataLoader:
         """Fixed-shape batches of the ``val`` split of ``data``; JPEG images
         decode on the model's device."""
         d = check_det_dataset(data)
-        device = next(self.model.parameters()).device
-        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"], device=device, task=self.task,
+        ds = YOLODataset(d["val"], imgsz=self.imgsz, mode="val", nc=d["nc"], device=self.device, task=self.task,
                          kpt_shape=self.kpt_shape)
         return DataLoader(ds, batch_size=self.batch_size, workers=self.workers)
 
     @torch.inference_mode()
     def forward(self, img_u8: torch.Tensor) -> torch.Tensor:
         """uint8 RGB NHWC batch on the model's device -> decoded preds (B, N, 4 + nc),
-        or V10Detect's ``preds6`` (B, max_det, 6)."""
+        or V10Detect's ``preds6`` (B, max_det, 6); an artifact's raw preds or NMS dict."""
+        if self.infer_fn is not None:
+            return self.infer_fn(img_u8)
         dtype = next(self.model.parameters()).dtype
         x = (img_u8.permute(0, 3, 1, 2).float() / 255.0).to(dtype)
         return self.model(x)["preds6" if self.end2end else "preds"]
@@ -89,7 +102,10 @@ class DetectionValidator:
     @torch.inference_mode()
     def nms(self, preds: torch.Tensor) -> dict[str, torch.Tensor]:
         """Multi-label NMS over the dataset's classes (fixed (B, max_det)
-        outputs); ``preds6`` pass through as they are (end to end)."""
+        outputs); ``preds6`` pass through as they are (end to end), and so
+        does an artifact's NMS dict."""
+        if isinstance(preds, dict):
+            return preds
         if self.end2end:
             cls = preds[..., 5].to(torch.int32)
             return {"boxes": preds[..., :4], "scores": preds[..., 4], "classes": cls,
@@ -167,7 +183,7 @@ class DetectionValidator:
         ``max_det`` best by score of each image), as the reference draws them."""
         from fce_yolo_tpu_torch.utils.annotator import plot_images
 
-        device = next(self.model.parameters()).device
+        device = self.device
         outp = Path(plots_dir)
         outp.mkdir(parents=True, exist_ok=True)
         plot_images(batch, names=self.names, fname=outp / "val_batch0_labels.jpg", device=device)
@@ -204,11 +220,12 @@ class DetectionValidator:
         mode and handed back in the mode it came in. Returns the count of
         images scored and the ms an image of the loader wait, inference and
         metrics."""
-        device = next(self.model.parameters()).device
+        device = self.device
         t_pre = t_infer = t_post = 0.0
         n_images = 0
-        was_training = self.model.training
-        self.model.eval()
+        was_training = self.model is not None and self.model.training
+        if self.model is not None:
+            self.model.eval()
         batches = iter(loader)
         try:
             while True:
@@ -227,7 +244,8 @@ class DetectionValidator:
                 n_images += batch["n_valid"]
         finally:
             batches.close()  # stops the loader's reader threads if a batch raised
-            self.model.train(was_training)
+            if self.model is not None:
+                self.model.train(was_training)
         ms = 1000.0 / max(n_images, 1)
         return n_images, {"preprocess": t_pre * ms, "inference": t_infer * ms, "loss": 0.0, "postprocess": t_post * ms}
 

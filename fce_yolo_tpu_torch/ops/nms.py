@@ -4,10 +4,12 @@
    ``_select_candidates``; the sort is stable so ties keep the lower index
    first, which is ``lax.top_k``'s order.
 2. Class separation by shifting boxes ``class_id * 7680`` pixels.
-3. Greedy suppression, ``pick_suppress``: the CUDA kernels of
-   ``csrc/nms.cu`` (sort, IoU bitmask, one-warp scan) for CUDA tensors, their
-   plain version ``pick_suppress_reference`` for CPU tensors. Same keep-set
-   and emit order as torchvision's greedy NMS.
+3. Greedy suppression, ``pick_suppress``: the custom op
+   ``fce_yolo_tpu_torch::pick_suppress``, which dispatches by device to the
+   CUDA kernels of ``csrc/nms.cu`` (sort, IoU bitmask, one-warp scan) for
+   CUDA tensors and to their plain version ``pick_suppress_reference`` for
+   CPU tensors. Same keep-set and emit order as torchvision's greedy NMS.
+   Being an op, it stays one node in a ``torch.export`` program.
 
 Rotated boxes (``rotated_batched_nms``, reference nms.py:232-319) take the
 same candidates and suppress with a K x K probabilistic IoU in one pass
@@ -73,9 +75,10 @@ def pick_suppress_reference(boxes: torch.Tensor, scores: torch.Tensor, valid: to
 
 def pick_suppress(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
                   iou_thres: float = 0.45, max_det: int = 300) -> tuple[torch.Tensor, torch.Tensor]:
-    """Batched greedy NMS: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Takes f32 (B, K, 4) boxes, f32 (B, K) scores
-    and bool (B, K) valid, all contiguous on one device; raises otherwise."""
+    """Batched greedy NMS through the custom op ``fce_yolo_tpu_torch::pick_suppress``:
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors. Takes
+    f32 (B, K, 4) boxes, f32 (B, K) scores and bool (B, K) valid, all on one
+    device; raises otherwise."""
     if boxes.ndim != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     b, k, _ = boxes.shape
@@ -85,10 +88,28 @@ def pick_suppress(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
         raise TypeError("pick_suppress takes float32 boxes and scores and a bool valid mask")
     if not (boxes.device == scores.device == valid.device):
         raise ValueError("boxes, scores and valid must be on one device")
-    if boxes.device.type == "cpu":
-        return pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
-    if boxes.device.type != "cuda":
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no NMS kernel for device {boxes.device}")
+    return torch.ops.fce_yolo_tpu_torch.pick_suppress(boxes, scores, valid, float(iou_thres), int(max_det))
+
+
+pick_suppress.launches = 0
+
+
+@torch.library.custom_op("fce_yolo_tpu_torch::pick_suppress", mutates_args=(), device_types="cpu")
+def _pick_suppress_op(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                      max_det: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on CPU tensors: the plain version. A ``torch.export`` program
+    holds the op as one node, so a loaded program runs the kernel on the card."""
+    return pick_suppress_reference(boxes, scores, valid, iou_thres, max_det)
+
+
+@_pick_suppress_op.register_kernel("cuda")
+def _pick_suppress_cuda(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                        max_det: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The op on CUDA tensors: ``csrc/nms.cu``'s three kernels (sort, IoU
+    bitmask, one-warp scan); counts a launch on ``pick_suppress``."""
+    b, k, _ = boxes.shape
     if not (boxes.is_contiguous() and scores.is_contiguous() and valid.is_contiguous()):
         raise ValueError("pick_suppress takes contiguous tensors")
     if not (1 <= k <= K_MAX and 1 <= b <= 65535 and max_det >= 1):
@@ -112,7 +133,12 @@ def pick_suppress(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
     return idx, ok
 
 
-pick_suppress.launches = 0
+@_pick_suppress_op.register_fake
+def _pick_suppress_fake(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor, iou_thres: float,
+                        max_det: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shapes for tracing (``torch.export``): int32 and bool (B, max_det)."""
+    b = boxes.shape[0]
+    return boxes.new_empty((b, max_det), dtype=torch.int32), boxes.new_empty((b, max_det), dtype=torch.bool)
 
 
 def _topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:

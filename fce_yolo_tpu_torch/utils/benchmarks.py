@@ -3,10 +3,12 @@
 ``profile_inference`` times the port's predictor path (uint8 batch -> stem
 kernel where the gate allows -> model -> NMS kernel) of a bfloat16 copy of
 the model; ``benchmark`` gives the ``torch (native)`` row, with mAP50-95
-from ``YOLO.val`` when ``data`` is given, then a row per export format
-(each ``FAILED``, naming ROADMAP item 10, until export is ported);
-``ProfileModels`` times each model's forward. The reference's
-``RF100Benchmark`` is not ported (ROADMAP queue 1, item 8).
+from ``YOLO.val`` when ``data`` is given, then a row per JAX export format:
+``stablehlo``'s is the port's counterpart, ``torch_export``, exported,
+loaded through ``AutoBackend`` and timed by ``_bench_backend``;
+``saved_model`` and ``tflite`` need TensorFlow and are ``FAILED`` rows.
+``ProfileModels`` times each model's forward, or an artifact's backend.
+The reference's ``RF100Benchmark`` is not ported (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from fce_yolo_tpu_torch.utils.autobatch import _tensors
 
 __all__ = ["benchmark", "profile_inference", "ProfileModels", "EXPORT_FORMATS"]
 
-EXPORT_FORMATS = ("stablehlo", "saved_model", "tflite")
+EXPORT_FORMATS = ("stablehlo", "saved_model", "tflite")  # the JAX table's rows
+PORT_FORMAT = {"stablehlo": "torch_export"}  # a JAX format -> the port's counterpart, where there is one
 
 
 def _sync(device: torch.device) -> None:
@@ -85,20 +88,45 @@ def profile_inference(
     }
 
 
+def _bench_backend(backend, imgsz: int, iters: int = 8, warmup: int = 2) -> float:
+    """ms an image through an ``AutoBackend`` (reference ``_bench_backend``):
+    a batch of the backend's size of uint8-range float32 images, warmed up,
+    then ``iters`` calls, each read back to the host."""
+    rng = np.random.RandomState(0)
+    x = rng.randint(0, 255, (backend.batch, imgsz, imgsz, 3)).astype(np.float32)
+
+    def call():
+        out = backend(x)
+        return [t.cpu() for t in (out.values() if isinstance(out, dict) else [out])]
+
+    for _ in range(warmup):
+        call()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        call()
+    return (time.perf_counter() - t0) / iters / backend.batch * 1000
+
+
 def benchmark(
     yolo,
     data: str | None = None,
     imgsz: int = 640,
     batch: int = 16,
     formats: tuple[str, ...] | None = None,
+    export_dir: str | Path | None = None,
     verbose: bool = True,
 ) -> list[dict[str, Any]]:
     """The reference's benchmark table (``utils/benchmarks.py:88``): the
     native row first (``profile_inference``, and mAP50-95 of ``YOLO.val``
-    on ``data`` when given), then one row per export format; a format that
-    fails gets a ``FAILED`` row, and every format fails until export is
-    ported (ROADMAP queue 1, item 10). ``yolo`` is a facade or a model name
+    on ``data`` when given), then one row per export format: the artifact
+    written to ``export_dir`` (a temporary directory by default), read back
+    by ``YOLO(path)`` on the model's device, timed by ``_bench_backend``
+    and validated on ``data``; a format that fails gets a ``FAILED`` row.
+    ``stablehlo`` runs as the port's ``torch_export``; ``saved_model`` and
+    ``tflite`` raise (TensorFlow). ``yolo`` is a facade or a model name
     (built on the card). Returns the rows as dicts."""
+    import tempfile
+
     from fce_yolo_tpu_torch.api import YOLO
 
     if isinstance(yolo, (str, Path)):
@@ -119,11 +147,19 @@ def benchmark(
         row["mAP50-95"] = round(res["metrics/mAP50-95(B)"], 4)
     rows.append(row)
 
+    tmp = tempfile.mkdtemp(prefix="fy_bench_") if export_dir is None else export_dir
     for fmt in formats if formats is not None else EXPORT_FORMATS:
-        row = {"format": fmt, "status": "OK", "imgsz": imgsz, "batch": 1,
+        row = {"format": PORT_FORMAT.get(fmt, fmt), "status": "OK", "imgsz": imgsz, "batch": 1,
                "ms/img": None, "images/sec": None, "mAP50-95": None}
         try:
-            yolo.export(format=fmt, imgsz=imgsz)
+            path = yolo.export(format=PORT_FORMAT.get(fmt, fmt), imgsz=imgsz, out_dir=tmp)
+            m = YOLO(path, device=yolo.device)  # through AutoBackend
+            ms = _bench_backend(m.backend, imgsz)
+            row["ms/img"] = round(ms, 2)
+            row["images/sec"] = round(1000.0 / ms, 1)
+            if data:
+                res = m.val(data=data, imgsz=imgsz, batch=batch, verbose=False)
+                row["mAP50-95"] = round(res["metrics/mAP50-95(B)"], 4)
         except Exception as e:  # keep the matrix going (reference try_export)
             row["status"] = f"FAILED: {type(e).__name__}: {e}"[:60]
         rows.append(row)
@@ -143,14 +179,16 @@ class ProfileModels:
     (bfloat16 when ``half``, the stem kernel where its gate allows) timed on
     a random uint8 image, warmup first, then until both ``num_timed_runs``
     and ``min_time`` are met; the times are sigma-clipped before the
-    mean and deviation are printed. An exported artifact gets a ``FAILED``
-    row until export is ported (ROADMAP queue 1, item 10).
+    mean and deviation are printed. An exported artifact (``.pt2``,
+    ``.fyir``) is read by ``AutoBackend`` on ``device`` and a batch of its
+    size timed through it; other artifacts (``.tflite``, ``.stablehlo``)
+    need TensorFlow or JAX and get a ``FAILED`` row.
 
     Examples:
         >>> ProfileModels(["yolo11n.yaml"], imgsz=640).run()
     """
 
-    ARTIFACTS = ("*.tflite", "*.stablehlo", "*.fyir")
+    ARTIFACTS = ("*.pt2", "*.fyir", "*.tflite", "*.stablehlo")
 
     def __init__(
         self,
@@ -219,9 +257,12 @@ class ProfileModels:
     def _profile_one(self, path: Path) -> dict[str, Any]:
         from fce_yolo_tpu_torch.api import YOLO
 
-        if any(path.match(a) for a in self.ARTIFACTS):
-            raise NotImplementedError(f"item 10: exported artifacts are not read by the port ({path.name})")
+        if path.suffix in (".tflite", ".stablehlo"):
+            raise NotImplementedError(f"{path.name}: a {path.suffix} artifact needs TensorFlow or JAX; the port "
+                                      "reads .pt2 and .fyir")
         m = YOLO(str(path), device=self.device)
+        if m.backend is not None:
+            return self._profile_backend(path, m.backend)
         imgsz, batch = self.imgsz, 1
         pred = _bf16_predictor(m, imgsz, batch, self.half)
         img = torch.from_numpy(np.random.RandomState(0).randint(0, 255, (batch, imgsz, imgsz, 3),
@@ -241,6 +282,27 @@ class ProfileModels:
             "ms_std": round(float(ms.std()), 2),
             "params(M)": round(info["params"] / 1e6, 2),
             "FLOPs(B)": round(info.get("gflops", 0.0), 2),
+        }
+
+    def _profile_backend(self, path: Path, backend) -> dict[str, Any]:
+        """An artifact's row: a batch of its size of random uint8 images
+        through the backend, each call read back to the host."""
+        imgsz, batch = backend.imgsz, backend.batch
+        x = np.random.RandomState(0).randint(0, 255, (batch, imgsz, imgsz, 3)).astype(np.float32)
+
+        def call() -> float:
+            out = backend(x)
+            return float(sum(t.float().sum() for t in (out.values() if isinstance(out, dict) else [out])))
+
+        ms = self.iterative_sigma_clipping(self._sample_times(call) * 1000.0 / batch)
+        return {
+            "name": path.stem,
+            "runtime": backend.fmt,
+            "imgsz": imgsz,
+            "ms/img": round(float(ms.mean()), 2),
+            "ms_std": round(float(ms.std()), 2),
+            "params(M)": round(int(backend.meta.get("params", 0)) / 1e6, 2),
+            "FLOPs(B)": round(float(backend.meta.get("gflops", 0.0)), 2),
         }
 
     def run(self) -> list[dict[str, Any]]:

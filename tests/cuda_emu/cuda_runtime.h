@@ -1,13 +1,13 @@
 // A CPU stand-in for the CUDA runtime pieces that the port's kernels
 // (csrc/*.cu) use, so a kernel's source compiles with g++ and runs here:
-// blocks one after another, one std::thread per CUDA thread, std::barrier
-// for __syncthreads and for the warp collectives (runtime.cpp; ldmatrix and
-// mma.sync are emulated lane by lane there). Float intrinsics are plain
+// blocks one after another, one fiber per CUDA thread on one OS thread,
+// barriers for __syncthreads and for the warp collectives at which a fiber
+// hands over to the next (runtime.cpp; ldmatrix and mma.sync are emulated
+// lane by lane there). Float intrinsics are plain
 // float operations: compiled with -ffp-contract=off they round as the card
 // does. Test support for tests/test_torch_*_emulated.py only.
 #pragma once
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -40,7 +40,7 @@ struct dim3 {
   unsigned x, y, z;
   dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
 };
-extern thread_local dim3 threadIdx;
+extern dim3 threadIdx;  // the running fiber's (runtime.cpp)
 extern dim3 blockIdx, blockDim, gridDim;
 extern unsigned char* g_smem;
 extern int g_sms;

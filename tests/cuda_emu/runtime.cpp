@@ -2,26 +2,82 @@
 // block indices, shared memory, barriers, warp collectives, ldmatrix and
 // mma.sync lane by lane, the grid runner and file helpers. Each kernel's
 // driver (stem_main.cpp, nms_main.cpp) links against it.
+//
+// A block's CUDA threads are fibers (ucontext) on one OS thread: a fiber
+// runs until it waits at a barrier, then hands over to the next one, so a
+// barrier costs a few context switches however busy the machine is, where
+// an OS thread per CUDA thread waits for the scheduler at every barrier.
+#include <ucontext.h>
+
 #include <cstdio>
 #include <cstdlib>
 #include <memory>
-#include <thread>
 #include <vector>
 
 #include "cuda_runtime.h"
 #include "cuda_bf16.h"
 
-thread_local dim3 threadIdx;
+dim3 threadIdx;  // the running fiber's
 dim3 blockIdx, blockDim, gridDim;
 alignas(16) static unsigned char smem_store[262144];
 unsigned char* g_smem = smem_store;
 int g_sms = 4;
-static std::unique_ptr<std::barrier<>> g_block;
-static std::vector<std::unique_ptr<std::barrier<>>> g_warp;
 static constexpr int kMaxThreads = 1024;
+static constexpr size_t kStack = 512 * 1024;
 
-void __syncthreads() { g_block->arrive_and_wait(); }
-static void warp_sync() { g_warp[threadIdx.x / 32]->arrive_and_wait(); }
+namespace {
+struct Barrier {
+  int count = 0, target = 0;
+  unsigned gen = 0;
+};
+struct Fiber {
+  ucontext_t ctx;
+  std::unique_ptr<char[]> stack;
+  bool done = false;
+};
+std::vector<Fiber> g_fibers(kMaxThreads);
+ucontext_t g_main;
+int g_cur = 0, g_threads = 0;
+Barrier g_block, g_warp[kMaxThreads / 32];
+const std::function<void()>* g_body = nullptr;
+
+void switch_to(int next) {
+  const int prev = g_cur;
+  if (next == prev) return;
+  g_cur = next;
+  threadIdx = dim3(next, 0, 0);
+  swapcontext(&g_fibers[prev].ctx, &g_fibers[next].ctx);
+}
+
+// arrive; until every party has, hand over to the next fiber of ``lanes``
+// (the warp's for a warp barrier, the block's otherwise) that has not finished
+void arrive_and_wait(Barrier& b, int first, int lanes) {
+  const unsigned gen = b.gen;
+  if (++b.count == b.target) {
+    b.count = 0;
+    ++b.gen;
+    return;
+  }
+  while (b.gen == gen) {
+    int next = g_cur;
+    do next = first + (next - first + 1) % lanes;
+    while (g_fibers[next].done && next != g_cur);
+    if (next == g_cur) {
+      std::fprintf(stderr, "emu: every thread of the block waits at a barrier that cannot open\n");
+      std::abort();
+    }
+    switch_to(next);
+  }
+}
+
+void fiber_main() { (*g_body)(); }
+}  // namespace
+
+void __syncthreads() { arrive_and_wait(g_block, 0, g_threads); }
+static void warp_sync() {
+  const int w = static_cast<int>(threadIdx.x) / 32;
+  arrive_and_wait(g_warp[w], 32 * w, 32);
+}
 void __syncwarp(unsigned) { warp_sync(); }
 
 unsigned __ballot_sync(unsigned, int pred) {
@@ -116,17 +172,40 @@ void emu_grid(dim3 grid, dim3 block, const std::function<void()>& body) {
   }
   gridDim = grid;
   blockDim = block;
-  g_block = std::make_unique<std::barrier<>>(threads);
-  g_warp.clear();
-  for (int w = 0; w < threads / 32; ++w) g_warp.push_back(std::make_unique<std::barrier<>>(32));
+  g_threads = threads;
+  g_body = &body;
+  g_block = Barrier{0, threads, 0};
+  for (int w = 0; w < threads / 32; ++w) g_warp[w] = Barrier{0, 32, 0};
+  for (int t = 0; t < threads; ++t)
+    if (!g_fibers[t].stack) g_fibers[t].stack.reset(new char[kStack]);
   for (unsigned z = 0; z < grid.z; ++z) {
     for (unsigned y = 0; y < grid.y; ++y) {
       for (unsigned x = 0; x < grid.x; ++x) {
         blockIdx = dim3(x, y, z);
         std::memset(smem_store, 0xff, sizeof smem_store);  // NaN in every buffer a block has not written
-        std::vector<std::thread> pool;
-        for (int t = 0; t < threads; ++t) pool.emplace_back([&body, t] { threadIdx = dim3(t, 0, 0); body(); });
-        for (auto& th : pool) th.join();
+        for (int t = 0; t < threads; ++t) {
+          Fiber& f = g_fibers[t];
+          getcontext(&f.ctx);
+          f.ctx.uc_stack.ss_sp = f.stack.get();
+          f.ctx.uc_stack.ss_size = kStack;
+          f.ctx.uc_link = &g_main;
+          makecontext(&f.ctx, fiber_main, 0);
+          f.done = false;
+        }
+        // run fiber 0; a fiber that finishes comes back here and the next unfinished one runs
+        int left = threads;
+        g_cur = 0;
+        while (left) {
+          threadIdx = dim3(g_cur, 0, 0);
+          swapcontext(&g_main, &g_fibers[g_cur].ctx);
+          g_fibers[g_cur].done = true;
+          if (--left) {
+            int next = g_cur;
+            do next = (next + 1) % threads;
+            while (g_fibers[next].done);
+            g_cur = next;
+          }
+        }
       }
     }
   }

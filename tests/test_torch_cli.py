@@ -16,8 +16,10 @@
   ``exist_ok``, ``time``, ``plots`` and ``copy_paste``, which the JAX CLI
   accepts and drops;
 - the grammar (help, a bad argument, no mode, bare bool flags, ``cfg=``
-  files), the special commands, ``benchmark``, and the refusals: ``export``
-  (item 10), ``solutions`` (item 6), the card without CUDA.
+  files), the special commands, ``benchmark`` (the native row, the
+  ``torch_export`` row and the TensorFlow rows ``FAILED``), and the
+  refusals: ``export`` to a TensorFlow format, ``solutions`` (item 6), the
+  card without CUDA.
 
 The JAX facades build with the known strides (8, 16, 32) instead of their
 stride probe, a test-side speed-up that changes no value.
@@ -281,7 +283,7 @@ def test_without_device_the_card_is_asked_for(mode):
 
 
 def test_export_and_solutions_raise_naming_their_items():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="'tflite' needs TensorFlow"):
         entrypoint(["detect", "export", f"model={NARROW}", "format=tflite", "device=cpu"])
     with pytest.raises(NotImplementedError, match="item 6"):
         entrypoint(["solutions", "count", "source=x.mp4"])
@@ -291,9 +293,11 @@ def test_export_and_solutions_raise_naming_their_items():
 
 def test_benchmark_mode(capsys):
     rows = entrypoint(["detect", "benchmark", f"model={NARROW}", "imgsz=64", "batch=2", "device=cpu"])
-    assert [r["format"] for r in rows] == ["torch (native)", "stablehlo", "saved_model", "tflite"]
+    assert [r["format"] for r in rows] == ["torch (native)", "torch_export", "saved_model", "tflite"]
     assert rows[0]["status"] == "OK" and rows[0]["batch"] == 2 and rows[0]["images/sec"] > 0
-    assert all(r["status"].startswith("FAILED: NotImplementedError: item 10") for r in rows[1:])
+    assert rows[1]["status"] == "OK" and rows[1]["batch"] == 1 and rows[1]["images/sec"] > 0
+    assert all(r["status"].startswith(f"FAILED: NotImplementedError: '{r['format']}' needs TensorFlow")
+               for r in rows[2:])
     assert "torch (native)" in capsys.readouterr().out
 
 

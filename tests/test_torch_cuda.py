@@ -31,7 +31,11 @@ no two scores lie within 1e-5, with no NMS launched; the NMS kernel's
 detections on test-time augmentation's candidates equal to the plain
 version's; yolo11-cls-resnet18's logits within 1e-3 of the CPU's; every
 committed WebP fixture decoded on the card with the SHA-256 of cv2's decode,
-and the WebP colour kernel exactly equal to its plain version.
+and the WebP colour kernel exactly equal to its plain version; the NMS
+custom op (``torch.ops.fce_yolo_tpu_torch.pick_suppress``) exactly equal to
+the plain version, and a ``torch_export`` program with NMS inside, exported
+on the CPU and loaded on the card, launching the kernel once a call with
+idx/ok equal to the plain version's on the candidates it gave.
 """
 
 import struct
@@ -969,3 +973,56 @@ def test_webp_decode_on_the_card_matches_the_recorded_cv2_decodes(cuda):
         if info[0] == 1:
             bgr = W.webp_color(torch.from_numpy(flat).cuda(), info).cpu().numpy()
             np.testing.assert_array_equal(bgr, W.webp_color_reference(planes["y"], planes["u"], planes["v"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("make", [_candidates, _ties, _few_valid])
+def test_nms_custom_op_matches_reference(cuda, make):
+    """``torch.ops.fce_yolo_tpu_torch.pick_suppress`` on CUDA tensors is the
+    kernel (one launch counted) and equals the plain version; on CPU tensors
+    it is the plain version."""
+    args = [torch.from_numpy(a) for a in make(np.random.RandomState(3), 4, 1024)]
+    ref = pick_suppress_reference(*args, 0.7, 300)
+    before = pick_suppress.launches
+    out = torch.ops.fce_yolo_tpu_torch.pick_suppress(*(a.to(cuda) for a in args), 0.7, 300)
+    assert pick_suppress.launches == before + 1
+    cpu = torch.ops.fce_yolo_tpu_torch.pick_suppress(*args, 0.7, 300)
+    assert pick_suppress.launches == before + 1
+    for r, o, c in zip(ref, out, cpu):
+        assert torch.equal(o.cpu(), r) and torch.equal(c, r)
+
+
+@pytest.mark.cuda
+def test_torch_export_program_with_nms_runs_on_the_card(cuda, tmp_path):
+    """A ``.pt2`` with NMS inside, exported on the CPU and loaded on the
+    card: the NMS kernel is launched from inside the program (once a call),
+    its idx/ok equal to the plain version's on the candidates the program
+    gave it (kept by a dispatch mode)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fce_yolo_tpu_torch.nn.autobackend import AutoBackend
+
+    yolo = YOLO("yolo11n.yaml", device="cpu", nc=3)
+    with torch.no_grad():
+        for branch in yolo.model.detect.cv3:
+            branch[-1].bias[:3] += 10.0  # scores above the baked conf
+    path = yolo.export(format="torch_export", imgsz=64, batch=2, nms=True, out_dir=tmp_path)
+    x = np.random.RandomState(0).randint(0, 255, (2, 64, 64, 3)).astype(np.uint8)
+    op, calls = torch.ops.fce_yolo_tpu_torch.pick_suppress.default, []
+
+    class Keep(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func is op:
+                calls.append((args, out))
+            return out
+
+    backend = AutoBackend(path, device=cuda)
+    before = pick_suppress.launches
+    with Keep():
+        out = backend(x)
+    assert pick_suppress.launches == before + 1 and len(calls) == 1 and out["boxes"].device.type == "cuda"
+    (boxes, scores, valid, iou, max_det), (idx, ok) = calls[0]
+    assert boxes.device.type == "cuda" and int(out["valid"].sum()) > 0
+    ref = pick_suppress_reference(boxes.cpu(), scores.cpu(), valid.cpu(), iou, max_det)
+    assert torch.equal(idx.cpu(), ref[0]) and torch.equal(ok.cpu(), ref[1])

@@ -4,8 +4,9 @@
 clock), ``colorstr``, ``GitRepo``/``CPUInfo``, the usage-event spool,
 ``autobatch``'s rule on stubbed measurements, ``check_numeric_stability``,
 ``collect_system_info``, and the benchmark table: ``profile_inference``
-and ``benchmark`` with JAX's keys and a ``FAILED`` row naming ROADMAP
-item 10 for each export format, ``ProfileModels``."""
+and ``benchmark`` with JAX's keys, the ``stablehlo`` row as the port's
+``torch_export`` and a ``FAILED`` row naming TensorFlow for the others,
+``ProfileModels``."""
 
 import io
 import json
@@ -215,8 +216,9 @@ def test_checks_on_the_cpu():
 def test_profile_inference_and_benchmark_rows_as_jax(monkeypatch, capsys):
     """The JAX table's keys (its ``profile_inference`` run on the JAX
     facade, its ``benchmark`` with the export stubbed to fail), and the
-    port's rows: the native row first, then a ``FAILED`` row naming ROADMAP
-    item 10 for each export format."""
+    port's rows: the native row first, then the ``stablehlo`` row as the
+    port's ``torch_export`` (exported, read back and timed) and a ``FAILED``
+    row naming TensorFlow for each of the other export formats."""
     import jax
     import jax.numpy as jnp
 
@@ -244,14 +246,18 @@ def test_profile_inference_and_benchmark_rows_as_jax(monkeypatch, capsys):
     capsys.readouterr()
     rows = yolo.benchmark(imgsz=64, batch=2)
     assert [list(r) for r in rows] == [list(r) for r in ref] and [r["format"] for r in ref[1:]] == [
-        r["format"] for r in rows[1:]]
+        "stablehlo", "saved_model", "tflite"]
+    assert [r["format"] for r in rows[1:]] == ["torch_export", "saved_model", "tflite"]
     assert rows[0]["format"] == "torch (native)" and ref[0]["format"] == "jax (native)"
-    for r, j in zip(rows[1:], ref[1:]):
-        assert r["status"].startswith("FAILED: NotImplementedError: item 10") and r["status"][:40] == j["status"][:40]
+    assert rows[1]["status"] == "OK" and rows[1]["imgsz"] == 64 and rows[1]["batch"] == 1
+    assert rows[1]["ms/img"] > 0 and rows[1]["images/sec"] > 0 and rows[1]["mAP50-95"] is None
+    for r, j in zip(rows[2:], ref[2:]):
+        assert r["status"].startswith(f"FAILED: NotImplementedError: '{r['format']}' needs TensorFlow")
+        assert j["status"].startswith("FAILED: NotImplementedError: item 10")
         assert {k: v for k, v in r.items() if k != "status"} == {k: v for k, v in j.items() if k != "status"} | {
             "imgsz": 64}
     assert "torch (native)" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(NotImplementedError, match="'saved_model' needs TensorFlow"):
         yolo.export(format="saved_model")
 
 
@@ -264,7 +270,7 @@ def test_profile_models(tmp_path, capsys):
     assert [r["name"] for r in rows] == ["narrow", "m_64"]
     assert list(rows[0]) == ["name", "runtime", "imgsz", "ms/img", "ms_std", "params(M)", "FLOPs(B)"]
     assert rows[0]["runtime"] == "torch (native)" and rows[0]["ms/img"] > 0 and rows[0]["params(M)"] > 0
-    assert rows[1]["runtime"] == "FAILED" and "item 10" in rows[1]["error"]
+    assert rows[1]["runtime"] == "FAILED" and "needs TensorFlow or JAX" in rows[1]["error"]
     assert "| narrow" in capsys.readouterr().out
     clipped = benchmarks.ProfileModels.iterative_sigma_clipping(np.array([1.0] * 20 + [100.0]))
     assert np.array_equal(clipped, jax_bench.ProfileModels.iterative_sigma_clipping(np.array([1.0] * 20 + [100.0])))
