@@ -9,9 +9,9 @@ from a seed) and checks that each path went through its kernels:
   plain version on every batch and giving the same P, R and mAP;
 - ``detection_loss`` (train mode, f32, B=16) with CIoU and with WIoU v3 over
   three steps: finite parts and gradients, equal to the loss on the CPU;
-- ``YOLO.train`` (bf16, AdamW, B=16, 2 epochs on those 64 images as both
-  splits): finite losses, checkpoints, the NMS kernel once per val batch of
-  each epoch and bit-equal to the plain version on the last epoch's, the
+- ``YOLO.train`` (bf16, AdamW, B=16, TRAIN_EPOCHS on those 64 images as
+  both splits): finite losses, checkpoints, the NMS kernel once per val batch
+  of each epoch and bit-equal to the plain version on the last epoch's, the
   reloaded ``best`` giving the run's mAP; the train step timed in bf16 and
   f32; one f32 SGD step on the card against the CPU and a float64 step;
 - the experiment layer: first the fold repair (``predict`` leaves the
@@ -116,6 +116,13 @@ from a seed) and checks that each path went through its kernels:
   train on phase classify's JPEGs; test-time augmentation of yolo11s-fce
   (15,049 merged candidates an image at 640 px) through the NMS kernel,
   bit-equal to the plain version; CoordAtt and CoordCrossAtt against the CPU;
+- RT-DETR (phase rtdetr): rtdetr-l, -x, -resnet50, -resnet101 and
+  yolov8l-rtdetr built and run once in bf16; rtdetr-l's ``preds`` on the
+  card against the CPU (float32, the decoder on the CPU's queries, the
+  card's own top-k held to near-ties), ``YOLO.predict`` at B=16 in bf16 (no
+  stem, no NMS: the decoder's queries are the detections) with one batch
+  under torch.profiler, ``YOLO.val`` on 16 PNG images and a two-step
+  ``YOLO.train`` with the denoising groups and the Hungarian matching;
 - weights in (phase weights): an Ultralytics-layout ``.pt`` of yolo11s-fce
   (fp16 ``model``, fp32 ``ema``) opened by ``YOLO(path)`` on the card, its
   weights equal to the ``ema``, predicting in bf16 through the stem and NMS
@@ -178,10 +185,12 @@ IMGSZ = 640
 VAL_IMAGES, VAL_BATCH, VAL_NC = 64, 16, 80  # 4 val batches; 80 class names, labels in classes 0-2
 LOSS_STEPS = 3  # phase loss: one step on each of the first val batches
 LOSS_TOL = 1e-3  # card vs CPU loss parts, relative: float32 in both, sums in another order
-TRAIN_EPOCHS = 2  # phase train: YOLO.train on the 64 val images as both splits
+TRAIN_EPOCHS = 2  # phase train (b): YOLO.train on the 64 val images as both splits; best and last may differ
+JPEG_TRAIN_EPOCHS = 1  # phase jpeg (f): YOLO.train on the 64 JPEGs as both splits (one epoch for the time limit)
 TRAIN_TOL = 1e-3  # phase train (a), card vs CPU: loss parts, relative; updates, of the largest update
 ABLATION_SCALE = "s"  # phase experiments: every variant at full width and depth
-ABLATION_IMAGES = 32  # phase experiments: the first val images as both splits, 2 steps and 2 val batches a stage
+ABLATION_IMAGES = 16  # phase experiments: the first val images as both splits, 1 step and 1 val batch a stage
+FAMILY_IMAGES = 32  # phase families (d), (e) and v10 (d): the first val images (both splits for (e)), 2 batches
 # one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
@@ -1572,8 +1581,8 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     counts at 0: stem and NMS once a batch, both JPEG kernels once an image;
     the paths, the images and the detections equal to a predict on the
     arrays the plain decoder gives for the same files;
-    (f) ``YOLO.train`` (phase train's settings) on those JPEGs as both
-    splits, the counts at 0: NMS once a val batch, both JPEG kernels at
+    (f) ``YOLO.train`` (phase train's settings, JPEG_TRAIN_EPOCHS) on those
+    JPEGs as both splits, the counts at 0: NMS once a val batch, both JPEG kernels at
     least once a train item and a val image; finite losses.
     Returns (launches by path, the JPEG kernels' records)."""
     from fce_yolo_tpu_torch import YOLO
@@ -1675,14 +1684,14 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     yolo = matching_model(YOLO("yolo11s-fce.yaml", device="cuda"))
     reset_launches()
     t0 = time.perf_counter()
-    res = yolo.train(train_data(root / "jpeg"), epochs=TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ,
+    res = yolo.train(train_data(root / "jpeg"), epochs=JPEG_TRAIN_EPOCHS, batch=VAL_BATCH, imgsz=IMGSZ,
                      project=str(root / "runs_jpeg"), verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     train_launches = read_launches()
     decodes = train_launches["jpeg_idct"]
-    check(train_launches["fused_stem"] == 0 and train_launches["pick_suppress"] == n_batches * TRAIN_EPOCHS
-          and train_launches["jpeg_color"] == decodes >= 2 * VAL_IMAGES * TRAIN_EPOCHS
+    check(train_launches["fused_stem"] == 0 and train_launches["pick_suppress"] == n_batches * JPEG_TRAIN_EPOCHS
+          and train_launches["jpeg_color"] == decodes >= 2 * VAL_IMAGES * JPEG_TRAIN_EPOCHS
           and train_launches["jpeg_fdct"] == train_plots(n_batches),
           f"train on JPEG: launches {train_launches}, expected NMS once a val batch and a decode an image or more")
     check(all(np.isfinite(r["train/box_loss"]) for r in res["results"]), "train on JPEG: a loss is not finite")
@@ -1692,7 +1701,7 @@ def phase_jpeg(root: Path, png: dict, card: str) -> tuple[dict, dict]:
     for i in range(4):
         ds.get(i, rng)
     item_ms = (time.perf_counter() - t0) * 1e3 / 4
-    print(f"phase jpeg (f): YOLO.train yolo11s-fce {IMGSZ} bf16 B={VAL_BATCH} AdamW, {TRAIN_EPOCHS} epochs on the "
+    print(f"phase jpeg (f): YOLO.train yolo11s-fce {IMGSZ} bf16 B={VAL_BATCH} AdamW, {JPEG_TRAIN_EPOCHS} epochs on the "
           f"{VAL_IMAGES} JPEGs as both splits, launches {train_launches}; " + "; ".join(
               f"epoch {sp['epoch'] + 1}: {sp['img_per_s']:.2f} img/s, loader wait {sp['loader_wait_ms']:.1f} ms a step, "
               f"step {sp['step_ms']:.1f} ms, val {sp['val_s']:.2f} s" for sp in res["speed"])
@@ -2989,7 +2998,8 @@ def phase_tasks(root: Path, card: str) -> dict:
 
 
 # ------------------------------------------------------------ phase task_train
-TASK_TRAIN_BATCH, TASK_STEP_BATCH = 16, 4  # (b) YOLO.train: TASK_TRAIN_EPOCHS of TASK_IMAGES // 16 steps; (a) the card vs CPU step
+TASK_TRAIN_BATCH, TASK_STEP_BATCH = 16, 4  # (b) YOLO.train: TASK_TRAIN_EPOCHS of TASK_IMAGES // 16 steps; (a) the
+# card vs CPU step (the CPU's float32 and float64 steps at 640 px set the phase's time)
 TASK_TRAIN_EPOCHS = 1  # (b): each epoch waits 4-7 s a step on the PNG loader, and the script has a time limit
 COCO_FLIP_IDX = [0, 2, 1, 4, 3, 6, 5, 8, 7, 10, 9, 12, 11, 14, 13, 16, 15]
 
@@ -3010,8 +3020,8 @@ def task_step_check(task: str, data: dict, card: str) -> dict:
     and the same mosaic batch, with BatchNorm frozen (eval mode): the loss
     parts within TRAIN_TOL relative and the parameter updates within
     TRAIN_TOL of the CPU's largest update. Frozen, because with training
-    BatchNorm on these flat-colour images at B=4 a float32 step is
-    ill-posed: on the card and on the CPU alike it strays from the float64
+    BatchNorm on these flat-colour images at B=4 a float32 step was seen
+    ill-posed: on the card and on the CPU alike it strayed from the float64
     step by up to 6.3e-3 of the largest update (pose). The same step with
     training BatchNorm is run and printed beside it, and each float32 step
     is printed against the float64 one on the card (the witness)."""
@@ -3853,9 +3863,16 @@ def family_forwards(card: str, names: tuple = FAMILIES, phase: str = "families (
     return times
 
 
-def family_val(name: str, data: str, card: str) -> tuple[dict, tuple]:
-    """(d) ``YOLO.val`` of ``name`` in float32 on phase val's 64 PNG images:
-    the NMS kernel once a batch and no stem; then every batch again with the
+def first_val_images(root: Path, n: int) -> dict:
+    """The first ``n`` of phase val's PNG images under ``root``, as both
+    splits of a data dict with VAL_NC names."""
+    files = [str(f) for f in sorted((root / "images" / "val").glob("*.png"))[:n]]
+    return {"path": str(root), "train": files, "val": files, "names": [f"class{i}" for i in range(VAL_NC)]}
+
+
+def family_val(name: str, data: dict, card: str) -> tuple[dict, tuple]:
+    """(d) ``YOLO.val`` of ``name`` in float32 on the first FAMILY_IMAGES of
+    phase val's PNG images: the NMS kernel once a batch and no stem; then every batch again with the
     kernel and with its plain version (``val_batches_vs_plain``: idx/ok equal,
     P, R, mAP equal from both and above zero), equal to ``YOLO.val``'s."""
     from fce_yolo_tpu_torch import YOLO
@@ -3865,14 +3882,15 @@ def family_val(name: str, data: str, card: str) -> tuple[dict, tuple]:
     t0 = time.perf_counter()
     res = yolo.val(data=data, imgsz=IMGSZ, batch=VAL_BATCH, verbose=False)
     torch.cuda.synchronize()
-    img_s = VAL_IMAGES / (time.perf_counter() - t0)
+    img_s = FAMILY_IMAGES / (time.perf_counter() - t0)
     launches = read_launches()
-    n_batches = -(-VAL_IMAGES // VAL_BATCH)
+    n_batches = -(-FAMILY_IMAGES // VAL_BATCH)
     check(launches == no_jpeg(fused_stem=0, pick_suppress=n_batches), f"{name} val: launches {launches}")
     mk = val_batches_vs_plain(yolo, data)[-1]
     got = tuple(res["metrics"].mean_results())
     check(np.allclose(got, mk, rtol=0, atol=1e-9), f"{name} val: YOLO.val's {got} != the per-batch {mk}")
-    print(f"phase families (d): {name} val {IMGSZ} f32 B={VAL_BATCH} on {VAL_IMAGES} PNG images, launches {launches}; "
+    print(f"phase families (d): {name} val {IMGSZ} f32 B={VAL_BATCH} on {FAMILY_IMAGES} PNG images, launches "
+          f"{launches}; "
           f"NMS kernel idx/ok equal to the plain version on every batch; P/R/mAP50/mAP50-95 "
           f"{tuple(round(v, 6) for v in mk)} equal from both and to YOLO.val's; {img_s:.1f} img/s through YOLO.val "
           f"(host clock, incl. PNG decode) [{card}]", flush=True)
@@ -3881,17 +3899,17 @@ def family_val(name: str, data: str, card: str) -> tuple[dict, tuple]:
 
 def family_train(name: str, root: Path, card: str, phase: str = "families (e)") -> dict:
     """(e) One ``YOLO.train`` epoch (bf16, AdamW, B=16, no plots) of ``name``
-    on phase train's data: finite losses, the epoch's val with the NMS kernel
-    once a batch (none for a v10 model: its val takes ``preds6`` as they
+    on the first FAMILY_IMAGES val images as both splits: finite losses, the
+    epoch's val with the NMS kernel once a batch (none for a v10 model: its val takes ``preds6`` as they
     are), no stem."""
     from fce_yolo_tpu_torch import YOLO
 
     yolo = matching_model(YOLO(name, device="cuda"))
-    n_val = -(-VAL_IMAGES // VAL_BATCH)
+    n_val = -(-FAMILY_IMAGES // VAL_BATCH)
     reset_launches()
     t0 = time.perf_counter()
-    res = yolo.train(train_data(root), epochs=1, batch=VAL_BATCH, imgsz=IMGSZ, project=str(root / "runs_families"),
-                     plots=False, verbose=False)
+    res = yolo.train(first_val_images(root, FAMILY_IMAGES), epochs=1, batch=VAL_BATCH, imgsz=IMGSZ,
+                     project=str(root / "runs_families"), plots=False, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_launches()
@@ -3903,7 +3921,7 @@ def family_train(name: str, root: Path, card: str, phase: str = "families (e)") 
                                                                      "train/dfl_loss")), f"{name} train: {r}")
     times = train_step_times(step_batch(train_data(root))[0], VAL_NC, name, bf16s=(True,))
     print(f"phase {phase}: {name} YOLO.train {IMGSZ} bf16 B={VAL_BATCH} AdamW, 1 epoch of "
-          f"{VAL_IMAGES // VAL_BATCH} steps, launches {launches}; loss box/cls/dfl {r['train/box_loss']:.4f}/"
+          f"{FAMILY_IMAGES // VAL_BATCH} steps, launches {launches}; loss box/cls/dfl {r['train/box_loss']:.4f}/"
           f"{r['train/cls_loss']:.4f}/{r['train/dfl_loss']:.4f}, val mAP50 {r['metrics/mAP50(B)']:.6f}; "
           f"{sp['img_per_s']:.2f} img/s, step {sp['step_ms']:.1f} ms (the epoch's mean, its first step's set-up "
           f"included), loader wait {sp['loader_wait_ms']:.1f} ms, val {sp['val_s']:.2f} s; {wall:.1f} s in all; "
@@ -3920,8 +3938,8 @@ def phase_families(root: Path, data: str, card: str) -> dict:
     held against its plain version on the fed batch; yolov8s does not; NMS
     once a batch, idx/ok equal to the plain version's); (c) yolov8s-seg,
     -pose and -obb predict likewise; (d) ``YOLO.val`` of yolov8s and yolo12s
-    on phase val's images; (e) one ``YOLO.train`` epoch of each on phase
-    train's data. Returns each path's launches."""
+    on the first FAMILY_IMAGES of phase val's images; (e) one ``YOLO.train``
+    epoch of each on them. Returns each path's launches."""
     t_phase = time.perf_counter()
     paths = {}
     times = family_forwards(card)
@@ -3943,7 +3961,8 @@ def phase_families(root: Path, data: str, card: str) -> dict:
               f"device path vs {p['ms_plain']:.2f} {'plain stem' if stem else 'from a float batch'} (CUDA events) "
               f"[{card}]", flush=True)
     for name in ("yolov8s.yaml", "yolo12s.yaml"):
-        paths[f"families_val_{name.removesuffix('.yaml')}"] = family_val(name, data, card)[0]
+        paths[f"families_val_{name.removesuffix('.yaml')}"] = family_val(name, first_val_images(root, FAMILY_IMAGES),
+                                                                         card)[0]
         torch.cuda.empty_cache()
     for name in ("yolov8s.yaml", "yolo12s.yaml"):
         paths[f"families_train_{name.removesuffix('.yaml')}"] = family_train(name, root, card)
@@ -4248,6 +4267,313 @@ def phase_v10(root: Path, data: str, card: str) -> tuple[dict, dict]:
     print(f"phase v10: {len(times)} YAMLs built and run; phase v10 {time.perf_counter() - t_phase:.1f} s [{card}]",
           flush=True)
     return paths, tta
+
+
+RTDETR_FAMILY = ("rtdetr-l.yaml", "rtdetr-x.yaml", "rtdetr-resnet50.yaml", "rtdetr-resnet101.yaml",
+                 "yolov8l-rtdetr.yaml")
+RTDETR_BUILD_BATCH = 2  # (a) one bf16 forward of each YAML
+RTDETR_CHECK_IMAGES = 2  # (b) card float32 preds against the CPU's
+RTDETR_TOL = 1e-3  # (b) preds (normalized xywh and sigmoid scores), card vs CPU, float32 in both (TF32 off)
+RTDETR_TIE = 1e-4  # (b) encoder scores this close may trade places in the top-k between card and CPU
+RTDETR_PREDICT_IMAGES = 32  # (b) two batches of E2E_BATCH
+RTDETR_VAL_IMAGES, RTDETR_VAL_BATCH = 16, 8  # (c) the first of phase val's images
+RTDETR_TRAIN_IMAGES, RTDETR_TRAIN_BATCH = 8, 4  # (d) one epoch of two steps
+
+
+def kernel_profile(call) -> tuple[list[tuple[str, int, float]], float]:
+    """The CUDA kernels one ``call`` launches (torch.profiler, device
+    activity only): [(name, launches, device ms)] by time, and the total ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.count, getattr(e, "device_time_total", 0) / 1e3) for e in prof.key_averages()]
+    rows = sorted((r for r in rows if r[2] > 0), key=lambda r: -r[2])
+    return rows, sum(r[2] for r in rows)
+
+
+def rtdetr_split(rows: list, total: float) -> dict:
+    """Shares of the device time by kind of kernel, by name: deformable
+    sampling (``grid_sampler``), attention (the SDPA kernels), the
+    encoder's top-k (the sorts), convolutions, other matmuls, norms,
+    softmax, concatenations and copies, elementwise, reductions, other."""
+    import re
+
+    kinds = {"deformable_sampling": r"grid_sampler", "attention": r"fmha|flash|attention|efficient",
+             "topk_sort": r"sort|radix|topk", "conv": r"fprop|conv|implicit|winograd|cudnn",
+             "gemm": r"gemm|xmma|cutlass|nvjet|wgmma", "norm": r"norm", "softmax": r"softmax",
+             "cat_copy": r"CatArray|copy", "elementwise": r"elementwise", "reduce": r"reduce"}
+    out = {k: 0.0 for k in (*kinds, "other")}
+    for name, _, ms in rows:
+        out[next((k for k, pat in kinds.items() if re.search(pat, name, re.I)), "other")] += ms
+    return {k: round(v / max(total, 1e-9), 4) for k, v in out.items()}
+
+
+def rtdetr_forwards(card: str) -> dict:
+    """(a) Each RT-DETR YAML built on the card at IMGSZ (seed weights) and
+    one bf16 eval forward at B=2: finite ``preds`` (B, 300, 84). Returns
+    {name: (build ms, first forward ms, parameters)}."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn.model import param_count
+
+    out = {}
+    x = torch.rand(RTDETR_BUILD_BATCH, 3, IMGSZ, IMGSZ, device="cuda", generator=torch.Generator("cuda").manual_seed(
+        SEED)).to(torch.bfloat16)
+    for name in RTDETR_FAMILY:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yolo = YOLO(name, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        yolo.to(torch.bfloat16)
+        with torch.inference_mode():
+            preds = yolo.model(x)["preds"]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(yolo.task == "rtdetr" and tuple(preds.shape) == (RTDETR_BUILD_BATCH, 300, 4 + VAL_NC)
+              and bool(torch.isfinite(preds).all()), f"{name}: preds {tuple(preds.shape)}")
+        out[name] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, param_count(yolo.model))
+        del yolo, preds
+        torch.cuda.empty_cache()
+    print("phase rtdetr (a): " + "; ".join(f"{n} built in {b:.0f} ms, first bf16 forward B={RTDETR_BUILD_BATCH} "
+                                           f"{IMGSZ} {f:.0f} ms, {p:,} parameters" for n, (b, f, p) in out.items())
+          + f" [{card}]", flush=True)
+    return out
+
+
+def rtdetr_card_vs_cpu(yolo, imgs: list) -> tuple[float, int, float]:
+    """(b) ``preds`` of rtdetr-l in float32 on the card (TF32 off) and on a
+    CPU copy, on the same letterboxed images. The CPU runs first and its
+    encoder top-k is handed to the card's decoder, so both decode the same
+    queries; the card's own top-k is recorded beside it: where the two
+    differ, the card's scores at the CPU's indices must be its own top
+    scores within RTDETR_TIE (a near-tie traded places, nothing more).
+    Returns (max |card - cpu| of preds, positions of the top-k where the
+    card's own index differs, the largest such score gap)."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn import heads as H
+
+    x = letterboxed(imgs).cpu().permute(0, 3, 1, 2).float() / 255.0
+    cpu = YOLO("rtdetr-l.yaml", device="cpu")
+    cpu.model.load_state_dict(yolo.model.state_dict())
+    real, seen = H.stable_topk, {}
+
+    def cpu_topk(s, k):
+        seen["cpu"] = real(s, k)
+        return seen["cpu"]
+
+    def card_topk(s, k):
+        seen["card"], seen["card_scores"] = real(s, k), s
+        return seen["cpu"][0].to(s.device), seen["cpu"][1].to(s.device)
+
+    try:
+        H.stable_topk = cpu_topk
+        with torch.inference_mode():
+            ref = cpu._inference_model()(x)["preds"].numpy()
+        H.stable_topk = card_topk
+        with torch.inference_mode():
+            got = yolo._inference_model()(x.cuda())["preds"].cpu().numpy()
+    finally:
+        H.stable_topk = real
+    err = float(np.abs(got - ref).max())
+    check(err <= RTDETR_TOL, f"rtdetr-l preds card vs CPU: {err} (limit {RTDETR_TOL})")
+    own_v, own_i = (t.cpu() for t in seen["card"])
+    cpu_i = seen["cpu"][1]
+    at_cpu = torch.gather(seen["card_scores"].cpu(), 1, cpu_i).sort(dim=1, descending=True).values
+    gap = float((at_cpu - own_v).abs().max())
+    check(gap <= RTDETR_TIE, f"rtdetr-l top-k card vs CPU: the CPU's queries score {gap} below the card's own")
+    return err, int((own_i != cpu_i).sum()), gap
+
+
+def rtdetr_predict(card: str) -> dict:
+    """(b) rtdetr-l (seed weights): card vs CPU in float32
+    (``rtdetr_card_vs_cpu``), then ``YOLO.predict`` in bf16 at B=16 on 32
+    of phase e2e's images: no stem (layer 0 is HGStem) and no NMS (the
+    queries are the detections); device ms a batch (CUDA events), img/s
+    (host clock) and one batch under torch.profiler: kernels launched and
+    the split of the device time. Returns the launches."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from fce_yolo_tpu_torch.ops.stem import stem_spec_from_model
+
+    yolo = YOLO("rtdetr-l.yaml", device="cuda")
+    check(stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ)) is None, "rtdetr-l must not take the fused stem")
+    imgs = e2e_images(SEED + 1, RTDETR_PREDICT_IMAGES // E2E_BATCH)[:RTDETR_PREDICT_IMAGES]
+    err, moved, gap = rtdetr_card_vs_cpu(yolo, imgs[:RTDETR_CHECK_IMAGES])
+
+    yolo.to(torch.bfloat16).fuse()
+    yolo.predict(imgs[:E2E_BATCH], imgsz=IMGSZ, batch=E2E_BATCH)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    n_det = 0
+    for r, img in zip(yolo.predict(imgs, imgsz=IMGSZ, batch=E2E_BATCH, conf=0.0, stream=True), imgs):
+        h, w = img.shape[:2]
+        n_det += len(r)
+        check(len(r) == MAX_DET and bool(np.isfinite(r.boxes.data).all())
+              and bool(((r.boxes.xyxy >= 0) & (r.boxes.xyxy <= np.array([w, h, w, h]))).all())
+              and bool((np.diff(r.boxes.conf) <= 0).all()),
+              f"rtdetr predict: {len(r)} rows, finite, inside the image, by descending score")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=0), f"rtdetr-l predict: launches {launches}")
+    predictor = DetectionPredictor(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=E2E_BATCH)
+    batch = letterboxed(imgs[:E2E_BATCH])
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: predictor.infer(batch), iters=5)
+        rows, total = kernel_profile(lambda: predictor.infer(batch))
+    split = rtdetr_split(rows, total)
+    top = "; ".join(f"{n[:110]} x{c} {t:.3f} ms" for n, c, t in rows[:10])
+    print(f"phase rtdetr (b): rtdetr-l preds of {RTDETR_CHECK_IMAGES} images float32 (TF32 off) card vs CPU within "
+          f"{err:.2e} (limit {RTDETR_TOL}) on the CPU's queries; the card's own top-{MAX_DET} differs at {moved} "
+          f"places, its scores there within {gap:.2e} (limit {RTDETR_TIE}); YOLO.predict {IMGSZ} bf16 B={E2E_BATCH}, "
+          f"{len(imgs)} images, {n_det} rows at conf 0, launches {launches} (no stem, no NMS); {len(imgs) / wall:.1f} "
+          f"img/s through YOLO.predict (host clock, incl. letterbox); {ms:.2f} ms/batch on the device (CUDA events); "
+          f"one batch under torch.profiler: {sum(c for _, c, _ in rows)} kernel launches, {total:.2f} ms of device "
+          f"time ({1 - total / ms:.1%} of the batch's {ms:.2f} ms idle), split {split}; top kernels: {top} [{card}]",
+          flush=True)
+    return launches
+
+
+def rtdetr_val(data: str, card: str) -> dict:
+    """(c) ``YOLO.val`` of rtdetr-l (float32, seed weights) on the first 16
+    of phase val's PNG images, B=8: no NMS, no stem, finite metrics; img/s
+    (host clock) and device ms a batch (model and decode, CUDA events).
+    Returns the launches."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.dataset import check_det_dataset
+
+    d = check_det_dataset(data)
+    files = sorted(Path(d["val"]).glob("*.png"))[:RTDETR_VAL_IMAGES]
+    sub = {"path": d["path"], "val": [str(f) for f in files], "names": d["names"]}
+    yolo = YOLO("rtdetr-l.yaml", device="cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=sub, imgsz=IMGSZ, batch=RTDETR_VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    img_s = RTDETR_VAL_IMAGES / (time.perf_counter() - t0)
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=0), f"rtdetr-l val: launches {launches}")
+    mk = tuple(res["metrics"].mean_results())
+    check(all(np.isfinite(mk)) and len(res["metrics"].stats["conf"]) == RTDETR_VAL_IMAGES,
+          f"rtdetr-l val: {mk}")
+    validator = yolo._validator(imgsz=IMGSZ, batch_size=RTDETR_VAL_BATCH)
+    batch = letterboxed([img for i, img, _ in val_images() if i < RTDETR_VAL_BATCH])
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: validator.nms(validator.forward(batch)), iters=3)
+    print(f"phase rtdetr (c): rtdetr-l val {IMGSZ} f32 B={RTDETR_VAL_BATCH} on {RTDETR_VAL_IMAGES} PNG images, "
+          f"launches {launches} (no NMS: the queries are the detections); P/R/mAP50/mAP50-95 "
+          f"{tuple(round(v, 6) for v in mk)}; {img_s:.1f} img/s through YOLO.val (host clock, incl. PNG decode); "
+          f"{ms:.2f} ms a batch on the device (model and decode, CUDA events) [{card}]", flush=True)
+    return launches
+
+
+def rtdetr_train(data: str, root: Path, card: str) -> dict:
+    """(d) ``YOLO.train`` of rtdetr-l (seed weights, bf16 autocast, AdamW,
+    the contrastive-denoising groups) for one epoch of two steps at B=4 on
+    8 of phase val's images, no val and no plots: finite losses, weights
+    moved; step ms, the Hungarian matching's host ms a step and the peak
+    memory. Returns the launches."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.data.dataset import check_det_dataset
+
+    d = check_det_dataset(data)
+    files = [str(f) for f in sorted(Path(d["val"]).glob("*.png"))[:RTDETR_TRAIN_IMAGES]]
+    sub = {"path": d["path"], "train": files, "val": files, "names": d["names"]}
+    yolo = YOLO("rtdetr-l.yaml", device="cuda")
+    before = {k: v.clone() for k, v in yolo.model.state_dict().items() if v.is_floating_point()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.train(sub, epochs=1, batch=RTDETR_TRAIN_BATCH, imgsz=IMGSZ, workers=4, val=False, plots=False,
+                     project=str(root / "runs_rtdetr"), verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=0), f"rtdetr-l train: launches {launches}")
+    r, sp = res["results"][0], res["speed"][0]
+    moved = sum(int(not torch.equal(v, before[k])) for k, v in yolo.model.state_dict().items() if k in before)
+    check(res["epochs_run"] == 1 and np.isfinite(r["train/box_loss"]) and np.isfinite(r["train/cls_loss"])
+          and moved > len(before) // 2, f"rtdetr-l train: {r}, {moved} of {len(before)} tensors moved")
+    step = rtdetr_step_times(yolo, sub)
+    print(f"phase rtdetr (d): rtdetr-l YOLO.train {IMGSZ} bf16 B={RTDETR_TRAIN_BATCH} AdamW with the denoising "
+          f"groups, 1 epoch of {RTDETR_TRAIN_IMAGES // RTDETR_TRAIN_BATCH} steps, launches {launches}; loss box/cls "
+          f"{r['train/box_loss']:.4f}/{r['train/cls_loss']:.4f}, {moved} of {len(before)} tensors moved; the epoch's "
+          f"mean step {sp['step_ms']:.1f} ms (its first step's set-up included), loader wait "
+          f"{sp['loader_wait_ms']:.1f} ms; peak {peak:.2f} GiB; {wall:.1f} s in all; then the step on one batch, "
+          f"{step['steps']} after {step['warmup']} (host clock, each step ends in its syncs): "
+          f"{step['step_ms']:.1f} ms, "
+          f"of which the host waits {step['wait_ms']:.1f} ms for the matching costs (the forward queued before them) "
+          f"and the Hungarian matching itself (SciPy, 7 layers x {RTDETR_TRAIN_BATCH} images) takes "
+          f"{step['match_ms']:.2f} ms; peak {step['peak_gib']:.2f} GiB; one step under torch.profiler: "
+          f"{step['launches']} kernel launches, {step['device_ms']:.2f} ms of device time "
+          f"({1 - step['device_ms'] / step['step_ms']:.1%} of the step idle), split {step['split']}; top kernels: "
+          f"{step['top']} [{card}]", flush=True)
+    return launches
+
+
+def rtdetr_step_times(yolo, data: dict, warmup: int = 2, steps: int = 5) -> dict:
+    """The bf16 train step of ``yolo`` (forward, ``detr_loss`` with its
+    matching, backward, AdamW, EMA) on the first batch of ``data``'s train
+    split with its denoising groups, as ``YOLO.train`` makes them: mean ms of
+    ``steps`` after ``warmup`` on the host clock, the host's wait for the
+    matching costs and the assignments' ms, the peak memory, and one more
+    step under torch.profiler (launches, device ms, ``rtdetr_split``)."""
+    from fce_yolo_tpu_torch.api import _detr_training
+    from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
+    from fce_yolo_tpu_torch.data.loader import DataLoader
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    d = check_det_dataset(data)
+    ds = YOLODataset(d["train"], imgsz=IMGSZ, mode="train", nc=d["nc"], device="cuda")
+    task_loss, keys, model_kwargs, hook = _detr_training(yolo.spec, d["nc"], IMGSZ)
+    b = hook(dict(next(iter(DataLoader(ds, batch_size=RTDETR_TRAIN_BATCH, workers=4)))))
+    bdev = {k: torch.from_numpy(b[k]).cuda() for k in ("img", "cls", "bboxes", "mask", *keys)}
+    opt = Optimizer(OptimCfg(optimizer="AdamW", batch_size=RTDETR_TRAIN_BATCH, nbs=RTDETR_TRAIN_BATCH,
+                             nc=d["nc"]), yolo.model)
+    state = create_train_state(yolo.model, opt)
+    step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=d["nc"]), bf16=True, task_loss=task_loss,
+                           model_kwargs=model_kwargs)
+    for _ in range(warmup):
+        step(state, bdev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wait = match = 0.0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        _, m = step(state, bdev)
+        wait, match = wait + m["match_wait_s"], match + m["match_host_s"]
+    torch.cuda.synchronize()
+    out = {"step_ms": (time.perf_counter() - t0) * 1e3 / steps, "wait_ms": wait * 1e3 / steps,
+           "match_ms": match * 1e3 / steps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "steps": steps, "warmup": warmup}
+    rows, total = kernel_profile(lambda: step(state, bdev))
+    out.update(launches=sum(c for _, c, _ in rows), device_ms=total, split=rtdetr_split(rows, total),
+               top="; ".join(f"{n[:90]} x{c} {t:.3f} ms" for n, c, t in rows[:6]))
+    return out
+
+
+def phase_rtdetr(root: Path, data: str, card: str) -> dict:
+    """RT-DETR: (a) the five YAMLs built and run once in bf16; (b) rtdetr-l
+    card vs CPU and ``YOLO.predict`` at B=16 bf16 with its profile; (c) its
+    ``YOLO.val``; (d) a two-step ``YOLO.train`` with the denoising groups.
+    No kernel of the port is on these paths: the launches by path are all 0."""
+    t_phase = time.perf_counter()
+    rtdetr_forwards(card)
+    paths = {"rtdetr_predict": rtdetr_predict(card)}
+    torch.cuda.empty_cache()
+    paths["rtdetr_val"] = rtdetr_val(data, card)
+    torch.cuda.empty_cache()
+    paths["rtdetr_train"] = rtdetr_train(data, root, card)
+    torch.cuda.empty_cache()
+    print(f"phase rtdetr: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return paths
 
 
 WEIGHTS_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_checkpoint"
@@ -5330,6 +5656,8 @@ def main() -> None:
         clock("families")
         v10, tta = phase_v10(Path(tmp), val_data, card)
         clock("v10")
+        rtdetr = phase_rtdetr(Path(tmp), val_data, card)
+        clock("rtdetr")
         weights, zstd_record = phase_weights(Path(tmp), card)
         clock("weights")
         cli = phase_cli(Path(tmp), short_avi, e2e_img_s, train_img_s, card)
@@ -5339,8 +5667,8 @@ def main() -> None:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **weights, **cli,
-             **deploy}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **rtdetr,
+             **weights, **cli, **deploy}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

@@ -1,5 +1,5 @@
-"""PyTorch + CUDA port of fce_yolo_tpu: detect predict and val, and the
-detection loss.
+"""PyTorch + CUDA port of fce_yolo_tpu: the ``YOLO`` facade (and
+``RTDETR``) over detect, the task heads and RT-DETR.
 
 The JAX package ``fce_yolo_tpu`` is the reference; this package mirrors its
 module names (``nn/parser.py``, ``nn/modules.py``, ``ops/nms.py``, ...) so
@@ -12,12 +12,16 @@ versions run.
 
 __version__ = "0.1.0"
 
-__all__ = ["YOLO", "__version__"]
+__all__ = ["YOLO", "RTDETR", "__version__"]
+
+# the facades pull in the whole slice: each is loaded on first use (reference __init__.py:15-22)
+_LAZY = {"YOLO": ("fce_yolo_tpu_torch.api", "YOLO"), "RTDETR": ("fce_yolo_tpu_torch.models.rtdetr", "RTDETR")}
 
 
 def __getattr__(name: str):
-    if name == "YOLO":  # the facade pulls in the whole slice; load it on first use
-        from fce_yolo_tpu_torch.api import YOLO
+    if name in _LAZY:
+        import importlib
 
-        return YOLO
+        mod, attr = _LAZY[name]
+        return getattr(importlib.import_module(mod), attr)
     raise AttributeError(f"module 'fce_yolo_tpu_torch' has no attribute {name!r}")

@@ -160,8 +160,8 @@ class YOLO:
 
     @property
     def task(self) -> str:
-        """"detect", "segment", "pose", "obb" or "classify", from the model's
-        head; an artifact's from its metadata, a server's "detect"."""
+        """"detect", "segment", "pose", "obb", "classify" or "rtdetr", from
+        the model's head; an artifact's from its metadata, a server's "detect"."""
         if self.remote is not None:
             return "detect"
         if self.backend is not None:
@@ -292,7 +292,12 @@ class YOLO:
 
         if self.model is None:
             raise NotImplementedError(f"{self.cfg_yaml} has no model to export: it is an artifact or a server")
+        self._not_rtdetr("export")
         return export_model(self, fmt=format, imgsz=imgsz, **kw)
+
+    def _not_rtdetr(self, what: str) -> None:
+        if self.model is not None and self.task == "rtdetr":
+            raise NotImplementedError(f"{what} of an RT-DETR model is not ported yet (ROADMAP queue 1, item 12.1)")
 
     def benchmark(self, data=None, imgsz: int = 640, **kw) -> list[dict]:
         """The benchmark table (reference ``YOLO.benchmark``, api.py:341;
@@ -409,6 +414,7 @@ class YOLO:
         from fce_yolo_tpu_torch.data.augment import letterbox
         from fce_yolo_tpu_torch.engine.predictor import load_source
 
+        self._not_rtdetr("embed")
         model = self._inference_model()
         dtype = next(model.parameters()).dtype
         imgs = [np.ascontiguousarray(letterbox(img, imgsz)[0][..., ::-1])  # BGR -> RGB
@@ -439,6 +445,8 @@ class YOLO:
         and a classify model, which has no boxes, gives empty tracks, as in
         the JAX facade."""
         from fce_yolo_tpu_torch.trackers.track import _crop_embed_encoder, build_tracker, track_stream
+
+        self._not_rtdetr("track")
 
         if not (persist and self._tracker is not None and self._tracker[0] == str(tracker)):
             self._tracker = (str(tracker), build_tracker(tracker, encoder=_crop_embed_encoder(self)))
@@ -501,9 +509,11 @@ class YOLO:
         api.py:469-490)."""
         from fce_yolo_tpu_torch.engine.seg_validator import SegmentationValidator
         from fce_yolo_tpu_torch.engine.task_validators import OBBValidator, PoseValidator
-        from fce_yolo_tpu_torch.engine.validator import DetectionValidator
+        from fce_yolo_tpu_torch.engine.validator import DetectionValidator, RTDETRValidator
 
         model = self.model if model is None else model
+        if self.task == "rtdetr":
+            return RTDETRValidator(model, self.names, **kw)
         if self.task == "segment":
             return SegmentationValidator(model, self.names, **kw)
         if self.task == "pose":
@@ -540,8 +550,13 @@ class YOLO:
         ``hyp_overrides``: ``AugmentCfg`` fields, the optimizer's (momentum,
         weight_decay, warmup_*, nbs), ``state_bf16`` and ``bf16_ema``.
 
+        An RT-DETR model trains with ``train/detr_loss.py::detr_loss`` and
+        contrastive-denoising groups made on the host each batch.
+
         Returns {"save_dir", "best_fitness", "epochs_run", "results" (the csv
-        rows), "speed" (per epoch: img/s and the per-step split in ms)}.
+        rows), "speed" (per epoch: img/s and the per-step split in ms; for
+        RT-DETR also "match_host_ms", the Hungarian matching's host time, and
+        "match_wait_ms", the host's wait for its costs)}.
         """
         if self.task == "classify":
             return self._train_classify(data, epochs=epochs, batch=batch, imgsz=imgsz, optimizer=optimizer,
@@ -572,7 +587,8 @@ class YOLO:
         kpt_shape = tuple(self.model.detect.kpt_shape) if self.task == "pose" else (17, 3)
         hyp = AugmentCfg(**{k: v for k, v in hyp_overrides.items() if k in AugmentCfg.__dataclass_fields__})
         train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed,
-                               device=self.device, task=self.task, kpt_shape=kpt_shape, flip_idx=d.get("flip_idx"))
+                               device=self.device, task="detect" if self.task == "rtdetr" else self.task,
+                               kpt_shape=kpt_shape, flip_idx=d.get("flip_idx"))
         loader = DataLoader(train_ds, batch_size=batch, workers=workers, max_labels=max_labels, seed=seed)
         steps_per_epoch = len(loader)
         save_dir = increment_path(Path(project) / name, exist_ok=resume or exist_ok, mkdir=True)
@@ -596,9 +612,12 @@ class YOLO:
             bf16 = self.device.type == "cuda"
         task_loss, extra_keys = task_loss_for(self.task, loss_cfg, kpt_shape,
                                               end2end=self.spec.layers[-1].name == "v10Detect")
+        model_kwargs = batch_hook = None  # RT-DETR's denoising groups: added on the host, handed to the head
+        if self.task == "rtdetr":
+            task_loss, extra_keys, model_kwargs, batch_hook = _detr_training(self.spec, d["nc"], imgsz)
         batch_keys = ("img", "cls", "bboxes", "mask", *extra_keys)
         step_fn = make_train_step(model, opt, loss_cfg, bf16=bf16, accumulate=accumulate, boundaries=bounds,
-                                  task_loss=task_loss)
+                                  task_loss=task_loss, model_kwargs=model_kwargs)
 
         start_epoch = 0
         if resume and not is_checkpoint(save_dir / "weights" / "last"):
@@ -642,7 +661,7 @@ class YOLO:
             t0 = time.perf_counter()
             sums: dict[str, float] = {}
             n_logged = nb = 0
-            t_wait = t_step = t_sync = 0.0
+            t_wait = t_step = t_sync = t_match = t_match_wait = 0.0
             batches = iter(loader)
             try:
                 while True:
@@ -651,6 +670,8 @@ class YOLO:
                     t_wait += time.perf_counter() - tw
                     if b is None:
                         break
+                    if batch_hook is not None:
+                        b = batch_hook(dict(b))
                     if plots and epoch == start_epoch and nb < 3:
                         _plot_train_batch(b, self.names, save_dir / f"train_batch{nb}.jpg", self.device)
                     ts = time.perf_counter()
@@ -658,9 +679,11 @@ class YOLO:
                     state, m = step_fn(state, bdev)
                     t_step += time.perf_counter() - ts
                     t_sync += m["sync_s"]
+                    t_match += m.get("match_host_s", 0.0)
+                    t_match_wait += m.get("match_wait_s", 0.0)
                     nb += 1
                     if nb == 1 or nb % 10 == 0 or nb == steps_per_epoch:
-                        keys = ("loss", "box", "cls", "dfl")
+                        keys = [k for k in ("loss", "box", "cls", "dfl") if k in m]
                         for k, v in zip(keys, torch.stack([m[k].float() for k in keys]).tolist()):
                             sums[k] = sums.get(k, 0.0) + v
                         n_logged += 1
@@ -686,7 +709,9 @@ class YOLO:
             _write_csv(save_dir / "results.csv", csv_rows)
             per = 1e3 / max(nb, 1)
             speed.append({"epoch": epoch, "img_per_s": nb * batch / max(train_s, 1e-9), "loader_wait_ms": t_wait * per,
-                          "step_ms": t_step * per, "sync_ms": t_sync * per, "val_s": val_s})
+                          "step_ms": t_step * per, "sync_ms": t_sync * per, "val_s": val_s,
+                          **({"match_host_ms": t_match * per, "match_wait_ms": t_match_wait * per}
+                             if self.task == "rtdetr" else {})})
 
             # last: EMA weights + the whole train state (resume); best: EMA weights only
             meta = {"epoch": epoch, "fitness": fitness, "git": _git_describe(),
@@ -865,6 +890,30 @@ def _classify_accuracy(model: torch.nn.Module, ds, batch: int, device: torch.dev
     t1 = torch.cat(t1s).double().mean().item() if t1s else 0.0
     t5 = torch.cat(t5s).double().mean().item() if t5s else 0.0
     return {"metrics/accuracy_top1": t1, "metrics/accuracy_top5": t5}
+
+
+def _detr_training(spec, nc: int, imgsz: int):
+    """RT-DETR's training pieces (reference ``api.py:678-699``): the loss
+    closure over ``DETRLossCfg(nc)``, the dn batch keys, the model kwargs
+    that hand them to the head as ``dn``, and the per-batch hook that adds
+    ``make_cdn_group``'s arrays, seeded 1, 2, ... batch by batch, for
+    ``nq_eff = min(nq, sum((imgsz / s)^2))`` queries (the decoder clamps nq
+    to the token count on small inputs)."""
+    from fce_yolo_tpu_torch.train.detr_loss import DETRLossCfg, detr_loss, make_cdn_group
+
+    cfg = DETRLossCfg(nc=nc)
+    head = spec.layers[-1]
+    nq_eff = min(head.args[3] if len(head.args) > 3 else 300, sum((imgsz // s) ** 2 for s in (8, 16, 32)))
+    seed = [0]
+
+    def batch_hook(b: dict) -> dict:
+        seed[0] += 1
+        b.update(make_cdn_group(b["cls"], b["bboxes"], b["mask"], nc=nc, nq=nq_eff, rng=seed[0]))
+        return b
+
+    keys = ("dn_cls", "dn_bbox", "dn_attn_mask")
+    return (lambda out, batch, _cfg, state: detr_loss(out, batch, cfg, state), keys,
+            lambda batch: {"dn": {k: batch[k] for k in keys}}, batch_hook)
 
 
 def _postfilter(results, classes: list[int] | None, verbose: bool):

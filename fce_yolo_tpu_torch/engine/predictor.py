@@ -16,7 +16,8 @@ INTER_LINEAR in integer torch ops) on the model's device; pose
 un-letterboxes the decoded keypoints; OBB suppresses with
 ``rotated_batched_nms`` (probiou) and only the centre leaves the
 letterbox, w and h scaled and never clipped. A V10Detect model's
-``preds6`` are already its detections: no NMS (predictor.py:209-218).
+``preds6`` are already its detections: no NMS (predictor.py:209-218); so
+are an RT-DETR model's decoder queries (predictor.py:194-208).
 
 Stem gate (the port's form of the JAX gate at predictor.py:163-188): layers
 0..2 run in the fused stem kernel when the model matches
@@ -46,6 +47,7 @@ from fce_yolo_tpu_torch.data.imread import imread
 from fce_yolo_tpu_torch.data.loaders import STREAM_PREFIXES, LoadScreenshots, LoadStreams
 from fce_yolo_tpu_torch.engine.results import Results
 from fce_yolo_tpu_torch.nn.model import DetectionModel, fold_conv_bn, is_folded
+from fce_yolo_tpu_torch.ops.boxes import detr_detections
 from fce_yolo_tpu_torch.ops.masks import process_mask, scale_masks
 from fce_yolo_tpu_torch.ops.nms import batched_nms, rotated_batched_nms
 from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
@@ -178,7 +180,10 @@ class DetectionPredictor:
         coefficients ``extra`` and ``proto`` (segment; ``masks`` makes the
         masks of the rows kept). V10Detect's ``preds6`` (B, max_det, 6) give
         the boxes, scores and classes as they are, valid where the score is
-        above ``conf``."""
+        above ``conf``; an RT-DETR head's ``preds`` go through
+        ``ops/boxes.py::detr_detections`` (the first ``max_det`` by score)."""
+        if self.task == "rtdetr":  # the decoder's queries are the detections: no NMS
+            return detr_detections(out["preds"], self.imgsz, self.conf, self.max_det)
         if "preds6" in out:
             p6 = out["preds6"]
             return {"boxes": p6[..., :4], "scores": p6[..., 4], "classes": p6[..., 5].to(torch.int32),

@@ -37,10 +37,11 @@ from fce_yolo_tpu_torch.data.dataset import YOLODataset, check_det_dataset
 from fce_yolo_tpu_torch.data.loader import DataLoader
 from fce_yolo_tpu_torch.nn.heads import V10Detect
 from fce_yolo_tpu_torch.nn.model import DetectionModel
+from fce_yolo_tpu_torch.ops.boxes import detr_detections
 from fce_yolo_tpu_torch.ops.nms import batched_nms
 from fce_yolo_tpu_torch.utils.metrics import ConfusionMatrix, DetMetrics, box_iou_np, match_predictions
 
-__all__ = ["DetectionValidator", "TaskValidator", "xywh_to_xyxy_np"]
+__all__ = ["DetectionValidator", "RTDETRValidator", "TaskValidator", "xywh_to_xyxy_np"]
 
 
 class DetectionValidator:
@@ -287,6 +288,25 @@ class DetectionValidator:
                                  round(float(bb[2] - bb[0]), 3), round(float(bb[3] - bb[1]), 3)],
                         "score": round(float(cf), 5),
                     })
+
+
+class RTDETRValidator(DetectionValidator):
+    """RT-DETR validation without NMS (reference ``RTDETRValidator``,
+    ``fce_yolo_tpu/engine/validator.py:339-375``): the decoder's queries are
+    the detections, each with its best class, in descending score, valid
+    above ``conf`` (``ops/boxes.py::detr_detections``, every query kept as
+    the JAX validator keeps them); matching and AP are the base class's.
+    There is no RT-DETR artifact (``YOLO.export`` refuses one), so no
+    ``infer_fn``."""
+
+    def __init__(self, model, names: dict[int, str], **kw: Any):
+        if kw.get("infer_fn") is not None:
+            raise NotImplementedError("an RT-DETR artifact is not ported yet (ROADMAP queue 1, item 12.1)")
+        super().__init__(model, names, **kw)
+
+    @torch.inference_mode()
+    def nms(self, preds: torch.Tensor) -> dict[str, torch.Tensor]:
+        return detr_detections(preds, self.imgsz, self.conf)
 
 
 def xywh_to_xyxy_np(xywh: np.ndarray) -> np.ndarray:

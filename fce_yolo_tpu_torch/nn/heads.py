@@ -1,6 +1,6 @@
 """Heads beyond detect: Segment, Pose and OBB, the mask prototypes,
-Classify, and YOLOv10's NMS-free ``V10Detect`` (reference
-``fce_yolo_tpu/nn/heads.py:31-211, 363-438``).
+Classify, YOLOv10's NMS-free ``V10Detect`` and RT-DETR's ``RTDETRDecoder``
+(reference ``fce_yolo_tpu/nn/heads.py:31-438``).
 
 Each head is the port's ``Detect`` (``legacy`` passed through: the v8-era
 cls branch) with one more branch per level (``cv4``:
@@ -27,13 +27,16 @@ import copy
 import math
 from typing import Any, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
-from fce_yolo_tpu_torch.nn.modules import Conv2d, ConvBNAct, Detect
+from fce_yolo_tpu_torch.nn.modules import BatchNorm2d, Conv2d, ConvBNAct, Detect
+from fce_yolo_tpu_torch.nn.transformer import (LN_EPS, MLP, DeformableTransformerDecoder,
+                                               DeformableTransformerDecoderLayer, inverse_sigmoid)
 from fce_yolo_tpu_torch.ops.anchors import dfl_expectation, dist2bbox, dist2rbox, make_anchors
 
-__all__ = ["Proto", "Segment", "Pose", "OBB", "Classify", "V10Detect", "stable_topk"]
+__all__ = ["Proto", "Segment", "Pose", "OBB", "Classify", "V10Detect", "RTDETRDecoder", "stable_topk"]
 
 
 class Proto(nn.Module):
@@ -212,3 +215,127 @@ class V10Detect(Detect):
         boxes = torch.gather(boxes_k, 1, anchor[..., None].expand(-1, -1, 4))
         preds6 = torch.cat([boxes, top[..., None], (flat_idx % self.nc).float()[..., None]], dim=-1)
         return {"preds6": preds6, "feats": one2many, "one2one_feats": one2one}
+
+
+class RTDETRDecoder(nn.Module):
+    """RT-DETR's head (reference ``fce_yolo_tpu/nn/heads.py:214-358``;
+    Ultralytics head.py:812-1133): query selection over the encoder's
+    scores, then ``ndl`` deformable decoder layers with iterative box
+    refinement and a score head each.
+
+    - Each input level: 1x1 conv (no bias) + BatchNorm (eps 1e-5, momentum
+      0.1 = flax's 0.9), flattened to tokens (B, LV, hd).
+    - ``generate_anchors``: per-level (x, y, w, h) logits; anchors within
+      1e-2 of the border are invalid (``inf``) and their tokens zeroed.
+    - Query selection: the ``nq = min(nq, LV)`` tokens of highest best-class
+      encoder score from a stable descending sort, so equal scores keep
+      index order (``jax.lax.top_k``'s rule; every invalid token has the same
+      score).
+    - Training: ``refer`` and the query embeddings are detached; the
+      contrastive-denoising queries of ``dn`` (``dn_cls``, ``dn_bbox``,
+      ``dn_attn_mask``, from ``train/detr_loss.py::make_cdn_group``) are
+      put in front; returns ``dec_bboxes`` (ndl, B, nd + nq, 4) sigmoid xywh,
+      ``dec_scores`` (ndl, B, nd + nq, nc) logits, ``enc_bboxes`` and
+      ``enc_scores`` (B, nq, ...).
+    - Eval: the last decoder layer's ``preds`` (B, nq, 4 + nc), normalized
+      xywh and sigmoid scores in float32 (the reference's ``eval_idx`` -1).
+
+    ``denoising_class_embed`` (nc, hd) exists whether or not training uses
+    it, so every tree has the same leaves.
+    """
+
+    NH, NDP, D_FFN = 8, 4, 1024  # attention heads, sampling points a level, FFN width (no YAML sets them)
+
+    def __init__(self, nc: int = 80, ch: Sequence[int] = (512, 1024, 2048), hd: int = 256, nq: int = 300,
+                 ndl: int = 6):
+        super().__init__()
+        self.nc, self.hd, self.nq, self.ndl = nc, hd, nq, ndl
+        self.input_proj = nn.ModuleList(
+            nn.Sequential(nn.Conv2d(x, hd, 1, bias=False), BatchNorm2d(hd, eps=1e-5, momentum=0.1)) for x in ch)
+        self.enc_output = nn.Sequential(nn.Linear(hd, hd), nn.LayerNorm(hd, eps=LN_EPS))
+        self.enc_score_head = nn.Linear(hd, nc)
+        self.enc_bbox_head = MLP(hd, hd, 4, num_layers=3)
+        self.denoising_class_embed = nn.Embedding(nc, hd)
+        self.query_pos_head = MLP(4, 2 * hd, hd, num_layers=2)
+        self.decoder = DeformableTransformerDecoder(
+            DeformableTransformerDecoderLayer(hd, self.NH, self.D_FFN, len(ch), self.NDP) for _ in range(ndl))
+        self.dec_score_head = nn.ModuleList(nn.Linear(hd, nc) for _ in range(ndl))
+        self.dec_bbox_head = nn.ModuleList(MLP(hd, hd, 4, num_layers=3) for _ in range(ndl))
+        self._anchors: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @staticmethod
+    def generate_anchors(shapes: Sequence[tuple[int, int]], grid_size: float = 0.05,
+                         eps: float = 1e-2) -> tuple[torch.Tensor, torch.Tensor]:
+        """(1, LV, 4) anchor logits (``inf`` where invalid) and the (1, LV, 1)
+        validity mask, in numpy float32 as the JAX head makes them (head.py:248-263)."""
+        anchors = []
+        for i, (h, w) in enumerate(shapes):
+            gy, gx = np.meshgrid(np.arange(h, dtype=np.float32), np.arange(w, dtype=np.float32), indexing="ij")
+            xy = (np.stack([gx, gy], -1) + 0.5) / np.asarray([w, h], np.float32)
+            wh = np.ones_like(xy) * grid_size * (2.0 ** i)
+            anchors.append(np.concatenate([xy, wh], -1).reshape(h * w, 4))
+        a = np.concatenate(anchors, 0)
+        valid = ((a > eps) & (a < 1 - eps)).all(-1, keepdims=True)
+        with np.errstate(divide="ignore"):
+            a = np.log(a / (1 - a))
+        a = np.where(valid, a, np.inf).astype(np.float32)
+        return torch.from_numpy(a)[None], torch.from_numpy(valid.astype(np.float32))[None]
+
+    def _anchors_on(self, shapes: list[tuple[int, int]], device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        """``generate_anchors`` on ``device``, made once per (shapes, device);
+        never inference tensors, which a later training forward could not save."""
+        key = (tuple(shapes), device)
+        if key not in self._anchors:
+            with torch.inference_mode(False):
+                self._anchors[key] = tuple(t.to(device) for t in self.generate_anchors(shapes))
+        return self._anchors[key]
+
+    def forward(self, xs: Sequence[torch.Tensor], dn: dict[str, torch.Tensor] | None = None) -> dict[str, Any]:
+        feats, shapes = [], []
+        for x, proj in zip(xs, self.input_proj):
+            p = proj(x)
+            shapes.append((p.shape[2], p.shape[3]))
+            feats.append(p.flatten(2).transpose(1, 2))
+        feats = torch.cat(feats, dim=1)  # (B, LV, hd)
+        dt = feats.dtype
+        anchors, valid = self._anchors_on(shapes, feats.device)
+
+        f = self.enc_output(valid.to(dt) * feats)
+        enc_scores_all = self.enc_score_head(f)  # (B, LV, nc)
+        nq = min(self.nq, feats.shape[1])
+        _, topk = stable_topk(enc_scores_all.amax(-1), nq)  # (B, nq)
+        top_feats = torch.gather(f, 1, topk[..., None].expand(-1, -1, f.shape[-1]))
+        refer = self.enc_bbox_head(top_feats).float() + anchors[0][topk]  # (B, nq, 4) logits, float32
+        enc_bboxes = refer.sigmoid()
+        enc_scores = torch.gather(enc_scores_all, 1, topk[..., None].expand(-1, -1, self.nc))
+
+        embed = top_feats
+        if self.training:
+            refer, embed = refer.detach(), embed.detach()
+        attn_mask = None
+        if dn is not None:  # the denoising queries go in front (padded slots: zero embedding)
+            dn_cls = dn["dn_cls"].long()
+            dn_embed = self.denoising_class_embed(dn_cls.clamp(0, self.nc - 1))
+            dn_embed = torch.where((dn_cls >= 0)[..., None], dn_embed, torch.zeros_like(dn_embed))
+            refer = torch.cat([dn["dn_bbox"].float(), refer], dim=1)
+            embed = torch.cat([dn_embed.to(embed.dtype), embed], dim=1)
+            attn_mask = dn["dn_attn_mask"]
+
+        refer_sig = refer.sigmoid()
+        output = embed
+        dec_bboxes, dec_scores = [], []
+        last_refined = None
+        for i, layer in enumerate(self.decoder.layers):
+            pos = self.query_pos_head(refer_sig.to(output.dtype))
+            output = layer(output, refer_sig, feats, shapes, attn_mask, pos)
+            bbox = self.dec_bbox_head[i](output).float()
+            refined = (bbox + inverse_sigmoid(refer_sig)).sigmoid()
+            if self.training:
+                dec_scores.append(self.dec_score_head[i](output))
+                dec_bboxes.append(refined if i == 0 else (bbox + inverse_sigmoid(last_refined)).sigmoid())
+            last_refined = refined
+            refer_sig = refined.detach() if self.training else refined
+        if self.training:
+            return {"dec_bboxes": torch.stack(dec_bboxes), "dec_scores": torch.stack(dec_scores),
+                    "enc_bboxes": enc_bboxes, "enc_scores": enc_scores}
+        return {"preds": torch.cat([refined, self.dec_score_head[-1](output).float().sigmoid()], dim=-1)}

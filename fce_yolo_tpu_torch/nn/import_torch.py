@@ -5,7 +5,10 @@ The port's module tree carries Ultralytics' own attribute names, so its
 ``state_dict`` keys are the ``.pt`` file's (``model.0.conv.weight``,
 ``model.23.cv2.0.2.weight``, ``model.23.proto.upsample.weight``) and the
 tensors keep torch's layouts: the import is a strict load, not the flax
-rewrite of the reference. Dropped: a ``module.`` prefix (DataParallel
+rewrite of the reference. So are RT-DETR's keys, which the reference maps
+one by one (``import_torch.py:60-95``): ``decoder.layers.N``, the
+attention's ``in_proj_*`` and ``out_proj``, the Linears, the LayerNorms and
+``denoising_class_embed.weight`` are the port's own module names. Dropped: a ``module.`` prefix (DataParallel
 saves), ``num_batches_tracked`` buffers and ``*.dfl.conv.weight`` (the
 port's DFL decode is parameter-free, as the reference's,
 ``import_torch.py:56``). A ConvTranspose2d kernel is taken as stored: the

@@ -20,6 +20,7 @@ from fce_yolo_tpu_torch.nn import heads as H
 from fce_yolo_tpu_torch.nn import modules as M
 from fce_yolo_tpu_torch.nn import resnet
 from fce_yolo_tpu_torch.nn.parser import LayerSpec, ModelSpec, load_model_yaml, parse_model_yaml
+from fce_yolo_tpu_torch.nn.transformer import AIFI, MSDeformAttn, TorchMHA
 
 
 # layers built positionally from the parsed args (the JAX ``_POSITIONAL`` table, nn/model.py:29-65)
@@ -30,13 +31,13 @@ _POSITIONAL: dict[str, Any] = {
     "CBFuse": M.CBFuse, "A2C2f": M.A2C2f, "nn.MaxPool2d": M.MaxPool2d, "nn.ZeroPad2d": M.ZeroPad2d,
     "nn.Identity": nn.Identity, "nn.ConvTranspose2d": M.ConvTranspose2d, "RepVGGDW": M.RepVGGDW, "CIB": M.CIB,
     "C2fCIB": M.C2fCIB, "PSA": M.PSA, "SCDown": M.SCDown, "TorchVision": resnet.TorchVision,
+    "LightConv": M.LightConv,
 }
 # layers the port refuses, by the item of ROADMAP queue 1 that ports them
 _LATER: dict[str, str] = {
-    **dict.fromkeys(("HGStem", "HGBlock", "RepC3", "AIFI", "RTDETRDecoder", "C2fAttn", "ImagePoolingAttn",
-                     "WorldDetect", "YOLOEDetect", "YOLOESegment"), "12"),
+    **dict.fromkeys(("C2fAttn", "ImagePoolingAttn", "WorldDetect", "YOLOEDetect", "YOLOESegment"), "12"),
     **dict.fromkeys(("C1", "C3x", "Focus", "Conv2", "ConvTranspose", "BottleneckCSP", "C3TR", "CBAM",
-                     "ChannelAttention", "SpatialAttention", "LightConv", "Index", "C2fPSA", "AGLU",
+                     "ChannelAttention", "SpatialAttention", "Index", "C2fPSA", "AGLU",
                      "DWConvTranspose2d"), "7.2"),
 }
 
@@ -47,8 +48,8 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
     a, n = ls.args, ls.name
     if n == "Conv":  # (c1, c2, k=1, s=1, p=None, g=1, d=1, act=True)
         return M.ConvBNAct(a[0], a[1], *a[2:8])
-    if n == "DWConv":  # (c1, c2, k=1, s=1)
-        return M.DWConvBNAct(a[0], a[1], *a[2:4])
+    if n == "DWConv":  # (c1, c2, k=1, s=1, d=1, act=True), Ultralytics' signature (queue 3, item 33)
+        return M.DWConvBNAct(a[0], a[1], *a[2:6])
     if n == "C3k2":
         return M.C3k2(a[0], a[1], n=a[2], c3k=a[3] if len(a) > 3 else False,
                       e=a[4] if len(a) > 4 else 0.5)
@@ -83,6 +84,17 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
         return fce.CoordAtt(inp=a[0], oup=a[1], reduction=a[2])
     if n == "CoordCrossAtt":
         return fce.CoordCrossAtt(inp=a[0], oup=a[1], reduction=a[2], num_heads=a[3])
+    if n == "RepC3":  # (c1, c2, n, e)
+        return M.RepC3(a[0], a[1], a[2], e=a[3] if len(a) > 3 else 1.0)
+    if n == "HGStem":  # (c1, cm, c2)
+        return M.HGStem(a[0], a[1], a[2])
+    if n == "HGBlock":  # (c1, cm, c2, k, n, lightconv, shortcut)
+        return M.HGBlock(*a[:7])
+    if n == "AIFI":  # (c1, cm, num_heads)
+        return AIFI(a[0], a[1] if len(a) > 1 else 2048, a[2] if len(a) > 2 else 8)
+    if n == "RTDETRDecoder":  # [nc, ch, hd, nq, ndl]: the extras size the JAX tests' tiny heads
+        return H.RTDETRDecoder(nc=a[0], ch=tuple(a[1]), hd=a[2] if len(a) > 2 else 256,
+                               nq=a[3] if len(a) > 3 else 300, ndl=a[4] if len(a) > 4 else 6)
     if n == "Classify":  # [c1, c2, k, s]
         return H.Classify(a[0], a[1], k=a[2] if len(a) > 2 else 1, s=a[3] if len(a) > 3 else 1)
     if n in _POSITIONAL:
@@ -116,10 +128,13 @@ class DetectionModel(nn.Module):
     def task(self) -> str:
         return self.spec.task
 
-    def forward(self, x: torch.Tensor, start_layer: int = 0) -> dict[str, Any]:
+    def forward(self, x: torch.Tensor, start_layer: int = 0, **head_kw: Any) -> dict[str, Any]:
         """``start_layer > 0``: ``x`` is already the output of layer
         ``start_layer - 1`` (the fused stem computes layers 0..2); valid only
-        when no skipped layer's output is consumed later."""
+        when no skipped layer's output is consumed later. ``head_kw`` goes to
+        the head, the last layer (an RT-DETR head's denoising queries ``dn``
+        in training; reference nn/model.py:306-310)."""
+        head_i = self.spec.layers[-1].i
         saved: dict[int, torch.Tensor] = {}
         out: Any = x
         if start_layer > 0:
@@ -134,7 +149,7 @@ class DetectionModel(nn.Module):
                 inp = [out if j == -1 else saved[j % ls.i] for j in ls.f]
             else:
                 inp = out if ls.f == -1 else saved[ls.f % ls.i]
-            out = layer(inp)
+            out = layer(inp, **head_kw) if ls.i == head_i else layer(inp)
             if ls.i in self.spec.save:
                 saved[ls.i] = out
         return out
@@ -147,6 +162,8 @@ def resolve_strides(spec: ModelSpec, probe: int = 256) -> tuple[int, ...]:
     classifier (reference ``resolve_strides``, nn/model.py:318-321)."""
     if spec.task == "classify":
         return ()
+    if spec.task == "rtdetr":  # the normalized-box head needs none; P3-P5 (reference nn/model.py:322-325)
+        return (8, 16, 32)
     with torch.device("meta"):
         model = DetectionModel(spec, strides=None).eval()
         model.detect.train()
@@ -186,11 +203,20 @@ def _lecun_normal(shape: torch.Size, generator: torch.Generator) -> torch.Tensor
     return nn.init.trunc_normal_(out, 0.0, std, -2 * std, 2 * std, generator=generator)
 
 
+def _xavier_uniform(shape: torch.Size, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``xavier_uniform`` of a 2-D parameter: U(+-sqrt(6 / (fan_in + fan_out)))."""
+    bound = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
 @torch.no_grad()
 def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: bool = True) -> DetectionModel:
     """Initialize like the JAX ``init_variables`` (nn/model.py:366-388): conv
     and dense kernels lecun-normal, their biases 0, BN (1, 0, mean 0, var 1), BiFPN
-    weights 1, A2C2f's ``gamma`` 0.01, then the Detect bias priors when ``bias_prior`` (on a Detect
+    weights 1, A2C2f's ``gamma`` 0.01, LayerNorm (1, 0), RT-DETR's attention
+    projections xavier-uniform, MSDeformAttn's offset and weight kernels 0
+    with the direction grid as the offsets' bias, the denoising table N(0, 1),
+    then the Detect bias priors when ``bias_prior`` (on a Detect
     or a task head's Detect trunk only, not on V10Detect, as the JAX package does). Values are
     drawn on the CPU from ``generator`` (a CPU generator) so one seed gives
     the same weights on every device."""
@@ -208,6 +234,19 @@ def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: 
             m.w.fill_(1.0)
         elif isinstance(m, M.A2C2f) and m.gamma is not None:
             m.gamma.fill_(0.01)
+        elif isinstance(m, nn.LayerNorm):
+            m.reset_parameters()
+    for m in model.modules():  # RT-DETR's leaves after the generic pass over their Linears
+        if isinstance(m, TorchMHA):  # xavier-uniform projections, zero biases (transformer.py:38-52)
+            m.in_proj_weight.copy_(_xavier_uniform(m.in_proj_weight.shape, generator))
+            m.out_proj.weight.copy_(_xavier_uniform(m.out_proj.weight.shape, generator))
+            m.in_proj_bias.zero_()
+            m.out_proj.bias.zero_()
+        elif isinstance(m, MSDeformAttn):
+            m.reset_offsets()
+        elif isinstance(m, H.RTDETRDecoder):
+            m.denoising_class_embed.weight.copy_(torch.randn(m.denoising_class_embed.weight.shape,
+                                                             generator=generator))
     if bias_prior and isinstance(model.detect, M.Detect) and not isinstance(model.detect, H.V10Detect):
         model.detect.bias_init()
     return model

@@ -92,9 +92,11 @@ class ConvBNAct(nn.Module):
         return apply_act(self.bn(self.conv(x)), self.act)
 
 
-def DWConvBNAct(c1: int, c2: int, k: int = 1, s: int = 1, act: Any = True) -> ConvBNAct:
-    """Depthwise Conv+BN+SiLU, groups = gcd(c1, c2) (reference ``DWConv``, conv.py:186-200)."""
-    return ConvBNAct(c1, c2, k, s, g=math.gcd(c1, c2), act=act)
+def DWConvBNAct(c1: int, c2: int, k: int = 1, s: int = 1, d: int = 1, act: Any = True) -> ConvBNAct:
+    """Depthwise Conv+BN+SiLU, groups = gcd(c1, c2) (reference ``DWConv``, conv.py:186-200),
+    with Ultralytics' ``d`` and ``act``: a YAML's ``[c2, k, s, d, False]`` has no activation
+    (ROADMAP queue 3, item 33: the JAX ``make_layer`` drops both and applies SiLU)."""
+    return ConvBNAct(c1, c2, k, s, g=math.gcd(c1, c2), d=d, act=act)
 
 
 def Conv2d(c1: int, c2: int, k: int = 1, s: int = 1) -> nn.Conv2d:
@@ -385,6 +387,79 @@ class RepConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return apply_act(self.conv1(x) + self.conv2(x), self.act)
+
+
+class RepC3(nn.Module):
+    """CSP block of RepConvs (reference block.py:365-392, the RT-DETR neck):
+    ``cv3(m(cv1(x)) + cv2(x))``, ``cv3`` the identity when ``e`` is 1."""
+
+    def __init__(self, c1: int, c2: int, n: int = 3, e: float = 1.0):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = ConvBNAct(c1, c_, 1)
+        self.cv2 = ConvBNAct(c1, c_, 1)
+        self.m = nn.Sequential(*(RepConv(c_, c_) for _ in range(n)))
+        self.cv3 = ConvBNAct(c_, c2, 1) if c_ != c2 else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv3(self.m(self.cv1(x)) + self.cv2(x))
+
+
+class LightConv(nn.Module):
+    """1x1 Conv+BN without activation, then a depthwise k x k Conv+BN+act
+    (reference conv.py:150-184, PaddleDetection's HGNetV2)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, act: Any = "relu"):
+        super().__init__()
+        self.conv1 = ConvBNAct(c1, c2, 1, act=False)
+        self.conv2 = ConvBNAct(c2, c2, k, g=c2, act=act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv2(self.conv1(x))
+
+
+class HGStem(nn.Module):
+    """PPHGNetV2 stem (reference block.py:104-139), all ReLU: stem1 (3x3 s2),
+    a right/bottom zero pad of 1, then stem2a -> pad -> stem2b (2x2 convs) beside
+    a 2x2 stride-1 max pool of the padded map, concat, stem3 (3x3 s2), stem4 (1x1)."""
+
+    def __init__(self, c1: int, cm: int, c2: int):
+        super().__init__()
+        self.stem1 = ConvBNAct(c1, cm, 3, 2, act="relu")
+        self.stem2a = ConvBNAct(cm, cm // 2, 2, 1, 0, act="relu")
+        self.stem2b = ConvBNAct(cm // 2, cm, 2, 1, 0, act="relu")
+        self.stem3 = ConvBNAct(cm * 2, cm, 3, 2, act="relu")
+        self.stem4 = ConvBNAct(cm, c2, 1, 1, act="relu")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = F.pad(self.stem1(x), [0, 1, 0, 1])
+        x2 = self.stem2b(F.pad(self.stem2a(x), [0, 1, 0, 1]))
+        x = torch.cat([F.max_pool2d(x, 2, 1), x2], dim=1)
+        return self.stem4(self.stem3(x))
+
+
+class HGBlock(nn.Module):
+    """PPHGNetV2 block (reference block.py:141-184): ``n`` chained k x k
+    convs (LightConvs with ``lightconv``), all outputs and the input
+    concatenated, squeezed to c2 / 2 and excited to c2 by 1x1s; the input is
+    added when ``shortcut`` and c1 == c2."""
+
+    def __init__(self, c1: int, cm: int, c2: int, k: int = 3, n: int = 6, lightconv: bool = False,
+                 shortcut: bool = False, act: Any = "relu"):
+        super().__init__()
+        self.m = nn.ModuleList(
+            LightConv(c1 if i == 0 else cm, cm, k, act=act) if lightconv
+            else ConvBNAct(c1 if i == 0 else cm, cm, k, act=act) for i in range(n))
+        self.sc = ConvBNAct(c1 + n * cm, c2 // 2, 1, act=act)
+        self.ec = ConvBNAct(c2 // 2, c2, 1, act=act)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        ys = [x]
+        for m in self.m:
+            ys.append(m(ys[-1]))
+        y = self.ec(self.sc(torch.cat(ys, dim=1)))
+        return y + x if self.add else y
 
 
 class RepBottleneck(Bottleneck):

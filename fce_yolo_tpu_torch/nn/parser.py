@@ -4,10 +4,11 @@ Same semantics as the reference's ``parse_model_yaml`` for the modules the
 port builds: depth/width/max_channels compound scaling, per-module channel
 inference, the forced ``c3k`` at m/l/x, the ``legacy`` flips of C3k2, A2C2f
 and C2fCIB with A2C2f's residual form at l/x, the FCE argument rewriting,
-the v8-cls ResNet layers, v9's CBLinear, v10's head and the ``TorchVision``
-trunk, and the savelist. Branches for modules the port does not build yet
-(RT-DETR, World, YOLOE, Index) are left out; their layers fall through to the
-generic channel rule and ``make_layer`` refuses them by name.
+the v8-cls ResNet layers, v9's CBLinear, v10's head, the ``TorchVision``
+trunk, RT-DETR's HGNetV2 blocks, AIFI and decoder, and the savelist.
+Branches for modules the port does not build yet (World, YOLOE, Index) are
+left out; their layers fall through to the generic channel rule and
+``make_layer`` refuses them by name.
 """
 
 from __future__ import annotations
@@ -61,8 +62,8 @@ class ModelSpec:
     @property
     def task(self) -> str:
         """The task, from the head's name (reference ``ModelSpec.task``, parser.py:62-69)."""
-        return {"Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify"}.get(
-            self.layers[-1].name, "detect")
+        return {"Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify",
+                "RTDETRDecoder": "rtdetr"}.get(self.layers[-1].name, "detect")
 
 
 def _adaptive_reduction(inp: int) -> int:
@@ -134,6 +135,18 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                     args.extend((True, 1.2))
             if name == "C2fCIB":
                 legacy = False
+        elif name == "AIFI":  # (c1, cm, num_heads), channels kept
+            args = [ch_list[f], *args]
+            c2 = ch_list[f]
+        elif name in ("HGStem", "HGBlock"):  # (c1, cm, c2, ...), not width-scaled (tasks.py:1618-1623)
+            c1, cm, c2 = ch_list[f], args[0], args[1]
+            args = [c1, cm, c2, *args[2:]]
+            if name == "HGBlock":
+                args.insert(4, n_rep)  # the count of inner convs
+                n_rep = 1
+        elif name == "RTDETRDecoder":  # [nc, ch, hd, nq, ndl]: the channels go in at index 1 (tasks.py:1717)
+            args.insert(1, [ch_list[x] for x in f])
+            c2 = args[0] if isinstance(args[0], int) else nc
         elif name == "Concat":
             c2 = sum(ch_list[x] for x in f)
         elif name == "BiFPN_Concat":

@@ -17,6 +17,13 @@
   params/layers_0/m/layer2_0/conv1/kernel  ->  model.0.m.layer2.0.conv1.weight  (a ResNet trunk's bare conv)
   params/layers_0/m/layer2_0/down_conv/kernel  ->  model.0.m.layer2.0.downsample.0.weight
   params/layers_0/m/layer2_0/down_bn/scale     ->  model.0.m.layer2.0.downsample.1.weight
+  params/layers_11/ma/in_proj_weight  (3C, C)  ->  model.11.ma.in_proj_weight   (as it is)
+  params/layers_11/ma/out_proj_weight (out, in)  ->  model.11.ma.out_proj.weight  (as it is)
+  params/layers_11/norm1/scale             ->  model.11.norm1.weight   (LayerNorm)
+  params/layers_28/decoder_layers_0/norm3/bias  ->  model.28.decoder.layers.0.norm3.bias
+  params/layers_28/dec_bbox_head_0/layers_2/kernel  ->  model.28.dec_bbox_head.0.layers.2.weight  (an MLP's Linear)
+  params/layers_28/input_proj_0_0/conv2d/kernel  ->  model.28.input_proj.0.0.weight
+  params/layers_28/denoising_class_embed   ->  model.28.denoising_class_embed.weight  (nn.Embedding)
 
 A task head (Segment, Pose, OBB) nests its Detect trunk under a ``detect``
 scope in flax; the port's keys are Ultralytics' flat names, so the scope is
@@ -37,6 +44,15 @@ do; without a model, its flax scope tells: the JAX package builds its
 ``nn.ConvTranspose`` modules under two names, Proto's ``upsample`` and the
 layer's ``conv_transpose2d`` (``_CONV_T``).
 
+RT-DETR (``nn/transformer.py``, ``RTDETRDecoder``): a flax ``Dense``
+kernel is transposed into a Linear's weight, a ``LayerNorm``'s ``scale`` is
+its ``weight``; the attention's packed ``in_proj_*`` and its
+``out_proj_{weight,bias}`` keep torch's layout (the JAX ``_TorchMHA``
+declares them so); the embedding tables are flax leaves of the head's scope;
+flax flattens Ultralytics' ``decoder.layers.N`` into ``decoder_layers_N``,
+and only the first token of a path is a model layer (``layers_N`` deeper
+down is an MLP's ``layers.N``).
+
 Takes plain numpy trees, so it needs no JAX (``jax.device_get`` or
 ``np.asarray`` the variables first). ``key_to_flax`` is the inverse, for a
 key of a given model (the optimizer's parameter groups and ``freeze`` read
@@ -54,6 +70,7 @@ from torch import nn
 
 from fce_yolo_tpu_torch.nn.heads import OBB, Pose, Segment
 from fce_yolo_tpu_torch.nn.resnet import ResNetTrunk
+from fce_yolo_tpu_torch.nn.transformer import TorchMHA
 
 _LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
     ("params", "kernel"): (nn.Conv2d, "weight"),
@@ -67,14 +84,19 @@ _TRUNK = "detect"  # the flax scope of a task head's Detect trunk
 _LAYER_CONV_T = "conv_transpose2d"  # the flax scope of a YAML nn.ConvTranspose2d layer's weights
 _CONV_T = ("upsample", _LAYER_CONV_T)  # the scopes of the JAX package's flax ConvTranspose modules
 _RESNET_DOWN = {"down_conv": "downsample.0", "down_bn": "downsample.1"}  # flax scope -> torchvision's name
+_EMBED = ("denoising_class_embed",)  # flax leaves that are an nn.Embedding's weight
+_OUT_PROJ = ("out_proj_weight", "out_proj_bias")  # the attention's out projection, flax leaves
 
 
-def _module_token(name: str) -> str:
-    """``layers_5`` -> ``model.5``; ``cv2_0_1`` -> ``cv2.0.1``; ``proj_q_h`` stays."""
+def _module_token(name: str, top: bool = True) -> str:
+    """``layers_5`` -> ``model.5`` (at the ``top`` of a path, else ``layers.5``);
+    ``cv2_0_1`` -> ``cv2.0.1``; ``decoder_layers_0`` -> ``decoder.layers.0``; ``proj_q_h`` stays."""
     m = re.fullmatch(r"(.*?)((?:_\d+)+)", name)
     if not m:
         return name
-    base = "model" if m.group(1) == "layers" else m.group(1)
+    base = "model" if m.group(1) == "layers" and top else m.group(1)
+    if base == "decoder_layers":
+        base = "decoder.layers"
     return base + m.group(2).replace("_", ".")
 
 
@@ -89,8 +111,14 @@ def _walk(node: Mapping[str, Any], path: tuple[str, ...] = ()):
 def flax_path_to_key(collection: str, path: tuple[str, ...]) -> str:
     """One flax leaf path -> the port's state_dict key."""
     *mods, leaf = path
-    parts = [_RESNET_DOWN.get(p, _module_token(p)) for p in mods if p not in (_BARE_CONV, _TRUNK, _LAYER_CONV_T)]
-    parts.append(_LEAF.get((collection, leaf), (None, leaf))[1])
+    parts = [_RESNET_DOWN.get(p, _module_token(p, top=i == 0)) for i, p in enumerate(mods)
+             if p not in (_BARE_CONV, _TRUNK, _LAYER_CONV_T)]
+    if leaf in _EMBED:
+        parts += [leaf, "weight"]
+    elif leaf in _OUT_PROJ:
+        parts += ["out_proj", leaf.rpartition("_")[2]]
+    else:
+        parts.append(_LEAF.get((collection, leaf), (None, leaf))[1])
     return ".".join(parts)
 
 
@@ -107,13 +135,22 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
             mods[-1] = f"{mods[-1]}_{t}"
         else:
             mods.append(t)
+    if "decoder" in mods:  # Ultralytics' decoder.layers.N is flax's decoder_layers_N
+        i = mods.index("decoder")
+        if i + 1 < len(mods) and mods[i + 1].startswith("layers_"):
+            mods[i:i + 2] = [f"decoder_{mods[i + 1]}"]
     if mods and tokens[0] == "model":
         mods[0] = "layers" + mods[0][len("model"):]
         head = model.get_submodule(".".join(tokens[:2])) if len(tokens) > 2 else None
         if isinstance(head, (Segment, Pose, OBB)) and tokens[2] in ("cv2", "cv3"):
             mods.insert(1, _TRUNK)
-    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d, nn.ConvTranspose2d, nn.Linear) if isinstance(owner, k)),
-                None)
+    if isinstance(owner, nn.Embedding):
+        return "params", tuple(mods)
+    if isinstance(owner, nn.Linear) and tokens[-1] == "out_proj" and isinstance(
+            model.get_submodule(mod_name.rpartition(".")[0]), TorchMHA):
+        return "params", tuple(mods[:-1]) + (f"out_proj_{leaf}",)
+    kind = next((k for k in (nn.Conv2d, nn.BatchNorm2d, nn.ConvTranspose2d, nn.Linear, nn.LayerNorm)
+                 if isinstance(owner, k)), None)
     if any(isinstance(model.get_submodule(".".join(tokens[:i])), ResNetTrunk) for i in range(1, len(tokens))):
         down = {v.replace(".", "_"): k for k, v in _RESNET_DOWN.items()}
         mods = [down.get(m, m) for m in mods]
@@ -121,8 +158,8 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
         mods.append(_BARE_CONV)
     if kind is nn.ConvTranspose2d and len(tokens) == 2 and tokens[0] == "model":
         mods.append(_LAYER_CONV_T)
-    collection, flax_leaf = _FLAX_LEAF.get((nn.Conv2d if kind in (nn.ConvTranspose2d, nn.Linear) else kind, leaf),
-                                           ("params", leaf))
+    kind = {nn.ConvTranspose2d: nn.Conv2d, nn.Linear: nn.Conv2d, nn.LayerNorm: nn.BatchNorm2d}.get(kind, kind)
+    collection, flax_leaf = _FLAX_LEAF.get((kind, leaf), ("params", leaf))
     return collection, tuple(mods) + (flax_leaf,)
 
 

@@ -92,15 +92,20 @@ def _bn_buffers(model: nn.Module) -> list[torch.Tensor]:
 def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionLossCfg, ema_decay: float = 0.9999,
                     bf16: bool = False, accumulate: int = 1, frozen_bn: bool = False,
                     boundaries: np.ndarray | None = None,
-                    task_loss: Callable | None = None) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+                    task_loss: Callable | None = None, model_kwargs: Callable[[dict], dict] | None = None
+                    ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """Build ``train_step(state, batch) -> (state, metrics)`` (module docstring).
 
     ``batch``: "img" (B, H, W, 3) uint8 (or float in [0, 1]), "cls" (B, M),
     "bboxes" (B, M, 4) normalized xywh (5 with the angle for OBB), "mask"
-    (B, M) bool, and the task's "masks" or "keypoints", all on the model's
-    device. ``task_loss(out, batch, loss_cfg, loss_state) -> (total, parts,
+    (B, M) bool, and whatever else the task's loss reads ("masks",
+    "keypoints", ...), all on the model's device; every key but "img" goes to
+    the loss. ``task_loss(out, batch, loss_cfg, loss_state) -> (total, parts,
     new_state)`` replaces the detection loss (``train/task_losses.py``).
-    ``metrics``: "loss" and the loss parts as device tensors, "finite"
+    ``model_kwargs(batch)`` gives the task's keyword arguments for the
+    model's forward (RT-DETR's denoising queries).
+    ``metrics``: "loss" and the loss parts as device tensors (a part the
+    loss gives as a float stays one: ``detr_loss``'s "match_host_s"), "finite"
     (bool) and "sync_s", the seconds the host waited for the device to tell
     whether the loss was finite.
     """
@@ -118,10 +123,11 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionL
         params = state.params
         for p in params:
             p.grad = None
+        kw = model_kwargs(batch) if model_kwargs is not None else {}
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
-            out = model(x)
+            out = model(x, **kw)
         out = {k: [f.float() for f in v] if isinstance(v, (list, tuple)) else v.float() for k, v in out.items()}
-        targets = {k: batch[k] for k in ("cls", "bboxes", "mask", "masks", "keypoints") if k in batch}
+        targets = {k: v for k, v in batch.items() if k != "img"}
         if task_loss is not None:
             total, parts, new_ls = task_loss(out, targets, loss_cfg, state.loss_state)
         else:
@@ -158,7 +164,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionL
         for p in params:
             p.grad = None
         metrics = {"loss": total.detach(), "finite": finite, "sync_s": t_sync,
-                   **{k: v.detach() for k, v in parts.items()}}
+                   **{k: v.detach() if isinstance(v, torch.Tensor) else v for k, v in parts.items()}}
         return state, metrics
 
     return train_step

@@ -59,8 +59,10 @@ from fce_yolo_tpu_torch.train.task_losses import classification_loss
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
+from test_torch_modules import jax_known_strides  # noqa: F401
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 
 def _moved(v: dict, seed: int = 1) -> dict:

@@ -44,9 +44,11 @@ def _scales(name: str) -> list:
 
 
 def test_packaged_yaml_files_are_the_jax_files():
-    """The 32 family YAMLs above and the v10 and ResNet-classify ones
-    (``test_torch_v10.py``, ``test_torch_resnet.py``), byte-equal."""
-    others = ["yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x", "yolo11-cls-resnet18"]
+    """The 32 family YAMLs above and the v10, ResNet-classify and RT-DETR
+    ones (``test_torch_v10.py``, ``test_torch_resnet.py``,
+    ``test_torch_transformer.py``), byte-equal."""
+    others = ["yolov10n", "yolov10s", "yolov10m", "yolov10b", "yolov10l", "yolov10x", "yolo11-cls-resnet18",
+              "rtdetr-l", "rtdetr-x", "rtdetr-resnet50", "rtdetr-resnet101", "yolov8-rtdetr"]
     assert sorted(p.stem for p in MODELS_DIR.glob("*.yaml")) == sorted(FAMILIES + others)
     for name in FAMILIES + others:
         assert (MODELS_DIR / f"{name}.yaml").read_bytes() == (JAX_CFG / f"{name}.yaml").read_bytes(), name
@@ -130,11 +132,10 @@ def test_meta_stride_probe_with_two_to_four_levels(name, strides):
 
 
 @pytest.mark.parametrize("layer,item", [
-    ("HGStem", "12"), ("HGBlock", "12"), ("RepC3", "12"), ("AIFI", "12"), ("RTDETRDecoder", "12"),
     ("WorldDetect", "12"), ("C2fAttn", "12"), ("ImagePoolingAttn", "12"), ("YOLOEDetect", "12"),
     ("YOLOESegment", "12"),
     ("C1", "7.2"), ("C3x", "7.2"), ("Focus", "7.2"), ("Conv2", "7.2"), ("BottleneckCSP", "7.2"), ("C3TR", "7.2"),
-    ("CBAM", "7.2"), ("LightConv", "7.2"), ("Index", "7.2"), ("C2fPSA", "7.2"), ("AGLU", "7.2"),
+    ("CBAM", "7.2"), ("Index", "7.2"), ("C2fPSA", "7.2"), ("AGLU", "7.2"),
     ("DWConvTranspose2d", "7.2"),
 ])
 def test_refused_layers_name_their_roadmap_item(layer, item):
@@ -143,11 +144,23 @@ def test_refused_layers_name_their_roadmap_item(layer, item):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("rtdetr-l.yaml", "12"), ("yolov8-worldv2.yaml", "12"), ("yoloe-11.yaml", "12"),
+    ("yolov8-world.yaml", "12"), ("yolov8-worldv2.yaml", "12"), ("yoloe-11.yaml", "12"),
 ])
 def test_refused_families_name_their_roadmap_item(name, item):
     with pytest.raises(KeyError, match=rf"ROADMAP queue 1, item {item}\)"):
         build_model(JAX_CFG / name, device="cpu")
+
+
+@pytest.mark.parametrize("layer,args", [
+    ("HGStem", [3, 16, 32]), ("HGBlock", [16, 8, 32, 3, 2, True, False]), ("RepC3", [16, 32, 2]),
+    ("AIFI", [16, 32, 4]), ("RTDETRDecoder", [3, [16, 16, 16], 32, 10, 1]), ("LightConv", [16, 16, 3]),
+])
+def test_layers_of_item_12_1_build_by_name(layer, args):
+    """The layers ROADMAP item 12.1 ported (RT-DETR's, and LightConv, which
+    item 7.2 listed) are no longer refused: ``make_layer`` builds each from
+    its parsed arguments; rtdetr-l builds (``test_torch_transformer.py``)."""
+    built = make_layer(LayerSpec(i=3, f=-1, name=layer, args=args, c2=16), (8, 16, 32))
+    assert isinstance(built, torch.nn.Module) and sum(p.numel() for p in built.parameters()) > 0
 
 
 @pytest.mark.parametrize("layer,args", [

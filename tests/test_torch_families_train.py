@@ -33,8 +33,10 @@ from fce_yolo_tpu_torch.nn.weights import key_to_flax, state_dict_to_variables
 from fce_yolo_tpu_torch.train import loss as ploss
 from fce_yolo_tpu_torch.train.optim import param_groups
 from test_torch_families_models import narrow_v9e
+from test_torch_modules import jax_known_strides  # noqa: F401
 
 torch.set_num_threads(1)
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 
 def _port(name: str, seed: int = 1) -> YOLO:

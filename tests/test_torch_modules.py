@@ -39,6 +39,44 @@ def jax_detection_model(cfg, scale: str | None = None, strides: tuple = (8, 16, 
     strides = () if spec.task == "classify" else strides
     return JaxDetectionModel(spec=spec, strides=strides), spec, strides
 
+def _known_strides(spec):
+    return () if spec.task == "classify" else (8, 16, 32)
+
+
+@pytest.fixture(scope="module")
+def jax_known_strides():
+    """JAX facades built in the module take the known strides (8, 16, 32)
+    (none for a classifier) in place of their ``eval_shape`` stride probe,
+    which traces the whole model twice (the port's probe is held to these
+    strides in ``test_torch_parser.py`` and ``test_torch_families_parse.py``)."""
+    import fce_yolo_tpu.nn.model as jax_model
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_model, "resolve_strides", _known_strides)
+        yield
+
+
+def jax_facade(name, seed: int, bias_prior: bool = True, **kw):
+    """(JAX facade, port facade on the CPU) of ``name`` on the same weights:
+    the port's initialisation from ``seed`` (``init_weights``: flax's
+    initialisers, drawn by torch), bridged to flax for the JAX facade. The
+    JAX facade is built with the known strides (8, 16, 32) in place of its
+    ``eval_shape`` stride probe; the weights are not the JAX ``init_variables``
+    (a jitted flax init of a whole model costs 7-30 s on the CPU)."""
+    import fce_yolo_tpu.nn.model as jax_model
+    from fce_yolo_tpu.api import YOLO as JaxYOLO
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn.weights import state_dict_to_variables as to_flax
+
+    port = YOLO(name, device="cpu", **kw)
+    init_weights(port.model, torch.Generator().manual_seed(seed), bias_prior=bias_prior)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_model, "resolve_strides", _known_strides)
+        jy = JaxYOLO(name, **kw)
+    jy.variables = to_flax(port.model)
+    return jy, port
+
+
 torch.set_num_threads(1)
 
 

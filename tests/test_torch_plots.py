@@ -32,6 +32,9 @@ from fce_yolo_tpu_torch import YOLO
 from fce_yolo_tpu_torch.experiments.analysis import load_results
 from test_torch_draw import DRAWN_SHARE, _box_band, _label_boxes, assert_bounded
 from test_torch_val import png_dataset, variables  # noqa: F401 (fixtures)
+from test_torch_modules import jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 
 def test_val_plots_match_jax(png_dataset, variables, tmp_path, monkeypatch, capsys):  # noqa: F811

@@ -19,12 +19,12 @@ import numpy as np
 import pytest
 import torch
 
-from fce_yolo_tpu.api import YOLO as JaxYOLO
 from fce_yolo_tpu.data.augment import letterbox as jax_letterbox
 from fce_yolo_tpu.nn.model import init_variables
 from fce_yolo_tpu_torch import YOLO, api
 from fce_yolo_tpu_torch.data.augment import letterbox
 from fce_yolo_tpu_torch.engine.results import Results
+from test_torch_modules import jax_facade
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -38,13 +38,10 @@ def _images(seed=0):
 
 @pytest.mark.parametrize("name", ["yolo11n-fce.yaml", "yolo11s.yaml"])
 def test_predict_matches_jax_facade(name):
-    jy = JaxYOLO(name)
     # bias_prior=False: scores sit near 0.5, so NMS works through every candidate
-    jy.variables = jax.jit(lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(
-        jax.random.PRNGKey(1))
+    jy, port = jax_facade(name, 1, bias_prior=False)
     imgs = _images()
     ref = jy.predict(imgs, imgsz=128, batch=2)
-    port = YOLO(name, device="cpu").load_jax_variables(jax.tree_util.tree_map(np.asarray, jy.variables))
     out = port.predict(imgs, imgsz=128, batch=2)
     assert len(out) == len(ref) == len(imgs)
     for r, o in zip(ref, out):
@@ -247,10 +244,7 @@ def jpeg_dir(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def predict_pair():
-    jy = JaxYOLO("yolo11n-fce.yaml")
-    jy.variables = jax.jit(lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(jax.random.PRNGKey(2))
-    port = YOLO("yolo11n-fce.yaml", device="cpu").load_jax_variables(jax.tree_util.tree_map(np.asarray, jy.variables))
-    return jy, port
+    return jax_facade("yolo11n-fce.yaml", 2, bias_prior=False)
 
 
 @pytest.mark.parametrize("form", ["file", "directory", "list", "tuple-of-file-and-directory"])
@@ -363,19 +357,20 @@ TASK_MODELS = {"segment": "yolo11n-seg.yaml", "pose": "yolo11n-pose.yaml", "obb"
 def task_predicts():
     """Each task head's JAX and port facades on the same seed-1 weights
     without the class prior (scores near 0.5, so NMS works through every
-    candidate), and both predicts on ``_images()`` at imgsz 128, batch 2, run once."""
+    candidate): the port's init (``jax_facade``), the JAX init for segment;
+    and both predicts on ``_images()`` at imgsz 128, batch 2, run once."""
     done = {}
 
     def run(task: str):
         if task not in done:
-            jy = JaxYOLO(TASK_MODELS[task])
-            jy.variables = jax.tree_util.tree_map(np.array, jax.jit(
-                lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(jax.random.PRNGKey(1)))
-            if task == "segment":  # mask coefficients up a little: masks of about half their boxes
-                for name, branch in jy.variables["params"]["layers_23"].items():
-                    if name.startswith("cv4_") and name.endswith("_2"):
+            jy, port = jax_facade(TASK_MODELS[task], 1, bias_prior=False)
+            if task == "segment":  # the JAX init's weights, on which the mask test's 1e-5 band was set
+                jy.variables = jax.tree_util.tree_map(np.array, jax.jit(
+                    lambda k: init_variables(jy.model, k, imgsz=64, bias_prior=False))(jax.random.PRNGKey(1)))
+                for name, branch in jy.variables["params"]["layers_23"].items():  # mask coefficients up a
+                    if name.startswith("cv4_") and name.endswith("_2"):  # little: masks of about half their boxes
                         branch["conv2d"]["bias"] += 0.3
-            port = YOLO(TASK_MODELS[task], device="cpu").load_jax_variables(jy.variables)
+                port.load_jax_variables(jy.variables)
             done[task] = (jy, port, jy.predict(_images(), imgsz=128, batch=2), port.predict(_images(), imgsz=128, batch=2))
         return done[task]
 

@@ -25,7 +25,9 @@ from fce_yolo_tpu_torch.nn import resnet as PR
 from fce_yolo_tpu_torch.nn.model import fold_conv_bn, init_weights
 from fce_yolo_tpu_torch.nn.weights import state_dict_to_variables, variables_to_state_dict
 from test_torch_classify import _assert_same_probs
-from test_torch_modules import _close, _nchw_to_nhwc
+from test_torch_modules import _close, _nchw_to_nhwc, jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 

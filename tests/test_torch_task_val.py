@@ -25,7 +25,9 @@ from fce_yolo_tpu.nn.model import init_variables
 from fce_yolo_tpu_torch import YOLO
 from fce_yolo_tpu_torch.cfg.models import MODELS
 from fce_yolo_tpu_torch.nn.model import build_model
-from test_torch_modules import jax_detection_model
+from test_torch_modules import jax_detection_model, jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 

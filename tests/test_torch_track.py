@@ -32,6 +32,9 @@ from fce_yolo_tpu_torch import YOLO
 from fce_yolo_tpu_torch import trackers as pt
 from fce_yolo_tpu_torch.engine.results import Results
 from fce_yolo_tpu_torch.trackers.track import _crop_embed_encoder
+from test_torch_modules import jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 COLORS = [(40, 40, 230), (40, 230, 40), (230, 40, 40), (230, 230, 40), (230, 40, 230)]
 

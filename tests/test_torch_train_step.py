@@ -36,6 +36,9 @@ from fce_yolo_tpu_torch.train import optim as popt
 from fce_yolo_tpu_torch.train import trainer as ptrainer
 from test_torch_train import (B, FLAT_OPT, STEPS, flat_mosaic_batch, float64_step, make_batches,  # noqa: F401
                               png_dataset, step_distance, to_flax)
+from test_torch_modules import jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 

@@ -36,7 +36,9 @@ from fce_yolo_tpu_torch.nn import modules as PM
 from fce_yolo_tpu_torch.nn.model import build_model, fold_conv_bn, init_weights
 from fce_yolo_tpu_torch.nn.weights import state_dict_to_variables, variables_to_state_dict
 from test_torch_data import png_copy
-from test_torch_modules import _close, _nchw_to_nhwc, _pair, _x
+from test_torch_modules import _close, _nchw_to_nhwc, _pair, _x, jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 JAX_V10N = str(Path(fce_yolo_tpu.__file__).parent / "cfg" / "models" / "yolov10n.yaml")  # the JAX facade takes a path

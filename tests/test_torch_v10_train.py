@@ -31,6 +31,9 @@ from fce_yolo_tpu_torch.train import task_losses as ptask
 from fce_yolo_tpu_torch.train.optim import param_groups
 from test_torch_families_train import _batch, _port
 from test_torch_v10 import JAX_V10N
+from test_torch_modules import jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 

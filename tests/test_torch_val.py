@@ -29,6 +29,9 @@ from fce_yolo_tpu_torch import YOLO
 from fce_yolo_tpu_torch.data.dataset import check_det_dataset
 from fce_yolo_tpu_torch.engine.validator import DetectionValidator
 from test_torch_data import png_copy
+from test_torch_modules import jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 KEYS = ("metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)", "metrics/mAP50-95(B)", "fitness")

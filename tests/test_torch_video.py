@@ -43,6 +43,9 @@ from test_torch_track import _assert_same_tracks, _frames, pair  # noqa: F401
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402
+from test_torch_modules import jax_known_strides  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("jax_known_strides")  # no JAX stride probe (test_torch_modules.py)
 
 torch.set_num_threads(1)
 
