@@ -58,13 +58,13 @@ from a seed) and checks that each path went through its kernels:
   held against its plain version on the fed batch, the kernel path's preds
   against the plain path's, and for segment and pose the NMS kernel's
   idx/ok, masks and keypoints equal to the plain version's on the same
-  preds) and ``YOLO.val`` in float32 on 32 PNG images it writes with
+  preds) and ``YOLO.val`` in float32 on 16 PNG images it writes with
   polygons, 17-keypoint instances or rotated rectangles (the NMS kernel
   once a segment or pose batch and bit-equal to the plain version on each,
   the same P/R/mAP of every family from both, box mAP50 above zero);
 - their training (phase task_train), on those images as both splits: one
   float32 SGD step of each on the card against the CPU, then ``YOLO.train``
-  (bf16, AdamW, B=16, 1 epoch of 2 steps; mosaic on segment and pose,
+  (bf16, AdamW, B=16, 1 epoch of 1 step; mosaic on segment and pose,
   ``copy_paste`` on segment): finite losses, the task validator on the EMA
   model each epoch, the NMS kernel (segment, pose) bit-equal to its plain
   version on every val batch, ``best`` reloaded with its task and keypoint
@@ -123,6 +123,19 @@ from a seed) and checks that each path went through its kernels:
   stem, no NMS: the decoder's queries are the detections) with one batch
   under torch.profiler, ``YOLO.val`` on 16 PNG images and a two-step
   ``YOLO.train`` with the denoising groups and the Hungarian matching;
+- YOLO-World and YOLOE (phase world): the six open-vocabulary YAMLs at s
+  built and run once in bf16 with the hash text of 80 names bound;
+  yolov8s-worldv2's and yoloe-11s's float32 ``preds`` and the CLIP text and
+  vision towers on the card against the CPU; ``YOLOE.set_classes`` then
+  ``YOLO.predict`` of yoloe-11s in bf16 at B=16 (the stem kernel once a
+  batch with the text on the graph, held against its plain version, the
+  kernel path's scores following the bound text; NMS once a batch, equal
+  to the plain version) and of yolov8s-worldv2 (NMS only), each with one
+  batch under torch.profiler; a visual-prompt predict (NMS once);
+  ``YOLOWorld.val`` on 16 PNG images (NMS once a batch); and
+  ``train_multimodal`` and ``train_visual_prompt`` for one epoch of two
+  steps, the latter leaving every parameter outside SAVPE bit-equal, then
+  each one's step timed alone on one batch;
 - weights in (phase weights): an Ultralytics-layout ``.pt`` of yolo11s-fce
   (fp16 ``model``, fp32 ``ema``) opened by ``YOLO(path)`` on the card, its
   weights equal to the ``ema``, predicting in bf16 through the stem and NMS
@@ -190,7 +203,7 @@ JPEG_TRAIN_EPOCHS = 1  # phase jpeg (f): YOLO.train on the 64 JPEGs as both spli
 TRAIN_TOL = 1e-3  # phase train (a), card vs CPU: loss parts, relative; updates, of the largest update
 ABLATION_SCALE = "s"  # phase experiments: every variant at full width and depth
 ABLATION_IMAGES = 16  # phase experiments: the first val images as both splits, 1 step and 1 val batch a stage
-FAMILY_IMAGES = 32  # phase families (d), (e) and v10 (d): the first val images (both splits for (e)), 2 batches
+FAMILY_IMAGES = 16  # phase families (d), (e) and v10 (d): the first val images (both splits for (e)), 1 batch
 # one NVIDIA H100 SXM (data sheet, dense): bf16 tensor cores, f32 on the CUDA cores, HBM
 BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S = 989e12, 67e12, 3.35e12
 
@@ -2716,7 +2729,7 @@ def phase_experiments(root: Path, card: str) -> dict:
 
 # ------------------------------------------------------------ phase tasks
 TASK_MODELS = {"segment": "yolo11s-seg.yaml", "pose": "yolo11s-pose.yaml", "obb": "yolo11s-obb.yaml"}
-TASK_IMAGES = 32  # phase tasks (b): two val batches a task
+TASK_IMAGES = 16  # phase tasks (b): one val batch a task (and task_train (b)'s one step)
 TASK_COLORS = [(80, 80, 255), (80, 255, 80), (255, 80, 80)]  # RGB of classes 0-2
 
 
@@ -4576,6 +4589,401 @@ def phase_rtdetr(root: Path, data: str, card: str) -> dict:
     return paths
 
 
+# ------------------------------------------------------------------ phase world
+WORLD_FAMILY = ("yolov8s-world.yaml", "yolov8s-worldv2.yaml", "yoloe-v8s.yaml", "yoloe-v8s-seg.yaml",
+                "yoloe-11s.yaml", "yoloe-11s-seg.yaml")
+WORLD_BUILD_BATCH = 2  # (a) one bf16 forward of each YAML
+WORLD_CHECK_IMAGES = 2  # (b) card float32 preds against the CPU's
+WORLD_TOL = 1e-4  # (b) preds, card vs CPU, float32 in both (TF32 off): scores absolute, boxes of the largest coordinate
+CLIP_TOL = 1e-4  # (b) the CLIP towers' unit embeddings, card vs CPU, absolute
+WORLD_PREDICT_IMAGES = 32  # (c) two batches of E2E_BATCH
+WORLD_VAL_IMAGES, WORLD_VAL_BATCH = 16, 8  # (e) the first of phase val's images
+WORLD_TRAIN_IMAGES, WORLD_TRAIN_BATCH = 8, 4  # (f) one epoch of two steps, then the step alone on one batch
+
+
+def class_names(n: int = VAL_NC) -> list[str]:
+    """phase val's class names, whose hash embeddings are the bound text."""
+    return [f"class{i}" for i in range(n)]
+
+
+def bind_text(model, names: list[str]) -> None:
+    """Bind the hash embeddings of ``names`` on an open-vocabulary model, as
+    a facade's ``set_classes`` does."""
+    from fce_yolo_tpu_torch.nn.text_model import HashTextEncoder
+
+    model.txt_feats = torch.from_numpy(HashTextEncoder().encode_text(names)[None]).to(next(model.parameters()).device)
+
+
+def spread_scores(yolo) -> None:
+    """Spread the seeded model's class scores, so that NMS keeps detections
+    and its comparisons hold something: the contrastive heads' bias to 0
+    (from -10), and a BNContrastiveHead's BatchNorm made to give unit
+    variance on its input of two random images (the seeded graph shrinks its
+    activations layer by layer, to ~1e-5 at the heads, below the BatchNorm's
+    eps). Bind the text first: World's neck reads it."""
+    head = yolo.model.detect
+    feats: dict[int, torch.Tensor] = {}
+    hooks = [m.register_forward_hook(lambda mod, i, o, k=k: feats.__setitem__(k, o.float()))
+             for k, m in enumerate(head.cv3)]
+    x = torch.rand(2, 3, IMGSZ, IMGSZ, device="cuda", generator=torch.Generator("cuda").manual_seed(SEED + 12))
+    with torch.no_grad():
+        yolo.model.eval()(x.to(next(yolo.model.parameters()).dtype))
+        for h in hooks:
+            h.remove()
+        for k, h in enumerate(head.cv4):
+            h.bias.zero_()
+            if hasattr(h, "norm"):  # unit variance out, whatever the eps
+                var = feats[k].var((0, 2, 3))
+                h.norm.running_mean.copy_(feats[k].mean((0, 2, 3)))
+                h.norm.running_var.copy_(var)
+                h.norm.weight.copy_(torch.sqrt(var + h.norm.eps) / torch.sqrt(var))
+
+
+def world_forwards(card: str) -> dict:
+    """(a) Each World/YOLOE YAML built on the card at s (seed weights), the
+    hash text of 80 names bound, one bf16 eval forward at B=2: finite
+    ``preds`` (B, 8400, 4 + 80 [+ 32 mask coefficients]) at 640 px. Returns {name:
+    (build ms, first forward ms, parameters)}."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn.model import param_count
+
+    out = {}
+    x = torch.rand(WORLD_BUILD_BATCH, 3, IMGSZ, IMGSZ, device="cuda", generator=torch.Generator("cuda").manual_seed(
+        SEED)).to(torch.bfloat16)
+    for name in WORLD_FAMILY:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yolo = YOLO(name, device="cuda")
+        bind_text(yolo.model, class_names())
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        yolo.to(torch.bfloat16)
+        with torch.inference_mode():
+            preds = yolo.model(x)["preds"]
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        n_out = 4 + VAL_NC + (32 if "seg" in name else 0)
+        anchors = sum((IMGSZ // s) ** 2 for s in (8, 16, 32))
+        check(yolo.scale == "s" and yolo.spec.needs_text and tuple(preds.shape) == (WORLD_BUILD_BATCH, anchors, n_out)
+              and bool(torch.isfinite(preds).all()), f"{name}: preds {tuple(preds.shape)}")
+        out[name] = ((t1 - t0) * 1e3, (t2 - t1) * 1e3, param_count(yolo.model))
+        del yolo, preds
+        torch.cuda.empty_cache()
+    print("phase world (a): " + "; ".join(f"{n} built in {b:.0f} ms, first bf16 forward B={WORLD_BUILD_BATCH} {IMGSZ} "
+                                          f"{f:.0f} ms, {p:,} parameters" for n, (b, f, p) in out.items())
+          + f"; hash text of {VAL_NC} names bound [{card}]", flush=True)
+    return out
+
+
+def world_card_vs_cpu(card: str) -> dict:
+    """(b) yolov8s-worldv2 and yoloe-11s (seed weights, scores spread):
+    float32 ``preds`` of 2 letterboxed images on the card (TF32 off) against a
+    CPU copy: the class scores within WORLD_TOL absolute, the boxes within
+    WORLD_TOL of the largest coordinate (as phase v10's V10_TOL); then the CLIP text and
+    vision towers at ViT-B/32 size from one seeded random state dict, the
+    card's unit embeddings against the CPU's within CLIP_TOL, each timed."""
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.nn.clip_vision import CLIPVisionTower
+    from fce_yolo_tpu_torch.nn.text_model import CLIPTextTower
+
+    x = letterboxed(e2e_images(SEED + 8, 1)[:WORLD_CHECK_IMAGES]).permute(0, 3, 1, 2).float() / 255.0
+    errs = {}
+    for name in ("yolov8s-worldv2.yaml", "yoloe-11s.yaml"):
+        card_m = YOLO(name, device="cuda")
+        bind_text(card_m.model, class_names())
+        spread_scores(card_m)
+        cpu_m = YOLO(name, device="cpu")
+        cpu_m.model.load_state_dict(card_m.model.state_dict())
+        bind_text(cpu_m.model, class_names())
+        with torch.inference_mode():
+            ref = cpu_m.model.eval()(x.cpu())["preds"].numpy()
+            got = card_m.model.eval()(x)["preds"].cpu().numpy()
+        dscore = float(np.abs(got[..., 4:] - ref[..., 4:]).max())
+        dbox = float(np.abs(got[..., :4] - ref[..., :4]).max()) / float(np.abs(ref[..., :4]).max())
+        check(dscore <= WORLD_TOL and dbox <= WORLD_TOL and float(ref[..., 4:].std()) > 1e-3,
+              f"{name}: preds card vs CPU: scores {dscore}, boxes {dbox} of the largest (limit {WORLD_TOL}), "
+              f"score spread {ref[..., 4:].std()}")
+        errs[name] = (dscore, dbox)
+        del card_m, cpu_m
+    rng = np.random.RandomState(SEED + 9)
+    tokens = rng.randint(1, 49406, (8, 77))
+    tokens[:, 0], tokens[np.arange(8), rng.randint(3, 77, 8)] = 49406, 49407  # start and end of text
+    tokens = torch.from_numpy(tokens)
+    imgs = torch.from_numpy(rng.normal(0, 1, (8, 3, 224, 224)).astype(np.float32))
+    towers = {}
+    for what, tower, inp in (("text", CLIPTextTower().reset_parameters(SEED), tokens),
+                             ("vision", CLIPVisionTower().reset_parameters(SEED), imgs)):
+        with torch.inference_mode():
+            ref = tower.eval()(inp).numpy()
+            tower.cuda()
+            got = tower(inp.cuda()).cpu().numpy()
+            ms = cuda_ms(lambda: tower(inp.cuda()), iters=5)
+        err = float(np.abs(got - ref).max())
+        check(err <= CLIP_TOL and np.allclose(np.linalg.norm(got, axis=-1), 1, atol=1e-4),
+              f"CLIP {what} tower card vs CPU {err} (limit {CLIP_TOL})")
+        towers[what] = (err, ms, sum(p.numel() for p in tower.parameters()))
+        del tower
+    tower_notes = [f"{w} {e:.2e} (limit {CLIP_TOL}), {n:,} parameters, {ms:.2f} ms for 8 inputs float32 (CUDA events)"
+                   for w, (e, ms, n) in towers.items()]
+    print(f"phase world (b): float32 (TF32 off) preds of {WORLD_CHECK_IMAGES} images card vs CPU, scores absolute "
+          "and boxes of the largest coordinate: " + "; ".join(f"{n} scores {e[0]:.2e}, boxes {e[1]:.2e}"
+                                                               for n, e in errs.items())
+          + f" (limit {WORLD_TOL}); CLIP towers (ViT-B/32, "
+          "seeded random) card vs CPU: " + "; ".join(tower_notes) + f" [{card}]", flush=True)
+    return errs
+
+
+def world_predict(name: str, facade, card: str) -> dict:
+    """(c) ``facade.set_classes`` of 80 names, then ``YOLO.predict`` in bf16
+    (folded, seed weights, scores spread) at B=16 on 32 random arrays through
+    ``task_predict``: the stem kernel once a batch on yoloe-11s (held against
+    ``stem_reference`` on the first batch, the kernel path's preds against
+    the plain path's), none on yolov8s-worldv2 (layer 2 is C2f); the NMS
+    kernel once a batch, equal to the plain version on the first. The bound
+    text reaches the kernel path: another binding moves its scores. Then
+    one batch under torch.profiler. Returns the launches."""
+    from fce_yolo_tpu_torch.engine.predictor import DetectionPredictor
+    from fce_yolo_tpu_torch.ops.stem import apply_with_fused_stem, fold_stem_params, stem_spec_from_model, stem_weights
+
+    yolo = facade(name, device="cuda")
+    yolo.set_classes(class_names())
+    spread_scores(yolo)
+    yolo.to(torch.bfloat16).fuse()
+    stem = "yoloe-11" in name
+    imgs = e2e_images(SEED + 10, 2)[:WORLD_PREDICT_IMAGES]
+    p = task_predict("detect", card, name=name, imgs=imgs, stem=stem, yolo=yolo)
+    batch = letterboxed(imgs[:E2E_BATCH])
+    moved = None
+    if stem:
+        spec = stem_spec_from_model(yolo.spec, (IMGSZ, IMGSZ))
+        weights = stem_weights(fold_stem_params(yolo.model, spec), spec)
+        bound = yolo.model.txt_feats
+        with torch.inference_mode():
+            a = apply_with_fused_stem(yolo.model, batch, spec, weights)["preds"][..., 4:].float()
+            yolo.model.txt_feats = bound.flip(1)  # the same names in another order
+            b = apply_with_fused_stem(yolo.model, batch, spec, weights)["preds"][..., 4:].float()
+        yolo.model.txt_feats = bound
+        moved = float((a - b.flip(-1)).abs().max()), float((a - b).abs().max())
+        check(moved[0] <= 0.02 and moved[1] > 0.01, f"{name}: the kernel path's scores do not follow the bound text "
+              f"(reordered: {moved[0]}, as bound: {moved[1]})")
+    predictor = DetectionPredictor(yolo.model, yolo.names, imgsz=IMGSZ, batch_size=E2E_BATCH)
+    with torch.inference_mode():
+        rows, total = kernel_profile(lambda: predictor.infer(batch))
+    split = rtdetr_split(rows, total)
+    top = "; ".join(f"{n[:100]} x{c} {t:.3f} ms" for n, c, t in rows[:8])
+    stem_note = (f"stem on the fed batch max|d|/max|ref|={p['stem_rel']:.3e} (limit 0.02), per-row max/median="
+                 f"{p['stem_spread']:.2f} (limit 3); preds kernel vs plain path max|d|={p['dmax']:.3e} (limit "
+                 f"{p['bound']:.3e}) corr={p['corr']:.6f}; the kernel path's scores with the names bound in reverse "
+                 f"order: reversed back within {moved[0]:.2e}, as bound {moved[1]:.2e} away; ") if stem else \
+        "no stem (layer 2 is C2f); "
+    print(f"phase world (c): {name} set_classes({VAL_NC} names) predict {IMGSZ} bf16 B={E2E_BATCH}, {p['n_images']} "
+          f"images, {p['n_det']} detections, launches {p['launches']}; {stem_note}NMS kernel idx/ok and outputs "
+          f"equal to the plain version on the fed batch ({p['kept']} kept); {p['img_s']:.1f} img/s through "
+          f"YOLO.predict (host clock, incl. letterbox); {p['ms']:.2f} ms/batch "
+          f"{'stem kernel+' if stem else ''}model+NMS vs "
+          f"{p['ms_plain']:.2f} plain (CUDA events); one batch under torch.profiler: {sum(c for _, c, _ in rows)} "
+          f"kernel launches, {total:.2f} ms of device time ({1 - total / p['ms']:.1%} of the batch's {p['ms']:.2f} ms "
+          f"idle), split {split}; top kernels: {top} [{card}]", flush=True)
+    return p["launches"]
+
+
+def world_visual_prompt(card: str) -> dict:
+    """(d) ``YOLOE.predict(img, visual_prompts=...)`` of yoloe-11s in float32
+    (TF32 off) on one 480x640 image with three prompt boxes of two classes:
+    the NMS kernel once, no stem; the detections' classes are the prompts';
+    the same call with the plain NMS gives the same rows. Returns the launches."""
+    from fce_yolo_tpu_torch import YOLOE
+
+    yolo = YOLOE("yoloe-11s.yaml", device="cuda")
+    spread_scores(yolo)
+    img = e2e_images(SEED + 11, 0)[0]
+    vp = {"bboxes": np.array([[40, 40, 200, 220], [300, 100, 600, 400], [20, 300, 120, 460]], np.float32),
+          "cls": np.array([5, 17, 5])}
+    yolo.predict(img, visual_prompts=vp, imgsz=IMGSZ)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    r = yolo.predict(img, visual_prompts=vp, imgsz=IMGSZ, conf=0.0)[0]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = read_launches()
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=1), f"yoloe-11s visual-prompt predict: launches {launches}")
+    check(len(r) == MAX_DET and set(r.boxes.cls.astype(int)) <= {5, 17} and bool(np.isfinite(r.boxes.data).all()),
+          f"yoloe-11s visual-prompt predict: {len(r)} rows, classes {set(r.boxes.cls.astype(int))}")
+    kernel_vs_plain(lambda: {"rows": yolo.predict(img, visual_prompts=vp, imgsz=IMGSZ, conf=0.0)[0].boxes.data},
+                    [], NMS_K, 0.7, MAX_DET, "yoloe-11s visual-prompt predict")
+    print(f"phase world (d): yoloe-11s visual-prompt predict {IMGSZ} f32 on one 480x640 image, 3 prompt boxes of "
+          f"classes 5 and 17, launches {launches} (no stem: the f32 model takes the plain layers 0-2); {len(r)} rows "
+          f"at conf 0, classes {sorted(set(r.boxes.cls.astype(int)))}, equal with the plain NMS; {ms:.1f} ms a call "
+          f"(host clock, incl. letterbox and the prompt masks) [{card}]", flush=True)
+    return launches
+
+
+def world_val(data: str, card: str) -> dict:
+    """(e) ``YOLOWorld.val`` of yolov8s-worldv2 (float32, seed weights,
+    scores spread, the 80 names bound) on the first 16 of phase val's PNG
+    images at B=8: the NMS kernel once a batch, no stem; the first batch
+    again with the kernel and with its plain version, equal. Returns the launches."""
+    from fce_yolo_tpu_torch import YOLOWorld
+    from fce_yolo_tpu_torch.data.dataset import check_det_dataset
+
+    d = check_det_dataset(data)
+    files = sorted(Path(d["val"]).glob("*.png"))[:WORLD_VAL_IMAGES]
+    sub = {"path": d["path"], "val": [str(f) for f in files], "names": d["names"]}
+    yolo = YOLOWorld("yolov8s-worldv2.yaml", device="cuda")
+    yolo.set_classes(class_names())
+    spread_scores(yolo)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = yolo.val(data=sub, imgsz=IMGSZ, batch=WORLD_VAL_BATCH, verbose=False)
+    torch.cuda.synchronize()
+    img_s = WORLD_VAL_IMAGES / (time.perf_counter() - t0)
+    launches = read_launches()
+    n_batches = WORLD_VAL_IMAGES // WORLD_VAL_BATCH
+    check(launches == no_jpeg(fused_stem=0, pick_suppress=n_batches), f"yolov8s-worldv2 val: launches {launches}")
+    mk = tuple(res["metrics"].mean_results())
+    check(all(np.isfinite(mk)), f"yolov8s-worldv2 val: {mk}")
+    val = yolo._validator(imgsz=IMGSZ, batch_size=WORLD_VAL_BATCH)
+    batch = next(iter(val.get_dataloader(sub)))
+    img = torch.from_numpy(batch["img"]).cuda()
+    with torch.inference_mode():
+        preds = val.forward(img)
+    outs = kernel_vs_plain(lambda: val.to_host(val.nms(preds)), [], NMS_K_VAL, val.iou, val.max_det,
+                           "yolov8s-worldv2 val batch 1")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: val.nms(val.forward(img)), iters=3)
+    print(f"phase world (e): yolov8s-worldv2 YOLOWorld.val {IMGSZ} f32 B={WORLD_VAL_BATCH} on {WORLD_VAL_IMAGES} PNG "
+          f"images, the {VAL_NC} names bound, launches {launches}; P/R/mAP50/mAP50-95 "
+          f"{tuple(round(v, 6) for v in mk)}; "
+          f"the first batch's NMS equal from the kernel and the plain version "
+          f"({int(outs['kernel']['valid'].sum())} kept); {img_s:.1f} img/s through YOLO.val (host clock, incl. PNG "
+          f"decode); {ms:.2f} ms a batch on the device (model and NMS, CUDA events) [{card}]", flush=True)
+    return launches
+
+
+def world_train(data: str, root: Path, card: str) -> dict:
+    """(f) Two trainings of one epoch of two steps at B=4 in bf16 (AdamW, no
+    val, no plots) on 8 of phase val's images as both splits:
+    ``YOLOWorldTrainable.train_multimodal`` of yolov8s-worldv2 (M = 80
+    sampled texts a sample) and ``YOLOE.train_visual_prompt`` of yoloe-11s
+    (the ground truth's 80 P3 masks a sample; every parameter outside
+    ``savpe`` bit-equal after). Finite losses and peak memory; then the
+    step alone on one batch (``world_step_times``). Returns the launches by
+    training."""
+    from fce_yolo_tpu_torch import YOLOE
+    from fce_yolo_tpu_torch.data.dataset import check_det_dataset
+    from fce_yolo_tpu_torch.models.world import YOLOWorldTrainable
+
+    d = check_det_dataset(data)
+    files = [str(f) for f in sorted(Path(d["val"]).glob("*.png"))[:WORLD_TRAIN_IMAGES]]
+    sub = {"path": d["path"], "train": files, "val": files, "names": d["names"]}
+    out, notes = {}, []
+    runs = (("multimodal", YOLOWorldTrainable("yolov8s-worldv2.yaml", device="cuda"),
+             f"yolov8s-worldv2, M={VAL_NC} sampled texts"),
+            ("visual_prompt", YOLOE("yoloe-11s.yaml", device="cuda"), "yoloe-11s, freeze except:savpe"))
+    for what, yolo, about in runs:
+        before = {k: v.clone() for k, v in yolo.model.named_parameters()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        run = yolo.train_multimodal if what == "multimodal" else yolo.train_visual_prompt
+        res = run(sub, epochs=1, batch=WORLD_TRAIN_BATCH, imgsz=IMGSZ, workers=4, val=False, plots=False,
+                  project=str(root / f"runs_world_{what}"), verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[f"world_train_{what}"] = launches = read_launches()
+        check(launches == no_jpeg(fused_stem=0, pick_suppress=0), f"world train {what}: launches {launches}")
+        r, sp = res["results"][0], res["speed"][0]
+        moved = {k for k, v in yolo.model.named_parameters() if not torch.equal(v, before[k])}
+        check(res["epochs_run"] == 1 and np.isfinite(r["train/box_loss"]) and np.isfinite(r["train/cls_loss"])
+              and len(moved) > 0, f"world train {what}: {r}, {len(moved)} tensors moved")
+        outside = sorted(k for k in moved if ".savpe." not in k)
+        if what == "visual_prompt":
+            check(not outside, f"visual-prompt training moved parameters outside savpe: {outside[:5]}")
+        frozen_note = " (all in savpe; the rest bit-equal)" if what == "visual_prompt" else ""
+        step = world_step_times(yolo, sub, what)
+        notes.append(f"{what} ({about}): loss box/cls/dfl {r['train/box_loss']:.4f}/{r['train/cls_loss']:.4f}/"
+                     f"{r['train/dfl_loss']:.4f}, {len(moved)} of {len(before)} parameters moved{frozen_note}; "
+                     f"the epoch's mean step {sp['step_ms']:.1f} ms (its first step's set-up included), loader wait "
+                     f"{sp['loader_wait_ms']:.1f} ms; peak {peak:.2f} GiB; {wall:.1f} s in all; then the step on "
+                     f"one batch, {step['steps']} after {step['warmup']} (host clock, each step ends in its sync): "
+                     f"{step['step_ms']:.1f} ms, peak {step['peak_gib']:.2f} GiB")
+        del yolo, before
+        torch.cuda.empty_cache()
+    print(f"phase world (f): YOLO.train {IMGSZ} bf16 B={WORLD_TRAIN_BATCH} AdamW, 1 epoch of "
+          f"{WORLD_TRAIN_IMAGES // WORLD_TRAIN_BATCH} steps, launches none of the kernels: " + "; ".join(notes)
+          + f" [{card}]", flush=True)
+    return out
+
+
+def world_step_times(yolo, data: dict, what: str, warmup: int = 2, steps: int = 5) -> dict:
+    """The bf16 train step of ``yolo`` after its training in (f) (forward
+    with the batch's ``txt_feats`` or ``visual_prompts``, the detection loss
+    over its K class slots, backward, AdamW, EMA; ``freeze=["except:savpe"]``
+    for the visual-prompt one) on the first batch of ``data``'s train split
+    as the training's dataset makes it: mean ms of ``steps`` after ``warmup``
+    on the host clock, and the peak memory."""
+    from fce_yolo_tpu_torch.data.dataset import check_det_dataset
+    from fce_yolo_tpu_torch.data.loader import DataLoader
+    from fce_yolo_tpu_torch.data.multimodal import YOLOMultiModalDataset, YOLOVisualPromptDataset
+    from fce_yolo_tpu_torch.models.world import dataset_names
+    from fce_yolo_tpu_torch.train.loss import DetectionLossCfg
+    from fce_yolo_tpu_torch.train.optim import OptimCfg, Optimizer
+    from fce_yolo_tpu_torch.train.trainer import create_train_state, make_train_step
+
+    d = check_det_dataset(data)
+    if what == "multimodal":
+        ds = YOLOMultiModalDataset(d["train"], imgsz=IMGSZ, mode="train", device="cuda", names=dataset_names(data),
+                                   max_samples=min(d["nc"], 80))
+        key, freeze = "txt_feats", None
+    else:
+        ds = YOLOVisualPromptDataset(d["train"], imgsz=IMGSZ, mode="train", device="cuda", nc=d["nc"])
+        key, freeze = "visual_prompts", ["except:savpe"]
+    b = next(iter(DataLoader(ds, batch_size=WORLD_TRAIN_BATCH, workers=4)))
+    bdev = {k: torch.from_numpy(b[k]).cuda() for k in ("img", "cls", "bboxes", "mask", key)}
+    opt = Optimizer(OptimCfg(optimizer="AdamW", batch_size=WORLD_TRAIN_BATCH, nbs=WORLD_TRAIN_BATCH, nc=d["nc"]),
+                    yolo.model, freeze=freeze)
+    state = create_train_state(yolo.model, opt)
+    step = make_train_step(yolo.model, opt, DetectionLossCfg(nc=d["nc"], strides=tuple(yolo.strides)), bf16=True)
+    for _ in range(warmup):
+        state, m = step(state, bdev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, m = step(state, bdev)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(m["loss"])), f"world train {what}: the step alone gave loss {m['loss']}")
+    return {"step_ms": (time.perf_counter() - t0) * 1e3 / steps, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "steps": steps, "warmup": warmup}
+
+
+def phase_world(root: Path, data: str, card: str) -> dict:
+    """YOLO-World and YOLOE: (a) the six YAMLs built and run once in bf16;
+    (b) card vs CPU and the CLIP towers; (c) ``YOLOE``/``YOLOWorld``
+    text predict at B=16 bf16 through the stem (yoloe-11s) and NMS kernels;
+    (d) a visual-prompt predict; (e) ``YOLOWorld.val``; (f) the multimodal and
+    visual-prompt trainings. Returns each path's launches."""
+    from fce_yolo_tpu_torch import YOLOE, YOLOWorld
+
+    t_phase = time.perf_counter()
+    world_forwards(card)
+    world_card_vs_cpu(card)
+    torch.cuda.empty_cache()
+    paths = {"world_predict_yoloe": world_predict("yoloe-11s.yaml", YOLOE, card)}
+    torch.cuda.empty_cache()
+    paths["world_predict_world"] = world_predict("yolov8s-worldv2.yaml", YOLOWorld, card)
+    torch.cuda.empty_cache()
+    paths["world_visual_prompt"] = world_visual_prompt(card)
+    paths["world_val"] = world_val(data, card)
+    torch.cuda.empty_cache()
+    paths.update(world_train(data, root, card))
+    print(f"phase world: {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return paths
+
+
 WEIGHTS_FIXTURE = Path(__file__).resolve().parent / "tests" / "fixtures" / "jax_checkpoint"
 WEIGHTS_PREDICTIONS = WEIGHTS_FIXTURE.parent / "jax_checkpoint_predictions.npz"
 WEIGHTS_TOL = {"xyxy": 1e-2, "conf": 1e-4, "preds": 1e-4}  # card float32 (TF32 off) vs JAX's float32 on a CPU
@@ -5658,6 +6066,8 @@ def main() -> None:
         clock("v10")
         rtdetr = phase_rtdetr(Path(tmp), val_data, card)
         clock("rtdetr")
+        world = phase_world(Path(tmp), val_data, card)
+        clock("world")
         weights, zstd_record = phase_weights(Path(tmp), card)
         clock("weights")
         cli = phase_cli(Path(tmp), short_avi, e2e_img_s, train_img_s, card)
@@ -5668,7 +6078,7 @@ def main() -> None:
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
              **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **rtdetr,
-             **weights, **cli, **deploy}
+             **world, **weights, **cli, **deploy}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

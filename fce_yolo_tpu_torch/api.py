@@ -292,12 +292,15 @@ class YOLO:
 
         if self.model is None:
             raise NotImplementedError(f"{self.cfg_yaml} has no model to export: it is an artifact or a server")
-        self._not_rtdetr("export")
+        self._not_ported("export")
         return export_model(self, fmt=format, imgsz=imgsz, **kw)
 
-    def _not_rtdetr(self, what: str) -> None:
+    def _not_ported(self, what: str) -> None:
         if self.model is not None and self.task == "rtdetr":
             raise NotImplementedError(f"{what} of an RT-DETR model is not ported yet (ROADMAP queue 1, item 12.1)")
+        if self.model is not None and self.spec.needs_text:
+            raise NotImplementedError(f"{what} of a YOLO-World or YOLOE model is not ported yet "
+                                      "(ROADMAP queue 1, item 12.2)")
 
     def benchmark(self, data=None, imgsz: int = 640, **kw) -> list[dict]:
         """The benchmark table (reference ``YOLO.benchmark``, api.py:341;
@@ -414,7 +417,7 @@ class YOLO:
         from fce_yolo_tpu_torch.data.augment import letterbox
         from fce_yolo_tpu_torch.engine.predictor import load_source
 
-        self._not_rtdetr("embed")
+        self._not_ported("embed")
         model = self._inference_model()
         dtype = next(model.parameters()).dtype
         imgs = [np.ascontiguousarray(letterbox(img, imgsz)[0][..., ::-1])  # BGR -> RGB
@@ -446,7 +449,7 @@ class YOLO:
         the JAX facade."""
         from fce_yolo_tpu_torch.trackers.track import _crop_embed_encoder, build_tracker, track_stream
 
-        self._not_rtdetr("track")
+        self._not_ported("track")
 
         if not (persist and self._tracker is not None and self._tracker[0] == str(tracker)):
             self._tracker = (str(tracker), build_tracker(tracker, encoder=_crop_embed_encoder(self)))
@@ -528,7 +531,7 @@ class YOLO:
               project: str = "runs/detect", name: str = "train", val: bool = True, save_period: int = -1,
               seed: int = 0, verbose: bool = True, freeze: int | list | None = None, resume: bool = False,
               exist_ok: bool = False, time_limit_hours: float | None = None, bf16: bool | None = None,
-              plots: bool = True, **hyp_overrides) -> dict:
+              plots: bool = True, dataset_cls=None, dataset_kw: dict | None = None, **hyp_overrides) -> dict:
         """Train on ``data`` (a data YAML path or dict) on the model's device
         (reference ``api.py:495-881``), with the task's loss: detection,
         segmentation (the batch carries the instance masks), pose (the
@@ -552,6 +555,11 @@ class YOLO:
 
         An RT-DETR model trains with ``train/detr_loss.py::detr_loss`` and
         contrastive-denoising groups made on the host each batch.
+
+        ``dataset_cls`` (with ``dataset_kw``) replaces ``YOLODataset`` for the
+        train split (reference api.py:571-586): ``data/multimodal.py``'s
+        datasets, whose batches' ``txt_feats`` and ``visual_prompts`` go to
+        the model's forward.
 
         Returns {"save_dir", "best_fitness", "epochs_run", "results" (the csv
         rows), "speed" (per epoch: img/s and the per-step split in ms; for
@@ -586,9 +594,13 @@ class YOLO:
         self.names = d["names"]
         kpt_shape = tuple(self.model.detect.kpt_shape) if self.task == "pose" else (17, 3)
         hyp = AugmentCfg(**{k: v for k, v in hyp_overrides.items() if k in AugmentCfg.__dataclass_fields__})
-        train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed,
-                               device=self.device, task="detect" if self.task == "rtdetr" else self.task,
-                               kpt_shape=kpt_shape, flip_idx=d.get("flip_idx"))
+        if dataset_cls is not None:
+            train_ds = dataset_cls(d["train"], imgsz=imgsz, mode="train", hyp=hyp, seed=seed, device=self.device,
+                                   **(dataset_kw or {}))
+        else:
+            train_ds = YOLODataset(d["train"], imgsz=imgsz, mode="train", hyp=hyp, nc=d["nc"], seed=seed,
+                                   device=self.device, task="detect" if self.task == "rtdetr" else self.task,
+                                   kpt_shape=kpt_shape, flip_idx=d.get("flip_idx"))
         loader = DataLoader(train_ds, batch_size=batch, workers=workers, max_labels=max_labels, seed=seed)
         steps_per_epoch = len(loader)
         save_dir = increment_path(Path(project) / name, exist_ok=resume or exist_ok, mkdir=True)
@@ -615,7 +627,7 @@ class YOLO:
         model_kwargs = batch_hook = None  # RT-DETR's denoising groups: added on the host, handed to the head
         if self.task == "rtdetr":
             task_loss, extra_keys, model_kwargs, batch_hook = _detr_training(self.spec, d["nc"], imgsz)
-        batch_keys = ("img", "cls", "bboxes", "mask", *extra_keys)
+        batch_keys = ("img", "cls", "bboxes", "mask", *extra_keys, "txt_feats", "visual_prompts")
         step_fn = make_train_step(model, opt, loss_cfg, bf16=bf16, accumulate=accumulate, boundaries=bounds,
                                   task_loss=task_loss, model_kwargs=model_kwargs)
 
@@ -675,7 +687,7 @@ class YOLO:
                     if plots and epoch == start_epoch and nb < 3:
                         _plot_train_batch(b, self.names, save_dir / f"train_batch{nb}.jpg", self.device)
                     ts = time.perf_counter()
-                    bdev = {k: torch.from_numpy(b[k]).to(self.device) for k in batch_keys}
+                    bdev = {k: torch.from_numpy(b[k]).to(self.device) for k in batch_keys if k in b}
                     state, m = step_fn(state, bdev)
                     t_step += time.perf_counter() - ts
                     t_sync += m["sync_s"]

@@ -7,7 +7,7 @@ families as YAML files.
 ``yolo11-cls.yaml`` (YAML's unquoted ``None`` is the string "None",
 resolved by the parser like the reference's literal_eval pass).
 ``cfg/models/*.yaml`` are byte-equal copies of the JAX package's v3, v5, v6,
-v8, v9 and yolo12 YAMLs. These files and a user-given model YAML are read by
+v8, v9, v10, yolo12, ResNet-classify, RT-DETR, YOLO-World and YOLOE YAMLs. These files and a user-given model YAML are read by
 the port's own reader (``utils/yaml_read.py``): the port needs no pyyaml.
 """
 
@@ -167,7 +167,7 @@ def _packaged(stem: str) -> dict | None:
 
 def guess_scale(model_name: str) -> str | None:
     """Extract the scale letter from names like ``yolo11s-fce``."""
-    m = re.search(r"yolov?\d+([nslmx])", model_name)
+    m = re.search(r"yolo(?:v|e-v?)?\d+([nslmx])", model_name)
     return m.group(1) if m else None
 
 
@@ -176,13 +176,15 @@ def packaged_model_dict(name: str | Path) -> tuple[dict, str | None] | None:
     (config dict, scale or None), or None when no packaged config has it:
     ``yolo11s-fce.yaml`` -> the ``yolo11-fce`` dict with scale 's'. A
     packaged name is taken as it is first (``yolov9c``, ``yolov3-tiny``: no
-    scale letter to strip), as the JAX ``load_model_yaml`` does."""
+    scale letter to strip), as the JAX ``load_model_yaml`` does. YOLOE's
+    names take a scale letter too (``yoloe-11s-seg.yaml``, ``yoloe-v8s.yaml``),
+    which the JAX package does not resolve (ROADMAP queue 3, item 36)."""
     path = Path(name)
     stem = path.stem if path.suffix in (".yaml", ".yml") else path.name
     d = _packaged(stem)
     if d is not None:
         return d, None
-    m = re.fullmatch(r"(yolov?\d+)([nslmx])(-[\w-]+)?", stem)
+    m = re.fullmatch(r"(yolov?\d+|yoloe-v?\d+)([nslmx])(-[\w-]+)?", stem)
     if m:
         d = _packaged(m.group(1) + (m.group(3) or ""))
         if d is not None:

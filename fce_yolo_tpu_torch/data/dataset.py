@@ -301,7 +301,9 @@ def collate(samples: list[dict], max_labels: int = 128, obb: bool = False) -> di
     - keypoints: ``keypoints`` (B, M, nk, 3), x and y normalized;
     - ``obb``: ``bboxes`` (B, M, 5) normalized xywhr from each four-corner
       polygon's minimum-area rectangle (``min_area_rect``), w >= h and the
-      angle in [-pi/4, 3pi/4).
+      angle in [-pi/4, 3pi/4);
+    - the open-vocabulary datasets' (``data/multimodal.py``): ``txt_feats``
+      (B, max_samples, 512) float32 and ``visual_prompts`` (B, nc, S/8, S/8).
     """
     b = len(samples)
     sh, sw = samples[0]["img"].shape[:2]
@@ -361,6 +363,10 @@ def collate(samples: list[dict], max_labels: int = 128, obb: bool = False) -> di
         out["masks"] = seg_masks
     if kpts_arr is not None:
         out["keypoints"] = kpts_arr
+    if "txt_feats" in samples[0]:
+        out["txt_feats"] = np.stack([x["txt_feats"] for x in samples], 0).astype(np.float32)
+    if "visual_prompts" in samples[0]:
+        out["visual_prompts"] = np.stack([x["visual_prompts"] for x in samples], 0)
     if "ratio" in samples[0]:
         out["ratio"] = np.array([x["ratio"] for x in samples], np.float32)
         out["pad"] = np.array([x["pad"] for x in samples], np.float32)

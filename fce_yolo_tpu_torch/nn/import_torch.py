@@ -8,7 +8,12 @@ tensors keep torch's layouts: the import is a strict load, not the flax
 rewrite of the reference. So are RT-DETR's keys, which the reference maps
 one by one (``import_torch.py:60-95``): ``decoder.layers.N``, the
 attention's ``in_proj_*`` and ``out_proj``, the Linears, the LayerNorms and
-``denoising_class_embed.weight`` are the port's own module names. Dropped: a ``module.`` prefix (DataParallel
+``denoising_class_embed.weight`` are the port's own module names, and so
+are World's and YOLOE's (``attn.gl``, ``attn.bias``, ``query.0``,
+``projections.0``, ``cv4.0.norm``, ``cv4.0.logit_scale``, ``reprta.m.w12``,
+``savpe.cv6.1``; reference ``import_torch.py:101-143``), a YOLOE-seg
+head's trunk flat beside ``proto`` and ``cv5`` where the reference nests it
+under ``detect`` (``:196-197``). Dropped: a ``module.`` prefix (DataParallel
 saves), ``num_batches_tracked`` buffers and ``*.dfl.conv.weight`` (the
 port's DFL decode is parameter-free, as the reference's,
 ``import_torch.py:56``). A ConvTranspose2d kernel is taken as stored: the

@@ -19,8 +19,12 @@ from fce_yolo_tpu_torch.nn import fce
 from fce_yolo_tpu_torch.nn import heads as H
 from fce_yolo_tpu_torch.nn import modules as M
 from fce_yolo_tpu_torch.nn import resnet
+from fce_yolo_tpu_torch.nn import world as W
+from fce_yolo_tpu_torch.nn import yoloe as Y
 from fce_yolo_tpu_torch.nn.parser import LayerSpec, ModelSpec, load_model_yaml, parse_model_yaml
 from fce_yolo_tpu_torch.nn.transformer import AIFI, MSDeformAttn, TorchMHA
+
+TEXT_DIM = 512  # the text embeddings' width (CLIP's projection)
 
 
 # layers built positionally from the parsed args (the JAX ``_POSITIONAL`` table, nn/model.py:29-65)
@@ -35,7 +39,6 @@ _POSITIONAL: dict[str, Any] = {
 }
 # layers the port refuses, by the item of ROADMAP queue 1 that ports them
 _LATER: dict[str, str] = {
-    **dict.fromkeys(("C2fAttn", "ImagePoolingAttn", "WorldDetect", "YOLOEDetect", "YOLOESegment"), "12"),
     **dict.fromkeys(("C1", "C3x", "Focus", "Conv2", "ConvTranspose", "BottleneckCSP", "C3TR", "CBAM",
                      "ChannelAttention", "SpatialAttention", "Index", "C2fPSA", "AGLU",
                      "DWConvTranspose2d"), "7.2"),
@@ -95,6 +98,20 @@ def make_layer(ls: LayerSpec, strides: tuple[int, ...] | None, legacy: bool = Fa
     if n == "RTDETRDecoder":  # [nc, ch, hd, nq, ndl]: the extras size the JAX tests' tiny heads
         return H.RTDETRDecoder(nc=a[0], ch=tuple(a[1]), hd=a[2] if len(a) > 2 else 256,
                                nq=a[3] if len(a) > 3 else 300, ndl=a[4] if len(a) > 4 else 6)
+    if n == "C2fAttn":  # (c1, c2, n, ec, nh, gc)
+        return W.C2fAttn(a[0], a[1], n=a[2], ec=a[3], nh=a[4], gc=a[5] if len(a) > 5 else 512)
+    if n == "ImagePoolingAttn":  # (ec, ch, ct, nh, k, scale)
+        return W.ImagePoolingAttn(a[0], tuple(a[1]), *a[2:6])
+    if n == "WorldDetect":  # [nc, embed, with_bn, ch]
+        return W.WorldDetect(nc=a[0], embed=a[1] if len(a) > 2 else 512, with_bn=a[2] if len(a) > 3 else False,
+                             ch=tuple(a[-1]), strides=strides)
+    if n == "YOLOEDetect":  # [nc, embed, with_bn, ch]
+        return Y.YOLOEDetect(nc=a[0], embed=a[1] if len(a) > 2 else 512, with_bn=a[2] if len(a) > 3 else True,
+                             ch=tuple(a[-1]), strides=strides)
+    if n == "YOLOESegment":  # [nc, nm, npr, embed, with_bn, ch]
+        return Y.YOLOESegment(nc=a[0], nm=a[1] if len(a) > 2 else 32, npr=a[2] if len(a) > 3 else 256,
+                              embed=a[3] if len(a) > 4 else 512, with_bn=a[4] if len(a) > 5 else True,
+                              ch=tuple(a[-1]), strides=strides)
     if n == "Classify":  # [c1, c2, k, s]
         return H.Classify(a[0], a[1], k=a[2] if len(a) > 2 else 1, s=a[3] if len(a) > 3 else 1)
     if n in _POSITIONAL:
@@ -111,6 +128,14 @@ class DetectionModel(nn.Module):
     pixels + class scores); a task head (``nn/heads.py``) adds its own keys,
     V10Detect gives ``{"feats", "one2one_feats"}`` / ``{"preds6", "feats",
     "one2one_feats"}``, and Classify ``{"logits"}`` / ``{"probs", "logits"}``.
+
+    An open-vocabulary graph (``spec.needs_text``: YOLO-World, YOLOE) holds
+    the text it scores against in the buffer ``txt_feats`` (1 or B, K,
+    512), zeros (1, nc, 512) until a facade binds its classes (as the JAX
+    graph's default, nn/model.py:277-281). The buffer is not saved with the
+    weights; ``deepcopy`` and ``fold_conv_bn`` keep it, so every engine path
+    (the predictor's stem kernel path too) scores against the bound text
+    without being told of it.
     """
 
     def __init__(self, spec: ModelSpec, strides: tuple[int, ...] | None = None):
@@ -118,6 +143,8 @@ class DetectionModel(nn.Module):
         self.spec = spec
         self.strides = strides
         self.model = nn.ModuleList(make_layer(ls, strides, legacy=spec.legacy) for ls in spec.layers)
+        if spec.needs_text:
+            self.register_buffer("txt_feats", torch.zeros(1, spec.nc, TEXT_DIM), persistent=False)
 
     @property
     def detect(self) -> M.Detect | H.Classify:
@@ -128,14 +155,24 @@ class DetectionModel(nn.Module):
     def task(self) -> str:
         return self.spec.task
 
-    def forward(self, x: torch.Tensor, start_layer: int = 0, **head_kw: Any) -> dict[str, Any]:
+    def forward(self, x: torch.Tensor, start_layer: int = 0, txt_feats: torch.Tensor | None = None,
+                **head_kw: Any) -> dict[str, Any]:
         """``start_layer > 0``: ``x`` is already the output of layer
         ``start_layer - 1`` (the fused stem computes layers 0..2); valid only
         when no skipped layer's output is consumed later. ``head_kw`` goes to
         the head, the last layer (an RT-DETR head's denoising queries ``dn``
-        in training; reference nn/model.py:306-310)."""
+        in training, a YOLOE head's ``visual_prompts``; reference
+        nn/model.py:306-310). ``txt_feats`` (1 or B, K, 512) replaces the
+        bound text for this call (a multimodal train batch's sampled texts).
+        Text threads as in the JAX graph (nn/model.py:283-300): C2fAttn
+        takes the running text, ImagePoolingAttn updates it and passes the
+        previous layer's output on, the head takes the text as given."""
         head_i = self.spec.layers[-1].i
         saved: dict[int, torch.Tensor] = {}
+        txt = txt0 = None
+        if self.spec.needs_text:
+            t = self.txt_feats if txt_feats is None else txt_feats
+            txt = txt0 = t.to(x.dtype).expand(x.shape[0], -1, -1) if t.shape[0] == 1 else t.to(x.dtype)
         out: Any = x
         if start_layer > 0:
             if any(i in self.spec.save for i in range(start_layer - 1)):
@@ -149,7 +186,14 @@ class DetectionModel(nn.Module):
                 inp = [out if j == -1 else saved[j % ls.i] for j in ls.f]
             else:
                 inp = out if ls.f == -1 else saved[ls.f % ls.i]
-            out = layer(inp, **head_kw) if ls.i == head_i else layer(inp)
+            if ls.name == "C2fAttn":
+                out = layer(inp, txt)
+            elif ls.name == "ImagePoolingAttn":
+                txt = layer(inp, txt)
+            elif ls.i == head_i:
+                out = layer(inp, txt0, **head_kw) if txt0 is not None else layer(inp, **head_kw)
+            else:
+                out = layer(inp)
             if ls.i in self.spec.save:
                 saved[ls.i] = out
         return out
@@ -216,7 +260,8 @@ def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: 
     weights 1, A2C2f's ``gamma`` 0.01, LayerNorm (1, 0), RT-DETR's attention
     projections xavier-uniform, MSDeformAttn's offset and weight kernels 0
     with the direction grid as the offsets' bias, the denoising table N(0, 1),
-    then the Detect bias priors when ``bias_prior`` (on a Detect
+    YOLOE's ``reprta`` output layer 0 (the JAX ``SwiGLUFFN``'s zero-init
+    ``w3``), then the Detect bias priors when ``bias_prior`` (on a Detect
     or a task head's Detect trunk only, not on V10Detect, as the JAX package does). Values are
     drawn on the CPU from ``generator`` (a CPU generator) so one seed gives
     the same weights on every device."""
@@ -247,6 +292,8 @@ def init_weights(model: DetectionModel, generator: torch.Generator, bias_prior: 
         elif isinstance(m, H.RTDETRDecoder):
             m.denoising_class_embed.weight.copy_(torch.randn(m.denoising_class_embed.weight.shape,
                                                              generator=generator))
+        elif isinstance(m, Y.Residual):
+            m.reset_w3()
     if bias_prior and isinstance(model.detect, M.Detect) and not isinstance(model.detect, H.V10Detect):
         model.detect.bias_init()
     return model

@@ -795,6 +795,20 @@ class Concat(nn.Module):
         return torch.cat(list(xs), dim=1)
 
 
+def decode_maps(feats: list[torch.Tensor], strides: Sequence[int], reg_max: int = 16) -> torch.Tensor:
+    """Per-level (B, 4 * reg_max + K, H, W) maps -> ``preds`` (B, N, 4 + K) in
+    float32, anchor-major: DFL expectation -> dist2bbox around the anchors ->
+    pixel xywh, and sigmoid class scores. K is the maps' class channels (an
+    open-vocabulary head's text rows, else ``nc``)."""
+    b, no = feats[0].shape[:2]
+    flat = torch.cat([f.permute(0, 2, 3, 1).reshape(b, -1, no) for f in feats], dim=1)
+    box_logits, cls_logits = flat[..., : reg_max * 4], flat[..., reg_max * 4:]
+    anchors, stride_t = make_anchors([f.shape[2:] for f in feats], list(strides), 0.5, dtype=torch.float32,
+                                     device=flat.device)
+    dbox = dist2bbox(dfl_expectation(box_logits.float(), reg_max), anchors[None], xywh=True) * stride_t[None]
+    return torch.cat([dbox, cls_logits.float().sigmoid()], dim=-1)
+
+
 class Detect(nn.Module):
     """YOLO detect head (reference head.py:26-212).
 
@@ -835,15 +849,7 @@ class Detect(nn.Module):
         if self.training:
             return {"feats": feats}
         assert self.strides is not None, "Detect.strides unresolved; build via build_model()"
-        bsz = feats[0].shape[0]
-        flat = torch.cat([f.permute(0, 2, 3, 1).reshape(bsz, -1, self.no) for f in feats], dim=1)
-        box_logits, cls_logits = flat[..., : self.reg_max * 4], flat[..., self.reg_max * 4:]
-        anchors, stride_t = make_anchors([f.shape[2:] for f in feats], list(self.strides),
-                                         0.5, dtype=torch.float32, device=flat.device)
-        dist = dfl_expectation(box_logits.float(), self.reg_max)
-        dbox = dist2bbox(dist, anchors[None], xywh=True) * stride_t[None]
-        preds = torch.cat([dbox, cls_logits.float().sigmoid()], dim=-1)
-        return {"preds": preds, "feats": feats}
+        return {"preds": decode_maps(feats, self.strides, self.reg_max), "feats": feats}
 
     def bias_init(self) -> None:
         """Detection prior biases (reference head.py:169-188): box branch 1.0,

@@ -5,9 +5,11 @@ port builds: depth/width/max_channels compound scaling, per-module channel
 inference, the forced ``c3k`` at m/l/x, the ``legacy`` flips of C3k2, A2C2f
 and C2fCIB with A2C2f's residual form at l/x, the FCE argument rewriting,
 the v8-cls ResNet layers, v9's CBLinear, v10's head, the ``TorchVision``
-trunk, RT-DETR's HGNetV2 blocks, AIFI and decoder, and the savelist.
-Branches for modules the port does not build yet (World, YOLOE, Index) are
-left out; their layers fall through to the generic channel rule and
+trunk, RT-DETR's HGNetV2 blocks, AIFI and decoder, YOLO-World's and
+YOLOE's layers (``C2fAttn``'s embed channels and heads scaled by width,
+``ImagePoolingAttn``, ``WorldDetect``, ``YOLOEDetect``, ``YOLOESegment``
+with its ``npr`` scaled), and the savelist. The branch for ``Index`` is
+left out; its layers fall through to the generic channel rule and
 ``make_layer`` refuses them by name.
 """
 
@@ -29,6 +31,8 @@ _BASE = {
     "RepC3", "RepNCSPELAN4", "ELAN1", "ADown", "AConv", "SPPELAN", "PSA",
     "SCDown", "C2fCIB", "A2C2f", "C2fAttn",
 }
+# the open-vocabulary layers, whose forward takes the text embeddings
+TEXT_LAYERS = ("C2fAttn", "ImagePoolingAttn", "WorldDetect", "YOLOEDetect", "YOLOESegment")
 # modules with an insertable repeat count (reference tasks.py:1563-1580)
 _REPEAT = {
     "BottleneckCSP", "C1", "C2", "C2f", "C3", "C3k", "C3k2", "C3x", "C3Ghost",
@@ -63,7 +67,12 @@ class ModelSpec:
     def task(self) -> str:
         """The task, from the head's name (reference ``ModelSpec.task``, parser.py:62-69)."""
         return {"Segment": "segment", "Pose": "pose", "OBB": "obb", "Classify": "classify",
-                "RTDETRDecoder": "rtdetr"}.get(self.layers[-1].name, "detect")
+                "RTDETRDecoder": "rtdetr", "YOLOESegment": "segment"}.get(self.layers[-1].name, "detect")
+
+    @property
+    def needs_text(self) -> bool:
+        """Whether the graph's forward takes text embeddings (reference parser.py:72-77)."""
+        return any(ls.name in TEXT_LAYERS for ls in self.layers)
 
 
 def _adaptive_reduction(inp: int) -> int:
@@ -135,6 +144,9 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                     args.extend((True, 1.2))
             if name == "C2fCIB":
                 legacy = False
+            if name == "C2fAttn":  # embed channels and heads scaled by width (tasks.py:1599-1601)
+                args[3] = make_divisible(min(args[3], max_channels // 2) * width, 8)
+                args[4] = int(max(round(min(args[4], max_channels // 2 // 32) * width), 1) if args[4] > 1 else args[4])
         elif name == "AIFI":  # (c1, cm, num_heads), channels kept
             args = [ch_list[f], *args]
             c2 = ch_list[f]
@@ -172,6 +184,15 @@ def parse_model_yaml(d: dict, ch: int = 3, scale: str | None = None) -> ModelSpe
                 args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             if name == "Pose" and len(args) < 2:
                 args.append(d.get("kpt_shape", [17, 3]))
+            args = [*args, [ch_list[x] for x in f]]
+            c2 = ch_list[f[-1]]
+        elif name == "ImagePoolingAttn":  # (ec, ch, ct, nh, k, scale): updates the text, c2 unused
+            args = [args[0] if args else 256, [ch_list[x] for x in f], *args[1:]]
+            c2 = ch_list[f[-1]]
+        elif name in ("WorldDetect", "YOLOEDetect", "YOLOESegment"):
+            # WorldDetect / YOLOEDetect [nc, embed, with_bn]; YOLOESegment [nc, nm, npr, embed, with_bn], npr scaled
+            if name == "YOLOESegment" and len(args) > 2:
+                args[2] = make_divisible(min(args[2], max_channels) * width, 8)
             args = [*args, [ch_list[x] for x in f]]
             c2 = ch_list[f[-1]]
         elif name == "Classify":  # [c1, c2 (nc), k, s]

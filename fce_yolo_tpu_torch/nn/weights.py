@@ -25,7 +25,20 @@
   params/layers_28/input_proj_0_0/conv2d/kernel  ->  model.28.input_proj.0.0.weight
   params/layers_28/denoising_class_embed   ->  model.28.denoising_class_embed.weight  (nn.Embedding)
 
-A task head (Segment, Pose, OBB) nests its Detect trunk under a ``detect``
+YOLO-World and YOLOE (``nn/world.py``, ``nn/yoloe.py``): their Dense
+kernels (``gl``, ``query_1``/``key_1``/``value_1``, ``proj``, ``w12``,
+``w3``) are transposed like any Linear's, the LayerNorms' ``scale`` is
+their ``weight``, ``BNContrastiveHead``'s ``norm`` is a BatchNorm, and the
+bare parameters (``bias``, ``logit_scale``, and the ``scale`` of
+``ImagePoolingAttn``, whose flax scope is the layer's own) keep their names:
+
+  params/layers_12/attn/gl/kernel  (in, out)  ->  model.12.attn.gl.weight   (out, in)
+  params/layers_16/scale                   ->  model.16.scale             (a bare parameter)
+  params/layers_16/query_0/scale           ->  model.16.query.0.weight    (LayerNorm)
+  params/layers_22/cv4_0/norm/scale        ->  model.22.cv4.0.norm.weight (BNContrastiveHead's BatchNorm)
+  params/layers_23/detect/reprta/m/w12/kernel  ->  model.23.reprta.m.w12.weight  (YOLOESegment's trunk)
+
+A task head (Segment, Pose, OBB, YOLOESegment) nests its Detect trunk under a ``detect``
 scope in flax; the port's keys are Ultralytics' flat names, so the scope is
 dropped here and put back by ``key_to_flax``; so is the ``conv_transpose2d``
 scope of a YAML ``nn.ConvTranspose2d`` layer, whose weights are the layer's
@@ -71,6 +84,7 @@ from torch import nn
 from fce_yolo_tpu_torch.nn.heads import OBB, Pose, Segment
 from fce_yolo_tpu_torch.nn.resnet import ResNetTrunk
 from fce_yolo_tpu_torch.nn.transformer import TorchMHA
+from fce_yolo_tpu_torch.nn.yoloe import YOLOESegment
 
 _LEAF = {  # (collection, flax leaf) -> (owner: conv or BN, state_dict leaf)
     ("params", "kernel"): (nn.Conv2d, "weight"),
@@ -86,6 +100,14 @@ _CONV_T = ("upsample", _LAYER_CONV_T)  # the scopes of the JAX package's flax Co
 _RESNET_DOWN = {"down_conv": "downsample.0", "down_bn": "downsample.1"}  # flax scope -> torchvision's name
 _EMBED = ("denoising_class_embed",)  # flax leaves that are an nn.Embedding's weight
 _OUT_PROJ = ("out_proj_weight", "out_proj_bias")  # the attention's out projection, flax leaves
+_YOLOE_TRUNK = ("cv2", "cv3", "cv4", "reprta", "savpe")  # YOLOESegment's children under ``detect`` (else cv2, cv3)
+
+
+def _bare_scale(collection: str, mods: list[str], leaf: str) -> bool:
+    """Whether a flax ``scale`` leaf is a bare parameter (ImagePoolingAttn's,
+    directly under its layer), not a norm's."""
+    return (collection == "params" and leaf == "scale" and bool(mods)
+            and re.fullmatch(r"layers_\d+", mods[-1]) is not None)
 
 
 def _module_token(name: str, top: bool = True) -> str:
@@ -115,6 +137,8 @@ def flax_path_to_key(collection: str, path: tuple[str, ...]) -> str:
              if p not in (_BARE_CONV, _TRUNK, _LAYER_CONV_T)]
     if leaf in _EMBED:
         parts += [leaf, "weight"]
+    elif _bare_scale(collection, mods, leaf):
+        parts.append(leaf)
     elif leaf in _OUT_PROJ:
         parts += ["out_proj", leaf.rpartition("_")[2]]
     else:
@@ -142,7 +166,8 @@ def key_to_flax(model: nn.Module, key: str) -> tuple[str, tuple[str, ...]]:
     if mods and tokens[0] == "model":
         mods[0] = "layers" + mods[0][len("model"):]
         head = model.get_submodule(".".join(tokens[:2])) if len(tokens) > 2 else None
-        if isinstance(head, (Segment, Pose, OBB)) and tokens[2] in ("cv2", "cv3"):
+        trunk = _YOLOE_TRUNK if isinstance(head, YOLOESegment) else ("cv2", "cv3")
+        if isinstance(head, (Segment, Pose, OBB, YOLOESegment)) and tokens[2] in trunk:
             mods.insert(1, _TRUNK)
     if isinstance(owner, nn.Embedding):
         return "params", tuple(mods)

@@ -343,21 +343,29 @@ class EMA:
     ``e = e * d + p * (1 - d)``, d = decay * (1 - exp(-updates / tau)), in
     float32, stored as ``dtype`` (float32 unless bfloat16 is asked for).
     Buffers (BN running statistics) are not averaged: a model evaluated on
-    the EMA takes the live model's buffers."""
+    the EMA takes the live model's buffers. A ``frozen`` parameter is left
+    out: its average is the parameter, which never moves, kept bit-equal
+    (the JAX EMA averages it too, which rounds it by up to an ulp a step;
+    ROADMAP queue 3, item 38)."""
 
-    def __init__(self, params: list[torch.Tensor], dtype: torch.dtype | None = None):
+    def __init__(self, params: list[torch.Tensor], dtype: torch.dtype | None = None,
+                 frozen: list[bool] | None = None):
         self.params = [p.detach().to(dtype or p.dtype, copy=True) for p in params]
+        self.live = [i for i in range(len(params)) if not (frozen and frozen[i])]  # the averaged parameters
         self.updates = 0
 
     @torch.no_grad()
     def update(self, new_params: list[torch.Tensor], decay: float = 0.9999, tau: float = 2000.0) -> None:
         self.updates += 1
         d = _f32(decay) * (_f32(1) - _f32(np.exp(np.float64(-_f32(self.updates) / _f32(tau)))))
-        ema = [e.float() for e in self.params]
+        if not self.live:
+            return
+        dst = [self.params[i] for i in self.live]
+        ema = [e.float() for e in dst]
         torch._foreach_mul_(ema, float(d))
-        torch._foreach_add_(ema, torch._foreach_mul([p.float() for p in new_params], float(_f32(1) - d)))
-        if ema[0] is not self.params[0]:
-            torch._foreach_copy_(self.params, ema)
+        torch._foreach_add_(ema, torch._foreach_mul([new_params[i].float() for i in self.live], float(_f32(1) - d)))
+        if ema[0] is not dst[0]:
+            torch._foreach_copy_(dst, ema)
 
     def state_dict(self) -> dict:
         return {"updates": self.updates, "params": list(self.params)}

@@ -79,7 +79,7 @@ def create_train_state(model: nn.Module, optimizer: Optimizer, accumulate: int =
                        ema_dtype: torch.dtype | None = None) -> TrainState:
     params = [p for _, p in model.named_parameters()]
     device = params[0].device
-    return TrainState(model=model, optimizer=optimizer, ema=EMA(params, dtype=ema_dtype),
+    return TrainState(model=model, optimizer=optimizer, ema=EMA(params, dtype=ema_dtype, frozen=optimizer.is_frozen),
                       loss_state=LossState.init(device), step=0,
                       grad_accum=[torch.zeros_like(p) for p in params] if accumulate > 1 else None)
 
@@ -103,7 +103,9 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionL
     the loss. ``task_loss(out, batch, loss_cfg, loss_state) -> (total, parts,
     new_state)`` replaces the detection loss (``train/task_losses.py``).
     ``model_kwargs(batch)`` gives the task's keyword arguments for the
-    model's forward (RT-DETR's denoising queries).
+    model's forward (RT-DETR's denoising queries); a batch's ``txt_feats``
+    (a multimodal batch's sampled texts) and ``visual_prompts`` (YOLOE's
+    prompt masks) go to the forward as they are (reference trainer.py:147-150).
     ``metrics``: "loss" and the loss parts as device tensors (a part the
     loss gives as a float stays one: ``detr_loss``'s "match_host_s"), "finite"
     (bool) and "sync_s", the seconds the host waited for the device to tell
@@ -124,6 +126,7 @@ def make_train_step(model: nn.Module, optimizer: Optimizer, loss_cfg: DetectionL
         for p in params:
             p.grad = None
         kw = model_kwargs(batch) if model_kwargs is not None else {}
+        kw.update({k: batch[k] for k in ("txt_feats", "visual_prompts") if k in batch})
         with torch.autocast(x.device.type, dtype=torch.bfloat16, enabled=bf16):
             out = model(x, **kw)
         out = {k: [f.float() for f in v] if isinstance(v, (list, tuple)) else v.float() for k, v in out.items()}

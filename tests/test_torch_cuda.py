@@ -1026,3 +1026,63 @@ def test_torch_export_program_with_nms_runs_on_the_card(cuda, tmp_path):
     assert boxes.device.type == "cuda" and int(out["valid"].sum()) > 0
     ref = pick_suppress_reference(boxes.cpu(), scores.cpu(), valid.cpu(), iou, max_det)
     assert torch.equal(idx.cpu(), ref[0]) and torch.equal(ok.cpu(), ref[1])
+
+
+@pytest.mark.cuda
+def test_yoloe_text_predict_on_card_takes_the_stem_with_the_text(cuda):
+    """``YOLOE("yoloe-11s.yaml").set_classes`` then a bf16 predict: the stem
+    and NMS kernels once a batch, and the kernel path's scores follow the
+    bound text (the text is a buffer of the model, carried into the
+    predictor's folded copy)."""
+    from fce_yolo_tpu_torch import YOLOE
+
+    y = YOLOE("yoloe-11s.yaml", device=cuda)
+    y.set_classes(["cat", "dog", "bird"])
+    y.to(torch.bfloat16)
+    rng = np.random.RandomState(0)
+    imgs = [rng.randint(0, 256, (160, 160, 3), np.uint8) for _ in range(4)]
+    stem0, nms0 = S.fused_stem.launches, pick_suppress.launches
+    res = y.predict(imgs, imgsz=160, batch=2, conf=0.0, max_det=5)
+    assert S.fused_stem.launches == stem0 + 2 and pick_suppress.launches == nms0 + 2
+    assert len(res) == 4 and all(set(r.boxes.cls.astype(int)) <= {0, 1, 2} for r in res)
+    model = y._inference_model()
+    spec = S.stem_spec_from_model(model.spec, (160, 160))
+    w = S.stem_weights(S.fold_stem_params(model, spec), spec)
+    batch = torch.from_numpy(np.stack(imgs[:2])).to(cuda)
+    with torch.inference_mode():
+        a = S.apply_with_fused_stem(model, batch, spec, w)["preds"][..., 4:].float()
+        model.txt_feats = model.txt_feats.flip(1)
+        b = S.apply_with_fused_stem(model, batch, spec, w)["preds"][..., 4:].float()
+    torch.testing.assert_close(a, b.flip(-1), rtol=0, atol=0.02)
+
+
+@pytest.mark.cuda
+def test_yoloe_visual_prompt_predict_on_card_takes_the_nms_kernel(cuda):
+    from fce_yolo_tpu_torch import YOLOE
+
+    y = YOLOE("yoloe-11s.yaml", device=cuda)
+    img = np.random.RandomState(1).randint(0, 256, (120, 160, 3), np.uint8)
+    vp = {"bboxes": np.array([[10, 10, 60, 60], [70, 20, 150, 110]], np.float32), "cls": np.array([3, 8])}
+    nms0 = pick_suppress.launches
+    r = y.predict(img, visual_prompts=vp, imgsz=160, conf=0.0, max_det=10)[0]
+    assert pick_suppress.launches == nms0 + 1 and len(r) == 10 and set(r.boxes.cls.astype(int)) <= {3, 8}
+
+
+@pytest.mark.cuda
+def test_clip_towers_on_the_card_match_the_cpu(cuda, monkeypatch):
+    """Two-layer towers at ViT-B/32 width, float32 (TF32 off), within 1e-4 of the CPU."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    from fce_yolo_tpu_torch.nn.clip_vision import CLIPVisionCfg, CLIPVisionTower
+    from fce_yolo_tpu_torch.nn.text_model import CLIPTextCfg, CLIPTextTower
+
+    text = CLIPTextTower(CLIPTextCfg(layers=2)).reset_parameters(0)
+    vision = CLIPVisionTower(CLIPVisionCfg(layers=2)).reset_parameters(0)
+    tokens = torch.randint(1, 49406, (3, 77), generator=torch.Generator().manual_seed(0))
+    tokens[:, 10] = 49407
+    imgs = torch.randn(2, 3, 224, 224, generator=torch.Generator().manual_seed(1))
+    for tower, x in ((text, tokens), (vision, imgs)):
+        with torch.inference_mode():
+            ref = tower(x)
+            got = tower.to(cuda)(x.to(cuda)).cpu()
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-4)
