@@ -105,6 +105,15 @@ from a seed) and checks that each path went through its kernels:
   above writes the first three batches' mosaics and ``results.png`` too);
   each figure, drawn on the host by ``utils/chart.py``, read back through
   the port's PNG reader and timed;
+- the solutions layer (phase solutions): the 15 apps (counting, heatmap,
+  regions, speed, zones, queues, parking, overlays, blur, crops, instance
+  masks, analytics charts, distance, alarms, workouts) through their
+  ``__call__`` on 6 of phase track's frames, bf16 yolo11s-fce, -seg and
+  -pose at conf 0.25: the stem and NMS kernels once a frame, ``jpeg_fdct``
+  once a crop, every frame's tracks, result fields and drawn frame bit-equal
+  with the plain NMS swapped in; ``solutions count`` on the short AVI from
+  the command line writing a JPEG a frame; ``VisualAISearch`` (HSV and
+  CLIP) on the card against the CPU;
 - the model families (phase families): the 32 v3/v5/v6/v8/v9/yolo12 YAMLs
   built and run, yolov8s and yolo12s predict, val and a train epoch, the
   v8 task heads' predict;
@@ -3488,6 +3497,203 @@ def phase_track(root: Path, card: str) -> tuple[dict, dict]:
                       "track_b1_plain_ms": stem["plain_ms"], "track_b1_bound_ms": stem["bound_ms"]}, frames
 
 
+# ------------------------------------------------------------ phase solutions
+SOLUTION_FRAMES = 6  # phase solutions (a): the first frames of track_scene, each app run twice (cut from 8 for time)
+SEARCH_IMAGES, CLIP_IMAGES = 16, 8  # (c): the first of phase jpeg's JPEGs (the CPU index decodes in Python)
+CLIP_TOL = 1e-4  # (c) the CLIP towers' embeddings, card vs CPU (float32 in both, TF32 off)
+
+
+def solution_apps(root: Path) -> dict[str, tuple[str, dict]]:
+    """The 15 ``BaseSolution`` apps on phase track's 1280x720 scene: (the
+    model's task, keywords). Regions, lines and slots span the frame."""
+    return {
+        "ObjectCounter": ("detect", {"region": [(640, 0), (640, 720)]}),
+        "Heatmap": ("detect", {"region": [(0, 360), (1280, 360)]}),
+        "RegionCounter": ("detect", {"regions": {"left": [(0, 0), (640, 0), (640, 720), (0, 720)],
+                                                 "centre": [(320, 180), (960, 180), (960, 540), (320, 540)]}}),
+        "SpeedEstimator": ("detect", {}),
+        "TrackZone": ("detect", {"region": [(200, 100), (1080, 100), (1080, 620), (200, 620)]}),
+        "QueueManager": ("detect", {"region": [(100, 400), (700, 400), (700, 700), (100, 700)]}),
+        "ParkingManagement": ("detect", {"slots": [[(x, y), (x + 300, y), (x + 300, y + 300), (x, y + 300)]
+                                                   for x in (40, 480, 920) for y in (40, 380)]}),
+        "VisionEye": ("detect", {}),
+        "ObjectBlurrer": ("detect", {}),
+        "ObjectCropper": ("detect", {"crop_dir": str(root / "solution_crops")}),
+        "InstanceSegmentation": ("segment", {}),
+        "Analytics": ("detect", {"analytics_type": "bar", "update_every": 4}),
+        "DistanceCalculation": ("detect", {}),
+        "SecurityAlarm": ("detect", {"records": 5}),
+        "AIGym": ("pose", {}),
+    }
+
+
+def solution_fields(res) -> dict:
+    return {k: v for k, v in vars(res).items() if k not in ("plot_im", "speed")}
+
+
+def solution_run(name: str, model, kw: dict, frames: list) -> tuple[list, list]:
+    """One app over ``frames`` through its ``__call__``: (its results, the
+    tracks ``process`` saw each frame)."""
+    import fce_yolo_tpu_torch.solutions as S
+
+    sol = getattr(S, name)(model=model, **kw)
+    seen = []
+    real = sol.process
+    sol.process = lambda res, tracks: (seen.append(tracks), real(res, tracks))[1]
+    out = list(sol(frames))
+    torch.cuda.synchronize()
+    check(len(out) == len(seen) == len(frames), f"{name}: {len(out)} results for {len(frames)} frames")
+    return out, seen
+
+
+def phase_solutions(root: Path, frames: list, short_avi: Path, card: str) -> dict:
+    """The solutions layer (``fce_yolo_tpu_torch/solutions/``) on the card:
+    (a) each of the 15 ``BaseSolution`` apps through ``__call__`` on
+    SOLUTION_FRAMES of phase track's 720x1280 frames, at the solutions'
+    conf 0.25, bf16 yolo11s-fce with ``matching_model``'s weights (``AIGym``
+    yolo11s-pose, ``InstanceSegmentation`` yolo11s-seg, with
+    ``task_matching_model``'s), the counts at 0: the stem and NMS kernels once
+    a frame, ``jpeg_fdct`` once a crop ``ObjectCropper`` writes; then each app
+    again with the plain NMS swapped into ``ops.nms``: every frame's tracks,
+    result fields and ``plot_im`` equal bit for bit; ms a frame of tracking
+    and of the app (host clock);
+    (b) ``entrypoint(["solutions", "count", "source=<the short AVI>",
+    "save_dir=..."])`` in process (the CLI's default yolo11n.yaml, float32, on
+    the card): a JPEG a frame, each decoded at 720x1280 on the card, the
+    JPEG kernels and NMS once a frame;
+    (c) ``VisualAISearch`` on SEARCH_IMAGES of phase jpeg's JPEGs: the HSV
+    index on the card equal to the one built with ``device="cpu"``, and the
+    top-5 of three queries; the CLIP backend (seeded ViT-B/32 towers) on the
+    card within CLIP_TOL of the CPU's on CLIP_IMAGES images and a text query.
+    Returns each part's launches, keyed by path."""
+    import shutil
+
+    import fce_yolo_tpu_torch.solutions as S
+    from fce_yolo_tpu_torch import YOLO
+    from fce_yolo_tpu_torch.cfg import entrypoint
+    from fce_yolo_tpu_torch.data.imread import imread
+    from fce_yolo_tpu_torch.ops import nms as nms_ops
+
+    t_phase = time.perf_counter()
+    frames = frames[:SOLUTION_FRAMES]
+    n = len(frames)
+    models = {"detect": matching_model(YOLO("yolo11s-fce.yaml", device="cuda")).to(torch.bfloat16),
+              "segment": task_matching_model(YOLO(TASK_MODELS["segment"], device="cuda"), "segment").to(
+                  torch.bfloat16),
+              "pose": task_matching_model(YOLO(TASK_MODELS["pose"], device="cuda"), "pose").to(torch.bfloat16)}
+    for m in models.values():
+        m.predict(frames[:1], imgsz=IMGSZ)  # warm-up: the folded copy, cuDNN's set-up
+    apps = solution_apps(root)
+    torch.cuda.synchronize()
+
+    # (a) every app on the kernels, the counts at 0
+    reset_launches()
+    t0 = time.perf_counter()
+    runs = {name: solution_run(name, models[task], kw, frames) for name, (task, kw) in apps.items()}
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    crops = runs["ObjectCropper"][0][-1].total_crop_objects
+    check(launches == no_jpeg(fused_stem=n * len(apps), pick_suppress=n * len(apps), jpeg_fdct=crops),
+          f"solutions path: {launches}, expected the stem and NMS kernels once for each of {n} frames of "
+          f"{len(apps)} apps and jpeg_fdct once for each of {crops} crops")
+    check(len(list((root / "solution_crops").glob("*.jpg"))) == crops, "ObjectCropper: crops written")
+    tracked = {name: sum(len(t) for t in seen) / n for name, (_, seen) in runs.items()}
+    check(min(tracked.values()) > 0, f"solutions: an app saw no tracks: {tracked}")
+
+    # ... and again with the plain NMS: the same tracks, fields and frames
+    real = nms_ops.pick_suppress
+    shutil.rmtree(root / "solution_crops")
+    try:
+        nms_ops.pick_suppress = lambda boxes, scores, valid, iou_thres, max_det: nms_ops.pick_suppress_reference(
+            boxes, scores, valid, iou_thres, max_det)
+        for name, (task, kw) in apps.items():
+            out, seen = solution_run(name, models[task], kw, frames)
+            ref_out, ref_seen = runs[name]
+            for t in range(n):
+                check(np.array_equal(seen[t], ref_seen[t]), f"{name} frame {t}: tracks differ on the plain NMS path")
+                check(solution_fields(out[t]) == solution_fields(ref_out[t]),
+                      f"{name} frame {t}: {solution_fields(out[t])} on the plain NMS path, "
+                      f"{solution_fields(ref_out[t])} on the kernel's")
+                check(out[t].plot_im is not None and np.array_equal(out[t].plot_im, ref_out[t].plot_im),
+                      f"{name} frame {t}: plot_im differs on the plain NMS path")
+    finally:
+        nms_ops.pick_suppress = real
+    def brief(res) -> str:  # the last frame's fields, long ones by their length
+        return ", ".join(f"{k}={len(v) if isinstance(v, (list, dict)) and len(v) > 4 else v}"
+                         for k, v in solution_fields(res).items() if v not in (None, 0, 0.0, False, {}))
+
+    last = {name: brief(out[-1]) for name, (out, _) in runs.items()}
+    print(f"phase solutions (a): {len(apps)} apps x {n} frames of {TRACK_H}x{TRACK_W} through __call__, bf16 "
+          f"yolo11s-fce/-seg/-pose {IMGSZ} px, conf 0.25; launches {launches}; tracks, every result field and "
+          f"plot_im bit-equal on the plain NMS path for all {n * len(apps)} frames; {wall:.1f} s for the kernel "
+          f"run [{card}]", flush=True)
+    for name, (out, _) in runs.items():
+        tr = [r.speed["track"] for r in out]
+        so = [r.speed["solution"] for r in out]
+        print(f"phase solutions (a): {name}: ms a frame (host clock) track {np.mean(tr):.1f} "
+              f"(min {min(tr):.1f}, max {max(tr):.1f}), solution {np.mean(so):.1f} (min {min(so):.1f}, "
+              f"max {max(so):.1f}); {tracked[name]:.1f} tracks a frame; last frame: {last[name]} [{card}]",
+              flush=True)
+
+    # (b) the command line on the short AVI
+    save_dir = root / "solutions_cli"
+    reset_launches()
+    t0 = time.perf_counter()
+    results = entrypoint(["solutions", "count", f"source={short_avi}", f"save_dir={save_dir}"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    cli = read_launches()
+    written = sorted(save_dir.glob("*.jpg"))
+    nv = VIDEO_OBB_FRAMES
+    check(len(results) == nv and [p.name for p in written] == [f"{i:06d}.jpg" for i in range(nv)],
+          f"solutions CLI: {len(results)} results, files {[p.name for p in written]}")
+    check(cli == {"fused_stem": 0, "pick_suppress": nv, "jpeg_idct": nv, "jpeg_color": nv, "jpeg_fdct": nv,
+                  "webp_color": 0}, f"solutions CLI: launches {cli}")
+    for p in written:
+        check(imread(p, device="cuda").shape == (TRACK_H, TRACK_W, 3), f"solutions CLI: {p.name} reads back")
+    print(f"phase solutions (b): solutions count on the {nv}-frame AVI (yolo11n.yaml f32 on the card): "
+          f"{len(written)} JPEGs written and read back at {TRACK_H}x{TRACK_W}; launches {cli}; {cli_s:.1f} s, "
+          f"{cli_s * 1e3 / nv:.1f} ms a frame (host clock) [{card}]", flush=True)
+
+    # (c) visual search on the card against the CPU
+    src = sorted((root / "jpeg" / "images" / "val").glob("*.jpg"))
+    hsv_dir, clip_dir = root / "search_hsv", root / "search_clip"
+    for d, n_img in ((hsv_dir, SEARCH_IMAGES), (clip_dir, CLIP_IMAGES)):
+        d.mkdir()
+        for p in src[:n_img]:
+            shutil.copy(p, d / p.name)
+    reset_launches()
+    t0 = time.perf_counter()
+    card_idx = S.VisualAISearch(str(hsv_dir), device="cuda")
+    hsv_s = time.perf_counter() - t0
+    search = read_launches()
+    n_idx = len(card_idx.paths)
+    check(n_idx == SEARCH_IMAGES and search == {"fused_stem": 0, "pick_suppress": 0, "jpeg_idct": n_idx,
+                                                "jpeg_color": n_idx, "jpeg_fdct": 0, "webp_color": 0},
+          f"search: {n_idx} images indexed, launches {search}")
+    cpu_idx = S.VisualAISearch(str(hsv_dir), device="cpu")
+    check(np.array_equal(card_idx.feats, cpu_idx.feats), "search: the HSV index on the card differs from the CPU's")
+    for q in (card_idx.paths[0], card_idx.paths[5], card_idx.paths[-1]):
+        check(card_idx.search(q) == cpu_idx.search(q), f"search: top-5 of {q.name} differ")
+    top = card_idx.search(card_idx.paths[5])
+    check(Path(top[0][0]).name == card_idx.paths[5].name or top[0][1] == top[1][1], "search: a query's own image")
+    t0 = time.perf_counter()
+    clip_card = S.VisualAISearch(str(clip_dir), backend="clip", device="cuda")
+    clip_s = time.perf_counter() - t0
+    clip_cpu = S.VisualAISearch(str(clip_dir), backend="clip", device="cpu")
+    d_img = float(np.abs(clip_card.feats - clip_cpu.feats).max())
+    text = "a red rectangle on grey"
+    d_txt = float(np.abs(clip_card._clip[0].encode_text([text]) - clip_cpu._clip[0].encode_text([text])).max())
+    check(d_img <= CLIP_TOL and d_txt <= CLIP_TOL, f"search CLIP: card vs CPU {d_img:.3e} images, {d_txt:.3e} text")
+    print(f"phase solutions (c): VisualAISearch HSV on {n_idx} JPEGs: index equal to the CPU's, top-5 of 3 queries "
+          f"equal, {hsv_s * 1e3 / n_idx:.1f} ms an image (decode on the card + histogram), launches {search}; CLIP "
+          f"(seeded ViT-B/32) on {CLIP_IMAGES} images: card vs CPU within {d_img:.3e} (images), {d_txt:.3e} "
+          f"(text; limit {CLIP_TOL}), {clip_s * 1e3 / CLIP_IMAGES:.1f} ms an image with the towers' set-up "
+          f"[{card}]", flush=True)
+    print(f"phase solutions: every check passed; {time.perf_counter() - t_phase:.1f} s [{card}]", flush=True)
+    return {"solutions": launches, "solutions_cli": cli, "solutions_search": search}
+
+
 # ------------------------------------------------------------ phase video
 VIDEO_QUALITY = 90  # the AVI's frames: baseline 4:2:0 at this quality
 VIDEO_OBB_FRAMES = 8  # the OBB track and the classify predict read the first frames as a short AVI
@@ -6057,6 +6263,8 @@ def main() -> None:
         clock("video")
         draw, fdct = phase_draw(Path(tmp), frames, card)
         clock("draw")
+        solutions = phase_solutions(Path(tmp), frames, short_avi, card)
+        clock("solutions")
         del frames
         classify = phase_classify(Path(tmp), short_avi, card)
         clock("classify")
@@ -6077,8 +6285,8 @@ def main() -> None:
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paths = {"predict": predict, "val": val, "train": train, "experiments": experiments, **jpeg_paths, **formats,
-             **tasks, **task_train, "track": track, **video, **classify, **draw, **families, **v10, **rtdetr,
-             **world, **weights, **cli, **deploy}
+             **tasks, **task_train, "track": track, **video, **classify, **draw, **solutions, **families, **v10,
+             **rtdetr, **world, **weights, **cli, **deploy}
 
     def launches(name: str) -> dict:
         return {"launches": sum(p[name] for p in paths.values()),

@@ -22,6 +22,8 @@ from pathlib import Path
 from types import SimpleNamespace
 from typing import Any
 
+import numpy as np
+
 from fce_yolo_tpu_torch.utils.yaml_read import read_yaml
 
 DEFAULT_CFG_PATH = Path(__file__).parent / "default.yaml"
@@ -128,8 +130,9 @@ HELP_MSG = """FCE-YOLO-TPU CLI (PyTorch + CUDA port) — usage:  yolo-tpu-torch 
   MODE: train | val | predict | export | track | benchmark
         (export: format=torch_export (.pt2, nms=True bakes in NMS) | native (.fyir);
          stablehlo, saved_model and tflite need JAX or TensorFlow)
+  or:   yolo-tpu-torch solutions [count|heatmap|speed|queue|workout|crop|blur|
+        isegment|visioneye|analytics|trackzone|inference] source=... [save_dir=...] [k=v ...]
   or:   yolo-tpu-torch version | checks | settings [reset] [k=v ...] | cfg | copy-cfg
-        (solutions: not ported, ROADMAP queue 1, item 6)
 
   device=: empty runs on the card (cuda), device=cpu on the CPU, device=0 or cuda:0 a given card.
 
@@ -152,9 +155,60 @@ TASK2MODEL = {
 }
 
 
-def handle_solutions(args: list[str]):
-    """``solutions NAME ...`` (reference ``handle_solutions``, cfg/__init__.py:161): not ported."""
-    raise NotImplementedError("item 6 (solutions/) is not ported: `solutions` waits for ROADMAP queue 1, item 6")
+# ``solutions NAME`` -> the solution's class in ``fce_yolo_tpu_torch.solutions`` (reference cfg/__init__.py:145)
+SOLUTION_MAP = {
+    "count": "ObjectCounter",
+    "crop": "ObjectCropper",
+    "blur": "ObjectBlurrer",
+    "workout": "AIGym",
+    "heatmap": "Heatmap",
+    "isegment": "InstanceSegmentation",
+    "visioneye": "VisionEye",
+    "speed": "SpeedEstimator",
+    "queue": "QueueManager",
+    "analytics": "Analytics",
+    "inference": "Inference",
+    "trackzone": "TrackZone",
+}
+SOLUTION_LITERALS = ("region", "regions", "slots", "selected_ids", "kpts", "classes")  # Python literals
+
+
+def handle_solutions(args: list[str]) -> list:
+    """``solutions NAME [k=v ...]`` (reference ``handle_solutions``,
+    cfg/__init__.py:161): the solution over ``source=``, the list of each
+    frame's result; ``region=``, ``regions=``, ``slots=``, ``selected_ids=``,
+    ``kpts=`` and ``classes=`` are Python literals, ``device=`` places the
+    model (empty: the card), and with ``save_dir=`` each frame's ``plot_im``
+    is written there as ``<i>.jpg`` (the forward DCT on that device).
+    ``inference`` writes its own frames and gives their paths (the reference
+    raises on them: ROADMAP queue 3, item 41)."""
+    import ast
+
+    import fce_yolo_tpu_torch.solutions as S
+    from fce_yolo_tpu_torch.utils.patches import imwrite
+
+    name = args[0] if args and "=" not in args[0] else "count"
+    if name == "help" or name not in SOLUTION_MAP:
+        print(f"solutions: one of {sorted(SOLUTION_MAP)}")
+        return []
+    kv: dict[str, Any] = {}
+    for a in args[1:] if (args and "=" not in args[0]) else args:
+        k, v = a.split("=", 1)
+        kv[k] = ast.literal_eval(v) if k in SOLUTION_LITERALS else _coerce(k, v)
+    source = kv.pop("source", None)
+    if not source:
+        raise SyntaxError(f"solutions {name} requires source=<path>")
+    save_dir = kv.pop("save_dir", None)
+    sol = getattr(S, SOLUTION_MAP[name])(**kv)
+    device = sol.model.device
+    results = []
+    for i, r in enumerate(sol(source)):
+        results.append(r)
+        if save_dir and getattr(r, "plot_im", None) is not None:
+            out = Path(save_dir)
+            out.mkdir(parents=True, exist_ok=True)
+            imwrite(out / f"{i:06d}.jpg", np.ascontiguousarray(r.plot_im), device=device)
+    return results
 
 
 def handle_settings(args: list[str]) -> dict:

@@ -613,6 +613,7 @@ class _Axis:
         self.ticks_on = True
         self.grid_kw: dict | None = None
         self.inverted = False
+        self.categories: dict[str, int] = {}  # a categorical axis: each string's position
 
     # --- locations and labels
     def tick_label_size(self) -> float:
@@ -772,6 +773,12 @@ class Rectangle:
         self.x, self.y, self.w, self.h, self.color = float(x), float(y), float(w), float(h), color
         self.sticky_y = [y]
 
+    def set_label(self, label) -> None:
+        self.label = str(label)
+
+    def get_label(self) -> str:
+        return self.label
+
     def get_x(self) -> float:
         return self.x
 
@@ -800,6 +807,125 @@ class PathCollection:
 
     def get_facecolors(self) -> np.ndarray:
         return self.facecolors
+
+
+class PolyCollection:
+    """``fill_between``'s polygon (closed, in data coordinates): filled and
+    edged in one colour with ``alpha``, edge 1 pt."""
+
+    zorder = 1.0
+
+    def __init__(self, verts: np.ndarray, color, alpha):
+        self.verts, self.color, self.alpha = verts, color, alpha
+        self.label = "_nolegend_"
+
+    def get_facecolor(self):
+        return to_rgba(self.color, self.alpha)
+
+
+class Wedge:
+    """A pie wedge: its outline as matplotlib's ``Wedge`` path (``Path.arc``'s
+    cubic Beziers, the centre, closed), filled without an edge."""
+
+    zorder = 1.0
+
+    def __init__(self, center, r: float, theta1, theta2, color, label: str = ""):
+        self.center, self.r, self.theta1, self.theta2, self.color = center, r, theta1, theta2, color
+        self.label = str(label)
+        self.segments = _wedge_segments(center, r, theta1, theta2)
+
+    def get_label(self) -> str:
+        return self.label
+
+    def get_facecolor(self):
+        return to_rgba(self.color)
+
+    def datalim_points(self) -> np.ndarray:
+        """What ``Axes._update_patch_limits`` adds: each segment's ends and
+        its axis-aligned extrema (``BezierSegment.axis_aligned_extrema``)."""
+        pts = []
+        for cp in self.segments:
+            ts = [0.0, *_bezier_extrema(cp), 1.0] if len(cp) > 2 else [0.0, 1.0]
+            pts.append(_bezier_eval(cp, np.asarray(ts)))
+        return np.vstack(pts)
+
+    def outline(self, steps: int = 24) -> np.ndarray:
+        """The closed outline, each cubic at ``steps`` points."""
+        pts = [self.segments[0][:1]]
+        for cp in self.segments:
+            pts.append(_bezier_eval(cp, np.linspace(0, 1, steps + 1)[1:] if len(cp) > 2 else np.ones(1)))
+        return np.vstack(pts)
+
+
+def _arc_vertices(theta1, theta2) -> np.ndarray:
+    """``Path.arc(theta1, theta2)``'s vertices (MOVETO + 3 n CURVE4), in the
+    same numpy operations, so in the same precision."""
+    halfpi = np.pi * 0.5
+    eta1 = theta1
+    eta2 = theta2 - 360 * np.floor((theta2 - theta1) / 360)
+    if theta2 != theta1 and eta2 <= eta1:
+        eta2 += 360
+    eta1, eta2 = np.deg2rad([eta1, eta2])
+    n = int(2 ** np.ceil((eta2 - eta1) / halfpi))
+    deta = (eta2 - eta1) / n
+    t = np.tan(0.5 * deta)
+    alpha = np.sin(deta) * (np.sqrt(4.0 + 3.0 * t * t) - 1) / 3.0
+    steps = np.linspace(eta1, eta2, n + 1, True)
+    cos_eta, sin_eta = np.cos(steps), np.sin(steps)
+    xa, ya = cos_eta[:-1], sin_eta[:-1]
+    xb, yb = cos_eta[1:], sin_eta[1:]
+    v = np.zeros((n * 3 + 1, 2), float)
+    v[0] = [xa[0], ya[0]]
+    v[1::3, 0], v[1::3, 1] = xa + alpha * -ya, ya + alpha * xa
+    v[2::3, 0], v[2::3, 1] = xb - alpha * -yb, yb - alpha * xb
+    v[3::3, 0], v[3::3, 1] = xb, yb
+    return v
+
+
+def _wedge_segments(center, r: float, theta1, theta2) -> list[np.ndarray]:
+    """``Wedge._recompute_path`` as Bezier control points, segment by segment
+    (``Path.iter_bezier``): the arc's cubics, the line to the centre and the
+    line back."""
+    if abs((theta2 - theta1) - 360) <= 1e-12:
+        theta1, theta2 = 0, 360
+    arc = _arc_vertices(theta1, theta2)
+    v = np.concatenate([arc, [(0, 0), arc[0], (0, 0)]]) * r + center
+    segs = [v[:1]]
+    n = (len(arc) - 1) // 3
+    for i in range(n):
+        segs.append(v[3 * i: 3 * i + 4])
+    c, a0 = v[len(arc)], v[len(arc) + 1]
+    full = theta1 == 0 and theta2 == 360
+    if not full:
+        segs.append(np.array([v[len(arc) - 1], c]))
+    segs.append(np.array([c, a0]))
+    segs.append(np.array([a0, v[0]]))  # CLOSEPOLY: back to the first vertex
+    return segs
+
+
+def _bezier_eval(cp: np.ndarray, t: np.ndarray) -> np.ndarray:
+    """``BezierSegment.__call__``."""
+    n = len(cp)
+    orders = np.arange(n)
+    coeff = [math.factorial(n - 1) // (math.factorial(i) * math.factorial(n - 1 - i)) for i in range(n)]
+    px = (cp.T * coeff).T
+    t = np.asarray(t)
+    return (np.power.outer(1 - t, orders[::-1]) * np.power.outer(t, orders)) @ px
+
+
+def _bezier_extrema(cp: np.ndarray) -> list[float]:
+    """``BezierSegment.axis_aligned_extrema``'s t values of a cubic."""
+    from math import comb
+
+    n = len(cp) - 1
+    j = np.arange(n + 1)[:, None]
+    i = np.arange(n + 1)[None, :]
+    comb_ji = np.vectorize(comb)(j, i) * (i <= j)
+    cj = np.vectorize(comb)(n, j) * ((-1.0) ** (i + j) * comb_ji) @ cp
+    dcj = np.arange(1, n + 1)[:, None] * cj[1:]
+    roots = np.concatenate([np.roots(pi[::-1]) for pi in dcj.T])
+    ok = np.isreal(roots) & (roots >= 0) & (roots <= 1)
+    return list(np.real(roots)[ok])
 
 
 class AxesImage:
@@ -835,38 +961,62 @@ class Legend:
              "center right", "lower center", "upper center", "center")
     _CODE_ANCHOR = (None, "NE", "NW", "SW", "SE", "E", "W", "E", "S", "N", "C")
 
-    def __init__(self, axes: Axes, handles: list, labels: list[str], fontsize=None):
+    def __init__(self, axes: Axes, handles: list, labels: list[str], fontsize=None, loc="best", title=None,
+                 bbox_to_anchor=None):
         self.axes = axes
         self.handles, self.labels = handles, [str(s) for s in labels]
         self.fontsize = _points("medium" if fontsize is None else fontsize)
+        self.loc = self.codes.index(loc) if isinstance(loc, str) else int(loc)
+        self.title = None if title is None else str(title)  # at the rc title size ("medium")
+        self.bbox_to_anchor = bbox_to_anchor  # (x, y, w, h) in axes fractions
         self.loc_used: int | None = None  # the location code "best" chose
 
     def get_texts(self) -> list[str]:
         return self.labels
 
     # --- the packed box (offsetbox.VPacker/HPacker/DrawingArea/TextArea)
+    @staticmethod
+    def _text_area(label: str, fontsize: float, dpi: float) -> tuple[float, float, float]:
+        """``TextArea.get_bbox`` of one line: (width, -descent, height - descent)."""
+        _, lp_h, lp_d = text_extent("lp", fontsize, "normal", dpi)
+        t = Text(0, 0, label, fontsize=fontsize, coords="display")
+        bbox, info, yd = t.layout(dpi)
+        h = max(lp_h - lp_d, bbox.height - yd) + yd
+        return bbox.width, -yd, h - yd
+
     def _rows(self, dpi: float):
         fs = self.fontsize
         pt = dpi / 72
         da_w, da_h = 2.0 * fs * pt, 0.7 * fs * pt
-        _, lp_h, lp_d = text_extent("lp", fs, "normal", dpi)
         rows = []
         for label in self.labels:
-            t = Text(0, 0, label, fontsize=fs, coords="display")
-            bbox, info, yd = t.layout(dpi)
-            w, h = bbox.width, bbox.height
-            h = max(lp_h - lp_d, h - yd) + yd
-            y0, y1 = min(0.0, -yd), max(da_h, h - yd)
-            rows.append((da_w + 0.8 * fs * pt + w, y0, y1, w))
+            w, yd0, y1 = self._text_area(label, fs, dpi)
+            rows.append((da_w + 0.8 * fs * pt + w, min(0.0, yd0), max(da_h, y1), w))
         return rows, da_w, da_h
 
-    def size(self, dpi: float) -> tuple[float, float]:
+    def _title_box(self, dpi: float) -> tuple[float, float, float] | None:
+        return None if self.title is None else self._text_area(self.title, 10.0, dpi)
+
+    def _entries_size(self, dpi: float) -> tuple[float, float]:
         rows, _, _ = self._rows(dpi)
+        sep = 0.5 * self.fontsize * dpi / 72
+        return max(w for w, _, _, _ in rows), sum(y1 - y0 for _, y0, y1, _ in rows) + sep * (len(rows) - 1)
+
+    def size(self, dpi: float) -> tuple[float, float]:
         pt = dpi / 72
         sep, pad = 0.5 * self.fontsize * pt, 0.4 * self.fontsize * pt
-        height = sum(y1 - y0 for _, y0, y1, _ in rows) + sep * (len(rows) - 1)
-        width = max(w for w, _, _, _ in rows)
+        width, height = self._entries_size(dpi)
+        tb = self._title_box(dpi)
+        if tb is not None:
+            width, height = max(width, tb[0]), height + sep + tb[2] - tb[1]
         return width + 2 * pad, height + 2 * pad
+
+    def _parent(self, dpi: float) -> Bbox:
+        if self.bbox_to_anchor is None:
+            return self.axes.bbox(dpi)
+        b = self.axes.bbox(dpi)
+        x, y, w, h = self.bbox_to_anchor
+        return Bbox.from_bounds(b.x0 + x * b.width, b.y0 + y * b.height, w * b.width, h * b.height)
 
     def _anchored(self, code: int, w: float, h: float, parent: Bbox, dpi: float) -> tuple[float, float]:
         pad = 0.5 * self.fontsize * dpi / 72
@@ -875,9 +1025,13 @@ class Legend:
         return b.x0, b.y0
 
     def position(self, dpi: float) -> Bbox:
-        """The legend frame in display px at ``loc="best"`` (``_find_best_position``)."""
+        """The legend frame in display px: at ``loc``, or where ``loc="best"``
+        puts it (``_find_best_position``)."""
         w, h = self.size(dpi)
-        parent = self.axes.bbox(dpi)
+        parent = self._parent(dpi)
+        if self.loc:
+            self.loc_used = self.loc
+            return Bbox.from_bounds(*self._anchored(self.loc, w, h, parent, dpi), w, h)
         lines, offsets, boxes = self.axes._legend_obstacles(dpi)
         candidates = []
         for code in range(1, len(self.codes)):
@@ -902,14 +1056,24 @@ class Legend:
         pt = dpi / 72
         sep, pad = 0.5 * self.fontsize * pt, 0.4 * self.fontsize * pt
         top = box.y1 - pad
+        x0 = box.x0 + pad
+        tb = self._title_box(dpi)
+        if tb is not None:  # the title and the entries centred in the packed width (VPacker align="center")
+            inner = box.width - 2 * pad
+            Text(x0 + (inner - tb[0]) / 2, top - tb[2], self.title, coords="display",
+                 fontsize=10.0).draw(canvas, dpi)
+            top -= tb[2] - tb[1] + sep
+            x0 += (inner - self._entries_size(dpi)[0]) / 2
         for handle, label, (_, y0, y1, _) in zip(self.handles, self.labels, rows):
             base = top - y1
-            x0 = box.x0 + pad
             ymid = base + da_h / 2
-            canvas.polyline(np.array([[x0, ymid], [x0 + da_w, ymid]]), handle.lw * pt,
-                            to_rgba(handle.color, handle.alpha), display=True)
-            if handle.marker:
-                _draw_markers(canvas, np.array([[x0 + da_w / 2, ymid]]), handle, dpi)
+            if isinstance(handle, Line2D):
+                canvas.polyline(np.array([[x0, ymid], [x0 + da_w, ymid]]), handle.lw * pt,
+                                to_rgba(handle.color, handle.alpha), display=True)
+                if handle.marker:
+                    _draw_markers(canvas, np.array([[x0 + da_w / 2, ymid]]), handle, dpi)
+            else:  # a patch (bar, wedge): HandlerPatch's rectangle over the handle's box
+                canvas.rect(Bbox(x0, base, x0 + da_w, base + da_h), to_rgba(handle.color), snap=True)
             Text(x0 + da_w + 0.8 * self.fontsize * pt, base, label, coords="display",
                  fontsize=self.fontsize).draw(canvas, dpi)
             top -= (y1 - y0) + sep
@@ -1026,12 +1190,16 @@ class Axes:
         self._autox = self._autoy = True
         self._datalim = [np.inf, np.inf, -np.inf, -np.inf]  # x0, y0, x1, y1
         self._aspect: str | float = "auto"
+        self._datalim_aspect = False  # axis("equal"): the limits, not the box, take the aspect
+        self._scale_requested = False  # a drawing call without data still asks for autoscaling
         self._box_aspect: float | None = None
         self._anchor = "C"
         self._line_color = itertools.cycle(TAB10)
         self._patch_color = itertools.cycle(TAB10)
         self.spine_sides = ("left", "right", "bottom", "top")
         self.colorbar_of: AxesImage | None = None  # set on a colorbar's axes
+        self.facecolor = "white"
+        self.frame_on = True  # the axes patch and the spines (pie turns them off)
 
     # --- geometry
     def get_position(self) -> Bbox:
@@ -1039,7 +1207,7 @@ class Axes:
         pos = self.ss.get_position()
         fw, fh = self.figure.get_size_inches()
         fig_aspect = fh / fw
-        if self._aspect == "equal":
+        if self._aspect == "equal" and not self._datalim_aspect:
             (x0, x1), (y0, y1) = sorted(self.get_xlim()), sorted(self.get_ylim())
             ratio = max(abs(y1 - y0), 1e-30) / max(abs(x1 - x0), 1e-30)
             return pos.shrunk_to_aspect(ratio, fig_aspect).anchored(self._anchor, pos)
@@ -1086,9 +1254,9 @@ class Axes:
             lo, hi = -np.inf, np.inf
             if (axis == "x" and not self._autox) or (axis == "y" and not self._autoy):
                 return self._xlim if axis == "x" else self._ylim
-            if not any(isinstance(a, (Line2D, Rectangle, PathCollection, AxesImage)) for a in self.children):
-                lim = (0.0, 1.0)
-                return lim
+            if not self._scale_requested and not any(
+                    isinstance(a, (Line2D, Rectangle, PathCollection, AxesImage)) for a in self.children):
+                return (0.0, 1.0)
         x0, x1 = _nonsingular(lo, hi, expander=0.05)
         stickies = self._stickies(axis)
         tol = 1e-5 * max(abs(x0), abs(x1), abs(x1 - x0))
@@ -1107,16 +1275,55 @@ class Axes:
         return _nonsingular(x0, x1, expander=1e-12, tiny=1e-13)
 
     def get_xlim(self) -> tuple[float, float]:
+        if self._datalim_aspect:
+            return self._aspect_limits()[0]
+        return self._view_xlim()
+
+    def get_ylim(self) -> tuple[float, float]:
+        if self._datalim_aspect:
+            return self._aspect_limits()[1]
+        return self._view_ylim()
+
+    def _view_xlim(self) -> tuple[float, float]:
         if self._autox:
             lo, hi = self._autoscale("x")
             self._xlim = (hi, lo) if self.xaxis.inverted else (lo, hi)
         return self._xlim
 
-    def get_ylim(self) -> tuple[float, float]:
+    def _view_ylim(self) -> tuple[float, float]:
         if self._autoy:
             lo, hi = self._autoscale("y")
             self._ylim = (hi, lo) if self.yaxis.inverted else (lo, hi)
         return self._ylim
+
+    def _aspect_limits(self) -> tuple[tuple[float, float], tuple[float, float]]:
+        """``apply_aspect`` with ``adjustable="datalim"`` and aspect 1: the
+        autoscaled view widened along x or y to the box's shape."""
+        (xmin, xmax), (ymin, ymax) = self._view_xlim(), self._view_ylim()
+        xlim, ylim = (xmin, xmax), (ymin, ymax)
+        fw, fh = self.figure.get_size_inches()
+        pos = self.ss.get_position()
+        xsize, ysize = max(abs(xmax - xmin), 1e-30), max(abs(ymax - ymin), 1e-30)
+        data_ratio = (fh / fw) * (pos.height / pos.width)
+        y_expander = data_ratio * xsize / ysize - 1
+        if abs(y_expander) < 0.005:
+            return xlim, ylim
+        d = self._datalim
+        xr, yr = 1.05 * (d[2] - d[0]), 1.05 * (d[3] - d[1])
+        xmarg, ymarg = xsize - xr, ysize - yr
+        ysize2, xsize2 = data_ratio * xsize, ysize / data_ratio
+        xmarg2, ymarg2 = xsize2 - xr, ysize2 - yr
+        if xmarg > 0 and ymarg > 0:
+            adjust_y = (ymarg2 > 0 and y_expander < 0) or (xmarg2 < 0 and y_expander > 0)
+        else:
+            adjust_y = y_expander > 0
+        if adjust_y:
+            yc = 0.5 * (ymin + ymax)
+            ylim = (yc - ysize2 / 2.0, yc + ysize2 / 2.0)
+        else:
+            xc = 0.5 * (xmin + xmax)
+            xlim = (xc - xsize2 / 2.0, xc + xsize2 / 2.0)
+        return xlim, ylim
 
     def set_xlim(self, left=None, right=None) -> tuple[float, float]:
         if right is None and np.iterable(left):
@@ -1193,7 +1400,17 @@ class Axes:
         return pc
 
     def bar(self, x, height, width=0.8, color=None, bottom=0.0) -> BarContainer:
+        """Bars at ``x``: numbers, or strings on a categorical axis (each new
+        string the next integer, ticked and labelled with the string)."""
+        if len(x) and isinstance(list(x)[0], str):
+            cats = self.xaxis.categories
+            for c in x:
+                cats.setdefault(str(c), len(cats))
+            self.xaxis.fixed_locs = [float(v) for v in cats.values()]
+            self.xaxis.fixed_labels = list(cats)
+            x = [cats[str(c)] for c in x]
         x = np.atleast_1d(np.asarray(x, np.float64))
+        self._scale_requested = True
         height = np.broadcast_to(np.asarray(height, np.float64), x.shape)
         if color is None:
             colors = [next(self._patch_color)] * len(x)
@@ -1210,6 +1427,52 @@ class Axes:
                 self._update_datalim([r.x, r.x + r.w], [r.y, r.y + r.h])
             bars.append(r)
         return bars
+
+    def fill_between(self, x, y1, y2=0.0, color=None, alpha=None) -> PolyCollection:
+        """The area between ``y1`` and ``y2`` over ``x`` (one region):
+        ``_make_verts_for_region``'s polygon."""
+        x = np.asarray(x, np.float64)
+        y1 = np.broadcast_to(np.asarray(y1, np.float64), x.shape)
+        y2 = np.broadcast_to(np.asarray(y2, np.float64), x.shape)
+        if not len(x):
+            verts = np.zeros((0, 2))
+        else:
+            verts = np.concatenate([[(x[0], y2[0])], np.stack([x, y1], -1), [(x[-1], y2[-1])],
+                                    np.stack([x, y2], -1)[::-1]])
+        pc = PolyCollection(verts, color if color is not None else next(self._patch_color), alpha)
+        self.children.append(pc)
+        if len(verts):
+            self._update_datalim(verts[:, 0], verts[:, 1])
+        return pc
+
+    def pie(self, x, labels=None, startangle=0.0):
+        """``Axes.pie`` (radius 1 at the origin, no frame): wedges from
+        ``startangle`` counterclockwise in the patch colour cycle, each label
+        at 1.1 radii; the view +-1.25 without ticks. Returns (wedges, texts)."""
+        self._aspect = "equal"
+        x = np.asarray(x, np.float32)
+        x = x / x.sum()
+        labels = [""] * len(x) if labels is None else labels
+        theta1 = startangle / 360
+        wedges, texts = [], []
+        for frac, label in zip(x, labels):
+            theta2 = theta1 + frac
+            thetam = 2 * np.pi * 0.5 * (theta1 + theta2)
+            w = Wedge((0.0, 0.0), 1, 360. * min(theta1, theta2), 360. * max(theta1, theta2),
+                      next(self._patch_color), label)
+            self.children.append(w)
+            pts = w.datalim_points()
+            self._update_datalim(pts[:, 0], pts[:, 1])
+            wedges.append(w)
+            xt, yt = 1.1 * math.cos(thetam), 1.1 * math.sin(thetam)
+            texts.append(self.text(xt, yt, label, ha="left" if xt > 0 else "right", va="center", fontsize=10.0))
+            theta1 = theta2
+        self.frame_on = False
+        self.set_xticks([])
+        self.set_yticks([])
+        self.set_xlim(-1.25, 1.25)
+        self.set_ylim(-1.25, 1.25)
+        return wedges, texts
 
     def hist(self, x, bins=10, rwidth=None):
         x = np.asarray(x, np.float64).ravel()
@@ -1245,30 +1508,40 @@ class Axes:
         self.children.append(t)
         return t
 
-    def legend(self, fontsize=None) -> Legend:
-        """A legend of the labelled lines (the figures label nothing else)."""
-        handles = [a for a in self.children if isinstance(a, Line2D) and a.label and not a.label.startswith("_")]
-        self.legend_ = Legend(self, handles, [h.label for h in handles], fontsize=fontsize)
+    def legend(self, handles=None, labels=None, *, fontsize=None, loc="best", title=None,
+               bbox_to_anchor=None) -> Legend:
+        """A legend of ``handles`` with ``labels``, or of the labelled lines
+        and patches in the order they were added."""
+        if handles is None:
+            handles = [a for a in self.children if isinstance(a, (Line2D, Rectangle, Wedge))
+                       and a.label and not a.label.startswith("_")]
+            labels = [h.label for h in handles]
+        self.legend_ = Legend(self, list(handles), list(labels), fontsize=fontsize, loc=loc, title=title,
+                              bbox_to_anchor=bbox_to_anchor)
         return self.legend_
 
     def get_legend(self) -> Legend | None:
         return self.legend_
 
-    def set_title(self, label, fontsize=None, fontweight="normal"):
+    def set_title(self, label, fontsize=None, fontweight="normal", color="black"):
         self.title.text = str(label)
         self.title.fontsize = _points("large" if fontsize is None else fontsize)
         self.title.fontweight = fontweight
+        self.title.color = color
         return self.title
 
-    def set_xlabel(self, label, fontsize=None, fontweight="normal"):
+    def set_xlabel(self, label, fontsize=None, fontweight="normal", color="black"):
         self.xaxis.label.text, self.xaxis.label.fontsize = str(label), _points(fontsize or 10)
-        self.xaxis.label.fontweight = fontweight
+        self.xaxis.label.fontweight, self.xaxis.label.color = fontweight, color
         return self.xaxis.label
 
-    def set_ylabel(self, label, fontsize=None, fontweight="normal"):
+    def set_ylabel(self, label, fontsize=None, fontweight="normal", color="black"):
         self.yaxis.label.text, self.yaxis.label.fontsize = str(label), _points(fontsize or 10)
-        self.yaxis.label.fontweight = fontweight
+        self.yaxis.label.fontweight, self.yaxis.label.color = fontweight, color
         return self.yaxis.label
+
+    def set_facecolor(self, color) -> None:
+        self.facecolor = color
 
     def get_title(self) -> str:
         return self.title.text
@@ -1334,15 +1607,23 @@ class Axes:
             if labelsize is not None:
                 a.labelsize = labelsize
 
-    def grid(self, visible=True, alpha=None) -> None:
-        kw = {"alpha": alpha} if visible else None
+    def grid(self, visible=True, alpha=None, linestyle="-", linewidth=0.8) -> None:
+        """Major grid lines (``grid.color``), solid or dashed ("--")."""
+        if linestyle not in ("-", "--"):
+            raise ValueError(f"grid linestyle {linestyle!r} is not supported")
+        kw = {"alpha": alpha, "ls": linestyle, "lw": float(linewidth)} if visible else None
         self.xaxis.grid_kw = self.yaxis.grid_kw = kw
 
     def axis(self, arg) -> None:
+        """"off", "on", or "equal": autoscaling on again and aspect 1 taken by
+        the data limits (``set_aspect("equal", adjustable="datalim")``)."""
         if arg == "off":
             self.axison = False
         elif arg == "on":
             self.axison = True
+        elif arg == "equal":
+            self._autox = self._autoy = self._scale_requested = True
+            self._aspect, self._datalim_aspect = "equal", True
         else:
             raise ValueError(f"axis({arg!r}) is not supported")
 
@@ -1398,7 +1679,9 @@ class Axes:
 
     # --- rendering
     def draw(self, canvas: _Canvas, dpi: float) -> None:
-        clip = self.bbox(dpi)  # the axes patch is white on the white figure: not drawn
+        clip = self.bbox(dpi)
+        if self.axison and self.frame_on and to_rgba(self.facecolor) != (1.0, 1.0, 1.0, 1.0):
+            canvas.rect(clip, to_rgba(self.facecolor), snap=True)  # the axes patch (white draws nothing)
         items = [(a.zorder, i, a) for i, a in enumerate(self.children)]
         items.append((1.5, -1, "axis"))
         items.append((2.5, -1, "spines"))
@@ -1407,7 +1690,7 @@ class Axes:
                 if self.axison:
                     self._draw_axes_furniture(canvas, dpi)
             elif a == "spines":
-                if self.axison:
+                if self.axison and self.frame_on:
                     self._draw_spines(canvas, dpi)
             elif isinstance(a, AxesImage):
                 self._draw_image(canvas, a, dpi)
@@ -1417,6 +1700,14 @@ class Axes:
                             snap=True, clip=clip)
             elif isinstance(a, PathCollection):
                 _draw_scatter(canvas, self.data_to_display(a.offsets, dpi), a, dpi, clip)
+            elif isinstance(a, PolyCollection):
+                if len(a.verts):
+                    pts = self.data_to_display(a.verts, dpi)
+                    canvas.fill([pts], a.get_facecolor(), display=True, clip=clip)
+                    canvas.polyline(np.concatenate([pts, pts[:1]]), 1.0 * dpi / 72, a.get_facecolor(),
+                                    display=True, clip=clip, caps="round")
+            elif isinstance(a, Wedge):  # clip_on=False
+                canvas.fill([self.data_to_display(a.outline(), dpi)], a.get_facecolor(), display=True)
             elif isinstance(a, Line2D):
                 pts = self.data_to_display(np.stack([a.x, a.y], 1), dpi)
                 if a.ls != "None" and a.lw > 0:
@@ -1440,10 +1731,15 @@ class Axes:
         for axis in (self.xaxis, self.yaxis):
             at = axis.display_locs([loc for loc, _ in axis.ticks()], dpi)
             if axis.grid_kw is not None:
-                color = to_rgba("#b0b0b0", axis.grid_kw.get("alpha"))
+                kw = axis.grid_kw
+                color = to_rgba("#b0b0b0", kw.get("alpha"))
+                lw = kw.get("lw", 0.8) * dpi / 72
                 for v in at:
                     seg = np.array([[v, b.y0], [v, b.y1]] if axis.name == "x" else [[b.x0, v], [b.x1, v]])
-                    canvas.polyline(seg, 0.8 * dpi / 72, color, display=True, snap=True, clip=b, caps="projecting")
+                    if kw.get("ls", "-") == "--":  # lines.dashed_pattern, scaled by the width
+                        canvas.dashed(seg, lw, color, (3.7 * lw, 1.6 * lw), clip=b)
+                    else:
+                        canvas.polyline(seg, lw, color, display=True, snap=True, clip=b, caps="projecting")
             if axis.ticks_on:
                 t = 3.5 * dpi / 72
                 for v in at:
@@ -1510,9 +1806,10 @@ class Figure:
     """A figure of ``figsize`` inches; laid out at 100 dpi (matplotlib's
     ``figure.dpi``) and drawn at ``savefig``'s dpi."""
 
-    def __init__(self, figsize=(6.4, 4.8), dpi: float = 100.0, tight_layout: bool = False):
+    def __init__(self, figsize=(6.4, 4.8), dpi: float = 100.0, tight_layout: bool = False, facecolor="white"):
         self.figsize = (float(figsize[0]), float(figsize[1]))
         self.dpi = float(dpi)
+        self.facecolor = facecolor
         self.axes: list[Axes] = []
         self.subplotpars = SubplotParams()
         self._suptitle: Text | None = None
@@ -1647,7 +1944,7 @@ class Figure:
             raise ValueError(f"bbox_inches={bbox_inches!r} is not supported")
         try:
             w, h = self.pixel_size(dpi)
-            canvas = _Canvas(w, h, self.display_size(dpi)[1])
+            canvas = _Canvas(w, h, self.display_size(dpi)[1], to_rgba(self.facecolor))
             for ax in self.axes:
                 ax.draw(canvas, dpi)
                 for cb in self._colorbars:
@@ -1694,9 +1991,9 @@ class _FixedSpec:
 _current: dict[str, Axes | None] = {"axes": None}
 
 
-def subplots(nrows=1, ncols=1, figsize=(6.4, 4.8), squeeze=True, tight_layout=False):
+def subplots(nrows=1, ncols=1, figsize=(6.4, 4.8), squeeze=True, tight_layout=False, dpi=100.0, facecolor="white"):
     """``plt.subplots``: a new figure and its axes."""
-    fig = Figure(figsize, tight_layout=tight_layout)
+    fig = Figure(figsize, dpi=dpi, tight_layout=tight_layout, facecolor=facecolor)
     axs = fig.subplots(nrows, ncols, squeeze)
     _current["axes"] = fig.axes[-1]
     return fig, axs
@@ -1748,6 +2045,14 @@ def _draw_markers(canvas: _Canvas, pts: np.ndarray, line: Line2D, dpi: float, cl
     if line.marker in (".", "o"):
         r = line.ms * pt * (0.25 if line.marker == "." else 0.5)
         canvas.disks(pts, r + mew / 2, rgba, clip=clip)
+    elif line.marker == "*":  # unit_regular_star(5, 0.381966) at half the size, filled and edged (bevel joins)
+        theta = 2 * np.pi / 10 * np.arange(11) + np.pi / 2
+        r = np.ones(11)
+        r[1::2] = 0.381966
+        unit = (r * np.vstack((np.cos(theta), np.sin(theta)))).T * 0.5 * line.ms * pt
+        canvas.fill([p + unit for p in pts], rgba, display=True, clip=clip)
+        for p in pts:
+            canvas.polyline(p + unit, mew, rgba, display=True, clip=clip, caps="round")
     elif line.marker == "+":
         half = line.ms * pt / 2
         polys = []
@@ -1786,9 +2091,10 @@ class _Canvas:
 
     SUBROWS = 5
 
-    def __init__(self, w: int, h: int, height_f: float):
+    def __init__(self, w: int, h: int, height_f: float, background=(1.0, 1.0, 1.0)):
         self.w, self.h, self.hf = w, h, height_f
-        self.px = np.ones((h, w, 3), np.float32)
+        self.px = np.empty((h, w, 3), np.float32)
+        self.px[...] = np.asarray(background[:3], np.float32)
 
     def to_uint8(self) -> np.ndarray:
         v = self.px * np.float32(255)
@@ -1956,6 +2262,20 @@ class _Canvas:
         B = P + (Q - P) * t1[:, None]
         butt = caps == "butt"
         self._stroke_segments(A, B, half, rgba, clip, butt=butt)
+
+    def dashed(self, seg: np.ndarray, lw: float, rgba, pattern: tuple[float, float], clip: Bbox | None = None) -> None:
+        """A straight display segment, snapped as Agg snaps it, stroked in
+        butt-capped dashes of ``pattern`` (on, off) px from its first point."""
+        p = _snap(self._yflip(seg), lw)
+        d = p[1] - p[0]
+        length = float(np.hypot(*d))
+        if length == 0 or rgba[3] == 0:
+            return
+        on, off = pattern
+        starts = np.arange(0.0, length, on + off)
+        ends = np.minimum(starts + on, length)
+        u = d / length
+        self._stroke_segments(p[0] + starts[:, None] * u, p[0] + ends[:, None] * u, lw / 2, rgba, clip, butt=True)
 
     def _stroke_segments(self, A, B, half, rgba, clip, butt=False) -> None:
         reach = half + 1.0

@@ -161,7 +161,9 @@ def test_only_png_and_the_supported_subset():
     with pytest.raises(ValueError, match="PNG"):
         fig.savefig("x.jpg")
     with pytest.raises(ValueError, match="not supported"):
-        ax.axis("equal")
+        ax.axis("tight")  # "equal" is supported since the analytics charts use it
+    with pytest.raises(ValueError, match="not supported"):
+        ax.grid(True, linestyle=":")
     with pytest.raises(ValueError, match="unknown colormap"):
         ax.imshow(np.zeros((2, 2)), cmap="jet")
         fig.render()

@@ -18,8 +18,9 @@
 - the grammar (help, a bad argument, no mode, bare bool flags, ``cfg=``
   files), the special commands, ``benchmark`` (the native row, the
   ``torch_export`` row and the TensorFlow rows ``FAILED``), and the
-  refusals: ``export`` to a TensorFlow format, ``solutions`` (item 6), the
-  card without CUDA.
+  refusals: ``export`` to a TensorFlow format, more than one card, the card
+  without CUDA (``solutions`` too; the mode itself is held against the JAX
+  CLI in ``tests/test_torch_solutions.py``).
 
 The JAX facades build with the known strides (8, 16, 32) instead of their
 stride probe, a test-side speed-up that changes no value.
@@ -283,9 +284,11 @@ def test_without_device_the_card_is_asked_for(mode):
 
 
 def test_export_and_solutions_raise_naming_their_items():
+    """The refusals that name what they need; ``solutions`` is ported and,
+    without ``device=``, asks for the card as every mode does."""
     with pytest.raises(NotImplementedError, match="'tflite' needs TensorFlow"):
         entrypoint(["detect", "export", f"model={NARROW}", "format=tflite", "device=cpu"])
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="CUDA is not available; pass device='cpu'"):
         entrypoint(["solutions", "count", "source=x.mp4"])
     with pytest.raises(NotImplementedError, match="item 11"):
         entrypoint(["detect", "val", "device=0,1"])

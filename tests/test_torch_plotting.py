@@ -119,11 +119,16 @@ def assert_axes_equal(fm, fp) -> None:
         assert len(im) == len(ip)
         for a, b in zip(im, ip):
             assert _same(a.get_array(), b.get_array())
-        cm, cp = am.collections, [a for a in ap.children if isinstance(a, chart.PathCollection)]
+        cm = am.collections
+        cp = [a for a in ap.children if isinstance(a, (chart.PathCollection, chart.PolyCollection))]
         if ap.colorbar_of is not None:  # a colorbar's solids are a mesh there, drawn by the renderer
             cm = []
         assert len(cm) == len(cp)
         for a, b in zip(cm, cp):
+            if isinstance(b, chart.PolyCollection):  # fill_between: its polygon (closed there) and colour
+                assert _same(a.get_paths()[0].vertices[:len(b.verts)], b.verts)
+                assert tuple(a.get_facecolor()[0]) == b.get_facecolor()
+                continue
             assert _same(a.get_offsets(), b.get_offsets())
             fc = a.get_facecolors()
             assert _same(np.broadcast_to(fc, b.get_facecolors().shape), b.get_facecolors())

@@ -85,7 +85,7 @@ def test_block_batchnorm_step_uses_torchvision_constants(block):
         return {c: t["layer1_0"] for c, t in JR.resnet_state_dict_to_variables(sd).items()}
 
     x = np.random.RandomState(2).rand(4, 16, 12, pm.conv1.in_channels).astype(np.float32)
-    ref, upd = jm.apply(flax_vars(pm), jnp.asarray(x), train=True, mutable=["batch_stats"])
+    ref, upd = jax.jit(lambda v, x: jm.apply(v, x, train=True, mutable=["batch_stats"]))(flax_vars(pm), jnp.asarray(x))
     out = pm.train()(torch.from_numpy(x).permute(0, 3, 1, 2))
     _close(ref, _nchw_to_nhwc(out))
     new = flax_vars(pm)["batch_stats"]

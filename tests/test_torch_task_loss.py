@@ -51,8 +51,8 @@ def _rotated_inputs(seed, b=2, m=5, a_side=16):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_assign_rotated_matches_jax(seed, metric_dtype):
     ins = _rotated_inputs(seed)
-    ref = jtal.assign_rotated(*(jnp.asarray(x) for x in ins), topk=10, num_classes=NC, scores_logits=True,
-                              metric_dtype=jnp.dtype(metric_dtype))
+    ref = jax.jit(lambda *a: jtal.assign_rotated(*a, topk=10, num_classes=NC, scores_logits=True,
+                                                 metric_dtype=jnp.dtype(metric_dtype)))(*(jnp.asarray(x) for x in ins))
     out = ptal.assign_rotated(*(torch.from_numpy(x) for x in ins), topk=10, scores_logits=True,
                               metric_dtype=getattr(torch, metric_dtype))
     fg = np.asarray(ref.fg_mask)
@@ -254,7 +254,7 @@ def test_foreground_cap_breaks_ties_as_lax_top_k(task, monkeypatch):
     # without the stable sort the kept set could differ: torch.topk is free to break ties otherwise
     monkeypatch.setattr(jtal, "assign", lambda *a, **k: jres)
     monkeypatch.setattr(ptal, "assign", lambda *a, **k: pres)
-    _assert_match(*_run(task, out, batch, jit=False))
+    _assert_match(*_run(task, out, batch))
 
 
 def test_obb_loss_gradients_are_finite_with_padding_rows():
@@ -288,11 +288,10 @@ def test_detection_loss_aux_matches_jax():
     t1, p1, _ = ploss.detection_loss(feats, tb, cfg, ploss.LossState.init("cpu"))
     t2, p2, _, aux = ploss.detection_loss(feats, tb, cfg, ploss.LossState.init("cpu"), return_aux=True)
     assert float(t1) == float(t2) and all(float(p1[k]) == float(p2[k]) for k in p1)
-    _, _, _, jaux = jloss.detection_loss([jnp.asarray(f) for f in out["feats"]],
-                                         {k: jnp.asarray(v) for k, v in batch.items()},
-                                         jloss.DetectionLossCfg(nc=NC, tal_dtype="float32"),
-                                         jloss.LossState.init(), return_aux=True)
-    assert aux["imgsz"] == jaux["imgsz"] == (IMGSZ, IMGSZ)
+    jcfg = jloss.DetectionLossCfg(nc=NC, tal_dtype="float32")
+    _, _, _, jaux = jax.jit(lambda f, b: jloss.detection_loss(f, b, jcfg, jloss.LossState.init(), return_aux=True))(
+        [jnp.asarray(f) for f in out["feats"]], {k: jnp.asarray(v) for k, v in batch.items()})
+    assert aux["imgsz"] == tuple(int(v) for v in jaux["imgsz"]) == (IMGSZ, IMGSZ)
     np.testing.assert_array_equal(aux["anchor_points"].numpy(), np.asarray(jaux["anchor_points"]))
     np.testing.assert_array_equal(aux["stride_tensor"].numpy(), np.asarray(jaux["stride_tensor"]))
     np.testing.assert_array_equal(aux["assign"].fg_mask.numpy(), np.asarray(jaux["assign"].fg_mask))

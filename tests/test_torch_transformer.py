@@ -63,7 +63,7 @@ def _module_pair(jmod, pmod, args, seed=0, nchw=False):
         args = [np.ascontiguousarray(args[0].transpose(0, 3, 1, 2)), *args[1:]]
     v = jax.eval_shape(lambda: jmod.init(jax.random.PRNGKey(0), *jargs))
     v = _randomize(dict(v), np.random.RandomState(seed))
-    ref = jmod.apply(v, *jargs)
+    ref = jax.jit(lambda v: jmod.apply(v, *jargs))(v)  # one compile, not op by op
     sd = variables_to_state_dict({c: {"layers_0": t} for c, t in v.items()})
     pmod.load_state_dict({k.removeprefix("model.0."): t for k, t in sd.items()}, strict=True)
     with torch.no_grad():

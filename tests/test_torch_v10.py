@@ -76,7 +76,8 @@ def _head_pair(zero_cls: bool = False):
                 branch[-1].weight.zero_()
                 branch[-1].bias.zero_()
             out = pm([torch.from_numpy(x).permute(0, 3, 1, 2) for x in xs])
-        ref = jm.apply(state_dict_to_variables(pm), [jnp.asarray(x) for x in xs], train=False)
+        ref = jax.jit(lambda v, xs: jm.apply(v, xs, train=False))(state_dict_to_variables(pm),
+                                                                   [jnp.asarray(x) for x in xs])
     return ref, out, xs, pm
 
 
